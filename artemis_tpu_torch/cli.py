@@ -1,0 +1,65 @@
+"""Command-line entry point (reference: src/main.cpp; port of
+``artemis_tpu/cli.py``).
+
+Usage:  python -m artemis_tpu_torch.cli -i input.deck [-d data_dir]
+            [--device cuda|cpu] [key=value ...]
+Return codes: 0 complete, 1 failed, 2 walltime timeout.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="artemis_tpu_torch")
+    ap.add_argument("-i", "--input", required=True, help="input deck file")
+    ap.add_argument("-d", "--data", default=".", help="output data directory")
+    ap.add_argument("-n", "--ncycle-out", type=int, default=0, help="stdout log interval")
+    ap.add_argument("-t", "--walltime", type=float, default=None,
+                    help="wall-clock limit in seconds (exit code 2 on timeout)")
+    ap.add_argument("--device", default="cuda",
+                    help="torch device to run on (default cuda; cpu runs the "
+                         "plain tensor path on the host)")
+    ap.add_argument("overrides", nargs="*", help="block/key=value overrides")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {args.device}: CUDA is not available "
+                           "(pass --device cpu to run on the host)")
+
+    import signal
+
+    from . import driver as _driver
+    from .simulation import Simulation
+
+    def _on_term(signum, frame):  # noqa: ARG001
+        _driver.STOP_REQUESTED = True
+
+    try:
+        signal.signal(signal.SIGTERM, _on_term)
+    except ValueError:  # not the main thread
+        pass
+
+    try:
+        sim = Simulation(args.input, overrides=args.overrides, data_dir=args.data,
+                         device=args.device)
+        sim.print_config()
+        zcps = sim.run(log_every=args.ncycle_out, walltime=args.walltime)
+        print(f"walltime-rate: {zcps:.3e} zone-cycles/sec "
+              f"(ncycle={sim.tm.ncycle}, t={sim.tm.time:.6e}, {sim.status})")
+        if sim.status == "timeout":
+            # restart checkpoints are not ported yet (ROADMAP Queue 1 item 7):
+            # stop with the self-resubmit exit code and no checkpoint
+            return 2
+    except Exception as e:  # noqa: BLE001
+        print(f"artemis_tpu_torch failed: {e}", file=sys.stderr)
+        raise
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

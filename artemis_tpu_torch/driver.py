@@ -1,0 +1,292 @@
+"""Time integration driver (port of ``artemis_tpu/driver.py``, single level).
+
+Equivalent of ``ArtemisDriver`` + Parthenon's ``EvolutionDriver``/
+``LowStorageIntegrator`` (src/artemis_driver.cpp): a two-register low-storage
+RK loop.  Each stage of Cartesian source-free gas runs as one fused CUDA
+kernel on the GPU (``ops.stage``); every other stage runs the composable
+tensor sequence, as the JAX package runs its jnp path.
+
+The JAX driver marches chunks of up to 256 cycles on the device inside a
+``lax.while_loop``; this one is a host loop that reads dt back once per
+cycle, with the same dt rules (2x growth limit, tlim clamp, the
+``(1 - 1e-12)`` end test) so cycle counts and times match.
+"""
+
+from __future__ import annotations
+
+import time as _time
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import bc as bc_mod
+from .ops import stage as stage_mod
+from .ops.hydro import FluidCfg, Hydro
+
+BIG = 1.0e308
+
+# set by the CLI's SIGTERM handler: evolve() finishes the current cycle and
+# returns status "timeout" (the reference relies on Parthenon's signal
+# handling; src/main.cpp)
+STOP_REQUESTED = False
+
+
+@dataclass(frozen=True)
+class Integrator:
+    """Two-register low-storage coefficients:
+    u0 <- gam0*u0 + gam1*u1 + beta*dt*F(u0), per stage (Parthenon
+    LowStorageIntegrator family: rk1, rk2, rk3, vl2)."""
+
+    name: str
+    gam0: Tuple[float, ...]
+    gam1: Tuple[float, ...]
+    beta: Tuple[float, ...]
+
+    @property
+    def nstages(self) -> int:
+        return len(self.beta)
+
+    @classmethod
+    def make(cls, name: str) -> "Integrator":
+        if name == "rk1":
+            return cls(name, (0.0,), (1.0,), (1.0,))
+        if name == "rk2":
+            return cls(name, (0.0, 0.5), (1.0, 0.5), (1.0, 0.5))
+        if name == "rk3":
+            return cls(
+                name,
+                (0.0, 0.25, 2.0 / 3.0),
+                (1.0, 0.75, 1.0 / 3.0),
+                (1.0, 0.25, 2.0 / 3.0),
+            )
+        if name == "vl2":
+            return cls(name, (0.0, 0.0), (1.0, 1.0), (0.5, 1.0))
+        raise ValueError(f"unknown integrator {name!r}")
+
+
+class Driver:
+    """Owns the stage sequence and the dt estimate of one single-level run.
+
+    ``device``/``dtype`` place the geometry constants; ``fused_stage=False``
+    keeps a CUDA run on the composable path (the plain version the kernel
+    is measured against)."""
+
+    def __init__(
+        self,
+        grid,
+        integrator: Integrator,
+        gas_cfg: Optional[FluidCfg],
+        dust_cfg: Optional[FluidCfg] = None,
+        sources=None,
+        bc_custom: Optional[dict] = None,
+        diffusion=None,
+        nbody=None,
+        radiation=None,
+        *,
+        device,
+        dtype,
+        fused_stage: bool = True,
+    ):
+        if sources:
+            raise NotImplementedError("external sources are not ported yet "
+                                      "(ROADMAP Queue 1 item 6)")
+        if diffusion is not None:
+            raise NotImplementedError("viscosity/conduction are not ported yet "
+                                      "(ROADMAP Queue 1 item 6)")
+        if nbody is not None:
+            raise NotImplementedError("N-body coupling is not ported yet "
+                                      "(ROADMAP Queue 1 item 8)")
+        if radiation is not None:
+            raise NotImplementedError("radiation is not ported yet "
+                                      "(ROADMAP Queue 1 item 9)")
+        self.grid = grid
+        self.integrator = integrator
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.hydro = Hydro(grid, gas_cfg, dust_cfg, device=self.device, dtype=dtype)
+        self.gas_cfg = gas_cfg
+        self.dust_cfg = dust_cfg
+        self.bc_custom = bc_custom or {}
+        # the fused stage kernel: CUDA, Cartesian source-free gas
+        self._fused_stage = (fused_stage and self.device.type == "cuda"
+                             and stage_mod.supported(grid, gas_cfg)
+                             and dust_cfg is None)
+
+    # ------------------------------------------------------------------
+    def _fluids(self):
+        out = []
+        if self.gas_cfg is not None:
+            out.append(("gas", self.gas_cfg))
+        if self.dust_cfg is not None:
+            out.append(("dust", self.dust_cfg))
+        return out
+
+    def _estimate_dt(self, state):
+        dts = []
+        for name, cfg in self._fluids():
+            if name == "gas" and "dtden" in state["gas"]:
+                dts.append(cfg.cfl / torch.max(state["gas"]["dtden"]))
+                continue
+            dts.append(self.hydro.estimate_dt(state[name]["w"], cfg))
+        return torch.min(torch.stack(dts))
+
+    def _sync_prims(self, state):
+        """C2P + P2C re-sync on interior arrays, per fluid."""
+        hyd = self.hydro
+        new = dict(state)
+        for name, cfg in self._fluids():
+            w = hyd.cons_to_prim(state[name]["u"], cfg)
+            u, w = hyd.prim_to_cons(w, cfg)
+            new[name] = {"u": u, "w": w}
+        return new
+
+    def _stage_body(self, state, u1, dt, stage):
+        """One RK stage (the reference per-stage task list,
+        artemis_driver.cpp:170-268).  ``dt`` is a 0-d tensor on the run's
+        device."""
+        hyd = self.hydro
+        integ = self.integrator
+        gam0 = integ.gam0[stage - 1]
+        gam1 = integ.gam1[stage - 1]
+        beta = integ.beta[stage - 1]
+        force_pcm = (integ.name == "vl2") and stage == 1
+        if self._fused_stage:
+            u, w, dtden = stage_mod.stage(
+                hyd, state["gas"]["w"], state["gas"]["u"], u1["gas"], gam0,
+                gam1, beta, dt, force_pcm, self.bc_custom)
+            new_state = dict(state)
+            # dtden: per-block CFL denominator maxima (estimate_dt takes the
+            # max, skipping a full extra pass over w each cycle)
+            new_state["gas"] = {"u": u, "w": w, "dtden": dtden}
+            return new_state
+        bdt = beta * dt
+        new_state = dict(state)
+        for name, cfg in self._fluids():
+            u, w = state[name]["u"], state[name]["w"]
+            w_pad = self.fill_ghosts(w, name)
+            fx = hyd.compute_fluxes(w_pad, cfg, force_pcm)
+            u = hyd.apply_update(u, u1[name], fx, gam0, gam1, bdt)
+            u = hyd.flux_source(u, w, fx, bdt)
+            new_state[name] = {"u": u, "w": w}
+        # dual-energy sync for gas
+        if self.gas_cfg is not None:
+            u = hyd.set_auxiliary(new_state["gas"]["u"], self.gas_cfg)
+            new_state["gas"] = {"u": u, "w": new_state["gas"]["w"]}
+        return self._sync_prims(new_state)
+
+    def fill_ghosts(self, w_int, fluid: str):
+        """Interior prims -> padded prims."""
+        return bc_mod.pad_and_fill(w_int, self.grid, fluid, self.bc_custom)
+
+    # ------------------------------------------------------------------
+    def initialize(self, state):
+        """PostInitialization: P2C after the problem generator
+        (fill_derived.cpp:283-287).  Prims arrive on the interior grid."""
+        new = dict(state)
+        for name, cfg in self._fluids():
+            u, w = self.hydro.prim_to_cons(state[name]["w"], cfg)
+            new[name] = {"u": u, "w": w}
+        return self.prepare_state(new)
+
+    def prepare_state(self, state):
+        """Seed the one-element dtden on the fused path, so the first dt
+        comes from the same reduction as every later one."""
+        if not self._fused_stage or "dtden" in state["gas"]:
+            return state
+        state = dict(state)
+        state["gas"] = dict(state["gas"])
+        den = self.hydro.dt_denominator(state["gas"]["w"], self.gas_cfg)
+        state["gas"]["dtden"] = torch.amax(den).reshape(1)
+        return state
+
+    def step(self, state, dt: float):
+        """One cycle of all RK stages with the host-side ``dt``."""
+        dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
+        u1 = {name: state[name]["u"] for name, _ in self._fluids()}
+        for stage in range(1, self.integrator.nstages + 1):
+            state = self._stage_body(state, u1, dt_t, stage)
+        return state
+
+    def estimate_dt(self, state) -> float:
+        return float(self._estimate_dt(state))
+
+
+@dataclass
+class SimTime:
+    time: float = 0.0
+    dt: float = BIG
+    ncycle: int = 0
+    tlim: float = 1.0
+    nlim: int = -1
+    # runaway-run guards (<parthenon/time> dt_min / dt_max,
+    # doc/src/running.rst:46-56): halt when dt leaves [dt_min, dt_max]
+    dt_min: float = 0.0
+    dt_max: float = BIG
+    # True when (time, dt) came from a checkpoint: the stored dt already had
+    # the 2x growth limit applied when it was written, so the first resumed
+    # cycle must use it as-is
+    restored: bool = False
+
+
+def evolve(driver: Driver, state, tm: SimTime, observers=None, log_every: int = 0,
+           deadline: Optional[float] = None):
+    """Outer evolution loop (EvolutionDriver::Execute equivalent).
+
+    ``observers``: callables (state, tm) -> None, invoked after each cycle
+    (history output fires when a cycle crosses its next output time, the
+    same crossing at which the JAX loop ends a chunk).  ``deadline``:
+    wall-clock time (perf_counter) after which the loop stops with status
+    "timeout" (the reference's -t walltime flag, src/main.cpp:108-138).
+    Returns (state, tm, zone_cycles_per_sec, status).
+    """
+    observers = observers or []
+    ncells = int(np.prod(driver.grid.nx))
+    t0 = _time.perf_counter()
+    cycles0 = tm.ncycle
+
+    def set_global_dt(grow: bool = True):
+        """Parthenon SetGlobalTimeStep semantics: at most doubles the previous
+        dt, takes the global CFL minimum, clamps the next step to tlim."""
+        dt = 2.0 * tm.dt if (grow and tm.dt < 0.1 * BIG) else tm.dt
+        dt = min(dt, driver.estimate_dt(state))
+        if tm.time < tm.tlim and (tm.tlim - tm.time) < dt:
+            dt = tm.tlim - tm.time
+        tm.dt = dt
+
+    def check_dt_guards():
+        """<parthenon/time> dt_min/dt_max runaway guards; NaN fails both."""
+        if tm.time + tm.dt >= tm.tlim * (1.0 - 1e-12):
+            return  # final tlim-clamped step may be arbitrarily small
+        if not (tm.dt >= tm.dt_min and tm.dt <= tm.dt_max):
+            raise RuntimeError(
+                f"timestep dt={tm.dt:.6e} outside [dt_min={tm.dt_min:.6e}, "
+                f"dt_max={tm.dt_max:.6e}] at cycle {tm.ncycle}, "
+                f"t={tm.time:.6e} — halting (runaway run)")
+
+    def unfinished():
+        return (tm.time < tm.tlim * (1.0 - 1e-12)
+                and (tm.nlim < 0 or tm.ncycle < tm.nlim))
+
+    set_global_dt(grow=not tm.restored)
+    tm.restored = False
+    check_dt_guards()
+    status = "complete"
+    while unfinished():
+        state = driver.step(state, tm.dt)
+        tm.time += tm.dt
+        tm.ncycle += 1
+        set_global_dt()
+        check_dt_guards()
+        for obs in observers:
+            obs(state, tm)
+        if log_every and tm.ncycle % log_every == 0:
+            print(f"cycle={tm.ncycle} time={tm.time:.6e} dt={tm.dt:.6e}")
+        timed_out = deadline is not None and _time.perf_counter() > deadline
+        if (timed_out or STOP_REQUESTED) and unfinished():
+            status = "timeout"
+            break
+    elapsed = _time.perf_counter() - t0
+    zcps = ncells * (tm.ncycle - cycles0) / max(elapsed, 1e-30)
+    return state, tm, zcps, status

@@ -1,0 +1,39 @@
+"""Problem generators (reference: src/pgen/pgen.hpp name dispatch; port of
+``artemis_tpu/pgen/__init__.py``).  Only the linear-wave problem is ported
+so far; the others raise and name the ROADMAP item that brings them."""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional
+
+# problem name -> ROADMAP Queue 1 item that ports it
+_NOT_PORTED = {
+    "disk": 6, "strat": 6, "ssheet": 6,
+    "advection": 7, "constant": 7, "blast": 7, "gaussian_bump": 7,
+    "conduction": 7, "shock": 7, "thermalization": 7,
+}
+
+
+@dataclass
+class Problem:
+    """What a problem generator provides to the driver."""
+
+    prims: Dict[str, object]            # fluid name -> primitive array (interior grid)
+    bc_custom: Dict[str, Callable] = field(default_factory=dict)
+    sources: List[Callable] = field(default_factory=list)
+    after_loop: Optional[Callable] = None   # fn(grid, pin, state, tm, data_dir)
+    on_restart: Optional[Callable] = None   # fn(sim, payloads) — rehydrate pkg state
+    # user AMR criterion (<artemis> amr_user; ProblemCheckRefinementBlock,
+    # artemis.cpp:149-150): fn(w_gas, grid) -> bool refine mask (interior)
+    amr_criterion: Optional[Callable] = None
+
+
+def build_problem(name: str, pin, grid, gas_cfg=None, dust_cfg=None) -> Problem:
+    if name in ("linear_wave", "linear_wave1d"):
+        from . import linear_wave
+        return linear_wave.build(pin, grid, gas_cfg, dust_cfg)
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"problem {name!r} is not ported yet "
+                                  f"(ROADMAP Queue 1 item {_NOT_PORTED[name]})")
+    raise ValueError(f"unknown problem {name!r}")

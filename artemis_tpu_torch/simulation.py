@@ -1,0 +1,199 @@
+"""Top-level simulation assembly (reference: src/artemis.cpp ProcessPackages
++ src/main.cpp LaunchWorkFlow; port of ``artemis_tpu/simulation.py`` for
+single-level gas hydro on one device).
+
+Reads the input deck, builds the problem generator and the driver on the
+requested device, and runs the evolution loop.  Physics the port does not
+carry yet raises ``NotImplementedError`` naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Sequence
+
+import torch
+
+from .config import ParameterInput
+from .driver import Driver, Integrator, SimTime, evolve
+from .eos import eos_from_input
+from .grid import grid_from_input
+from .ops.hydro import FluidCfg
+from .pgen import build_problem
+from .units import Constants, Units
+
+# <physics> switch -> ROADMAP Queue 1 item that ports it
+_NOT_PORTED = {
+    "dust": 7, "gravity": 6, "rotating_frame": 6, "cooling": 6, "drag": 6,
+    "viscosity": 6, "conduction": 6, "nbody": 8, "radiation": 9,
+}
+
+
+def dtype_from_input(pin) -> torch.dtype:
+    """<artemis> precision = float64 (default) | float32."""
+    prec = pin.get_or_add_str("artemis", "precision", "float64")
+    if prec == "float64":
+        return torch.float64
+    if prec == "float32":
+        return torch.float32
+    raise ValueError(f"unknown precision {prec!r}")
+
+
+class Simulation:
+    def __init__(
+        self,
+        deck: str,
+        overrides: Sequence[str] = (),
+        data_dir: str = ".",
+        is_path: Optional[bool] = None,
+        *,
+        device,
+        nshards: int = 1,
+        restart: Optional[str] = None,
+        fused_stage: bool = True,
+    ):
+        if nshards > 1:
+            raise NotImplementedError("multi-device runs are not ported yet "
+                                      "(ROADMAP Queue 1 item 11)")
+        if restart is not None:
+            raise NotImplementedError("restart is not ported yet "
+                                      "(ROADMAP Queue 1 item 7)")
+        if is_path is None:
+            is_path = os.path.exists(deck)
+        pin = ParameterInput.from_file(deck) if is_path else ParameterInput.from_string(deck)
+        pin.apply_overrides(overrides)
+        self.pin = pin
+        self.device = torch.device(device)
+        self.dtype = dtype_from_input(pin)
+        self.data_dir = data_dir
+        os.makedirs(data_dir, exist_ok=True)
+
+        self.units = Units.from_input(pin)
+        self.constants = Constants.from_units(self.units)
+
+        self.do_gas = pin.get_or_add_bool("physics", "gas", True)
+        for key, item in _NOT_PORTED.items():
+            if pin.get_or_add_bool("physics", key, False):
+                raise NotImplementedError(f"<physics> {key} is not ported yet "
+                                          f"(ROADMAP Queue 1 item {item})")
+        refinement = pin.get_or_add_str("parthenon/mesh", "refinement", "none")
+        if refinement != "none":
+            raise NotImplementedError("mesh refinement is not ported yet "
+                                      "(ROADMAP Queue 1 item 10)")
+
+        self.grid = grid_from_input(pin)
+
+        def _check(kind, val, allowed):
+            if val not in allowed:
+                raise ValueError(f"{kind} {val!r} not recognized (choices: {allowed})")
+
+        gas_cfg = None
+        if self.do_gas:
+            eos = eos_from_input(pin, self.constants)
+            recon = pin.get_or_add_str("gas", "reconstruct", "plm")
+            rsolver = pin.get_or_add_str("gas", "riemann", "hllc")
+            _check("reconstruction", recon, ("pcm", "plm", "ppm"))
+            _check("riemann solver", rsolver, ("hllc", "hlle", "llf"))
+            gas_cfg = FluidCfg(
+                fluid="gas",
+                recon=recon,
+                rsolver=rsolver,
+                gamma=eos.gamma,
+                cv=eos.cv,
+                cfl=pin.get_or_add_real("gas", "cfl", 0.8),
+                dfloor=pin.get_or_add_real("gas", "dfloor", 1.0e-20),
+                siefloor=pin.get_or_add_real("gas", "siefloor", 1.0e-20),
+                de_switch=pin.get_or_add_real("gas", "de_switch", 0.0),
+                nspecies=pin.get_or_add_int("gas", "nspecies", 1),
+            )
+            self.eos = eos
+        self.gas_cfg = gas_cfg
+        self.dust_cfg = None
+
+        # problem generator (may reset tlim etc.)
+        problem_name = pin.get_str("artemis", "problem")
+        self.problem = build_problem(problem_name, pin, self.grid, gas_cfg, None)
+        if self.problem.sources:
+            raise NotImplementedError("problem-defined sources are not ported yet "
+                                      "(ROADMAP Queue 1 item 6)")
+
+        integrator = Integrator.make(pin.get_or_add_str("parthenon/time", "integrator", "rk2"))
+        self.driver = Driver(self.grid, integrator, gas_cfg, None,
+                             bc_custom=self.problem.bc_custom, device=self.device,
+                             dtype=self.dtype, fused_stage=fused_stage)
+
+        state = {name: {"u": None, "w": torch.as_tensor(w, dtype=self.dtype, device=self.device)}
+                 for name, w in self.problem.prims.items()}
+        self.state = self.driver.initialize(state)
+        self.tm = SimTime(
+            time=0.0,
+            tlim=pin.get_real("parthenon/time", "tlim"),
+            nlim=pin.get_or_add_int("parthenon/time", "nlim", -1),
+            dt_min=pin.get_or_add_real("parthenon/time", "dt_min", 0.0),
+            dt_max=pin.get_or_add_real("parthenon/time", "dt_max", 1.0e300),
+        )
+
+    def print_config(self):
+        """Startup configuration banner (cf. PrintArtemisConfiguration,
+        src/utils/artemis_utils.cpp:24-87)."""
+        pin = self.pin
+        lines = [
+            "=" * 60,
+            f"artemis_tpu_torch  |  problem = {pin.get_str('artemis', 'problem')}"
+            f"  |  coords = {self.grid.coords}",
+            f"mesh {self.grid.nx[0]}x{self.grid.nx[1]}x{self.grid.nx[2]}"
+            f"  nghost={self.grid.nghost}  tlim={self.tm.tlim:g}",
+            f"device {self.device}  dtype {str(self.dtype).removeprefix('torch.')}"
+            f"  fused stage kernel: {'on' if self.driver._fused_stage else 'off'}",
+        ]
+        if self.gas_cfg:
+            c = self.gas_cfg
+            lines.append(f"gas: {c.recon}+{c.rsolver} gamma={c.gamma:g} "
+                         f"cfl={c.cfl:g} nspecies={c.nspecies}")
+        lines.append("=" * 60)
+        print("\n".join(lines))
+
+    def _make_observers(self):
+        """Attach outputs declared in the deck (<parthenon/outputN> blocks)."""
+        from .io.history import HistoryOutput
+
+        obs = []
+        pid = self.pin.get_or_add_str("parthenon/job", "problem_id", "artemis")
+        for block in self.pin.block_names():
+            if not block.startswith("parthenon/output"):
+                continue
+            ftype = self.pin.get_or_add_str(block, "file_type", "hst")
+            dt_out = self.pin.get_or_add_real(block, "dt", -1.0)
+            n = block.removeprefix("parthenon/output")
+            if dt_out <= 0.0:
+                continue
+            base = os.path.join(self.data_dir, f"{pid}.out{n}")
+            if ftype == "hst":
+                fname = base + ".hst"
+                # fresh runs start clean
+                if os.path.exists(fname):
+                    os.remove(fname)
+                obs.append(HistoryOutput(self, dt_out, fname))
+            else:
+                raise NotImplementedError(f"{ftype!r} outputs are not ported yet "
+                                          "(ROADMAP Queue 1 item 7)")
+        return obs
+
+    def run(self, log_every: int = 0, extra_observers=(), walltime=None):
+        import time as _t
+
+        deadline = (_t.perf_counter() + walltime) if walltime else None
+        observers = self._make_observers() + list(extra_observers)
+        for ob in observers:
+            if hasattr(ob, "start"):
+                ob.start(self.state, self.tm)
+        self.state, self.tm, zcps, self.status = evolve(
+            self.driver, self.state, self.tm, observers=observers,
+            log_every=log_every, deadline=deadline
+        )
+        for ob in observers:
+            if hasattr(ob, "finish"):
+                ob.finish(self.state, self.tm)
+        if self.problem.after_loop is not None and self.status == "complete":
+            self.problem.after_loop(self.grid, self.pin, self.state, self.tm, self.data_dir)
+        return zcps

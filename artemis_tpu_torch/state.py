@@ -1,0 +1,24 @@
+"""Carry simulation state between the JAX package and the port.
+
+A state is ``{fluid: {"u": ..., "w": ..., ["dtden": ...]}}``.  The JAX
+package holds jax arrays, this package torch tensors; both convert through
+numpy, so a state made by one can be stepped by the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def state_from_numpy(state_np, device, dtype):
+    """{fluid: {key: array-like}} -> {fluid: {key: tensor on device in dtype}}."""
+    return {fluid: {k: torch.tensor(np.asarray(v), dtype=dtype, device=device)
+                    for k, v in kinds.items()}
+            for fluid, kinds in state_np.items()}
+
+
+def state_to_numpy(state):
+    """{fluid: {key: tensor}} -> {fluid: {key: numpy array on the host}}."""
+    return {fluid: {k: v.detach().cpu().numpy() for k, v in kinds.items()}
+            for fluid, kinds in state.items()}
