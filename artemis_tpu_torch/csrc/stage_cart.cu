@@ -6,8 +6,9 @@
 //                     in-kernel from the unpadded interior   (PERIODIC=true)
 //   stage          -> _stage_kernel          (:232, :132), halos read from
 //                     ghost-padded primitives                (PERIODIC=false)
-// with the device helpers _plm/_hllc (pallas_sweeps.py:26,34), _lr_faces
-// (pallas_stage.py:91) and rk_blend (:47).  On the TPU the two variants
+// with _lr_faces (pallas_stage.py:91); the helpers _plm/_hllc
+// (pallas_sweeps.py:26,34) and rk_blend (:47) live in stage_common.cuh.
+// On the TPU the two variants
 // differ only in how Mosaic's DMA rules let a block fetch its halo; here a
 // thread reads its halo by index, so one kernel templated on the halo
 // source covers both.
@@ -41,7 +42,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stage_common.cuh"
+
 namespace {
+
+using namespace artemis;
 
 constexpr int kPCM = 0;
 constexpr int kPLM = 1;
@@ -61,19 +66,6 @@ struct Params {
   double idx, idy, idz;
   double gamma, dfloor, siefloor, de_switch;
 };
-
-__device__ __forceinline__ float rsqrt_t(float x) { return rsqrtf(x); }
-__device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  int m = i % n;
-  return m < 0 ? m + n : m;
-}
-
-template <typename T>
-__device__ __forceinline__ T vmax(T a, T b) { return a > b ? a : b; }
-template <typename T>
-__device__ __forceinline__ T vmin(T a, T b) { return a < b ? a : b; }
 
 // Primitive source: interior array with periodic wrap, or padded array.
 template <typename T, bool PERIODIC>
@@ -108,16 +100,9 @@ __device__ __forceinline__ void face_states(const T (&q)[2 * R + 1], T& wl_lo,
     wl_hi = q[R];
     wr_hi = q[R + 1];
   } else if (METHOD == kPLM) {
-    // _plm: dqm = dq2 / (dql + dqr) where dq2 = dql * dqr > 0, else 0
     T dqm[3];
 #pragma unroll
-    for (int m = 0; m < 3; ++m) {
-      const T qm = q[R + m - 2], q0 = q[R + m - 1], qp = q[R + m];
-      const T dql = q0 - qm;
-      const T dqr = qp - q0;
-      const T dq2 = dql * dqr;
-      dqm[m] = dq2 > T(0) ? dq2 / (dql + dqr) : T(0);
-    }
+    for (int m = 0; m < 3; ++m) dqm[m] = plm_slope(q[R + m - 2], q[R + m - 1], q[R + m]);
     wl_lo = q[R - 1] + dqm[0];
     wr_lo = q[R] - dqm[1];
     wl_hi = q[R] + dqm[1];
@@ -147,73 +132,6 @@ __device__ __forceinline__ void face_states(const T (&q)[2 * R + 1], T& wl_lo,
     wl_hi = qrv[1];
     wr_hi = qlv[2];
   }
-}
-
-// HLLC flux along direction D (1..3) from L/R primitive states, the
-// reciprocal-sharing form of _hllc (pallas_sweeps.py:34-97).  F is in
-// global component order (rho, m1, m2, m3, E, eint), without the pressure
-// in the momentum flux; also returns the face pressure and the upwinded
-// normal face velocity.
-template <typename T, int D>
-__device__ __forceinline__ void hllc(const T (&wl)[6], const T (&wr)[6],
-                                     double gamma, T (&F)[6], T& pface,
-                                     T& vface) {
-  constexpr int ivx = D;
-  constexpr int ivy = (D % 3) + 1;
-  constexpr int ivz = ((D + 1) % 3) + 1;
-  const T TINY = T(1.0e-20);
-  const T g = T(gamma);
-  const T igm1 = T(1.0 / (gamma - 1.0));
-  const T alpha = T((gamma + 1.0) / (2.0 * gamma));
-  const T half = T(0.5);
-  const T dl = wl[0], dr = wr[0];
-  const T vxl = wl[ivx], vxr = wr[ivx];
-  const T vyl = wl[ivy], vyr = wr[ivy];
-  const T vzl = wl[ivz], vzr = wr[ivz];
-  const T pl = wl[4], pr = wr[4];
-  const T sel = wl[5], ser = wr[5];
-
-  const T isq_l = rsqrt_t(dl);
-  const T isq_r = rsqrt_t(dr);
-  const T al = sqrt(g * pl) * isq_l;
-  const T ar = sqrt(g * pr) * isq_r;
-  const T el = pl * igm1 + half * dl * (vxl * vxl + vyl * vyl + vzl * vzl);
-  const T er = pr * igm1 + half * dr * (vxr * vxr + vyr * vyr + vzr * vzr);
-  const T cbar = T(0.25) * (dl + dr) * (al + ar);
-  const T pmid = half * (pl + pr + (vxl - vxr) * cbar);
-  const T ql = pmid <= pl ? T(1) : sqrt(T(1) + alpha * (pmid / pl - T(1)));
-  const T qr = pmid <= pr ? T(1) : sqrt(T(1) + alpha * (pmid / pr - T(1)));
-  const T sl = vxl - al * ql;
-  const T sr = vxr + ar * qr;
-  const T bp = sr > T(0) ? sr : TINY;
-  const T bm = sl < T(0) ? sl : -TINY;
-  const T tl = pl + (vxl - sl) * dl * vxl;
-  const T tr = pr + (vxr - sr) * dr * vxr;
-  const T ml = dl * (vxl - sl);
-  const T mr = -(dr * (vxr - sr));
-  const T imlr = T(1) / (ml + mr);
-  const T am = (tl - tr) * imlr;
-  const T cp = vmax((ml * tr + mr * tl) * imlr, T(0));
-  const T qe = dl * (vxl - bm);
-  const T qf = dr * (vxr - bp);
-  const T fle = el * (vxl - bm) + pl * vxl;
-  const T fre = er * (vxr - bp) + pr * vxr;
-  const bool pos = am >= T(0);
-  const T iamb = T(1) / (am - bm);
-  const T ibpa = T(1) / (bp - am);
-  const T wc_l = pos ? am * iamb : T(0);
-  const T wc_r = pos ? T(0) : -am * ibpa;
-  const T wc_c = pos ? -bm * iamb : bp * ibpa;
-  pface = wc_l * pl + wc_r * pr + wc_c * cp;
-  const T frho = wc_l * qe + wc_r * qf;
-  F[0] = frho;
-  F[ivx] = wc_l * qe * vxl + wc_r * qf * vxr;
-  F[ivy] = wc_l * qe * vyl + wc_r * qf * vyr;
-  F[ivz] = wc_l * qe * vzl + wc_r * qf * vzr;
-  F[4] = wc_l * fle + wc_r * fre + wc_c * cp * am;
-  const bool upw = frho >= T(0);
-  F[5] = frho * (upw ? sel : ser);
-  vface = frho * (upw ? isq_l * isq_l : isq_r * isq_r);
 }
 
 // Fluxes through the lower and upper faces of cell (k, j, i) along D;
@@ -281,27 +199,11 @@ __device__ __forceinline__ T stage_cell(const Params& p, int64_t cell) {
 
   // two-register RK blend (rk_blend): statically-zero registers unread
   const T bdt = T(p.beta) * static_cast<const T*>(p.dt)[0];
-  const T gam0 = T(p.gam0), gam1 = T(p.gam1);
   const T* u0 = static_cast<const T*>(p.u0);
   const T* u1 = static_cast<const T*>(p.u1);
   T u[6];
 #pragma unroll
-  for (int c = 0; c < 6; ++c) {
-    const int64_t o = c * n + cell;
-    T acc = T(0);
-    bool have = false;
-    if (p.gam0 != 0.0) {
-      acc = p.gam0 == 1.0 ? u0[o] : gam0 * u0[o];
-      have = true;
-    }
-    if (p.gam1 != 0.0) {
-      const T t = p.gam1 == 1.0 ? u1[o] : gam1 * u1[o];
-      acc = have ? acc + t : t;
-      have = true;
-    }
-    const T t = bdt * divf[c];
-    u[c] = have ? acc + t : t;
-  }
+  for (int c = 0; c < 6; ++c) u[c] = rk_blend(p.gam0, p.gam1, u0, u1, c * n + cell, bdt * divf[c]);
 
   // pressure-gradient force + PdV work (FluxSourceImpl, Cartesian)
   const T half = T(0.5);

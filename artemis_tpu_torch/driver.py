@@ -2,9 +2,12 @@
 
 Equivalent of ``ArtemisDriver`` + Parthenon's ``EvolutionDriver``/
 ``LowStorageIntegrator`` (src/artemis_driver.cpp): a two-register low-storage
-RK loop.  Each stage of Cartesian source-free gas runs as one fused CUDA
-kernel on the GPU (``ops.stage``); every other stage runs the composable
-tensor sequence, as the JAX package runs its jnp path.
+RK loop.  On the GPU each gas stage runs as one fused CUDA kernel where the
+config allows: Cartesian source-free gas through ``ops.stage``, every other
+supported grid (the disk decks, with rotating-frame torque, point gravity
+and diffusion folded in) through ``ops.stage_curv``.  Every other stage, and
+every stage on the CPU, runs the composable tensor sequence, as the JAX
+package runs its jnp path.
 
 The JAX driver marches chunks of up to 256 cycles on the device inside a
 ``lax.while_loop``; this one is a host loop that reads dt back once per
@@ -22,8 +25,11 @@ import numpy as np
 import torch
 
 from . import bc as bc_mod
+from .geometry import geometry as geo
 from .ops import stage as stage_mod
+from .ops import stage_curv as curv_mod
 from .ops.hydro import FluidCfg, Hydro
+from .sources import Gravity, RotatingFrame
 
 BIG = 1.0e308
 
@@ -66,12 +72,32 @@ class Integrator:
         raise ValueError(f"unknown integrator {name!r}")
 
 
+def curv_point_grav(grid, s_):
+    """Fold mode of a central point-mass Gravity source in the curvilinear
+    stage kernel ("sph", "cart" or "xyz"), or None when the source or
+    geometry falls outside the kernel's gravity envelope (cf. the
+    reference's point-mass branches, point_mass.cpp:70-105)."""
+    if not (isinstance(s_, Gravity) and s_.gtype == "point"
+            and (s_.sink_rate <= 0.0 or s_.sink_rad <= 0.0)):
+        return None
+    c_ = grid.coords
+    if (geo.is_spherical(c_) and geo.is_axisymmetric(c_)) or c_ == "axisymmetric":
+        return "sph"       # pure-radial branches (point_mass.cpp:70-105)
+    if (c_ in ("spherical3D", "cylindrical") and grid.nx[1] > 1 and grid.nx[2] > 1
+            and tuple(s_.pos) == (0.0, 0.0, 0.0)):
+        return "cart"      # general cartesian branch at the origin
+    if geo.is_cartesian(c_):
+        return "xyz"       # r_vec from the coordinate rows; any mass position
+    return None
+
+
 class Driver:
     """Owns the stage sequence and the dt estimate of one single-level run.
 
-    ``device``/``dtype`` place the geometry constants; ``fused_stage=False``
-    keeps a CUDA run on the composable path (the plain version the kernel
-    is measured against)."""
+    ``device``/``dtype`` place the geometry constants and the sources'
+    fields; ``fused_stage=False`` keeps a CUDA run on the composable path
+    (the plain version the kernels are measured against).  ``diffusion`` is
+    a factory ``fn(hydro) -> Diffusion``."""
 
     def __init__(
         self,
@@ -81,6 +107,7 @@ class Driver:
         dust_cfg: Optional[FluidCfg] = None,
         sources=None,
         bc_custom: Optional[dict] = None,
+        omf: float = 0.0,
         diffusion=None,
         nbody=None,
         radiation=None,
@@ -89,12 +116,6 @@ class Driver:
         dtype,
         fused_stage: bool = True,
     ):
-        if sources:
-            raise NotImplementedError("external sources are not ported yet "
-                                      "(ROADMAP Queue 1 item 6)")
-        if diffusion is not None:
-            raise NotImplementedError("viscosity/conduction are not ported yet "
-                                      "(ROADMAP Queue 1 item 6)")
         if nbody is not None:
             raise NotImplementedError("N-body coupling is not ported yet "
                                       "(ROADMAP Queue 1 item 8)")
@@ -109,10 +130,65 @@ class Driver:
         self.gas_cfg = gas_cfg
         self.dust_cfg = dust_cfg
         self.bc_custom = bc_custom or {}
-        # the fused stage kernel: CUDA, Cartesian source-free gas
-        self._fused_stage = (fused_stage and self.device.type == "cuda"
-                             and stage_mod.supported(grid, gas_cfg)
-                             and dust_cfg is None)
+        self.sources = [s_.place(self.device, dtype) for s_ in (sources or [])]
+        self.omf = omf  # rotating-frame rate for curvilinear flux sources
+        self.diffusion = diffusion(self.hydro) if diffusion is not None else None
+        on_gpu = fused_stage and self.device.type == "cuda"
+        # the Cartesian stage kernel: source-free gas
+        self._fused_stage = (on_gpu and stage_mod.supported(grid, gas_cfg)
+                             and dust_cfg is None and not self.sources
+                             and self.diffusion is None)
+        # the curvilinear stage kernel (the disk path), as the JAX driver
+        # picks its K3/K4 (driver.py:196-252), in float32 and float64 alike;
+        # dust keeps a run on the composable path
+        self._curv = None
+        if (on_gpu and not self._fused_stage and dust_cfg is None
+                and curv_mod.supported_curv(grid, gas_cfg)):
+            self._curv = self._make_curv_stage(grid, gas_cfg)
+
+    def _make_curv_stage(self, grid, gas_cfg):
+        """The CurvStage for this run, or None where the composable path
+        must run: a flux-consuming source the kernel cannot fold, or
+        diffusion rows that do not separate (Cartesian grids)."""
+        flux_srcs = [s_ for s_ in self.sources if getattr(s_, "uses_fluxes", False)]
+        # the curvilinear RotatingFrame torque is folded into the kernel;
+        # any other flux-consuming source forces the composable path
+        if not all(isinstance(s_, RotatingFrame) and not s_.shearing_box
+                   for s_ in flux_srcs):
+            return None
+        rest = [s_ for s_ in self.sources if s_ not in flux_srcs]
+        gravity = gmode = None
+        for s_ in rest:
+            gmode = curv_point_grav(grid, s_)
+            if gmode is not None:
+                gravity = s_
+                rest.remove(s_)
+                break
+        full = not rest
+        strips = None
+        if full and curv_mod.gather_supported(grid, gas_cfg, self.bc_custom):
+            strips = curv_mod.prepare_gather_strips(
+                grid, self.bc_custom["ic"].shard_caches[0])
+        try:
+            cs = curv_mod.CurvStage(
+                self.hydro, omf=self.omf, rotating=flux_srcs[0] if flux_srcs else None,
+                gravity=gravity, gmode=gmode, diffusion=self.diffusion, full=full,
+                strips=strips, bc_custom=self.bc_custom)
+        except ValueError:
+            return None
+        # the sources the composable chain still applies after a partial stage
+        self._curv_srcs = rest
+        return cs
+
+    @property
+    def stage_kernel(self) -> str:
+        """Which stage kernel the GPU run launches ("none" off the GPU)."""
+        if self._fused_stage:
+            return "stage_cart"
+        if self._curv is not None:
+            return ("stage_curv (gather)" if self._curv.strips is not None
+                    else "stage_curv (padded" + (")" if self._curv.full else ", partial)"))
+        return "none"
 
     # ------------------------------------------------------------------
     def _fluids(self):
@@ -129,7 +205,12 @@ class Driver:
             if name == "gas" and "dtden" in state["gas"]:
                 dts.append(cfg.cfl / torch.max(state["gas"]["dtden"]))
                 continue
-            dts.append(self.hydro.estimate_dt(state[name]["w"], cfg))
+            dt = self.hydro.estimate_dt(state[name]["w"], cfg)
+            if name == "gas" and self.diffusion is not None:
+                # cfl * min(advective, diffusive) (gas.cpp:435-468)
+                dt = torch.minimum(dt, cfg.cfl * self.diffusion.estimate_dt(
+                    state[name]["w"]))
+            dts.append(dt)
         return torch.min(torch.stack(dts))
 
     def _sync_prims(self, state):
@@ -142,10 +223,10 @@ class Driver:
             new[name] = {"u": u, "w": w}
         return new
 
-    def _stage_body(self, state, u1, dt, stage):
+    def _stage_body(self, state, u1, dt, time, stage):
         """One RK stage (the reference per-stage task list,
         artemis_driver.cpp:170-268).  ``dt`` is a 0-d tensor on the run's
-        device."""
+        device, ``time`` the cycle's start time on the host."""
         hyd = self.hydro
         integ = self.integrator
         gam0 = integ.gam0[stage - 1]
@@ -162,14 +243,38 @@ class Driver:
             new_state["gas"] = {"u": u, "w": w, "dtden": dtden}
             return new_state
         bdt = beta * dt
+        if self._curv is not None:
+            u, w, dtden = curv_mod.stage_curv(
+                self._curv, state["gas"]["w"], state["gas"]["u"], u1["gas"], gam0,
+                gam1, beta, dt, time, force_pcm)
+            new_state = dict(state)
+            if self._curv.full:
+                new_state["gas"] = {"u": u, "w": w, "dtden": dtden}
+                return new_state
+            # partial: the folded sources are in u; the composable chain
+            # applies the rest
+            new_state["gas"] = {"u": u, "w": w}
+            for src in self._curv_srcs:
+                new_state = src.apply(new_state, None, time, bdt, hyd)
+            u = hyd.set_auxiliary(new_state["gas"]["u"], self.gas_cfg)
+            new_state["gas"] = {"u": u, "w": new_state["gas"]["w"]}
+            return self._sync_prims(new_state)
         new_state = dict(state)
+        fluxes = {}
         for name, cfg in self._fluids():
             u, w = state[name]["u"], state[name]["w"]
             w_pad = self.fill_ghosts(w, name)
             fx = hyd.compute_fluxes(w_pad, cfg, force_pcm)
+            fluxes[name] = fx
             u = hyd.apply_update(u, u1[name], fx, gam0, gam1, bdt)
-            u = hyd.flux_source(u, w, fx, bdt)
+            u = hyd.flux_source(u, w, fx, bdt, omf=self.omf)
+            if name == "gas" and self.diffusion is not None:
+                u = self.diffusion.update(u, w, self.diffusion.fluxes(w_pad), bdt)
             new_state[name] = {"u": u, "w": w}
+        # external sources in reference task order
+        # (gravity -> rotating frame -> drag -> cooling)
+        for src in self.sources:
+            new_state = src.apply(new_state, fluxes, time, bdt, hyd)
         # dual-energy sync for gas
         if self.gas_cfg is not None:
             u = hyd.set_auxiliary(new_state["gas"]["u"], self.gas_cfg)
@@ -191,22 +296,32 @@ class Driver:
         return self.prepare_state(new)
 
     def prepare_state(self, state):
-        """Seed the one-element dtden on the fused path, so the first dt
+        """Seed the one-element dtden on the fused paths, so the first dt
         comes from the same reduction as every later one."""
-        if not self._fused_stage or "dtden" in state["gas"]:
+        curv_full = self._curv is not None and self._curv.full
+        if not (self._fused_stage or curv_full) or "dtden" in state["gas"]:
             return state
         state = dict(state)
         state["gas"] = dict(state["gas"])
-        den = self.hydro.dt_denominator(state["gas"]["w"], self.gas_cfg)
-        state["gas"]["dtden"] = torch.amax(den).reshape(1)
+        w, cfg = state["gas"]["w"], self.gas_cfg
+        if curv_full:
+            dt0 = self.hydro.estimate_dt(w, cfg)
+            if self.diffusion is not None:
+                # the kernel folds the diffusive limit into dtden; the seed
+                # must too, or the first dt can exceed it
+                dt0 = torch.minimum(dt0, cfg.cfl * self.diffusion.estimate_dt(w))
+            state["gas"]["dtden"] = (cfg.cfl / dt0).reshape(1)
+        else:
+            state["gas"]["dtden"] = torch.amax(self.hydro.dt_denominator(w, cfg)).reshape(1)
         return state
 
-    def step(self, state, dt: float):
-        """One cycle of all RK stages with the host-side ``dt``."""
+    def step(self, state, dt: float, time: float):
+        """One cycle of all RK stages with the host-side ``dt``, starting at
+        the host-side ``time``."""
         dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
         u1 = {name: state[name]["u"] for name, _ in self._fluids()}
         for stage in range(1, self.integrator.nstages + 1):
-            state = self._stage_body(state, u1, dt_t, stage)
+            state = self._stage_body(state, u1, dt_t, time, stage)
         return state
 
     def estimate_dt(self, state) -> float:
@@ -274,7 +389,7 @@ def evolve(driver: Driver, state, tm: SimTime, observers=None, log_every: int = 
     check_dt_guards()
     status = "complete"
     while unfinished():
-        state = driver.step(state, tm.dt)
+        state = driver.step(state, tm.dt, tm.time)
         tm.time += tm.dt
         tm.ncycle += 1
         set_global_dt()

@@ -1,0 +1,742 @@
+"""Fused curvilinear gas-hydro RK stage: the CUDA kernel's wrapper, its
+plain PyTorch version and the kernel's coefficient rows (port of the K3/K4
+parts of ``artemis_tpu/ops/pallas_stage_curv.py``).
+
+One stage is everything between two ghost fills on every supported
+coordinate system (the production disk path): PLM_G/PCM reconstruction,
+HLLC/HLLE fluxes with face scale factors, the two-register update with
+exact area/volume factors, pressure-gradient/PdV/connection sources, the
+rotating-frame torque, central point gravity and viscous/thermal diffusion
+folded in, and (full mode) the dual-energy sync, C2P/P2C and the CFL
+denominator with the diffusive limit.  Partial mode stops after the flux
+sources, where the composable path hands off to the remaining sources.
+
+``stage_curv`` dispatches on the tensor's device: on the CPU it runs
+``stage_curv_reference``; on a CUDA device it launches
+``csrc/stage_curv.cu`` (which replaces both TPU kernels, K3
+``stage_curv_gather`` and K4 ``stage_curv``) or raises.  The disk boundary
+layout (x1/x2 ``ic``, x3 periodic) is read with in-kernel halo gathering
+from the unpadded interior and the ic strips; every other layout from
+primitives padded by ``bc``.
+
+The coefficient packing (``_axis_pack`` ... ``CurvCoeffs.pack``,
+``_dp_tuple``) is numpy only, copied from the JAX module; the rows are
+built in float64 and cast to the run's dtype when they move to the device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import bc as bc_mod
+from ..geometry import geometry as geo
+
+BLOCK = 128  # threads per CUDA block (the kernel's kBlock); one dtden entry per block
+
+# kernel launches since the last reset (the count a run reads to show that
+# the main path went through the kernel)
+stage_curv_launches = 0
+
+
+# ---------------------------------------------------------------------------
+# coefficient packing: per-axis 1-D rows over the PADDED axis extents
+# ---------------------------------------------------------------------------
+
+def _axis_pack(grid, d):
+    """Rows along axis d (padded extents), as a dict name -> 1-D f64 array.
+    The reconstruction coordinate rows are shifted by xv[0]: the kernel only
+    ever uses their differences (Mignone PLM)."""
+    g = grid.geom
+    xv = {1: g.xv1, 2: g.xv2, 3: g.xv3}[d]
+    xf = {1: g.xf1, 2: g.xf2, 3: g.xf3}[d]
+    dx = {1: g.dx1, 2: g.dx2, 3: g.dx3}[d]
+    n = len(xv)
+    x0 = xv[0]
+    rows = {
+        "xv": xv - x0,
+        "xf_lo": xf[:-1] - x0,
+        "xf_hi": xf[1:] - x0,
+        "dx": dx,
+        "inv_dx": 1.0 / dx,
+    }
+    assert all(len(v) == n for v in rows.values())
+    return rows
+
+
+def _face_h_factors(grid, d):
+    """Separable factors (f1[x1-extent], f2[x2-extent]) of the scale factor
+    h_c at the lower-face centroids along direction d, for c = 1..3
+    (cf. Geometry.face_h; hx(c,...) is separable in every system)."""
+    g = grid.geom
+    c = grid.coords
+    if d == 1:
+        x1 = g.xf1[:-1]          # lower face of each cell (cell-indexed)
+        x2 = g.xv2
+    elif d == 2:
+        if geo.x1dep(c):
+            rm, rp = g.xf1[:-1], g.xf1[1:]
+            x1 = 2.0 / 3.0 * (rm * rm + rm * rp + rp * rp) / (rm + rp)
+        else:
+            x1 = g.xv1
+        x2 = g.xf2[:-1]
+    else:
+        if geo.x1dep(c):
+            rm, rp = g.xf1[:-1], g.xf1[1:]
+            x1 = 2.0 / 3.0 * (rm * rm + rm * rp + rp * rp) / (rm + rp)
+        else:
+            x1 = g.xv1
+        x2 = 0.5 * (g.xf2[:-1] + g.xf2[1:])
+    out = []
+    for comp in (1, 2, 3):
+        h2d = g.hx(comp, x1[None, :], x2[:, None])  # [len(x2), len(x1)]
+        f1 = h2d[0, :]
+        g0 = np.where(np.abs(f1[0]) > 0, f1[0], 1.0)
+        f2 = h2d[:, 0] / g0
+        assert np.allclose(np.outer(f2, f1), h2d, rtol=1e-12, atol=1e-300)
+        out.append((np.asarray(f1), np.asarray(f2)))
+    return out
+
+
+def _rf_bundle(grid):
+    """Separable factorization of the rotating-frame conservative-torque
+    ingredients (cf. sources._rf_weights): per direction and side, the flux
+    weight is a 2-term separable sum w(i,j) = f1(i) g1(j) + f2(i) g2(j);
+    plus phi-hat / R-hat / z-hat basis rows and the cylindrical radius, all
+    over the PADDED axis extents."""
+    g = grid.geom
+    c = grid.coords
+    n1 = len(g.xv1)
+    n2 = len(g.xv2)
+    z1 = np.zeros(n1)
+    z2 = np.zeros(n2)
+    o1 = np.ones(n1)
+    o2 = np.ones(n2)
+    zterm = ((z1, z2), (z1, z2))
+    weights = {1: (zterm, zterm), 2: (zterm, zterm), 3: (zterm, zterm)}
+    rm, rp = g.xf1[:-1], g.xf1[1:]
+    if c in ("cylindrical", "axisymmetric"):
+        ans = 0.5 * (rm + rp) * (rp - rm)
+        t = ((ans, o2), (z1, z2))
+        weights[1] = (t, t)
+    elif c == "spherical1D":
+        rv = g.xv1
+        weights[1] = ((((rv**2 - rm**2), o2), (z1, z2)),
+                      (((rp**2 - rv**2), o2), (z1, z2)))
+    elif c in ("spherical2D", "spherical3D"):
+        rv = g.xv1
+        stv2 = np.sin(g.xv2) ** 2
+        weights[1] = (
+            (((rv**2 - rm**2), stv2), (z1, z2)),
+            (((rp**2 - rv**2), stv2), (z1, z2)))
+        rface = 2.0 / 3.0 * (rm**2 + rm * rp + rp**2) / (rm + rp)
+        stm2 = np.sin(g.xf2[:-1]) ** 2
+        stp2 = np.sin(g.xf2[1:]) ** 2
+        weights[2] = (
+            ((rv**2, stv2), (-rface**2, stm2)),
+            ((-rv**2, stv2), (rface**2, stp2)))
+    if c in ("cylindrical",):
+        phihat = [(z1, z2), (o1, o2), (z1, z2)]
+        rhat = [(o1, o2), (z1, z2), (z1, z2)]
+        zhat = [(z1, z2), (z1, z2), (o1, o2)]
+        Rcyl = (g.xv1, o2)
+    elif c == "axisymmetric":
+        phihat = [(z1, z2), (z1, z2), (o1, o2)]
+        rhat = [(o1, o2), (z1, z2), (z1, z2)]
+        zhat = [(z1, z2), (o1, o2), (z1, z2)]
+        Rcyl = (g.xv1, o2)
+    elif c == "spherical1D":
+        phihat = [(z1, z2), (z1, z2), (o1, o2)]
+        rhat = [(o1, o2), (z1, z2), (z1, z2)]
+        zhat = [(z1, z2), (z1, z2), (z1, z2)]
+        Rcyl = (g.xv1, o2)
+    elif c in ("spherical2D", "spherical3D"):
+        phihat = [(z1, z2), (z1, z2), (o1, o2)]
+        rhat = [(o1, np.sin(g.xv2)), (o1, np.cos(g.xv2)), (z1, z2)]
+        zhat = [(o1, np.cos(g.xv2)), (o1, -np.sin(g.xv2)), (z1, z2)]
+        Rcyl = (g.xv1, np.sin(g.xv2))
+    else:
+        phihat = [(z1, z2)] * 3
+        rhat = [(z1, z2)] * 3
+        zhat = [(z1, z2)] * 3
+        Rcyl = (z1, z2)
+    return weights, phihat, rhat, zhat, Rcyl
+
+
+def _rotation_factors(grid, omf):
+    """Separable (f1, f2) factors of the rotation velocity component per
+    coordinate direction (RotatingFrame::RotationVelocity)."""
+    g = grid.geom
+    c = grid.coords
+    n1, n2 = len(g.xv1), len(g.xv2)
+    zero = (np.zeros(n1), np.zeros(n2))
+    one2 = np.ones(n2)
+    if omf == 0.0 or geo.is_cartesian(c):
+        return [zero, zero, zero]
+    if c == "cylindrical" or c == "spherical1D":
+        return [zero, (omf * g.xv1, one2), zero]
+    if geo.is_spherical(c):
+        return [zero, zero, (omf * g.xv1, np.sin(g.xv2))] \
+            if c in ("spherical2D", "spherical3D") else [zero, zero, zero]
+    if c == "axisymmetric":
+        return [zero, zero, (omf * g.xv1, one2)]
+    return [zero, zero, zero]
+
+
+def _delta_rows(xv, two_sided: bool):
+    """|x_i - x_{i-1}| (face-indexed at cell i) or |x_{i+1} - x_{i-1}|
+    (cell-centered, two_sided) rows; edge entries cloned (never used at
+    valid faces)."""
+    d = np.empty_like(xv)
+    if two_sided:
+        d[1:-1] = xv[2:] - xv[:-2]
+        d[0], d[-1] = d[1], d[-2]
+    else:
+        d[1:] = xv[1:] - xv[:-1]
+        d[0] = d[1]
+    return np.abs(d)
+
+
+def _dist_factors(grid, d: int, two_sided: bool):
+    """Separable (f1, f2, f3) per-axis rows of the physical distance between
+    neighbor centroids along axis d (chord distances)."""
+    g = grid.geom
+    c = grid.coords
+    o1 = np.ones_like(g.xv1)
+    o2 = np.ones_like(g.xv2)
+    o3 = np.ones_like(g.xv3)
+    xv = {1: g.xv1, 2: g.xv2, 3: g.xv3}[d]
+    dlin = _delta_rows(xv, two_sided)
+    dang = 2.0 * np.sin(0.5 * dlin)  # chord of an angular separation
+    f1, f2, f3 = o1, o2, o3
+    if d == 1:
+        f1 = dlin
+    elif d == 2:
+        if c == "cylindrical":                      # x2 = phi
+            f1, f2 = g.xv1, dang
+        elif geo.is_spherical(c):                   # x2 = theta
+            f1, f2 = g.xv1, dang
+        else:                                        # axisymmetric x2 = z
+            f2 = dlin
+    else:
+        if c == "cylindrical":                       # x3 = z
+            f3 = dlin
+        elif geo.is_spherical(c):                    # x3 = phi
+            f1, f2, f3 = g.xv1, np.sin(g.xv2), dang
+        elif c == "axisymmetric":                    # x3 = phi
+            f1, f3 = g.xv1, dang
+        else:
+            f3 = dlin
+    return np.asarray(f1), np.asarray(f2), np.asarray(f3)
+
+
+def _zcart_factors(grid):
+    """Separable (f1, f2, f3) rows of the Cartesian z coordinate (for the
+    spherical radius used by alpha viscosity: r^2 = Rcyl^2 + z^2)."""
+    g = grid.geom
+    c = grid.coords
+    o1 = np.ones_like(g.xv1)
+    o2 = np.ones_like(g.xv2)
+    o3 = np.ones_like(g.xv3)
+    z1 = np.zeros_like(g.xv1)
+    if geo.is_spherical(c):
+        return g.xv1, np.cos(g.xv2) if geo.x2dep(c) else o2 * 0.0, o3
+    if c == "cylindrical":
+        return o1, o2, g.xv3
+    if c == "axisymmetric":
+        return o1, g.xv2, o3
+    return z1, o2, o3
+
+
+# viscosity/conduction models the fused kernel can evaluate from separable
+# coefficient rows (DiffusionCoeff<...>, diffusion_coeff.hpp)
+_DIFF_KINDS = ("viscosity_plaw", "viscosity_alpha", "conductivity_plaw",
+               "thermaldiff_plaw")
+
+
+def _dp_tuple(dp):
+    """Flatten DiffParams into (kind, avg, a, b, c, d, e, f) with per-kind
+    slot meanings (see mu_model in the kernel)."""
+    if dp is None:
+        return None
+    if dp.kind == "viscosity_plaw":
+        return (dp.kind, dp.avg, dp.nu_s, dp.eta, dp.r_exp, dp.R0, 0.0, 0.0)
+    if dp.kind == "viscosity_alpha":
+        return (dp.kind, dp.avg, dp.alpha, dp.eta, dp.R0, dp.Omega0, 0.0, 0.0)
+    coef = dp.hcond_0 if dp.kind == "conductivity_plaw" else dp.kappa_0
+    return (dp.kind, dp.avg, coef, 0.0, dp.temp_exp, dp.rho_exp, dp.T0, dp.d0)
+
+
+class CurvCoeffs:
+    """Per-grid coefficient bundle for the curvilinear stage kernel."""
+
+    def __init__(self, grid, omf: float, dtype=np.float64, diff=None):
+        g = grid.geom
+        c = grid.coords
+        self.coords = c
+        ax = {d: _axis_pack(grid, d) for d in (1, 2, 3)}
+
+        def cells(d, row):
+            return ax[d][row]
+
+        # per-direction update factors A_d/V split per axis
+        self.upd = {}
+        vol = {1: g.vol1, 2: g.vol2, 3: g.vol3}
+        areas = {
+            1: (g.area1_f1, g.area1_c2, g.area1_c3),
+            2: (g.area2_f2, g.area2_c1, g.area2_c3),
+            3: (g.area3_f3, g.area3_c1, g.area3_c2),
+        }
+        for d in (1, 2, 3):
+            af, cA, cB = areas[d]
+            self.upd[d] = {
+                "face": af,                # length n_d + 1
+                "inv_vol_d": 1.0 / vol[d],
+            }
+            if d == 1:
+                self.upd[d]["t2"] = cA / vol[2]
+                self.upd[d]["t3"] = cB / vol[3]
+            elif d == 2:
+                self.upd[d]["t1"] = cA / vol[1]
+                self.upd[d]["t3"] = cB / vol[3]
+            else:
+                self.upd[d]["t1"] = cA / vol[1]
+                self.upd[d]["t2"] = cB / vol[2]
+
+        self.recon = {d: (cells(d, "xv"), cells(d, "xf_lo"),
+                          cells(d, "xf_hi"), cells(d, "dx")) for d in (1, 2, 3)}
+        self.inv_dxc = {d: cells(d, "inv_dx") for d in (1, 2, 3)}
+        self.face_h = {d: _face_h_factors(grid, d) for d in (1, 2, 3)}
+        # hv factors (volume-averaged scale factors per component)
+        self.hv = [(g.h1v_1, g.h1v_2), (g.h2v_1, g.h2v_2), (g.h3v_1, g.h3v_2)]
+        # connection rows
+        self.conn1 = (np.zeros_like(g.dh2dx1), g.dh2dx1, g.dh3dx1)  # x1 rows
+        self.conn2 = g.dh3dx2                                        # x2 row
+        self.x1dep = geo.x1dep(c)
+        self.x2dep = geo.x2dep(c) and grid.nx[1] > 1
+        self.vrot = _rotation_factors(grid, omf)
+        self.rf = _rf_bundle(grid)
+        # physical widths for the CFL denominator: w_d = dx_d * h_d(xv)
+        hvx = lambda comp: g.hx(comp, g.xv1[None, :], g.xv2[:, None])
+        self.inv_w = {}
+        for d in (1, 2, 3):
+            h2d = hvx(d)  # [n2, n1]
+            f1 = h2d[0, :]
+            f2 = h2d[:, 0] / np.where(np.abs(f1[0]) > 0, f1[0], 1.0)
+            if d == 1:
+                self.inv_w[d] = (1.0 / (g.dx1 * f1), 1.0 / f2)
+            elif d == 2:
+                self.inv_w[d] = (1.0 / f1, 1.0 / (g.dx2 * f2))
+            else:
+                # h3 separable f1(x1) f2(x2); width = dx3 * f1 * f2
+                self.inv_w[d] = (1.0 / f1, 1.0 / f2)
+        self.dx3 = g.dx3
+        self.dtype = dtype
+        self.zc = _zcart_factors(grid)  # cartesian z rows (rsph, gravity)
+        # raw padded cell-center coordinates (NOT the shifted recon rows):
+        # the Cartesian xyz gravity mode needs absolute positions
+        self.xyzc = (g.xv1, g.xv2, g.xv3)
+        # fused diffusion (viscosity/conduction) coefficient rows
+        self.diff = None
+        if diff is not None:
+            if geo.is_cartesian(c):
+                # the coefficient models factor through the cylindrical
+                # radius, which is not (x)*(y)-separable on a Cartesian grid:
+                # raise so the Driver keeps the composable diffusion pass
+                raise ValueError("fused diffusion rows are not separable "
+                                 "on Cartesian grids")
+            for dp in (diff.visc, diff.cond):
+                if dp is not None and dp.kind not in _DIFF_KINDS:
+                    raise ValueError(f"unsupported diffusion kind {dp.kind}")
+            self.diff = diff
+            self.dims = [d for d in (1, 2, 3) if grid.active(d)]
+            self.dist1 = {d: _dist_factors(grid, d, False) for d in self.dims}
+            self.dist2 = {d: _dist_factors(grid, d, True) for d in self.dims}
+
+    def pack(self):
+        """Pack every row into three matrices CX [*, n1], CY [*, n2],
+        CZ [*, n3] + an index map."""
+        rows_x, rows_y, rows_z = [], [], []
+        ix = {}
+        cart_rows = geo.is_cartesian(self.coords)
+
+        def add(rows, key, arr):
+            rows.append(np.asarray(arr, self.dtype))
+            return len(rows) - 1
+
+        # X rows
+        for d in (1, 2, 3):
+            if d == 1:
+                xv, xlo, xhi, dx = self.recon[1]
+                ix["recon1"] = tuple(add(rows_x, None, a)
+                                     for a in (xv, xlo, xhi, dx))
+                ix["upd1_face"] = add(rows_x, None, self.upd[1]["face"][:-1])
+                ix["upd1_facep"] = add(rows_x, None, self.upd[1]["face"][1:])
+                ix["upd1_iv"] = add(rows_x, None, self.upd[1]["inv_vol_d"])
+                ix["idx1"] = add(rows_x, None, self.inv_dxc[1])
+            ix[f"upd{d}_t1"] = add(rows_x, None, self.upd[d].get(
+                "t1", np.ones_like(self.recon[1][0])))
+            ix[f"fh{d}_1"] = tuple(add(rows_x, None, self.face_h[d][cmp][0])
+                                   for cmp in range(3))
+        ix["hv_1"] = tuple(add(rows_x, None, self.hv[cmp][0]) for cmp in range(3))
+        ix["conn1"] = tuple(add(rows_x, None, a) for a in self.conn1)
+        ix["vrot_1"] = tuple(add(rows_x, None, self.vrot[cmp][0])
+                             for cmp in range(3))
+        ix["invw_1"] = tuple(add(rows_x, None, self.inv_w[d][0])
+                             for d in (1, 2, 3))
+        weights, phihat, rhat, zhat, Rcyl = self.rf
+        for d in (1, 2, 3):
+            lo_t, hi_t = weights[d]
+            ix[f"rfw{d}_lo_1"] = tuple(add(rows_x, None, t[0]) for t in lo_t)
+            ix[f"rfw{d}_hi_1"] = tuple(add(rows_x, None, t[0]) for t in hi_t)
+        ix["phihat_1"] = tuple(add(rows_x, None, phihat[c][0]) for c in range(3))
+        ix["rhat_1"] = tuple(add(rows_x, None, rhat[c][0]) for c in range(3))
+        ix["zhat_1"] = tuple(add(rows_x, None, zhat[c][0]) for c in range(3))
+        ix["rcyl_1"] = add(rows_x, None, Rcyl[0])
+        ix["zc_1"] = add(rows_x, None, self.zc[0])
+        if cart_rows:
+            ix["gx_1"] = add(rows_x, None, self.xyzc[0])
+
+        # Y rows
+        xv, xlo, xhi, dx = self.recon[2]
+        ix["recon2"] = tuple(add(rows_y, None, a) for a in (xv, xlo, xhi, dx))
+        ix["upd2_face"] = add(rows_y, None, self.upd[2]["face"][:-1])
+        ix["upd2_facep"] = add(rows_y, None, self.upd[2]["face"][1:])
+        ix["upd2_iv"] = add(rows_y, None, self.upd[2]["inv_vol_d"])
+        ix["idx2"] = add(rows_y, None, self.inv_dxc[2])
+        for d in (1, 3):
+            ix[f"upd{d}_t2"] = add(rows_y, None, self.upd[d]["t2"])
+        for d in (1, 2, 3):
+            ix[f"fh{d}_2"] = tuple(add(rows_y, None, self.face_h[d][cmp][1])
+                                   for cmp in range(3))
+        ix["hv_2"] = tuple(add(rows_y, None, self.hv[cmp][1]) for cmp in range(3))
+        ix["conn2"] = add(rows_y, None, self.conn2)
+        ix["vrot_2"] = tuple(add(rows_y, None, self.vrot[cmp][1])
+                             for cmp in range(3))
+        ix["invw_2"] = tuple(add(rows_y, None, self.inv_w[d][1])
+                             for d in (1, 2, 3))
+        for d in (1, 2, 3):
+            lo_t, hi_t = weights[d]
+            ix[f"rfw{d}_lo_2"] = tuple(add(rows_y, None, t[1]) for t in lo_t)
+            ix[f"rfw{d}_hi_2"] = tuple(add(rows_y, None, t[1]) for t in hi_t)
+        ix["phihat_2"] = tuple(add(rows_y, None, phihat[c][1]) for c in range(3))
+        ix["rhat_2"] = tuple(add(rows_y, None, rhat[c][1]) for c in range(3))
+        ix["zhat_2"] = tuple(add(rows_y, None, zhat[c][1]) for c in range(3))
+        ix["rcyl_2"] = add(rows_y, None, Rcyl[1])
+        ix["zc_2"] = add(rows_y, None, self.zc[1])
+        if cart_rows:
+            ix["gy_2"] = add(rows_y, None, self.xyzc[1])
+
+        # Z rows
+        xv, xlo, xhi, dx = self.recon[3]
+        ix["recon3"] = tuple(add(rows_z, None, a) for a in (xv, xlo, xhi, dx))
+        ix["upd3_face"] = add(rows_z, None, self.upd[3]["face"][:-1])
+        ix["upd3_facep"] = add(rows_z, None, self.upd[3]["face"][1:])
+        ix["upd3_iv"] = add(rows_z, None, self.upd[3]["inv_vol_d"])
+        ix["idx3"] = add(rows_z, None, self.inv_dxc[3])
+        for d in (1, 2):
+            ix[f"upd{d}_t3"] = add(rows_z, None, self.upd[d]["t3"])
+        ix["inv_dx3"] = add(rows_z, None, 1.0 / self.dx3)
+        ix["zc_3"] = add(rows_z, None, self.zc[2])
+        if cart_rows:
+            ix["gz_3"] = add(rows_z, None, self.xyzc[2])
+
+        # diffusion rows (distance chords)
+        if self.diff is not None:
+            for d in self.dims:
+                for nm, bundle in (("d1", self.dist1), ("d2", self.dist2)):
+                    f1, f2, f3 = bundle[d]
+                    ix[f"{nm}_{d}_1"] = add(rows_x, None, f1)
+                    ix[f"{nm}_{d}_2"] = add(rows_y, None, f2)
+                    ix[f"{nm}_{d}_3"] = add(rows_z, None, f3)
+
+        CX = np.stack(rows_x)
+        CY = np.stack(rows_y)
+        CZ = np.stack(rows_z)
+        return CX, CY, CZ, ix
+
+
+def _flat_ix(ix) -> list:
+    """The row indices in the order of the kernel's CurvIdx struct
+    (csrc/stage_curv.cu); -1 where a row does not exist."""
+    get = lambda k: ix.get(k, -1)
+
+    def dist(nm, a):
+        return [get(f"{nm}_{d}_{a}") for d in (1, 2, 3)]
+
+    def rfw(side, a):
+        return [t for d in (1, 2, 3) for t in ix[f"rfw{d}_{side}_{a}"]]
+
+    def fh(a):
+        return [t for d in (1, 2, 3) for t in ix[f"fh{d}_{a}"]]
+
+    out = list(ix["recon1"]) + [ix["upd1_face"], ix["upd1_facep"], ix["upd1_iv"], ix["idx1"]]
+    out += [ix[f"upd{d}_t1"] for d in (1, 2, 3)] + fh(1)
+    out += list(ix["hv_1"]) + list(ix["conn1"]) + list(ix["vrot_1"]) + list(ix["invw_1"])
+    out += rfw("lo", 1) + rfw("hi", 1)
+    out += list(ix["phihat_1"]) + list(ix["rhat_1"]) + list(ix["zhat_1"])
+    out += [ix["rcyl_1"], ix["zc_1"], get("gx_1")] + dist("d1", 1) + dist("d2", 1)
+
+    out += list(ix["recon2"]) + [ix["upd2_face"], ix["upd2_facep"], ix["upd2_iv"], ix["idx2"]]
+    out += [ix["upd1_t2"], -1, ix["upd3_t2"]] + fh(2)
+    out += list(ix["hv_2"]) + [ix["conn2"]] + list(ix["vrot_2"]) + list(ix["invw_2"])
+    out += rfw("lo", 2) + rfw("hi", 2)
+    out += list(ix["phihat_2"]) + list(ix["rhat_2"]) + list(ix["zhat_2"])
+    out += [ix["rcyl_2"], ix["zc_2"], get("gy_2")] + dist("d1", 2) + dist("d2", 2)
+
+    out += list(ix["recon3"]) + [ix["upd3_face"], ix["upd3_facep"], ix["upd3_iv"], ix["idx3"]]
+    out += [ix["upd1_t3"], ix["upd2_t3"], -1]
+    out += [ix["inv_dx3"], ix["zc_3"], get("gz_3")] + dist("d1", 3) + dist("d2", 3)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# gates and halo strips
+# ---------------------------------------------------------------------------
+
+def supported_curv(grid, cfg) -> bool:
+    """Is the config inside the curvilinear stage kernel's envelope?  (The
+    TPU's ny%TY, nz%TZ and 128-lane rules were Mosaic alignment rules; this
+    kernel masks ragged edges instead.)  Cartesian grids are admitted too:
+    the Driver only routes them here when the source-free Cartesian kernel
+    does not apply."""
+    return (cfg is not None and cfg.fluid == "gas" and cfg.nspecies == 1
+            and cfg.rsolver in ("hllc", "hlle") and cfg.recon in ("plm", "pcm")
+            and grid.nghost == 2 and grid.nx[0] > 1 and grid.nx[1] > 1)
+
+
+def gather_supported(grid, cfg, bc_custom) -> bool:
+    """Gate for the in-kernel halo gather: the disk boundary layout (x1/x2
+    = ic custom fills with value caches, x3 periodic), 3-D."""
+    if not supported_curv(grid, cfg):
+        return False
+    if grid.nx[2] <= 1 or grid.bc[2] != ("periodic", "periodic"):
+        return False
+    if any(grid.bc[d] != ("ic", "ic") for d in (0, 1)):
+        return False
+    ic = bc_custom.get("ic") if bc_custom else None
+    caches = getattr(ic, "shard_caches", None)
+    if not caches:
+        return False
+    return all(k in caches[0] for k in ((1, 0), (1, 1), (2, 0), (2, 1)))
+
+
+def prepare_gather_strips(grid, ic_caches):
+    """The halo strips of the gather kernel from the ic BC value caches
+    (make_ic_bc's shard_caches[0]), numpy: x1 lo/hi ghost slabs over the
+    padded y and z extents [6, zp, yp, ng], and x2 lo/hi ghost slabs over the
+    padded z extent and the interior x range [6, zp, ng, nx]."""
+    ng = grid.nghost
+    nx = grid.nx[0]
+    out = {}
+    for side in (0, 1):
+        out[("x1", side)] = np.ascontiguousarray(np.asarray(ic_caches[(1, side)])[0])
+        out[("x2", side)] = np.ascontiguousarray(
+            np.asarray(ic_caches[(2, side)])[0][:, :, :, ng:ng + nx])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the stage
+# ---------------------------------------------------------------------------
+
+_GRAV_MODES = {"sph": 0, "cart": 1, "xyz": 2}
+_DIFF_CODES = {"viscosity_plaw": 0, "viscosity_alpha": 1, "conductivity_plaw": 2,
+               "thermaldiff_plaw": 3}
+
+
+def _diff_reals(dp, gamma):
+    """The kernel's six coefficients of a diffusion model (CurvReals)."""
+    kind, _, a, b, c, d, e, f = _dp_tuple(dp)
+    if kind == "viscosity_plaw":
+        return [a, b, c, 1.0 / d, 0.0, 0.0]
+    if kind == "viscosity_alpha":
+        return [a * gamma * (gamma - 1.0), b, 1.0 / (c * c), 1.0 / d, 0.0, 0.0]
+    return [a, 0.0, c, d, 1.0 / e, 1.0 / f]
+
+
+class CurvStage:
+    """One driver's curvilinear stage, made once: the coefficient rows on
+    the run's device in its dtype, the halo strips for the gather variant
+    (``strips``, numpy from ``prepare_gather_strips``, or None), the
+    boundary fills for the padded variant, and what the kernel folds in:
+    the rotation velocity ``omf`` of the flux sources, the curvilinear
+    ``rotating`` frame torque, a central point-mass ``gravity`` source with
+    its mode (sph, cart or xyz; see ``driver.curv_point_grav``) and the
+    ``diffusion`` passes.  ``full=False`` stops after the flux sources."""
+
+    def __init__(self, hyd, *, omf=0.0, rotating=None, gravity=None, gmode=None,
+                 diffusion=None, full=True, strips=None, bc_custom=None):
+        grid, cfg = hyd.grid, hyd.gas
+        if not supported_curv(grid, cfg):
+            raise ValueError("config outside the curvilinear stage kernel's envelope")
+        if (gravity is None) != (gmode is None):
+            raise ValueError("a folded gravity source needs its mode, and only then")
+        self.hyd, self.grid, self.cfg = hyd, grid, cfg
+        self.omf = omf
+        self.rotating, self.gravity, self.gmode = rotating, gravity, gmode
+        self.diffusion = diffusion
+        self.full = full
+        self.bc_custom = bc_custom or {}
+        self.coeffs = CurvCoeffs(grid, omf, dtype=np.float64, diff=diffusion)
+        CX, CY, CZ, ix = self.coeffs.pack()
+
+        def dev(a):
+            return torch.as_tensor(np.array(a), dtype=hyd.dtype,
+                                   device=hyd.device)
+
+        self.rows = (dev(CX), dev(CY), dev(CZ))
+        self.strips = None if strips is None else {k: dev(v) for k, v in strips.items()}
+        nx, ny, nz = grid.nx
+        g1, g2, g3 = grid.ng
+        co = self.coeffs
+        visc = diffusion.visc if diffusion is not None else None
+        cond = diffusion.cond if diffusion is not None else None
+        self._ints_head = [nx, ny, nz, g1, g2, g3, CX.shape[1], CY.shape[1], CZ.shape[1]]
+        self._ints_tail = [
+            int(cfg.rsolver == "hlle"), int(co.x1dep), int(co.x2dep),
+            int(any(np.any(f1 != 0) for f1, _ in co.vrot)),
+            -1 if gmode is None else _GRAV_MODES[gmode],
+            -1 if visc is None else _DIFF_CODES[visc.kind],
+            int(visc is not None and visc.avg == "harmonic"),
+            -1 if cond is None else _DIFF_CODES[cond.kind],
+            int(cond is not None and cond.avg == "harmonic"),
+        ] + _flat_ix(ix)
+        rf_omega = rotating.omega if rotating is not None else 0.0
+        grav = ([gravity.gm, gravity.soft2, *gravity.pos] if gravity is not None
+                else [0.0] * 5)
+        self._reals_mid = [cfg.gamma, cfg.cv, cfg.dfloor, cfg.siefloor, cfg.de_switch,
+                           rf_omega] + grav
+        self._reals_tail = ((_diff_reals(visc, cfg.gamma) if visc else [0.0] * 6)
+                            + (_diff_reals(cond, cfg.gamma) if cond else [0.0] * 6)
+                            + [1e-30 if hyd.dtype == torch.float32 else 1e-300])
+
+    def dtden_blocks(self) -> int:
+        """Entries of the kernel's dtden output (one per CUDA block)."""
+        nx, ny, nz = self.grid.nx
+        return -(-(nx * ny * nz) // BLOCK)
+
+
+def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm):
+    """The plain version: the composable sequence pad_and_fill ->
+    compute_fluxes -> apply_update -> flux_source(omf) -> Diffusion
+    fluxes/update -> Gravity point kick -> RotatingFrame torque, then (full)
+    set_auxiliary -> C2P -> P2C and the CFL denominator maximum with the
+    diffusive limit.  Returns (u, w, dtden) with dtden of shape (1,)
+    (zero in partial mode, where w passes through)."""
+    hyd, cfg = cs.hyd, cs.cfg
+    bdt = beta * dt
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    fx = hyd.compute_fluxes(w_pad, cfg, force_pcm)
+    u = hyd.apply_update(u0, u1, fx, gam0, gam1, bdt)
+    u = hyd.flux_source(u, w, fx, bdt, omf=cs.omf)
+    if cs.diffusion is not None:
+        u = cs.diffusion.update(u, w, cs.diffusion.fluxes(w_pad), bdt)
+    st = {"gas": {"u": u, "w": w}}
+    for src in (cs.gravity, cs.rotating):
+        if src is not None:
+            st = src.apply(st, {"gas": fx}, time, bdt, hyd)
+    u = st["gas"]["u"]
+    if not cs.full:
+        return u, w, torch.zeros(1, dtype=u.dtype, device=u.device)
+    u = hyd.set_auxiliary(u, cfg)
+    u, w = hyd.prim_to_cons(hyd.cons_to_prim(u, cfg), cfg)
+    den = torch.amax(hyd.dt_denominator(w, cfg))
+    if cs.diffusion is not None:
+        den = torch.maximum(den, 1.0 / cs.diffusion.estimate_dt(w))
+    return u, w, den.reshape(1)
+
+
+def stage_curv(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
+               padded=False):
+    """One fused curvilinear RK stage from interior prims ``w`` [1, 6, nz,
+    ny, nx] and the registers u0, u1; ``dt`` is a one-element tensor on w's
+    device, ``time`` the stage's host time (the gravity window).  On the GPU
+    the halo is gathered in-kernel when ``cs`` has strips (unless
+    ``padded``), else read from ``bc.pad_and_fill``'s array.  Returns (u,
+    w, dtden); on the GPU dtden holds one maximum per block (full mode)."""
+    if w.device.type == "cpu":
+        return stage_curv_reference(cs, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm)
+    if w.device.type != "cuda":
+        raise RuntimeError(f"no curvilinear stage kernel for device {w.device}")
+    if cs.strips is not None and not padded:
+        return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, gather=True)
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    return _launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, gather=False)
+
+
+def build_defines(dtype):
+    """The macro that builds the kernel's library for one dtype only (the
+    float32 and float64 builds run in parallel, each half as long)."""
+    return (f"ARTEMIS_CURV_DTYPE={0 if dtype == torch.float32 else 1}",)
+
+
+def _lib(dtype):
+    from .. import _build
+
+    fn = _build.load("stage_curv", build_defines(dtype)).artemis_stage_curv
+    if fn.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.restype = i
+        fn.argtypes = [i, i, i, p, p, p, i, p]
+    return fn
+
+
+def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, gather):
+    """Launch the kernel on primitives ``src`` (the interior ``w`` itself
+    when ``gather``, else the padded array)."""
+    global stage_curv_launches
+    grid = cs.grid
+    nx, ny, nz = grid.nx
+    g1, g2, g3 = grid.ng
+    shape = (1, 6, nz, ny, nx)
+    src_shape = shape if gather else (1, 6, nz + 2 * g3, ny + 2 * g2, nx + 2 * g1)
+    dtype = src.dtype
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"stage_curv kernel takes float32 or float64, not {dtype}")
+    if tuple(src.shape) != src_shape:
+        raise ValueError(f"prims of shape {tuple(src.shape)}, expected {src_shape}")
+    live = [t for t, g in ((u0, gam0), (u1, gam1)) if g != 0.0]
+    for t in live:
+        if tuple(t.shape) != shape:
+            raise ValueError(f"register of shape {tuple(t.shape)}, expected {shape}")
+    strips = list(cs.strips.values()) if gather else []
+    for t in [src, dt, *live, *cs.rows, *strips]:
+        if t.device != src.device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError("stage_curv kernel inputs must be contiguous tensors of "
+                             "one dtype on one device")
+    if dt.numel() != 1:
+        raise ValueError("dt must be a one-element tensor")
+    fn = _lib(dtype)
+    u = torch.empty(shape, dtype=dtype, device=src.device)
+    w_out = torch.empty(shape, dtype=dtype, device=src.device) if cs.full else None
+    dmax = (torch.empty((cs.dtden_blocks(),), dtype=dtype, device=src.device)
+            if cs.full else None)
+    pcm = int(force_pcm or cs.cfg.recon == "pcm")
+    ints = cs._ints_head + [pcm] + cs._ints_tail
+    ints = [len(ints) + 1] + ints
+    gfac = 1.0 if cs.gravity is None or cs.gravity.active(time) else 0.0
+    reals = [float(gam0), float(gam1), float(beta)] + cs._reals_mid + [gfac] + cs._reals_tail
+    reals = [float(len(reals) + 1)] + reals
+    ptr = lambda t: None if t is None else t.data_ptr()
+    s = cs.strips if gather else {}
+    ptrs = [src.data_ptr(), ptr(u0) if gam0 != 0.0 else None,
+            ptr(u1) if gam1 != 0.0 else None, dt.data_ptr(), u.data_ptr(),
+            ptr(w_out), ptr(dmax), *(t.data_ptr() for t in cs.rows),
+            ptr(s.get(("x1", 0))), ptr(s.get(("x1", 1))),
+            ptr(s.get(("x2", 0))), ptr(s.get(("x2", 1)))]
+    c_ints = (ctypes.c_int * len(ints))(*ints)
+    c_reals = (ctypes.c_double * len(reals))(*reals)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    with torch.cuda.device(src.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(0 if dtype == torch.float32 else 1, int(gather), int(cs.full),
+                 c_ints, c_reals, c_ptrs, BLOCK, stream)
+    if err != 0:
+        raise RuntimeError(f"stage_curv kernel launch failed: CUDA error {err}")
+    stage_curv_launches += 1
+    if not cs.full:
+        return u, w, torch.zeros(1, dtype=dtype, device=src.device)
+    return u, w_out, dmax

@@ -1,6 +1,6 @@
 """Problem generators (reference: src/pgen/pgen.hpp name dispatch; port of
-``artemis_tpu/pgen/__init__.py``).  Only the linear-wave problem is ported
-so far; the others raise and name the ROADMAP item that brings them."""
+``artemis_tpu/pgen/__init__.py``).  The linear-wave and disk problems are
+ported so far; the others raise and name the ROADMAP item that brings them."""
 
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ from typing import Callable, Dict, List, Optional
 
 # problem name -> ROADMAP Queue 1 item that ports it
 _NOT_PORTED = {
-    "disk": 6, "strat": 6, "ssheet": 6,
+    "strat": 6, "ssheet": 6,
     "advection": 7, "constant": 7, "blast": 7, "gaussian_bump": 7,
     "conduction": 7, "shock": 7, "thermalization": 7,
 }
@@ -33,6 +33,9 @@ def build_problem(name: str, pin, grid, gas_cfg=None, dust_cfg=None) -> Problem:
     if name in ("linear_wave", "linear_wave1d"):
         from . import linear_wave
         return linear_wave.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "disk":
+        from . import disk
+        return disk.build(pin, grid, gas_cfg, dust_cfg)
     if name in _NOT_PORTED:
         raise NotImplementedError(f"problem {name!r} is not ported yet "
                                   f"(ROADMAP Queue 1 item {_NOT_PORTED[name]})")

@@ -2,7 +2,8 @@
 + src/main.cpp LaunchWorkFlow; port of ``artemis_tpu/simulation.py`` for
 single-level gas hydro on one device).
 
-Reads the input deck, builds the problem generator and the driver on the
+Reads the input deck, builds the problem generator, the source packages
+(gravity, rotating frame, viscosity/conduction) and the driver on the
 requested device, and runs the evolution loop.  Physics the port does not
 carry yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
@@ -20,12 +21,12 @@ from .eos import eos_from_input
 from .grid import grid_from_input
 from .ops.hydro import FluidCfg
 from .pgen import build_problem
+from .sources import Gravity, sources_from_input
 from .units import Constants, Units
 
 # <physics> switch -> ROADMAP Queue 1 item that ports it
 _NOT_PORTED = {
-    "dust": 7, "gravity": 6, "rotating_frame": 6, "cooling": 6, "drag": 6,
-    "viscosity": 6, "conduction": 6, "nbody": 8, "radiation": 9,
+    "dust": 7, "cooling": 6, "drag": 6, "nbody": 8, "radiation": 9,
 }
 
 
@@ -113,13 +114,39 @@ class Simulation:
         # problem generator (may reset tlim etc.)
         problem_name = pin.get_str("artemis", "problem")
         self.problem = build_problem(problem_name, pin, self.grid, gas_cfg, None)
-        if self.problem.sources:
-            raise NotImplementedError("problem-defined sources are not ported yet "
-                                      "(ROADMAP Queue 1 item 6)")
+
+        # physics source packages (artemis.cpp:63-164 wiring order)
+        omf = 0.0
+        if pin.get_or_add_bool("physics", "rotating_frame", False):
+            omf = pin.get_or_add_real("rotating_frame", "omega", 0.0)
+        srcs = sources_from_input(pin, self.grid, gas_cfg, None, self.constants)
+        srcs += list(self.problem.sources)
+        for s in srcs:
+            # binary-orbit gravity solves its orbit in the rotating frame
+            if isinstance(s, Gravity) and s.gtype == "binary":
+                s.omf = omf
+
+        # diffusion (viscosity / conduction) — gas only (gas.cpp:180-198)
+        diffusion_factory = None
+        do_visc = pin.get_or_add_bool("physics", "viscosity", False)
+        do_cond = pin.get_or_add_bool("physics", "conduction", False)
+        if (do_visc or do_cond) and gas_cfg is not None:
+            from .ops.diffusion import DiffParams, Diffusion
+
+            gm = None
+            for s in srcs:
+                if hasattr(s, "gm"):
+                    gm = s.gm
+            visc = (DiffParams.from_input("gas/viscosity", "viscosity", pin, gm)
+                    if do_visc else None)
+            cond = (DiffParams.from_input("gas/conductivity", "conductivity", pin, gm)
+                    if do_cond else None)
+            diffusion_factory = lambda hyd: Diffusion(hyd.grid, hyd, gas_cfg, visc, cond)
 
         integrator = Integrator.make(pin.get_or_add_str("parthenon/time", "integrator", "rk2"))
-        self.driver = Driver(self.grid, integrator, gas_cfg, None,
-                             bc_custom=self.problem.bc_custom, device=self.device,
+        self.driver = Driver(self.grid, integrator, gas_cfg, None, sources=srcs,
+                             bc_custom=self.problem.bc_custom, omf=omf,
+                             diffusion=diffusion_factory, device=self.device,
                              dtype=self.dtype, fused_stage=fused_stage)
 
         state = {name: {"u": None, "w": torch.as_tensor(w, dtype=self.dtype, device=self.device)}
@@ -144,7 +171,7 @@ class Simulation:
             f"mesh {self.grid.nx[0]}x{self.grid.nx[1]}x{self.grid.nx[2]}"
             f"  nghost={self.grid.nghost}  tlim={self.tm.tlim:g}",
             f"device {self.device}  dtype {str(self.dtype).removeprefix('torch.')}"
-            f"  fused stage kernel: {'on' if self.driver._fused_stage else 'off'}",
+            f"  stage kernel: {self.driver.stage_kernel}",
         ]
         if self.gas_cfg:
             c = self.gas_cfg

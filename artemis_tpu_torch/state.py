@@ -2,7 +2,10 @@
 
 A state is ``{fluid: {"u": ..., "w": ..., ["dtden": ...]}}``.  The JAX
 package holds jax arrays, this package torch tensors; both convert through
-numpy, so a state made by one can be stepped by the other.
+numpy, every key included (the fused paths' per-block CFL denominators
+``dtden`` too), so a state made by one can be stepped by the other: the
+disk and linear-wave slice tests hand the JAX run's initial state to the
+port this way.
 """
 
 from __future__ import annotations

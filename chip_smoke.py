@@ -11,7 +11,9 @@ line is printed:
 1. toolchain: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi), torch's CUDA version, nvcc's version and
    whether triton imports;
-2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu`` with nvcc;
+2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu`` and
+   ``stage_curv.cu`` with nvcc, both at once, and prints ptxas's registers
+   and spills;
 3. kernel vs plain version on the card: the fused stage kernel against
    ``stage_reference`` over {periodic, outflow, reflecting} x {pcm, plm,
    ppm} x {float64 <= 1e-12, float32 <= 1e-5 abs} x {gam0 = 0, gam0 != 0}
@@ -25,14 +27,41 @@ line is printed:
    ``Simulation.run`` with the launch count reset before and read after,
    zone-cycles/s for the kernel path, the plain path and a float64 kernel
    run, the kernel's and the plain stage's time per launch, and the
-   kernel and plain end states compared after the same cycles.
+   kernel and plain end states compared after the same cycles;
+6. the curvilinear stage kernel against ``stage_curv_reference`` on the
+   card: the padded halo on spherical, cylindrical, axisymmetric and
+   Cartesian grids (random states, ragged 20x12x6) over {full, partial} x
+   {hllc, hlle} x {pcm, plm} x {float64 <= 1e-12, float32 <= 1e-5 abs} with
+   the diffusion, gravity and rotating-frame variants; the disk_sph layout
+   (ic strips) through both halo sources (<= 1e-12 / 1e-4: cells at the
+   density floor amplify the two versions' operation orders to ~150 ulps),
+   bitwise equal to each other, the dtden maximum included;
+7. disk_sph at bench.py's shape (256x64x64 float32, rk2 + plm + hlle,
+   alpha viscosity, point gravity, rotating frame): the main path through
+   ``Simulation.run`` on the gather kernel with the launch count reset
+   before and read after, zone-cycles/s through the kernel (50 cycles after
+   2 warm-up), through the plain path and in float64, the kernel's and the
+   plain stage's time per launch, the cycle's split between the kernel
+   and the host loop (and the device time by kernel under torch.profiler),
+   the density-weighted L2 deviation from the initial condition (<= 6e-3,
+   bench.py:100), and the kernel and plain end states compared after the
+   same cycles;
+8. disk_cyl and disk_axi at deck size in float64 for 5 cycles through the
+   padded kernel: L2 <= 6e-3 and two launches per cycle.
 
-The line before the last is a JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+Each kernel's bound is the larger of its compulsory HBM traffic per launch
+(every input read once, every output written once) over 3.35 TB/s and the
+floating-point operations of its plain version on the same inputs (aten
+add/sub/mul/div/pow/sqrt/rsqrt/reciprocal/exp/log elements, counted with a
+dispatch mode) over 67 TFLOP/s float32 (the H100 SXM data sheet).  The SM
+clock is printed beside the timings.  The line before the last is a JSON
+object describing each kernel; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import itertools
 import json
 import os
@@ -43,9 +72,14 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECK = os.path.join(HERE, "inputs", "linwave.in")
+DISK = {name: os.path.join(HERE, "inputs", f"{name}.in")
+        for name in ("disk_sph", "disk_cyl", "disk_axi")}
 DEVICE = "cuda"
 F64_TOL = 1e-12
 F32_TOL = 1e-5
+DISK_F32_TOL = 1e-4
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
 
 
 def check(cond, msg):
@@ -53,11 +87,18 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def smi_line():
-    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+def smi_line(query="name,power.limit"):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def smi_clocks():
+    """The card's SM clock (now and max), temperature and power draw: a
+    compute-bound kernel's time scales with the clock it ran at."""
+    return "clocks.sm, clocks.max.sm, temperature, power.draw: " + smi_line(
+        "clocks.sm,clocks.max.sm,temperature.gpu,power.draw")
 
 
 # -- phase 1 -------------------------------------------------------------
@@ -82,17 +123,66 @@ def phase_toolchain(torch):
 
 
 # -- phase 2 -------------------------------------------------------------
-def phase_build():
+def phase_build(torch):
+    """Build every kernel library, one nvcc per source and dtype variant,
+    all started together."""
     from artemis_tpu_torch import _build
+    from artemis_tpu_torch.ops import stage_curv as SC
 
+    builds = [("stage_cart", ())] + [("stage_curv", SC.build_defines(dt))
+                                     for dt in (torch.float32, torch.float64)]
     t0 = time.perf_counter()
-    _build.load("stage_cart")
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(_build.load, name, d) for name, d in builds]:
+            f.result()
     secs = time.perf_counter() - t0
-    print(f"build: stage_cart.cu in {secs:.1f} s")
-    for line in _build.build_log.get("stage_cart", (0, ""))[1].splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas: " + line.strip())
+    print(f"build: {len(builds)} nvcc runs in parallel, {secs:.1f} s")
+    for name, d in builds:
+        log = _build.build_log.get(_build.variant(name, d), (0.0, ""))
+        print(f"  {_build.variant(name, d)}: nvcc {log[0]:.1f} s")
+        for line in log[1].splitlines():
+            if "Compiling entry" in line or "Function properties" in line \
+                    or "registers" in line or "spill" in line:
+                print("    ptxas: " + line.strip())
     return secs
+
+
+# -- bounds ----------------------------------------------------------------
+# aten ops counted as one floating-point operation per output element
+FLOP_OPS = {"add", "sub", "rsub", "mul", "div", "pow", "sqrt", "rsqrt", "reciprocal",
+            "exp", "log"}
+
+
+def count_flops(torch, fn):
+    """Floating-point operations of ``fn()`` (a plain PyTorch version):
+    the output elements of every FLOP_OPS aten op it dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if (func.overloadpacket.__name__.rstrip("_") in FLOP_OPS
+                    and isinstance(out, torch.Tensor) and out.is_floating_point()):
+                Count.n += out.numel()
+            return out
+
+    with Count():
+        fn()
+    torch.cuda.synchronize()
+    return Count.n
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the HBM time and the float32
+    arithmetic time."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def tensor_bytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -244,7 +334,7 @@ def run_cycles(torch, sim, ncycles):
     check(status == "complete" and sim.tm.ncycle == sim.tm.nlim,
           f"run stopped at cycle {sim.tm.ncycle}, wanted {sim.tm.nlim}")
     secs = start.elapsed_time(end) / 1e3
-    return FLAGSHIP[0] * FLAGSHIP[1] * FLAGSHIP[2] * ncycles / secs
+    return sim.grid.nx[0] * sim.grid.nx[1] * sim.grid.nx[2] * ncycles / secs
 
 
 def time_launches(torch, fn, n):
@@ -300,6 +390,21 @@ def phase_flagship(torch, smi):
         res["plain_ms"] = time_launches(torch, plain, 4)
         print(f"flagship f32 per stage launch: kernel {res['ms']:.4f} ms, "
               f"plain {res['plain_ms']:.4f} ms [{smi}]")
+        print("  " + smi_clocks())
+        cycle_ms = 1e3 * FLAGSHIP[0] * FLAGSHIP[1] * FLAGSHIP[2] / res["kernel_zcps"]
+        print(f"flagship f32 cycle (unprofiled): {cycle_ms:.4f} ms, of which 2 kernel launches "
+              f"{2 * res['ms']:.4f} ms ({100 * (1 - 2 * res['ms'] / cycle_ms):.1f}% other)")
+        # the bound of the same two launches: stage 1 reads w and u1,
+        # stage 2 w, u0 and u1; both write u, w and the dtden blocks
+        nblk = -(-u[0, 0].numel() // S.BLOCK)
+        nbytes = (tensor_bytes(w, u1, w, u, u1)
+                  + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+        flops = sum(count_flops(torch, lambda g=g: S.stage_reference(
+            hyd, w, u, u1, *g, dt, False)) for g in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))) / 2
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+        print(f"flagship f32 stage bound: {nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP "
+              f"per launch (plain version's count) -> {res['bound_ms']:.4f} ms, "
+              f"{res['bound_by']}-bound")
         uk, wk, _ = S.stage(hyd, w, u, u1, 0.5, 0.5, 0.5, dt, False)
         ur, wr, _ = S.stage_reference(hyd, w, u, u1, 0.5, 0.5, 0.5, dt, False)
         err = max(float((uk - ur).abs().max()), float((wk - wr).abs().max()))
@@ -332,6 +437,14 @@ def phase_flagship(torch, smi):
         print(f"flagship f32 padded halo (outflow) per stage: kernel {res['padded_ms']:.4f} ms, "
               f"with ghost fill {res['padded_stage_ms']:.4f} ms, plain "
               f"{res['padded_plain_ms']:.4f} ms [{smi}]")
+        # its bound (stage 2: padded prims, u0 and u1 in; u, w, dtden out)
+        nblk = -(-u[0, 0].numel() // S.BLOCK)
+        res["padded_bound_ms"], res["padded_bound_by"] = bound(
+            tensor_bytes(w_pad, u, u1, u, w) + nblk * u.element_size(),
+            count_flops(torch, lambda: S.stage_reference(hyd, w, u, u1, 0.5, 0.5, 0.5, dt,
+                                                         False)))
+        print(f"flagship f32 padded halo bound: {res['padded_bound_ms']:.4f} ms, "
+              f"{res['padded_bound_by']}-bound")
         del hyd, u, w, u1, w_pad, uk, wk, ur, wr
         torch.cuda.empty_cache()
 
@@ -368,6 +481,369 @@ def phase_flagship(torch, smi):
     return res
 
 
+# -- phase 6 -------------------------------------------------------------
+CURV_MESHES = {
+    "cylindrical": "x1min=0.4 x1max=2.0 x2min=-3.14159 x2max=3.14159 x3min=-0.3 x3max=0.3",
+    "cartesian": "x1min=-2.0 x1max=2.0 x2min=-1.0 x2max=1.0 x3min=-0.25 x3max=0.25",
+    "spherical": "x1min=0.4 x1max=2.0 x2min=0.8 x2max=2.3 x3min=-3.14159 x3max=3.14159",
+    "axisymmetric": "x1min=0.4 x1max=2.0 x2min=-0.6 x2max=0.6 x3min=-3.14 x3max=3.14",
+}
+# coords -> (viscosity, conduction, gravity, rotating frame): the variants
+# each grid's padded-halo cases carry (Cartesian grids fold no diffusion)
+CURV_VARIANTS = {
+    "cylindrical": [("plaw", "cond", True, True), (None, None, False, False)],
+    "spherical": [("alpha", None, True, True), ("plaw_harm", "tdiff", False, False)],
+    "axisymmetric": [("alpha", None, True, True), (None, "tdiff", False, False)],
+    "cartesian": [(None, None, True, False)],
+}
+
+
+def diff_params():
+    from artemis_tpu_torch.ops.diffusion import DiffParams
+
+    visc = {"plaw": DiffParams(kind="viscosity_plaw", nu_s=2.0e-3, eta=0.2, r_exp=0.5),
+            "alpha": DiffParams(kind="viscosity_alpha", alpha=1.0e-3),
+            "plaw_harm": DiffParams(kind="viscosity_plaw", avg="harmonic", nu_s=2.0e-3,
+                                    eta=1.5)}
+    cond = {"cond": DiffParams(kind="conductivity_plaw", hcond_0=1.0e-3, temp_exp=0.5,
+                               rho_exp=0.3),
+            "tdiff": DiffParams(kind="thermaldiff_plaw", avg="harmonic", kappa_0=1.0e-3,
+                                temp_exp=0.4, T0=1.2)}
+    return visc, cond
+
+
+def curv_case(torch, coords, rsolver, recon, dtype, visc, cond, grav, rf, full):
+    """A CurvStage on a random smooth state (as tests/test_pallas_curv.py
+    makes it) on a ragged 20x12x6 grid (20x12 axisymmetric), outflow x1/x2,
+    periodic x3."""
+    import numpy as np
+
+    from artemis_tpu_torch.config import ParameterInput
+    from artemis_tpu_torch.driver import curv_point_grav
+    from artemis_tpu_torch.grid import grid_from_input
+    from artemis_tpu_torch.ops import stage_curv as SC
+    from artemis_tpu_torch.ops.diffusion import Diffusion
+    from artemis_tpu_torch.ops.hydro import FluidCfg, Hydro
+    from artemis_tpu_torch.sources import Gravity, RotatingFrame
+    from artemis_tpu_torch.units import Constants, Units
+
+    nx3 = 1 if coords == "axisymmetric" else 6
+    mesh = CURV_MESHES[coords].split() + ["nx1=20", "nx2=12", f"nx3={nx3}", "nghost=2"]
+    pin = ParameterInput.from_string(
+        f"<artemis>\ncoordinates = {coords}\n<parthenon/mesh>\n" + "\n".join(mesh)
+        + "\nix1_bc = outflow\nox1_bc = outflow\nix2_bc = outflow\nox2_bc = outflow\n"
+        "ix3_bc = periodic\nox3_bc = periodic\n<rotating_frame>\nomega = 1.0\n"
+        "<gravity/point>\nmass = 1.0\nsoft = 0.05\n"
+        + ("x = 0.3\ny = -0.2\nz = 0.1\n" if coords == "cartesian" else ""))
+    grid = grid_from_input(pin)
+    cfg = FluidCfg(fluid="gas", recon=recon, rsolver=rsolver, gamma=1.4, cfl=0.3)
+    hyd = Hydro(grid, cfg, device=DEVICE, dtype=dtype)
+    nz, ny, nx = tuple(reversed(grid.nx))
+    rng = np.random.default_rng(2)
+    w = np.empty((1, 6, nz, ny, nx))
+    w[:, 0] = 1 + 0.2 * rng.random((nz, ny, nx))
+    w[:, 1:4] = 0.3 * (rng.random((1, 3, nz, ny, nx)) - 0.5)
+    w[:, 5] = 1 + 0.2 * rng.random((nz, ny, nx))
+    w[:, 4] = 0.4 * w[:, 0] * w[:, 5]
+    u, w = hyd.prim_to_cons(torch.as_tensor(w, dtype=dtype, device=DEVICE), cfg)
+    gsrc = Gravity(pin, grid, Constants.from_units(Units.from_input(pin))).place(DEVICE, dtype)
+    vp, cp = diff_params()
+    diff = (Diffusion(grid, hyd, cfg, vp.get(visc), cp.get(cond))
+            if visc or cond else None)
+    cs = SC.CurvStage(hyd, omf=1.0 if rf else 0.0,
+                      rotating=RotatingFrame(pin, grid).place(DEVICE, dtype) if rf else None,
+                      gravity=gsrc if grav else None,
+                      gmode=curv_point_grav(grid, gsrc) if grav else None,
+                      diffusion=diff, full=full)
+    return cs, w, u
+
+
+def disk_setup(torch, dtype, nx, data, fused=True, extra=()):
+    """disk_sph through the user entry point at ``nx``."""
+    from artemis_tpu_torch import Simulation
+
+    args = [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
+            f"parthenon/mesh/nx3={nx[2]}", f"artemis/precision={dtype}", *extra]
+    return Simulation(DISK["disk_sph"], args, data, device=DEVICE, fused_stage=fused)
+
+
+def compare_curv(torch, cs, w, u, tol, padded=False):
+    """Kernel vs plain version for both RK register patterns; returns the
+    worst abs error and the kernel's outputs of the second pattern."""
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    dt = torch.full((), 2e-3, dtype=u.dtype, device=DEVICE)
+    worst, out = 0.0, None
+    for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+        out = SC.stage_curv(cs, w, u, u.clone(), gam0, gam1, beta, dt, 0.0, False,
+                            padded=padded)
+        torch.cuda.synchronize()
+        ur, wr, dr = SC.stage_curv_reference(cs, w, u, u.clone(), gam0, gam1, beta, dt,
+                                             0.0, False)
+        err = max(float((out[0] - ur).abs().max()), float((out[1] - wr).abs().max()))
+        derr = float((out[2].max() - dr.max()).abs() / dr.max()) if cs.full else 0.0
+        check(err <= tol and derr <= tol and bool(torch.isfinite(out[0]).all()),
+              f"stage_curv kernel vs plain ({cs.grid.coords}, padded={padded}, "
+              f"full={cs.full}, gam0={gam0}): max abs {err:.3e}, dtden rel {derr:.3e} "
+              f"> {tol:g}")
+        worst = max(worst, err)
+    return worst, out
+
+
+def phase_curv_compare(torch):
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    ncase = 0
+    for coords, variants in CURV_VARIANTS.items():
+        for visc, cond, grav, rf in variants:
+            for scheme in ("hllc-plm", "hlle-plm", "hllc-pcm", "hlle-pcm"):
+                rsolver, recon = scheme.split("-")
+                for full in (True, False):
+                    for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+                        cs, w, u = curv_case(torch, coords, rsolver, recon, dtype, visc,
+                                             cond, grav, rf, full)
+                        err, _ = compare_curv(torch, cs, w, u, tol, padded=True)
+                        worst[dtype] = max(worst[dtype], err)
+                        ncase += 2
+    print(f"curv compare: {ncase} padded-halo kernel-vs-plain cases pass; max abs err "
+          f"f64 {worst[torch.float64]:.3e} (tol {F64_TOL:g}), "
+          f"f32 {worst[torch.float32]:.3e} (tol {F32_TOL:g})")
+    # the disk layout: gather and padded halo sources, bitwise equal
+    from artemis_tpu_torch.driver import curv_point_grav
+    from artemis_tpu_torch.ops import stage_curv as SC
+    from artemis_tpu_torch.sources import Gravity, RotatingFrame
+
+    disk_worst = {}
+    with tempfile.TemporaryDirectory() as data:
+        for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, DISK_F32_TOL)):
+            for full in (True, False):
+                for scheme in ("hlle-plm", "hllc-plm", "hlle-pcm", "hllc-pcm"):
+                    rsolver, recon = scheme.split("-")
+                    sim = disk_setup(torch, str(dtype).removeprefix("torch."), (20, 12, 6),
+                                     data, fused=False,
+                                     extra=["parthenon/mesh/x1min=0.4", "parthenon/mesh/x1max=2.4",
+                                            f"gas/riemann={rsolver}",
+                                            f"gas/reconstruct={recon}"])
+                    d = sim.driver
+                    grav = [s_ for s_ in d.sources if isinstance(s_, Gravity)][0]
+                    rf = [s_ for s_ in d.sources if isinstance(s_, RotatingFrame)][0]
+                    strips = SC.prepare_gather_strips(sim.grid,
+                                                      d.bc_custom["ic"].shard_caches[0])
+                    cs = SC.CurvStage(d.hydro, omf=d.omf, rotating=rf, gravity=grav,
+                                      gmode=curv_point_grav(sim.grid, grav),
+                                      diffusion=d.diffusion, full=full, strips=strips,
+                                      bc_custom=d.bc_custom)
+                    w, u = sim.state["gas"]["w"], sim.state["gas"]["u"]
+                    eg, og = compare_curv(torch, cs, w, u, tol)
+                    ep, op = compare_curv(torch, cs, w, u, tol, padded=True)
+                    same = all(torch.equal(a, b) for a, b in zip(og, op) if a.numel() > 1)
+                    check(same, f"disk layout {dtype} full={full} {scheme}: gather and "
+                                "padded halo sources differ")
+                    disk_worst[dtype] = max(disk_worst.get(dtype, 0.0), eg, ep)
+                    ncase += 4
+    print(f"curv compare: disk_sph layout, gather == padded bitwise; max abs err f64 "
+          f"{disk_worst[torch.float64]:.3e} (tol {F64_TOL:g}), f32 "
+          f"{disk_worst[torch.float32]:.3e} (tol {DISK_F32_TOL:g}); {ncase} cases in all")
+    return worst[torch.float64], worst[torch.float32], disk_worst[torch.float32]
+
+
+# -- phase 7 -------------------------------------------------------------
+DISK_BENCH = (256, 64, 64)
+
+
+def l2_vs_ic(torch, sim):
+    import numpy as np
+
+    d0 = np.asarray(sim.problem.prims["gas"][0][0], dtype=np.float64)
+    d = sim.state["gas"]["w"][0, 0].double().cpu().numpy()
+    return float(np.sqrt((d0 * (d - d0) ** 2).sum()) / d0.sum())
+
+
+def profile_cycles(torch, sim, ncycles):
+    """Device busy time per cycle by kernel over ``ncycles`` of the
+    evolution loop under torch.profiler; None when it records no device
+    time.  The profiler slows the host, so the idle share comes from the
+    unprofiled cycle time instead (``idle_share``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from artemis_tpu_torch.driver import evolve
+
+    sim.tm.nlim = sim.tm.ncycle + ncycles
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.state, sim.tm, _, _ = evolve(sim.driver, sim.state, sim.tm)
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / ncycles
+    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / ncycles)
+            for e in prof.key_averages()]
+    rows = sorted([r for r in rows if r[1] > 0], key=lambda r: -r[1])
+    if not rows:
+        print("profile: no device time recorded (not measured)")
+        return None
+    busy = sum(t for _, t in rows)
+    print(f"profile ({ncycles} cycles under torch.profiler, whose own host cost "
+          f"stretches the cycle to {wall_ms:.3f} ms): device busy {busy:.3f} ms per cycle; "
+          "by kernel per cycle:")
+    for key, t in rows[:5]:
+        print(f"    {t:.4f} ms  {key[:100]}")
+    return {"cycle_ms": wall_ms, "busy_ms": busy, "top": rows[:5]}
+
+
+def phase_disk(torch, smi):
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        # the main path: 2 warm-up + 50 timed cycles, counting launches
+        sim = disk_setup(torch, "float32", DISK_BENCH, data)
+        check(sim.driver.stage_kernel == "stage_curv (gather)",
+              f"disk_sph took {sim.driver.stage_kernel}, not the gather kernel")
+        SC.stage_curv_launches = 0
+        warm_up(sim, 2)
+        res["kernel_zcps"] = run_cycles(torch, sim, 50)
+        launches = SC.stage_curv_launches
+        check(launches == 2 * sim.tm.ncycle,
+              f"disk_sph: {launches} launches for {sim.tm.ncycle} rk2 cycles")
+        res["launches"] = launches
+        res["l2"] = l2_vs_ic(torch, sim)
+        u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
+        check(bool(torch.isfinite(u).all()) and bool(torch.isfinite(w).all())
+              and res["l2"] <= 6e-3,
+              f"disk_sph f32 after {sim.tm.ncycle} cycles: L2 vs IC {res['l2']:.3e} > 6e-3 "
+              "or not finite")
+        print(f"disk_sph f32 kernel path: 50 cycles, {res['kernel_zcps']:.6e} zone-cycles/s, "
+              f"{launches} launches for {sim.tm.ncycle} cycles, dt {sim.tm.dt:.6e}, "
+              f"L2 vs IC {res['l2']:.3e} (gate 6e-3) [{smi}]")
+
+        # per-launch kernel and plain stage times on this state
+        cs = sim.driver._curv
+        u1 = u.clone()
+        dt = torch.full((), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+        time_now = sim.tm.time
+        calls = itertools.cycle([(0.0, 1.0, 1.0), (0.5, 0.5, 0.5)])  # rk2 stages 1, 2
+
+        def kern():
+            g0, g1, b = next(calls)
+            return SC.stage_curv(cs, w, u, u1, g0, g1, b, dt, time_now, False)
+
+        def plain():
+            g0, g1, b = next(calls)
+            return SC.stage_curv_reference(cs, w, u, u1, g0, g1, b, dt, time_now, False)
+
+        res["ms"] = time_launches(torch, kern, 20)
+        res["plain_ms"] = time_launches(torch, plain, 4)
+        print(f"disk_sph f32 per stage launch: kernel {res['ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms [{smi}]")
+        print("  " + smi_clocks())
+        res["profile"] = profile_cycles(torch, sim, 3)
+        cycle_ms = 1e3 * DISK_BENCH[0] * DISK_BENCH[1] * DISK_BENCH[2] / res["kernel_zcps"]
+        res["idle_share"] = 1.0 - 2 * res["ms"] / cycle_ms
+        print(f"disk_sph f32 cycle (unprofiled): {cycle_ms:.4f} ms, of which 2 kernel launches "
+              f"{2 * res['ms']:.4f} ms; the rest, {100 * res['idle_share']:.1f}%, is the device "
+              "waiting on the host loop (dt read-back and the next launches)")
+        nblk = cs.dtden_blocks()
+        strips = tensor_bytes(*cs.strips.values(), *cs.rows)
+        nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * strips
+                  + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+        flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
+            cs, w, u, u1, *g, dt, time_now, False)) for g in ((0.0, 1.0, 1.0),
+                                                               (0.5, 0.5, 0.5))) / 2
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+        print(f"disk_sph f32 stage bound: {nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP "
+              f"per launch (plain version's count) -> {res['bound_ms']:.4f} ms, "
+              f"{res['bound_by']}-bound")
+        # the padded-halo variant (the K4 path) on the same state: the
+        # kernel alone on the padded prims, and with the disk's ghost fill
+        from artemis_tpu_torch import bc as bc_mod
+
+        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+        res["padded_ms"] = time_launches(torch, lambda: SC._launch(
+            cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, gather=False), 20)
+        res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
+            cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, padded=True), 20)
+        res["padded_bound_ms"], res["padded_bound_by"] = bound(
+            tensor_bytes(w_pad, u, u1, u, w, *cs.rows) + nblk * u.element_size(),
+            count_flops(torch, lambda: SC.stage_curv_reference(
+                cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False)))
+        print(f"disk_sph f32 padded halo per stage: kernel {res['padded_ms']:.4f} ms, with the "
+              f"ic ghost fill {res['padded_stage_ms']:.4f} ms; bound "
+              f"{res['padded_bound_ms']:.4f} ms, {res['padded_bound_by']}-bound [{smi}]")
+        uk, wk, _ = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False)
+        ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False)
+        res["stage_err"] = max(float((uk - ur).abs().max()), float((wk - wr).abs().max()))
+        check(res["stage_err"] <= DISK_F32_TOL,
+              f"disk_sph stage kernel vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
+        del sim, cs, u, w, u1, w_pad, uk, wk, ur, wr
+        torch.cuda.empty_cache()
+
+        # the plain path through the same entry point, and the kernel path
+        # over the same cycles for an end-state comparison
+        plain_sim = disk_setup(torch, "float32", DISK_BENCH, data, fused=False)
+        check(plain_sim.driver.stage_kernel == "none", "plain disk run took a kernel")
+        warm_up(plain_sim, 1)
+        res["plain_zcps"] = run_cycles(torch, plain_sim, 3)
+        print(f"disk_sph f32 plain path: 3 cycles, {res['plain_zcps']:.6e} zone-cycles/s "
+              f"[{smi}]")
+        ksim = disk_setup(torch, "float32", DISK_BENCH, data)
+        warm_up(ksim, 4)
+        # the two fold their sources in other orders and reduce dtden in
+        # other orders (dt differs in the 7th digit), so they part at float32
+        # rounding: held to 1e-4 of each field's scale, max(1, max |field|)
+        errs = []
+        for k_ in ("u", "w"):
+            a, b = ksim.state["gas"][k_], plain_sim.state["gas"][k_]
+            scale = b.abs().amax(dim=(0, 2, 3, 4)).clamp(min=1.0)
+            errs.append(float(((a - b).abs().amax(dim=(0, 2, 3, 4)) / scale).max()))
+        res["end_rel_err"] = max(errs)
+        check(abs(ksim.tm.time - plain_sim.tm.time) <= 1e-5 * plain_sim.tm.time
+              and res["end_rel_err"] <= 1e-4,
+              f"disk_sph 4-cycle kernel vs plain: t {ksim.tm.time} vs {plain_sim.tm.time}, "
+              f"max |diff| / max(1, field max) {res['end_rel_err']:.3e} > 1e-4")
+        print(f"disk_sph f32 after 4 cycles: kernel vs plain max |diff| / max(1, field max) "
+              f"{res['end_rel_err']:.3e} (bound 1e-4), t {ksim.tm.time:.9e} vs "
+              f"{plain_sim.tm.time:.9e}")
+        del plain_sim, ksim
+        torch.cuda.empty_cache()
+
+        # one float64 kernel run
+        sim64 = disk_setup(torch, "float64", DISK_BENCH, data)
+        warm_up(sim64, 2)
+        res["kernel_f64_zcps"] = run_cycles(torch, sim64, 10)
+        check(bool(torch.isfinite(sim64.state["gas"]["u"]).all()), "f64 disk_sph not finite")
+        print(f"disk_sph f64 kernel path: 10 cycles, {res['kernel_f64_zcps']:.6e} "
+              f"zone-cycles/s, L2 vs IC {l2_vs_ic(torch, sim64):.3e} [{smi}]")
+        del sim64
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 8 -------------------------------------------------------------
+def phase_disk_decks(torch):
+    """disk_cyl (x1/x3 ic, x2 periodic) and disk_axi (2-D) at deck size,
+    float64, 5 cycles, through the padded kernel."""
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    out = {}
+    with tempfile.TemporaryDirectory() as data:
+        for name in ("disk_cyl", "disk_axi"):
+            sim = Simulation(DISK[name], ["parthenon/time/nlim=5"], data, device=DEVICE)
+            check(sim.driver.stage_kernel == "stage_curv (padded)",
+                  f"{name} took {sim.driver.stage_kernel}, not the padded kernel")
+            SC.stage_curv_launches = 0
+            sim.run()
+            torch.cuda.synchronize()
+            l2 = l2_vs_ic(torch, sim)
+            check(SC.stage_curv_launches == 2 * sim.tm.ncycle == 10 and l2 <= 6e-3
+                  and bool(torch.isfinite(sim.state["gas"]["u"]).all()),
+                  f"{name}: {SC.stage_curv_launches} launches for {sim.tm.ncycle} cycles, "
+                  f"L2 vs IC {l2:.3e} (gate 6e-3)")
+            print(f"{name} f64 {sim.grid.nx}: {sim.tm.ncycle} cycles, "
+                  f"{SC.stage_curv_launches} launches, L2 vs IC {l2:.3e}")
+            out[name] = l2
+    return out
+
+
 def main():
     import torch
 
@@ -377,10 +853,13 @@ def main():
         return 1
     sys.path.insert(0, HERE)
     smi = phase_toolchain(torch)
-    build_s = phase_build()
+    build_s = phase_build(torch)
     err64, err32 = phase_compare(torch)
     sym = phase_linwave(torch)
     res = phase_flagship(torch, smi)
+    cerr64, cerr32, cdisk32 = phase_curv_compare(torch)
+    disk = phase_disk(torch, smi)
+    decks = phase_disk_decks(torch)
     kernels = {"kernels": [{
         "name": "stage_cart",
         "route": "cuda",
@@ -394,9 +873,14 @@ def main():
         "tol_f64": F64_TOL,
         "ms": res["ms"],
         "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound_ms"],
+        "bound_by": res["bound_by"],
+        "library_ms": None,
         "padded_ms": res["padded_ms"],
         "padded_stage_ms": res["padded_stage_ms"],
         "padded_plain_ms": res["padded_plain_ms"],
+        "padded_bound_ms": res["padded_bound_ms"],
+        "padded_bound_by": res["padded_bound_by"],
         "shape": list(FLAGSHIP),
         "dtype": "float32",
         "build_s": build_s,
@@ -404,6 +888,36 @@ def main():
         "zone_cycles_per_s": {"kernel_f32": res["kernel_zcps"],
                               "plain_f32": res["plain_zcps"],
                               "kernel_f64": res["kernel_f64_zcps"]},
+    }, {
+        "name": "stage_curv",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/stage_curv.cu",
+        "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1405",
+        "also_replaces": "artemis_tpu/ops/pallas_stage_curv.py:604",
+        "launches": disk["launches"],
+        "max_abs_err": max(cerr32, disk["stage_err"]),
+        "max_abs_err_f64": cerr64,
+        "max_abs_err_disk_f32": max(cdisk32, disk["stage_err"]),
+        "tol_f32": F32_TOL,
+        "tol_disk_f32": DISK_F32_TOL,
+        "tol_f64": F64_TOL,
+        "ms": disk["ms"],
+        "plain_ms": disk["plain_ms"],
+        "bound_ms": disk["bound_ms"],
+        "bound_by": disk["bound_by"],
+        "library_ms": None,
+        "padded_ms": disk["padded_ms"],
+        "padded_stage_ms": disk["padded_stage_ms"],
+        "padded_bound_ms": disk["padded_bound_ms"],
+        "padded_bound_by": disk["padded_bound_by"],
+        "shape": list(DISK_BENCH),
+        "dtype": "float32",
+        "disk_l2_vs_ic": disk["l2"],
+        "disk_4cycle_rel_err": disk["end_rel_err"],
+        "deck_l2_vs_ic_f64": decks,
+        "zone_cycles_per_s": {"kernel_f32": disk["kernel_zcps"],
+                              "plain_f32": disk["plain_zcps"],
+                              "kernel_f64": disk["kernel_f64_zcps"]},
     }]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -4,8 +4,9 @@ its plain version, ``stage_reference``.
 Two ways, neither needing JAX:
 
 * on the CPU, the kernel's device code (everything above the source's
-  "CUDA-only below" line) is compiled as host C++ with g++ behind a few
-  macros, and a serial loop calls its per-cell function for every cell.
+  "CUDA-only below" line, with the shared ``stage_common.cuh``) is compiled
+  as host C++ with g++ behind a few macros, and a serial loop calls its
+  per-cell function for every cell.
   The real wrapper (``ops.stage._launch``) marshals the arguments, so the
   arithmetic, the stencil indexing, both halo sources and the C interface
   are all checked here, on every run;
@@ -36,7 +37,8 @@ from artemis_tpu_torch.ops import stage as S  # noqa: E402
 from artemis_tpu_torch.ops.hydro import FluidCfg, Hydro  # noqa: E402
 
 DECK = os.path.join(os.path.dirname(__file__), "..", "inputs", "linwave.in")
-SOURCE = os.path.join(os.path.dirname(S.__file__), "..", "csrc", "stage_cart.cu")
+CSRC = os.path.join(os.path.dirname(S.__file__), "..", "csrc")
+SOURCE = os.path.join(CSRC, "stage_cart.cu")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 SHAPES = [(48, 20, 12), (40, 24, 1)]  # ragged 3-D, 2-D
 
@@ -107,7 +109,8 @@ def host_kernel(tmp_path_factory):
     cpp, so = out / "stage_cart_host.cpp", out / "libstage_cart_host.so"
     cpp.write_text(HOST_SHIM + device_part + HOST_ENTRY)
     res = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-w", "-shared",
-                          "-fPIC", "-o", str(so), str(cpp)], capture_output=True, text=True)
+                          "-fPIC", "-I", CSRC, "-o", str(so), str(cpp)],
+                         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     fn = ctypes.CDLL(str(so)).artemis_stage_cart
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double

@@ -1,0 +1,560 @@
+"""The curvilinear stage: the port's plain version ``stage_curv_reference``
+against the JAX package's composable jnp sequences and its interpret-mode
+gather kernel, and the CUDA kernel ``csrc/stage_curv.cu`` against the plain
+version.
+
+* ``stage_curv_reference`` vs the jnp sequences that
+  ``tests/test_pallas_curv.py`` holds the TPU kernels to (full; full +
+  diffusion; full + point gravity; partial + rotating frame) at 1e-11 in
+  float64: the two make the same IEEE operations up to the order of the
+  folded sources;
+* one interpret-mode call of the JAX gather kernel (K3) on the disk_sph
+  layout with viscosity, gravity and the rotating frame vs the plain version
+  at 1e-10 (the kernel folds its sources in another order);
+* the kernel's device code (everything above the source's "CUDA-only
+  below" line, with ``stage_common.cuh``) compiled as host C++ with g++
+  behind a few macros, driven through the real wrapper (``_launch``), vs
+  the plain version at 1e-12 in float64 (1e-5 in float32) over {gather,
+  padded} x {full, partial} x {hllc, hlle} x {pcm, plm} and the diffusion,
+  gravity and rotating-frame variants, with the gather and padded halo
+  sources bitwise equal on the disk layout;
+* the ``cuda``-marked tests run the same checks on the card.  They skip
+  without a GPU; run them there with (``tests/conftest.py`` imports jax,
+  which the card's machine lacks; the JAX comparisons import it only
+  inside their tests)
+
+      python -m pytest tests/test_torch_stage_curv.py -m cuda --noconftest -q
+"""
+
+import contextlib
+import ctypes
+import os
+import shutil
+import subprocess
+import types
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(2)
+
+from artemis_tpu_torch import Simulation  # noqa: E402
+from artemis_tpu_torch.config import ParameterInput  # noqa: E402
+from artemis_tpu_torch.driver import curv_point_grav  # noqa: E402
+from artemis_tpu_torch.grid import grid_from_input  # noqa: E402
+from artemis_tpu_torch.ops import stage_curv as SC  # noqa: E402
+from artemis_tpu_torch.ops.diffusion import DiffParams, Diffusion  # noqa: E402
+from artemis_tpu_torch.ops.hydro import FluidCfg, Hydro  # noqa: E402
+from artemis_tpu_torch.sources import Gravity, RotatingFrame  # noqa: E402
+from artemis_tpu_torch.units import Constants, Units  # noqa: E402
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+DISK_SPH = os.path.join(HERE, "..", "inputs", "disk_sph.in")
+CSRC = os.path.join(os.path.dirname(SC.__file__), "..", "csrc")
+TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
+# the disk state: cells at the density floor (1e-10) amplify the two
+# versions' different operation orders to ~150 ulps of the O(1) azimuthal
+# velocity (3e-14 in float64, measured), so float32 is held to 150 ulps
+# there too
+TOL_DISK = {torch.float64: 1e-12, torch.float32: 1e-4}
+
+# small ragged meshes (no multiple of any tile); the JAX comparisons use
+# the same coordinate ranges as tests/test_pallas_curv.py
+MESHES = {
+    "cylindrical": dict(nx1=20, nx2=12, nx3=6, x1min=0.4, x1max=2.0,
+                        x2min=-3.14159, x2max=3.14159, x3min=-0.3, x3max=0.3),
+    "cartesian": dict(nx1=20, nx2=12, nx3=6, x1min=-2.0, x1max=2.0,
+                      x2min=-1.0, x2max=1.0, x3min=-0.25, x3max=0.25),
+    "spherical": dict(nx1=20, nx2=12, nx3=6, x1min=0.4, x1max=2.0,
+                      x2min=0.8, x2max=2.3, x3min=-3.14159, x3max=3.14159),
+    "axisymmetric": dict(nx1=20, nx2=12, nx3=1, x1min=0.4, x1max=2.0,
+                         x2min=-0.6, x2max=0.6, x3min=-3.14, x3max=3.14),
+}
+
+VISC = {
+    "plaw": DiffParams(kind="viscosity_plaw", nu_s=2.0e-3, eta=0.2, r_exp=0.5, R0=1.0),
+    "alpha": DiffParams(kind="viscosity_alpha", alpha=1.0e-3, eta=0.0, R0=1.0, Omega0=1.0),
+    "plaw_harm": DiffParams(kind="viscosity_plaw", avg="harmonic", nu_s=2.0e-3, eta=1.5,
+                            r_exp=0.0, R0=1.0),
+}
+COND = {
+    "cond": DiffParams(kind="conductivity_plaw", hcond_0=1.0e-3, temp_exp=0.5, rho_exp=0.3,
+                       T0=1.0, d0=1.0),
+    "tdiff": DiffParams(kind="thermaldiff_plaw", avg="harmonic", kappa_0=1.0e-3,
+                        temp_exp=0.4, rho_exp=0.0, T0=1.2, d0=1.0),
+}
+
+
+def deck_text(coords, rotating):
+    mesh = MESHES[coords]
+    return f"""
+<artemis>
+problem = constant
+coordinates = {coords}
+<parthenon/time>
+tlim = 1.0
+<parthenon/mesh>
+nghost = 2
+""" + "\n".join(f"{k} = {v}" for k, v in mesh.items()) + f"""
+ix1_bc = outflow
+ox1_bc = outflow
+ix2_bc = outflow
+ox2_bc = outflow
+ix3_bc = periodic
+ox3_bc = periodic
+<physics>
+rotating_frame = {"true" if rotating else "false"}
+<rotating_frame>
+omega = 1.0
+<gas>
+gamma = 1.4
+<gravity/point>
+mass = 1.0
+soft = 0.05
+"""
+
+
+def random_prims(grid, seed=2):
+    """Smooth positive random primitives, as tests/test_pallas_curv.py makes
+    them (numpy, float64)."""
+    nz, ny, nx = tuple(reversed(grid.nx))
+    rng = np.random.default_rng(seed)
+    w = np.empty((1, 6, nz, ny, nx))
+    w[:, 0] = 1 + 0.2 * rng.random((nz, ny, nx))
+    w[:, 1:4] = 0.3 * (rng.random((1, 3, nz, ny, nx)) - 0.5)
+    w[:, 5] = 1 + 0.2 * rng.random((nz, ny, nx))
+    w[:, 4] = 0.4 * w[:, 0] * w[:, 5]
+    return w
+
+
+def port_setup(coords, rsolver="hllc", recon="plm", dtype=torch.float64, device="cpu",
+               rotating=False, pos=None):
+    """Grid, Hydro, sources and a random state of the port."""
+    pin = ParameterInput.from_string(deck_text(coords, rotating))
+    if pos is not None:
+        pin.apply_overrides([f"gravity/point/{k}={v}" for k, v in zip("xyz", pos)])
+    grid = grid_from_input(pin)
+    cfg = FluidCfg(fluid="gas", recon=recon, rsolver=rsolver, gamma=1.4, cfl=0.3)
+    hyd = Hydro(grid, cfg, device=device, dtype=dtype)
+    u, w = hyd.prim_to_cons(torch.as_tensor(random_prims(grid), dtype=dtype, device=device),
+                            cfg)
+    constants = Constants.from_units(Units.from_input(pin))
+    gsrc = Gravity(pin, grid, constants).place(device, dtype)
+    rf = RotatingFrame(pin, grid).place(device, dtype)
+    return types.SimpleNamespace(pin=pin, grid=grid, cfg=cfg, hyd=hyd, u=u, w=w, grav=gsrc,
+                                 rf=rf)
+
+
+def curv_stage(s, *, omf=0.0, visc=None, cond=None, grav=False, rf=False, full=True,
+               strips=None, bc_custom=None):
+    diff = (Diffusion(s.grid, s.hyd, s.cfg, visc, cond)
+            if visc is not None or cond is not None else None)
+    gmode = curv_point_grav(s.grid, s.grav) if grav else None
+    return SC.CurvStage(s.hyd, omf=omf, rotating=s.rf if rf else None,
+                        gravity=s.grav if grav else None, gmode=gmode, diffusion=diff,
+                        full=full, strips=strips, bc_custom=bc_custom)
+
+
+# ---------------------------------------------------------------------------
+# the plain version against the JAX package
+# ---------------------------------------------------------------------------
+
+def jax_side(coords, rotating, rsolver="hllc"):
+    """The JAX package's grid, Hydro and the same random state."""
+    jnp = pytest.importorskip("jax.numpy")
+
+    from artemis_tpu.config import ParameterInput as JPin
+    from artemis_tpu.grid import grid_from_input as jgrid
+    from artemis_tpu.ops.hydro import FluidCfg as JCfg, Hydro as JHydro
+
+    pin = JPin.from_string(deck_text(coords, rotating))
+    grid = jgrid(pin)
+    cfg = JCfg(fluid="gas", recon="plm", rsolver=rsolver, gamma=1.4, cfl=0.3)
+    hyd = JHydro(grid, cfg)
+    u, w = hyd.prim_to_cons(jnp.asarray(random_prims(grid)), cfg)
+    return pin, grid, cfg, hyd, u, w
+
+
+def jnp_stage(coords, *, pcm=False, rsolver="hllc", omf=0.0, diff=None, grav=False,
+              rf=False, full=True):
+    """The jnp sequence of tests/test_pallas_curv.py (bc -> fluxes -> update
+    -> flux sources -> diffusion -> gravity -> rotating frame [-> aux ->
+    C2P -> P2C]); returns numpy u, w and the CFL dt."""
+    jnp = pytest.importorskip("jax.numpy")
+
+    from artemis_tpu import bc as jbc
+    from artemis_tpu.ops.diffusion import Diffusion as JDiffusion
+    from artemis_tpu.sources import Gravity as JGravity, RotatingFrame as JRF
+    from artemis_tpu.units import Constants as JConst, Units as JUnits
+
+    pin, grid, cfg, hyd, u, w = jax_side(coords, rf, rsolver)
+    gam0, gam1, bdt = 0.5, 0.5, 1e-3
+    wp = jbc.pad_and_fill(w, grid, "gas", {})
+    fx = hyd.compute_fluxes(wp, cfg, pcm)
+    ur = hyd.apply_update(u, u * 1.0, fx, gam0, gam1, bdt)
+    ur = hyd.flux_source(ur, w, fx, bdt, omf=omf)
+    jd = None
+    if diff is not None:
+        jd = JDiffusion(grid, hyd, cfg, *diff)
+        ur = jd.update(ur, w, jd.fluxes(wp), bdt)
+    st = {"gas": {"u": ur, "w": w}}
+    if grav:
+        g = JGravity(pin, grid, JConst.from_units(JUnits.from_input(pin)))
+        st = g.apply(st, {"gas": fx}, jnp.asarray(0.0), jnp.asarray(bdt), hyd)
+    if rf:
+        st = JRF(pin, grid).apply(st, {"gas": fx}, 0.0, bdt, hyd)
+    ur = st["gas"]["u"]
+    if not full:
+        return np.asarray(ur), np.asarray(w), None
+    ur = hyd.set_auxiliary(ur, cfg)
+    ur, wr = hyd.prim_to_cons(hyd.cons_to_prim(ur, cfg), cfg)
+    dt = float(hyd.estimate_dt(wr, cfg))
+    if jd is not None:
+        dt = min(dt, float(cfg.cfl * jd.estimate_dt(wr)))
+    return np.asarray(ur), np.asarray(wr), dt
+
+
+# the 3-D meshes only: JAX compiles its eager ops once per shape, and the
+# 2-D axisymmetric chain is held to JAX by tests/test_torch_disk.py's
+# disk_axi slice (and its sources and diffusion by their own files)
+JNP_CASES = {
+    # name: (coords, options)
+    **{f"full-{c}": (c, dict(omf=0.7)) for c in ("cylindrical", "spherical", "cartesian")},
+    "full-pcm-spherical": ("spherical", dict(pcm=True, omf=0.7)),
+    "full-hlle-spherical": ("spherical", dict(rsolver="hlle")),
+    **{f"diff-{m}-{c}": (c, dict(diff=(VISC[m], COND["cond"])))
+       for c in ("cylindrical", "spherical") for m in ("plaw", "alpha")},
+    **{f"grav-{c}": (c, dict(grav=True)) for c in ("cylindrical", "spherical", "cartesian")},
+    **{f"partial-rf-{c}": (c, dict(omf=1.0, rf=True, full=False))
+       for c in ("cylindrical", "spherical")},
+}
+
+
+@pytest.mark.parametrize("case", list(JNP_CASES))
+def test_reference_matches_jnp_sequence(case):
+    """stage_curv_reference vs the jnp sequence: u, w <= 1e-11 abs and the
+    CFL dt <= 1e-11 relative (float64)."""
+    coords, opt = JNP_CASES[case]
+    opt = dict(opt)
+    pcm = opt.pop("pcm", False)
+    rsolver = opt.pop("rsolver", "hllc")
+    ur, wr, dt_ref = jnp_stage(coords, pcm=pcm, rsolver=rsolver, **opt)
+    s = port_setup(coords, rsolver=rsolver, rotating=opt.get("rf", False))
+    diff = opt.get("diff")
+    cs = curv_stage(s, omf=opt.get("omf", 0.0), visc=diff[0] if diff else None,
+                    cond=diff[1] if diff else None, grav=opt.get("grav", False),
+                    rf=opt.get("rf", False), full=opt.get("full", True))
+    dt = torch.full((), 2e-3, dtype=torch.float64)
+    u, w, den = SC.stage_curv_reference(cs, s.w, s.u, s.u * 1.0, 0.5, 0.5, 0.5, dt, 0.0, pcm)
+    assert float(np.abs(u.numpy() - ur).max()) <= 1e-11
+    assert float(np.abs(w.numpy() - wr).max()) <= 1e-11
+    if dt_ref is not None:
+        assert abs(s.cfg.cfl / float(den[0]) - dt_ref) <= 1e-11 * dt_ref
+
+
+def test_reference_matches_interpret_gather_kernel(tmp_path):
+    """The JAX gather kernel (K3, interpret mode) on disk_sph at 128x32x16
+    with alpha viscosity, point gravity and the rotating frame vs the plain
+    version: u, w <= 1e-10 abs, dtden maximum <= 1e-10 relative (float64)."""
+    jnp = pytest.importorskip("jax.numpy")
+
+    from artemis_tpu.ops import pallas_stage_curv as psc
+    from artemis_tpu.simulation import Simulation as JSimulation
+
+    ov = ["parthenon/time/nlim=0", "parthenon/mesh/nx1=128", "parthenon/mesh/nx2=32",
+          "parthenon/mesh/nx3=16", "parthenon/mesh/x1min=0.4", "parthenon/mesh/x1max=2.4"]
+    jsim = JSimulation(DISK_SPH, ov, str(tmp_path / "jax"))
+    drv = jsim.driver
+    grid, cfg = jsim.grid, jsim.gas_cfg
+    co = psc.CurvCoeffs(grid, drv.omf, dtype=np.float64, diff=drv.diffusion)
+    strips = psc.prepare_gather_strips(grid, drv.bc_custom["ic"].shard_caches[0])
+    gsrc = [s for s in drv.sources if hasattr(s, "gtype")][0]
+    u, w = jsim.state["gas"]["u"], jsim.state["gas"]["w"]
+    uk, wk, dk = psc.stage_curv_gather(
+        w, u, u, grid, cfg, 0.5, 0.5, 1e-4, False, co, co.pack(), strips,
+        rf_omega=drv.omf, grav=(gsrc.gm, gsrc.soft2, "cart", (0.0, 0.0, 0.0)),
+        grav_dt=1e-4, interpret=True)
+
+    tsim = Simulation(DISK_SPH, ov, str(tmp_path / "port"), device="cpu")
+    td = tsim.driver
+    grav = [s for s in td.sources if isinstance(s, Gravity)][0]
+    rf = [s for s in td.sources if isinstance(s, RotatingFrame)][0]
+    cs = SC.CurvStage(td.hydro, omf=td.omf, rotating=rf, gravity=grav,
+                      gmode=curv_point_grav(tsim.grid, grav), diffusion=td.diffusion,
+                      bc_custom=td.bc_custom)
+    tu = torch.as_tensor(np.array(u))
+    tw = torch.as_tensor(np.array(w))
+    dt = torch.full((), 2e-4, dtype=torch.float64)
+    ur, wr, dr = SC.stage_curv_reference(cs, tw, tu, tu, 0.5, 0.5, 0.5, dt, 0.0, False)
+    assert float(np.abs(ur.numpy() - np.asarray(uk)).max()) <= 1e-10
+    assert float(np.abs(wr.numpy() - np.asarray(wk)).max()) <= 1e-10
+    dmax = float(jnp.max(dk))
+    assert abs(float(dr[0]) - dmax) <= 1e-10 * dmax
+
+
+def test_cpu_tensor_runs_the_plain_version():
+    """On the CPU, stage_curv is stage_curv_reference and launches nothing."""
+    s = port_setup("spherical", rotating=True)
+    cs = curv_stage(s, omf=1.0, visc=VISC["alpha"], grav=True, rf=True)
+    dt = torch.full((), 2e-3, dtype=torch.float64)
+    n0 = SC.stage_curv_launches
+    a = SC.stage_curv(cs, s.w, s.u, s.u, 0.5, 0.5, 0.5, dt, 0.0, False)
+    b = SC.stage_curv_reference(cs, s.w, s.u, s.u, 0.5, 0.5, 0.5, dt, 0.0, False)
+    assert SC.stage_curv_launches == n0
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# the kernel against the plain version
+# ---------------------------------------------------------------------------
+
+HOST_SHIM = r"""
+#include <cmath>
+#include <cstdint>
+#include <cstring>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __noinline__
+#define __launch_bounds__(x)
+#define __align__(x)
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
+using std::sqrt;
+using std::fabs;
+using std::pow;
+"""
+
+HOST_ENTRY = r"""
+template <typename T, bool G, bool F>
+void run(const CurvParams& p, int block) {
+  const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
+  T* dmax = static_cast<T*>(p.dmax);
+  for (int64_t b = 0; b * block < n; ++b) {
+    T m = T(0);
+    for (int64_t cell = b * block; cell < n && cell < (b + 1) * block; ++cell)
+      m = vmax(m, curv_cell<T, G, F>(p, cell));
+    if (F) dmax[b] = m;
+  }
+}
+template <typename T>
+void run_t(const CurvParams& p, int gather, int full, int block) {
+  if (gather) return full ? run<T, true, true>(p, block) : run<T, true, false>(p, block);
+  return full ? run<T, false, true>(p, block) : run<T, false, false>(p, block);
+}
+}  // namespace
+extern "C" int artemis_stage_curv(int dtype, int gather, int full, const int* ints,
+                                  const double* reals, const void* const* ptrs,
+                                  int block, void*) {
+  CurvParams p;
+  if (!make_params(ints, reals, ptrs, &p)) return 1;
+  if (dtype == 0) run_t<float>(p, gather, full, block);
+  else run_t<double>(p, gather, full, block);
+  return 0;
+}
+"""
+
+
+@pytest.fixture(scope="module")
+def host_kernel(tmp_path_factory):
+    """The kernel's device code built for the host, as a ctypes function
+    with the C entry point's signature."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler")
+    src = open(os.path.join(CSRC, "stage_curv.cu")).read()
+    device_part = src[:src.index("// ---- CUDA-only below")]
+    device_part = device_part.replace("#include <cuda_runtime.h>", "")
+    out = tmp_path_factory.mktemp("host_curv")
+    cpp, so = out / "stage_curv_host.cpp", out / "libstage_curv_host.so"
+    cpp.write_text(HOST_SHIM + device_part + HOST_ENTRY)
+    res = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-w", "-shared",
+                          "-fPIC", "-I", CSRC, "-o", str(so), str(cpp)],
+                         capture_output=True, text=True)
+    assert res.returncode == 0, res.stderr
+    fn = ctypes.CDLL(str(so)).artemis_stage_curv
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.restype = i
+    fn.argtypes = [i, i, i, p, p, p, i, p]
+    return fn
+
+
+@pytest.fixture
+def on_host(host_kernel, monkeypatch):
+    """Route the wrapper's launch to the host build (CPU tensors)."""
+    monkeypatch.setattr(SC, "_lib", lambda dtype: host_kernel)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: types.SimpleNamespace(cuda_stream=None))
+
+    def launch(cs, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, padded=False):
+        from artemis_tpu_torch import bc as bc_mod
+
+        if cs.strips is not None and not padded:
+            return SC._launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
+                              gather=True)
+        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+        return SC._launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
+                          gather=False)
+
+    return launch
+
+
+def check_against_plain(cs, w, u, dtype, launch, padded=False, time=0.0, tols=TOL):
+    """Both RK register patterns (gam0 = 0 and != 0): u, w within tols[dtype]
+    abs, the dtden maximum within tols[dtype] relative; one launch per call.
+    Returns the kernel's outputs of the second pattern."""
+    tol = tols[dtype]
+    dt = torch.full((), 2e-3, dtype=dtype, device=u.device)
+    for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+        n0 = SC.stage_curv_launches
+        uk, wk, dk = launch(cs, w, u, u.clone(), gam0, gam1, beta, dt, time, False,
+                            padded=padded)
+        ur, wr, dr = SC.stage_curv_reference(cs, w, u, u.clone(), gam0, gam1, beta, dt,
+                                             time, False)
+        assert SC.stage_curv_launches == n0 + 1
+        assert torch.isfinite(uk).all() and torch.isfinite(wk).all()
+        assert float((uk - ur).abs().max()) <= tol
+        assert float((wk - wr).abs().max()) <= tol
+        if cs.full:
+            assert float((dk.max() - dr.max()).abs() / dr.max()) <= tol
+    return uk, wk, dk
+
+
+# padded-halo variants on random states: (coords, options)
+PADDED_CASES = {
+    "cyl-plaw+cond-grav-rf": ("cylindrical", dict(visc="plaw", cond="cond", grav=True,
+                                                  rf=True, omf=1.0)),
+    "sph-alpha-grav-rf": ("spherical", dict(visc="alpha", grav=True, rf=True, omf=1.0)),
+    "sph-harmonic-visc+tdiff": ("spherical", dict(visc="plaw_harm", cond="tdiff")),
+    "axi-alpha-grav-rf": ("axisymmetric", dict(visc="alpha", grav=True, rf=True, omf=1.0)),
+    "axi-tdiff": ("axisymmetric", dict(cond="tdiff")),
+    "cart-grav-xyz": ("cartesian", dict(grav=True, pos=(0.3, -0.2, 0.1))),
+    "cyl-hydro-only": ("cylindrical", dict(omf=0.7)),
+}
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
+@pytest.mark.parametrize("scheme", ["hllc-plm", "hlle-pcm", "hlle-plm", "hllc-pcm"])
+@pytest.mark.parametrize("case", list(PADDED_CASES))
+def test_host_compiled_padded_kernel_matches_plain(on_host, case, scheme, full):
+    coords, opt = PADDED_CASES[case]
+    rsolver, recon = scheme.split("-")
+    s = port_setup(coords, rsolver=rsolver, recon=recon, rotating=opt.get("rf", False),
+                   pos=opt.get("pos"))
+    cs = curv_stage(s, omf=opt.get("omf", 0.0), visc=VISC.get(opt.get("visc")),
+                    cond=COND.get(opt.get("cond")), grav=opt.get("grav", False),
+                    rf=opt.get("rf", False), full=full)
+    check_against_plain(cs, s.w, s.u, torch.float64, on_host)
+
+
+def disk_stage(dtype, device, rsolver="hlle", recon="plm", full=True, nx=(20, 12, 6),
+               data_dir=None):
+    """The disk_sph deck at a small ragged size over r in [0.4, 2.4] (alpha
+    viscosity, point gravity, rotating frame; x1/x2 ic, x3 periodic): its
+    initial state and a CurvStage with the ic strips."""
+    sim = Simulation(DISK_SPH, [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
+                                f"parthenon/mesh/nx3={nx[2]}", "parthenon/time/nlim=0",
+                                "parthenon/mesh/x1min=0.4", "parthenon/mesh/x1max=2.4",
+                                f"gas/riemann={rsolver}", f"gas/reconstruct={recon}",
+                                "artemis/precision=" + str(dtype).removeprefix("torch.")],
+                     data_dir, device=device, fused_stage=False)
+    d = sim.driver
+    grav = [s for s in d.sources if isinstance(s, Gravity)][0]
+    rf = [s for s in d.sources if isinstance(s, RotatingFrame)][0]
+    assert SC.gather_supported(sim.grid, sim.gas_cfg, d.bc_custom)
+    strips = SC.prepare_gather_strips(sim.grid, d.bc_custom["ic"].shard_caches[0])
+    cs = SC.CurvStage(d.hydro, omf=d.omf, rotating=rf, gravity=grav,
+                      gmode=curv_point_grav(sim.grid, grav), diffusion=d.diffusion,
+                      full=full, strips=strips, bc_custom=d.bc_custom)
+    return cs, sim.state["gas"]["w"], sim.state["gas"]["u"]
+
+
+@pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
+@pytest.mark.parametrize("scheme", ["hlle-plm", "hllc-plm", "hlle-pcm", "hllc-pcm"])
+def test_host_compiled_disk_kernel_gather_and_padded(on_host, tmp_path, scheme, full):
+    """The disk layout through both halo sources: each against the plain
+    version, and the two bitwise equal (the gather sources every halo cell,
+    corners included, as stage_curv_gather does)."""
+    rsolver, recon = scheme.split("-")
+    cs, w, u = disk_stage(torch.float64, "cpu", rsolver, recon, full, data_dir=str(tmp_path))
+    ug, wg, dg = check_against_plain(cs, w, u, torch.float64, on_host, tols=TOL_DISK)
+    up, wp, dp = check_against_plain(cs, w, u, torch.float64, on_host, padded=True,
+                                     tols=TOL_DISK)
+    assert torch.equal(ug, up) and torch.equal(wg, wp)
+    if full:
+        assert torch.equal(dg, dp)
+
+
+def test_host_compiled_kernel_float32(on_host, tmp_path):
+    """Float32 through both halo sources on the disk layout (<= 1e-4 abs
+    against the float32 plain version, TOL_DISK) and one padded curvilinear
+    case on a random state (<= 1e-5)."""
+    cs, w, u = disk_stage(torch.float32, "cpu", data_dir=str(tmp_path))
+    check_against_plain(cs, w, u, torch.float32, on_host, tols=TOL_DISK)
+    check_against_plain(cs, w, u, torch.float32, on_host, padded=True, tols=TOL_DISK)
+    s = port_setup("cylindrical", dtype=torch.float32, rotating=True)
+    cs = curv_stage(s, omf=1.0, visc=VISC["plaw"], cond=COND["cond"], grav=True, rf=True)
+    check_against_plain(cs, s.w, s.u, torch.float32, on_host)
+
+
+def test_host_compiled_kernel_gravity_window(on_host):
+    """Outside the gravity source's tstart/tstop window the kernel adds no
+    gravity, as Gravity.apply does."""
+    s = port_setup("spherical")
+    s.grav.tstart, s.grav.tstop = 1.0, 2.0
+    cs = curv_stage(s, grav=True)
+    check_against_plain(cs, s.w, s.u, torch.float64, on_host, time=0.5)
+    check_against_plain(cs, s.w, s.u, torch.float64, on_host, time=1.5)
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
+@pytest.mark.parametrize("case", list(PADDED_CASES))
+def test_kernel_matches_plain(cuda, case, full, dtype):
+    coords, opt = PADDED_CASES[case]
+    for scheme in ("hllc-plm", "hlle-pcm"):
+        rsolver, recon = scheme.split("-")
+        s = port_setup(coords, rsolver=rsolver, recon=recon, dtype=dtype, device=cuda,
+                       rotating=opt.get("rf", False), pos=opt.get("pos"))
+        cs = curv_stage(s, omf=opt.get("omf", 0.0), visc=VISC.get(opt.get("visc")),
+                        cond=COND.get(opt.get("cond")), grav=opt.get("grav", False),
+                        rf=opt.get("rf", False), full=full)
+        check_against_plain(cs, s.w, s.u, dtype, SC.stage_curv)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_disk_gather_and_padded(cuda, tmp_path, dtype):
+    cs, w, u = disk_stage(dtype, cuda, data_dir=str(tmp_path))
+    ug, wg, dg = check_against_plain(cs, w, u, dtype, SC.stage_curv, tols=TOL_DISK)
+    up, wp, dp = check_against_plain(cs, w, u, dtype, SC.stage_curv, padded=True,
+                                     tols=TOL_DISK)
+    torch.cuda.synchronize()
+    assert torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg, dp)
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_what_it_does_not_take(cuda):
+    """A tensor of another dtype than the rows raises instead of running."""
+    s = port_setup("spherical", device=cuda)
+    cs = curv_stage(s)
+    dt = torch.full((), 1e-3, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError, match="one dtype"):
+        SC.stage_curv(cs, s.w.float(), s.u.float(), s.u.float(), 0.5, 0.5, 0.5, dt, 0.0,
+                      False)
