@@ -1,17 +1,25 @@
 // Fused curvilinear gas-hydro RK stage for Hopper (sm_90a).
 //
-// What it replaces: the two TPU Pallas kernels of
+// What it replaces: four TPU Pallas kernels of
 // artemis_tpu/ops/pallas_stage_curv.py,
 //   stage_curv_gather -> _stage_kernel_curv_gather (:1525, :1405): halos
 //                        gathered from the unpadded interior, x3 wrapped by
 //                        index, x1/x2 ghosts from ic strips  (GATHER=true)
 //   stage_curv        -> _stage_kernel_curv        (:1647, :604): halos
 //                        read from ghost-padded primitives   (GATHER=false)
-// Both run the body _curv_body (:631-1402), with _plm_g (:518) and the
-// shared _hllc/_hlle/rk_blend (stage_common.cuh).  On the TPU the two
+//   _stage_curv_gather6_v1 -> _stage_kernel_curv_gather6  (:1998, :1783)
+//   _stage_curv_gather6_v2 -> _stage_kernel_curv_gather6b (:2106, :1867):
+//                        all six faces from strips (GATHER=true with the
+//                        x3 strips given: the all-ic Cartesian disk of the
+//                        radiation-hydro configuration, with or without
+//                        diffusion)
+// All run the body _curv_body (:631-1402), with _plm_g (:518) and the
+// shared _hllc/_hlle/rk_blend (stage_common.cuh).  On the TPU the
 // frontends exist because of how Mosaic's DMAs fetch a halo; here a thread
 // reads its halo by index, so one kernel templated on the halo source
-// covers both, and FULL=false is K4's partial mode.
+// covers them (the x3 strips are a runtime switch of the gather variant,
+// which keeps the instantiation count and the build time flat), and
+// FULL=false is K4's partial mode.
 //
 // What it computes, per interior cell: PLM_G (Mignone limiter on x1-/x2-
 // dependent axes, the uniform limiter elsewhere) or PCM face states, HLLC
@@ -52,7 +60,7 @@
 //
 // Binding: a plain C entry point (artemis_stage_curv) called through
 // ctypes with three packed arrays (ints, reals, pointers) whose layout is
-// checked by their leading counts.  It launches on the caller's stream,
+// checked by the ints' and reals' leading counts and the pointer count.  It launches on the caller's stream,
 // reads dt from device memory (bdt = beta * dt[0] is formed here),
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
 
@@ -140,15 +148,24 @@ struct CurvParams {
   const void* sx_hi;
   const void* sy_lo;        // GATHER: [6, nz+2g3, g2, nx]
   const void* sy_hi;
+  const void* sz_lo;        // GATHER six-face: [6, g3, ny, nx]; null: x3 wrapped
+  const void* sz_hi;
 };
 
+// halo sources (the entry point's ``halo`` argument)
+constexpr int kPadded = 0;
+constexpr int kGather = 1;    // x1/x2 strips, x3 wrapped
+constexpr int kGather6 = 2;   // x1/x2/x3 strips
+constexpr int kNumPtrs = 16;
+
 // Unpacks the caller's arrays; false when their layout differs from this
-// build's.
-inline bool make_params(const int* ints, const double* reals,
-                        const void* const* ptrs, CurvParams* p) {
+// build's, or the x3 strips disagree with the halo source.
+inline bool make_params(int halo, const int* ints, const double* reals,
+                        const void* const* ptrs, int nptrs, CurvParams* p) {
   if (ints[0] != int(sizeof(CurvInts) / sizeof(int)) ||
-      reals[0] != double(sizeof(CurvReals) / sizeof(double)))
+      reals[0] != double(sizeof(CurvReals) / sizeof(double)) || nptrs != kNumPtrs)
     return false;
+  if ((halo == kGather6) != (ptrs[14] != nullptr && ptrs[15] != nullptr)) return false;
   memcpy(&p->n, ints, sizeof(CurvInts));
   memcpy(&p->r, reals, sizeof(CurvReals));
   p->w = ptrs[0];
@@ -165,6 +182,8 @@ inline bool make_params(const int* ints, const double* reals,
   p->sx_hi = ptrs[11];
   p->sy_lo = ptrs[12];
   p->sy_hi = ptrs[13];
+  p->sz_lo = ptrs[14];
+  p->sz_hi = ptrs[15];
   return true;
 }
 
@@ -183,6 +202,8 @@ struct Ctx {
   const T* __restrict__ sxh;
   const T* __restrict__ syl;
   const T* __restrict__ syh;
+  const T* __restrict__ szl;
+  const T* __restrict__ szh;
   const T* __restrict__ cx;
   const T* __restrict__ cy;
   const T* __restrict__ cz;
@@ -194,15 +215,21 @@ struct Ctx {
         sxh(static_cast<const T*>(p.sx_hi)),
         syl(static_cast<const T*>(p.sy_lo)),
         syh(static_cast<const T*>(p.sy_hi)),
+        szl(static_cast<const T*>(p.sz_lo)),
+        szh(static_cast<const T*>(p.sz_hi)),
         cx(static_cast<const T*>(p.cx)),
         cy(static_cast<const T*>(p.cy)),
         cz(static_cast<const T*>(p.cz)) {}
 
   // Primitive c at (k, j, i).  GATHER sources every halo cell as
-  // stage_curv_gather does: x1 ghosts (any y, z) from the x1 strips over
-  // the padded y and z extents; x2 ghosts (interior x, any z) from the x2
-  // strips over the padded z extent; the rest from the interior with x3
-  // wrapped.
+  // stage_curv_gather and _stage_kernel_curv_gather6 assemble their slabs,
+  // by precedence x1 strip > x2 strip > x3 strip > interior: x1 ghosts (any
+  // y, z) from the x1 strips over the padded y and z extents; x2 ghosts
+  // (interior x, any z) from the x2 strips over the padded z extent; x3
+  // ghosts (interior x and y) from the x3 strips when they are given, else
+  // from the interior with x3 wrapped (nz >= g3).  Corners read by the
+  // viscous stencil thus come from the higher-precedence strip; the ic
+  // caches the strips are cut from agree wherever two of them overlap.
   __device__ __forceinline__ T W(int c, int k, int j, int i) const {
     const int nx = n.nx, ny = n.ny, nz = n.nz;
     if (GATHER) {
@@ -217,7 +244,15 @@ struct Ctx {
         const int jj = j < 0 ? j + n.g2 : j - ny;
         return s[((c * zp + (k + n.g3)) * n.g2 + jj) * nx + i];
       }
-      return w[((int64_t(c) * nz + wrap(k, nz)) * ny + j) * nx + i];
+      if (k < 0 || k >= nz) {
+        if (szl != nullptr) {
+          const T* s = k < 0 ? szl : szh;
+          const int kk = k < 0 ? k + n.g3 : k - nz;
+          return s[((int64_t(c) * n.g3 + kk) * ny + j) * nx + i];
+        }
+        k = k < 0 ? k + nz : k - nz;
+      }
+      return w[((int64_t(c) * nz + k) * ny + j) * nx + i];
     }
     const int64_t xp = nx + 2 * n.g1, yp = ny + 2 * n.g2, zp = nz + 2 * n.g3;
     return w[((c * zp + (k + n.g3)) * yp + (j + n.g2)) * xp + (i + n.g1)];
@@ -793,17 +828,21 @@ cudaError_t launch_t(const CurvParams& p, int gather, int full, cudaStream_t s) 
 }  // namespace
 
 // dtype: 0 float32, 1 float64 (a build with -DARTEMIS_CURV_DTYPE=0 or 1
-// carries that type only; the wrapper builds the two in parallel).  gather:
-// halos from the interior + strips (1) or from a padded array (0).  full: 1
-// whole stage, 0 partial.  block must equal the kernel's block size (one
-// dtden entry per block).  Returns a cudaError_t (0 on success).
-extern "C" int artemis_stage_curv(int dtype, int gather, int full,
+// carries that type only; the wrapper builds the two in parallel).  halo:
+// kPadded (a padded array), kGather (interior + x1/x2 strips, x3 wrapped)
+// or kGather6 (interior + the six face strips).  ptrs: kNumPtrs pointers,
+// the x3 strips (the last two) given exactly for kGather6.  full: 1 whole
+// stage, 0 partial.  block must equal the kernel's block size (one dtden
+// entry per block).  Returns a cudaError_t (0 on success).
+extern "C" int artemis_stage_curv(int dtype, int halo, int full,
                                   const int* ints, const double* reals,
-                                  const void* const* ptrs, int block,
+                                  const void* const* ptrs, int nptrs, int block,
                                   void* stream) {
   CurvParams p;
-  if (block != kBlock || !make_params(ints, reals, ptrs, &p))
+  if (block != kBlock || halo < kPadded || halo > kGather6 ||
+      !make_params(halo, ints, reals, ptrs, nptrs, &p))
     return int(cudaErrorInvalidValue);
+  const int gather = halo != kPadded;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #if !defined(ARTEMIS_CURV_DTYPE) || ARTEMIS_CURV_DTYPE == 0
   if (dtype == 0) return int(launch_t<float>(p, gather, full, s));

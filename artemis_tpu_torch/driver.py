@@ -5,9 +5,13 @@ Equivalent of ``ArtemisDriver`` + Parthenon's ``EvolutionDriver``/
 RK loop.  On the GPU each gas stage runs as one fused CUDA kernel where the
 config allows: Cartesian source-free gas through ``ops.stage``, every other
 supported grid (the disk decks, with rotating-frame torque, point gravity
-and diffusion folded in) through ``ops.stage_curv``.  Every other stage, and
+and diffusion folded in) through ``ops.stage_curv``, whose halo comes from
+one of three sources: the x1/x2 ic strips with x3 wrapped (the spherical
+disk), all six face strips (the all-``ic`` Cartesian disk of the
+radiation-hydro configuration), or a padded array.  Every other stage, and
 every stage on the CPU, runs the composable tensor sequence, as the JAX
-package runs its jnp path.
+package runs its jnp path.  With radiation, the operator-split FLD step
+(``radiation.Radiation``) follows the stages of every cycle.
 
 The JAX driver marches chunks of up to 256 cycles on the device inside a
 ``lax.while_loop``; this one is a host loop that reads dt back once per
@@ -96,8 +100,9 @@ class Driver:
 
     ``device``/``dtype`` place the geometry constants and the sources'
     fields; ``fused_stage=False`` keeps a CUDA run on the composable path
-    (the plain version the kernels are measured against).  ``diffusion`` is
-    a factory ``fn(hydro) -> Diffusion``."""
+    (the plain version the kernels are measured against).  ``diffusion``
+    and ``radiation`` are factories ``fn(hydro) -> Diffusion`` and
+    ``fn(hydro) -> Radiation``."""
 
     def __init__(
         self,
@@ -119,9 +124,6 @@ class Driver:
         if nbody is not None:
             raise NotImplementedError("N-body coupling is not ported yet "
                                       "(ROADMAP Queue 1 item 8)")
-        if radiation is not None:
-            raise NotImplementedError("radiation is not ported yet "
-                                      "(ROADMAP Queue 1 item 9)")
         self.grid = grid
         self.integrator = integrator
         self.device = torch.device(device)
@@ -133,6 +135,7 @@ class Driver:
         self.sources = [s_.place(self.device, dtype) for s_ in (sources or [])]
         self.omf = omf  # rotating-frame rate for curvilinear flux sources
         self.diffusion = diffusion(self.hydro) if diffusion is not None else None
+        self.radiation = radiation(self.hydro) if radiation is not None else None
         on_gpu = fused_stage and self.device.type == "cuda"
         # the Cartesian stage kernel: source-free gas
         self._fused_stage = (on_gpu and stage_mod.supported(grid, gas_cfg)
@@ -149,7 +152,10 @@ class Driver:
     def _make_curv_stage(self, grid, gas_cfg):
         """The CurvStage for this run, or None where the composable path
         must run: a flux-consuming source the kernel cannot fold, or
-        diffusion rows that do not separate (Cartesian grids)."""
+        diffusion rows that do not separate (Cartesian grids).  A full stage
+        gathers its halo in-kernel where the JAX driver does
+        (artemis_tpu/driver.py:230-252): the disk layout (x1/x2 ic, x3 periodic) from
+        the x1/x2 strips, else an all-``ic`` layout from six face strips."""
         flux_srcs = [s_ for s_ in self.sources if getattr(s_, "uses_fluxes", False)]
         # the curvilinear RotatingFrame torque is folded into the kernel;
         # any other flux-consuming source forces the composable path
@@ -169,6 +175,11 @@ class Driver:
         if full and curv_mod.gather_supported(grid, gas_cfg, self.bc_custom):
             strips = curv_mod.prepare_gather_strips(
                 grid, self.bc_custom["ic"].shard_caches[0])
+        elif full and curv_mod.gather6_supported(grid) and all(
+                grid.bc[d] == ("ic", "ic") for d in range(3)):
+            caches = getattr(self.bc_custom.get("ic"), "shard_caches", None)
+            if caches and all((d, s_) in caches[0] for d in (1, 2, 3) for s_ in (0, 1)):
+                strips = curv_mod.prepare_gather6_root_strips(grid, caches[0])
         try:
             cs = curv_mod.CurvStage(
                 self.hydro, omf=self.omf, rotating=flux_srcs[0] if flux_srcs else None,
@@ -186,8 +197,9 @@ class Driver:
         if self._fused_stage:
             return "stage_cart"
         if self._curv is not None:
-            return ("stage_curv (gather)" if self._curv.strips is not None
-                    else "stage_curv (padded" + (")" if self._curv.full else ", partial)"))
+            if self._curv.full:
+                return f"stage_curv ({self._curv.halo})"
+            return "stage_curv (padded, partial)"
         return "none"
 
     # ------------------------------------------------------------------
@@ -211,7 +223,10 @@ class Driver:
                 dt = torch.minimum(dt, cfg.cfl * self.diffusion.estimate_dt(
                     state[name]["w"]))
             dts.append(dt)
-        return torch.min(torch.stack(dts))
+        dt = torch.min(torch.stack(dts))
+        if self.radiation is not None:
+            dt = torch.clamp_max(dt, self.radiation.cfg.dt_rad)
+        return dt
 
     def _sync_prims(self, state):
         """C2P + P2C re-sync on interior arrays, per fluid."""
@@ -317,11 +332,18 @@ class Driver:
 
     def step(self, state, dt: float, time: float):
         """One cycle of all RK stages with the host-side ``dt``, starting at
-        the host-side ``time``."""
+        the host-side ``time``, then the operator-split radiation step
+        (artemis_driver.cpp:111).  After radiation the state carries no
+        ``dtden``: the stages' CFL maxima predate its energy change, so the
+        next dt comes from w (the JAX package's fused loop keeps dtden in
+        its carry here and cannot run this configuration; its jnp path
+        takes dt from w as this does)."""
         dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
         u1 = {name: state[name]["u"] for name, _ in self._fluids()}
         for stage in range(1, self.integrator.nstages + 1):
             state = self._stage_body(state, u1, dt_t, time, stage)
+        if self.radiation is not None:
+            state = self.radiation.sync_gas(self.radiation.step(state, dt_t))
         return state
 
     def estimate_dt(self, state) -> float:

@@ -1,0 +1,192 @@
+"""The FLD radiation operator: the CUDA kernels' wrappers and their plain
+PyTorch versions (port of ``artemis_tpu/ops/pallas_fld.py``).
+
+``fld_coeffs`` sets up the implicit operator ``I - dt div D grad`` of one
+radiation step: the Levermore-Pomraning limiter, the capped diffusivity,
+the masked face coefficients and the Jacobi diagonal.  ``fld_matvec``
+applies it once per conjugate-gradient iteration.  Both dispatch on the
+tensor's device: a CPU tensor runs the plain version, a CUDA tensor
+launches ``csrc/fld.cu`` (which replaces the TPU kernels K7 ``fld_coeffs``
+and K8 ``fld_matvec``) or raises.  The JAX package keeps its kernels behind
+an opt-in switch; here the kernel is the card's path.
+
+Neighbours wrap (``torch.roll``, the reference's ``jnp.roll``); physical
+edges are masked through the coefficients only, so the limiter's gradient
+at an edge cell reads the opposite edge, as the reference's does.  Gate
+(``radiation.Radiation``): a 3-D grid of uniform Cartesian widths.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+# kernel launches since the last reset (the counts a run reads to show
+# that the main path went through the kernels)
+fld_coeffs_launches = 0
+fld_matvec_launches = 0
+
+
+def shift(a, d, sign):
+    """a at the neighbour +sign along direction d (the last axis is x),
+    wrapped: jnp.roll(a, -sign, axis=-d)."""
+    return torch.roll(a, -sign, dims=a.ndim - d)
+
+
+def edge_masks(a, d):
+    """(first, last) boolean masks of the physical edges along d,
+    broadcastable against a."""
+    ax = a.ndim - d
+    n = a.shape[ax]
+    idx = torch.arange(n, device=a.device).reshape([n if i == ax else 1
+                                                    for i in range(a.ndim)])
+    return idx == 0, idx == n - 1
+
+
+def fld_coeffs_reference(E, chi, dt, dxs, c_code, ext, flags):
+    """The plain version: ``(A, diag_geo, Dcell)`` for E, chi [nz, ny, nx],
+    a one-element ``dt`` tensor, uniform widths ``dxs`` = (dx, dy, dz), the
+    cap extent ``ext`` and ``flags[d] = (lo_dirichlet, hi_dirichlet)``.
+    A rows: [AL1, AH1, AL2, AH2, AL3, AH3] with dt / w^2 folded in.  The
+    operations follow the TPU kernel's order."""
+    tiny = torch.finfo(E.dtype).tiny
+    dt = dt.reshape(())
+    g2 = 0.0
+    for d in (1, 2, 3):
+        g = (shift(E, d, 1) - shift(E, d, -1)) * (0.5 / dxs[d - 1])
+        g2 = g2 + g * g
+    R = torch.sqrt(g2) / (chi * torch.clamp_min(E, tiny) + tiny)
+    lam = (2.0 + R) / (6.0 + 3.0 * R + R * R)        # Levermore-Pomraning
+    Dc = torch.clamp_max(c_code * lam / (chi + tiny), c_code * ext)
+    diag = torch.ones_like(Dc)
+    rows = []
+    for d in (1, 2, 3):
+        first, last = edge_masks(Dc, d)
+        D_hi = 0.5 * (Dc + shift(Dc, d, 1))
+        D_lo = 0.5 * (Dc + shift(Dc, d, -1))
+        lo_dir, hi_dir = flags[d - 1]
+        if hi_dir:
+            D_hi = torch.where(last, Dc, D_hi)
+            A_hi = torch.where(last, 0.0, D_hi)
+        else:
+            D_hi = torch.where(last, 0.0, D_hi)
+            A_hi = D_hi
+        if lo_dir:
+            D_lo = torch.where(first, Dc, D_lo)
+            A_lo = torch.where(first, 0.0, D_lo)
+        else:
+            D_lo = torch.where(first, 0.0, D_lo)
+            A_lo = D_lo
+        iw2 = (1.0 / dxs[d - 1]) * (1.0 / dxs[d - 1])
+        diag = diag + dt * ((D_hi + D_lo) * iw2)
+        rows += [(dt * iw2) * A_lo, (dt * iw2) * A_hi]
+    return torch.stack(rows), diag, Dc
+
+
+def fld_matvec_reference(E, A, diag_geo, sf):
+    """The plain version: (diag_geo + sf) E - sum_d (AH_d E_+d + AL_d E_-d)
+    on [nz, ny, nx] arrays, A as fld_coeffs returns it."""
+    out = (diag_geo + sf) * E
+    for d in (1, 2, 3):
+        out = out - A[2 * d - 1] * shift(E, d, 1) - A[2 * d - 2] * shift(E, d, -1)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
+
+def _lib():
+    from .. import _build
+
+    lib = _build.load("fld")
+    if lib.artemis_fld_coeffs.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # (dtype, ints, reals, 6 or 5 tensors, stream)
+        for fn, ntensor in ((lib.artemis_fld_coeffs, 6), (lib.artemis_fld_matvec, 5)):
+            fn.restype = i
+            fn.argtypes = [i, p, p] + [p] * ntensor + [p]
+    return lib
+
+
+def _check(ts, shapes, dtype, device):
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the FLD kernels take float32 or float64, not {dtype}")
+    for t, shape in zip(ts, shapes):
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"FLD kernel input of shape {tuple(t.shape)}, expected "
+                             f"{tuple(shape)}")
+        if t.device != device or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError("FLD kernel inputs must be contiguous tensors of one dtype "
+                             "on one device")
+
+
+def _args(shape, dxs=(1.0, 1.0, 1.0), c_code=0.0, ext=0.0, flags=((0, 0),) * 3, tiny=0.0):
+    """The kernel's FldInts / FldReals arrays, led by their counts."""
+    nz, ny, nx = shape
+    ints = [nx, ny, nz] + [int(bool(f[0])) for f in flags] + [int(bool(f[1])) for f in flags]
+    reals = ([0.5 / w for w in dxs] + [(1.0 / w) * (1.0 / w) for w in dxs]
+             + [c_code * ext, c_code, tiny])
+    ints = [len(ints) + 1] + ints
+    reals = [float(len(reals) + 1)] + reals
+    return (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(reals))(*reals)
+
+
+def _run(fn, dtype, device, *args):
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(0 if dtype == torch.float32 else 1, *args, stream)
+    if err != 0:
+        raise RuntimeError(f"FLD kernel launch failed: CUDA error {err}")
+
+
+def fld_coeffs(E, chi, dt, dxs, c_code, ext, flags):
+    """``fld_coeffs_reference``'s function: on the CPU the plain version, on
+    a CUDA device the kernel (``dt`` stays on the device: no host read)."""
+    if E.device.type == "cpu":
+        return fld_coeffs_reference(E, chi, dt, dxs, c_code, ext, flags)
+    if E.device.type != "cuda":
+        raise RuntimeError(f"no FLD kernel for device {E.device}")
+    return _launch_coeffs(E, chi, dt, dxs, c_code, ext, flags)
+
+
+def fld_matvec(E, A, diag_geo, sf):
+    """``fld_matvec_reference``'s function: on the CPU the plain version, on
+    a CUDA device the kernel."""
+    if E.device.type == "cpu":
+        return fld_matvec_reference(E, A, diag_geo, sf)
+    if E.device.type != "cuda":
+        raise RuntimeError(f"no FLD kernel for device {E.device}")
+    return _launch_matvec(E, A, diag_geo, sf)
+
+
+def _launch_coeffs(E, chi, dt, dxs, c_code, ext, flags):
+    global fld_coeffs_launches
+    shape = tuple(E.shape)
+    if len(shape) != 3 or dt.numel() != 1:
+        raise ValueError("fld_coeffs takes [nz, ny, nx] fields and a one-element dt")
+    _check((E, chi, dt), (shape, shape, tuple(dt.shape)), E.dtype, E.device)
+    A = torch.empty((6,) + shape, dtype=E.dtype, device=E.device)
+    diag = torch.empty_like(E)
+    Dc = torch.empty_like(E)
+    ints, reals = _args(shape, tuple(float(w) for w in dxs), float(c_code), float(ext),
+                        flags, torch.finfo(E.dtype).tiny)
+    _run(_lib().artemis_fld_coeffs, E.dtype, E.device, ints, reals, E.data_ptr(),
+         chi.data_ptr(), dt.data_ptr(), A.data_ptr(), diag.data_ptr(), Dc.data_ptr())
+    fld_coeffs_launches += 1
+    return A, diag, Dc
+
+
+def _launch_matvec(E, A, diag_geo, sf):
+    global fld_matvec_launches
+    shape = tuple(E.shape)
+    if len(shape) != 3:
+        raise ValueError("fld_matvec takes [nz, ny, nx] fields")
+    _check((E, A, diag_geo, sf), (shape, (6,) + shape, shape, shape), E.dtype, E.device)
+    out = torch.empty_like(E)
+    ints, reals = _args(shape)
+    _run(_lib().artemis_fld_matvec, E.dtype, E.device, ints, reals, E.data_ptr(),
+         A.data_ptr(), diag_geo.data_ptr(), sf.data_ptr(), out.data_ptr())
+    fld_matvec_launches += 1
+    return out

@@ -1,6 +1,6 @@
 """Fused curvilinear gas-hydro RK stage: the CUDA kernel's wrapper, its
-plain PyTorch version and the kernel's coefficient rows (port of the K3/K4
-parts of ``artemis_tpu/ops/pallas_stage_curv.py``).
+plain PyTorch version and the kernel's coefficient rows (port of the K3,
+K4, K5a and K5b parts of ``artemis_tpu/ops/pallas_stage_curv.py``).
 
 One stage is everything between two ghost fills on every supported
 coordinate system (the production disk path): PLM_G/PCM reconstruction,
@@ -13,11 +13,14 @@ sources, where the composable path hands off to the remaining sources.
 
 ``stage_curv`` dispatches on the tensor's device: on the CPU it runs
 ``stage_curv_reference``; on a CUDA device it launches
-``csrc/stage_curv.cu`` (which replaces both TPU kernels, K3
-``stage_curv_gather`` and K4 ``stage_curv``) or raises.  The disk boundary
-layout (x1/x2 ``ic``, x3 periodic) is read with in-kernel halo gathering
-from the unpadded interior and the ic strips; every other layout from
-primitives padded by ``bc``.
+``csrc/stage_curv.cu`` (which replaces the TPU kernels K3
+``stage_curv_gather``, K4 ``stage_curv`` and K5a/K5b, the two frontends of
+``stage_curv_gather6``) or raises.  The kernel has three halo sources: the
+disk boundary layout (x1/x2 ``ic``, x3 periodic) is gathered in-kernel
+from the unpadded interior and the x1/x2 ic strips; the all-``ic`` layout
+(the Cartesian disk of the radiation-hydro configuration) from the interior
+and six face strips; every other layout is read from primitives padded by
+``bc``.
 
 The coefficient packing (``_axis_pack`` ... ``CurvCoeffs.pack``,
 ``_dp_tuple``) is numpy only, copied from the JAX module; the rows are
@@ -523,6 +526,13 @@ def gather_supported(grid, cfg, bc_custom) -> bool:
     return all(k in caches[0] for k in ((1, 0), (1, 1), (2, 0), (2, 1)))
 
 
+def gather6_supported(grid) -> bool:
+    """Grid gate for the six-face strip gather (the boundary sourcing, all
+    six faces ``ic`` with value caches, is the caller's check).  The TPU's
+    nx%128, ny%TY and nz%TZ rules were Mosaic tiling rules."""
+    return grid.nghost == 2 and grid.nx[0] > 1 and grid.nx[1] > 1 and grid.nx[2] > 1
+
+
 def prepare_gather_strips(grid, ic_caches):
     """The halo strips of the gather kernel from the ic BC value caches
     (make_ic_bc's shard_caches[0]), numpy: x1 lo/hi ghost slabs over the
@@ -535,6 +545,21 @@ def prepare_gather_strips(grid, ic_caches):
         out[("x1", side)] = np.ascontiguousarray(np.asarray(ic_caches[(1, side)])[0])
         out[("x2", side)] = np.ascontiguousarray(
             np.asarray(ic_caches[(2, side)])[0][:, :, :, ng:ng + nx])
+    return out
+
+
+def prepare_gather6_root_strips(grid, ic_caches):
+    """The six-face strips of an all-``ic`` grid: the x1/x2 strips of
+    ``prepare_gather_strips`` and x3 lo/hi ghost slabs over the interior x
+    and y ranges [6, ng, ny, nx] (the kernel takes x1 before x2 before x3
+    where they overlap; the TPU layout's 8-row alignment margins are not
+    carried over)."""
+    out = prepare_gather_strips(grid, ic_caches)
+    ng = grid.nghost
+    nx, ny, _ = grid.nx
+    for side in (0, 1):
+        a = np.asarray(ic_caches[(3, side)])[0]   # [6, ng, yp, xp]
+        out[("x3", side)] = np.ascontiguousarray(a[:, :, ng:ng + ny, ng:ng + nx])
     return out
 
 
@@ -560,7 +585,8 @@ def _diff_reals(dp, gamma):
 class CurvStage:
     """One driver's curvilinear stage, made once: the coefficient rows on
     the run's device in its dtype, the halo strips for the gather variant
-    (``strips``, numpy from ``prepare_gather_strips``, or None), the
+    (``strips``, numpy from ``prepare_gather_strips``, or from
+    ``prepare_gather6_root_strips`` for the six-face variant, or None), the
     boundary fills for the padded variant, and what the kernel folds in:
     the rotation velocity ``omf`` of the flux sources, the curvilinear
     ``rotating`` frame torque, a central point-mass ``gravity`` source with
@@ -613,6 +639,15 @@ class CurvStage:
                             + (_diff_reals(cond, cfg.gamma) if cond else [0.0] * 6)
                             + [1e-30 if hyd.dtype == torch.float32 else 1e-300])
 
+    @property
+    def halo(self) -> str:
+        """The halo source the kernel takes unless asked for the padded one:
+        "gather6" (six face strips), "gather" (x1/x2 strips, x3 wrapped) or
+        "padded"."""
+        if self.strips is None:
+            return "padded"
+        return "gather6" if ("x3", 0) in self.strips else "gather"
+
     def dtden_blocks(self) -> int:
         """Entries of the kernel's dtden output (one per CUDA block)."""
         nx, ny, nz = self.grid.nx
@@ -654,17 +689,18 @@ def stage_curv(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
     """One fused curvilinear RK stage from interior prims ``w`` [1, 6, nz,
     ny, nx] and the registers u0, u1; ``dt`` is a one-element tensor on w's
     device, ``time`` the stage's host time (the gravity window).  On the GPU
-    the halo is gathered in-kernel when ``cs`` has strips (unless
-    ``padded``), else read from ``bc.pad_and_fill``'s array.  Returns (u,
-    w, dtden); on the GPU dtden holds one maximum per block (full mode)."""
+    the halo is gathered in-kernel from ``cs``'s strips (``cs.halo``)
+    unless ``padded``, else read from ``bc.pad_and_fill``'s array.  Returns
+    (u, w, dtden); on the GPU dtden holds one maximum per block (full
+    mode)."""
     if w.device.type == "cpu":
         return stage_curv_reference(cs, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm)
     if w.device.type != "cuda":
         raise RuntimeError(f"no curvilinear stage kernel for device {w.device}")
     if cs.strips is not None and not padded:
-        return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, gather=True)
+        return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, cs.halo)
     w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
-    return _launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, gather=False)
+    return _launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, "padded")
 
 
 def build_defines(dtype):
@@ -680,17 +716,27 @@ def _lib(dtype):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
-        fn.argtypes = [i, i, i, p, p, p, i, p]
+        fn.argtypes = [i, i, i, p, p, p, i, i, p]
     return fn
 
 
-def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, gather):
-    """Launch the kernel on primitives ``src`` (the interior ``w`` itself
-    when ``gather``, else the padded array)."""
+# the kernel's halo source codes (kPadded, kGather, kGather6)
+HALO_CODES = {"padded": 0, "gather": 1, "gather6": 2}
+STRIP_KEYS = (("x1", 0), ("x1", 1), ("x2", 0), ("x2", 1), ("x3", 0), ("x3", 1))
+
+
+def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, halo):
+    """Launch the kernel with halo source ``halo`` (a HALO_CODES key) on
+    primitives ``src`` (the interior ``w`` itself when gathering, else the
+    padded array)."""
     global stage_curv_launches
     grid = cs.grid
     nx, ny, nz = grid.nx
     g1, g2, g3 = grid.ng
+    gather = halo != "padded"
+    if gather and halo != cs.halo:
+        raise ValueError(f"a {halo} launch needs the {halo} strips; the stage has "
+                         f"{cs.halo}")
     shape = (1, 6, nz, ny, nx)
     src_shape = shape if gather else (1, 6, nz + 2 * g3, ny + 2 * g2, nx + 2 * g1)
     dtype = src.dtype
@@ -725,15 +771,14 @@ def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, gather):
     ptrs = [src.data_ptr(), ptr(u0) if gam0 != 0.0 else None,
             ptr(u1) if gam1 != 0.0 else None, dt.data_ptr(), u.data_ptr(),
             ptr(w_out), ptr(dmax), *(t.data_ptr() for t in cs.rows),
-            ptr(s.get(("x1", 0))), ptr(s.get(("x1", 1))),
-            ptr(s.get(("x2", 0))), ptr(s.get(("x2", 1)))]
+            *(ptr(s.get(k)) for k in STRIP_KEYS)]
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_reals = (ctypes.c_double * len(reals))(*reals)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(0 if dtype == torch.float32 else 1, int(gather), int(cs.full),
-                 c_ints, c_reals, c_ptrs, BLOCK, stream)
+        err = fn(0 if dtype == torch.float32 else 1, HALO_CODES[halo], int(cs.full),
+                 c_ints, c_reals, c_ptrs, len(ptrs), BLOCK, stream)
     if err != 0:
         raise RuntimeError(f"stage_curv kernel launch failed: CUDA error {err}")
     stage_curv_launches += 1

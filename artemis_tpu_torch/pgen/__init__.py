@@ -1,6 +1,7 @@
 """Problem generators (reference: src/pgen/pgen.hpp name dispatch; port of
-``artemis_tpu/pgen/__init__.py``).  The linear-wave and disk problems are
-ported so far; the others raise and name the ROADMAP item that brings them."""
+``artemis_tpu/pgen/__init__.py``).  The linear-wave, disk, shock and
+thermalization problems are ported so far; the others raise and name the
+ROADMAP item that brings them."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ from typing import Callable, Dict, List, Optional
 _NOT_PORTED = {
     "strat": 6, "ssheet": 6,
     "advection": 7, "constant": 7, "blast": 7, "gaussian_bump": 7,
-    "conduction": 7, "shock": 7, "thermalization": 7,
+    "conduction": 7,
 }
 
 
@@ -36,6 +37,12 @@ def build_problem(name: str, pin, grid, gas_cfg=None, dust_cfg=None) -> Problem:
     if name == "disk":
         from . import disk
         return disk.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "shock":
+        from . import shock
+        return shock.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "thermalization":
+        from . import thermalization
+        return thermalization.build(pin, grid, gas_cfg, dust_cfg)
     if name in _NOT_PORTED:
         raise NotImplementedError(f"problem {name!r} is not ported yet "
                                   f"(ROADMAP Queue 1 item {_NOT_PORTED[name]})")

@@ -3,8 +3,8 @@
 single-level gas hydro on one device).
 
 Reads the input deck, builds the problem generator, the source packages
-(gravity, rotating frame, viscosity/conduction) and the driver on the
-requested device, and runs the evolution loop.  Physics the port does not
+(gravity, rotating frame, viscosity/conduction, gray FLD radiation) and the
+driver on the requested device, and runs the evolution loop.  Physics the port does not
 carry yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from .config import ParameterInput
@@ -26,7 +27,7 @@ from .units import Constants, Units
 
 # <physics> switch -> ROADMAP Queue 1 item that ports it
 _NOT_PORTED = {
-    "dust": 7, "cooling": 6, "drag": 6, "nbody": 8, "radiation": 9,
+    "dust": 7, "cooling": 6, "drag": 6, "nbody": 8,
 }
 
 
@@ -143,15 +144,37 @@ class Simulation:
                     if do_cond else None)
             diffusion_factory = lambda hyd: Diffusion(hyd.grid, hyd, gas_cfg, visc, cond)
 
+        # radiation (gray FLD, replacing the reference's jaybenne IMC)
+        radiation_factory = None
+        self.radiation_cfg = None
+        if pin.get_or_add_bool("physics", "radiation", False):
+            from .radiation import Radiation, radiation_from_input
+
+            self.radiation_cfg = rc = radiation_from_input(pin, self.constants, gas_cfg)
+            radiation_factory = lambda hyd: Radiation(rc, hyd.grid, hyd, gas_cfg,
+                                                      fused=fused_stage)
+
         integrator = Integrator.make(pin.get_or_add_str("parthenon/time", "integrator", "rk2"))
         self.driver = Driver(self.grid, integrator, gas_cfg, None, sources=srcs,
                              bc_custom=self.problem.bc_custom, omf=omf,
-                             diffusion=diffusion_factory, device=self.device,
-                             dtype=self.dtype, fused_stage=fused_stage)
+                             diffusion=diffusion_factory, radiation=radiation_factory,
+                             device=self.device, dtype=self.dtype, fused_stage=fused_stage)
 
         state = {name: {"u": None, "w": torch.as_tensor(w, dtype=self.dtype, device=self.device)}
                  for name, w in self.problem.prims.items()}
         self.state = self.driver.initialize(state)
+        if self.radiation_cfg is not None:
+            rc = self.radiation_cfg
+            rad_T = getattr(self.problem, "rad_temp", None)
+            if rad_T is not None:
+                Er = torch.as_tensor(rc.arad * np.asarray(rad_T)[None] ** 4,
+                                     dtype=self.dtype, device=self.device)
+            else:
+                from .radiation import initialize_radiation
+
+                Er = initialize_radiation(self.state, gas_cfg, rc)["Er"]
+            self.state["rad"] = {"Er": Er}
+            self._set_radiation_ic_edges()
         self.tm = SimTime(
             time=0.0,
             tlim=pin.get_real("parthenon/time", "tlim"),
@@ -159,6 +182,33 @@ class Simulation:
             dt_min=pin.get_or_add_real("parthenon/time", "dt_min", 0.0),
             dt_max=pin.get_or_add_real("parthenon/time", "dt_max", 1.0e300),
         )
+
+    def _set_radiation_ic_edges(self):
+        """Pin the FLD field outside ``ic`` boundaries to the IC equilibrium.
+
+        The reference holds ghost zones at the IC for ix/ox*_bc = ic
+        (shock.hpp decks); the FLD analogue is a Dirichlet edge at the IC
+        radiation energy instead of a zero-flux wall, or the precursor flux
+        reflects back into the domain.  Values derive from the problem
+        generator (not the evolved state), one scalar per face: the plane's
+        mean."""
+        rc = self.radiation_cfg
+        rad_T = getattr(self.problem, "rad_temp", None)
+        if rad_T is not None:
+            Er0 = rc.arad * np.asarray(rad_T) ** 4
+        else:
+            wg = np.asarray(self.problem.prims["gas"])
+            Er0 = rc.arad * (wg[0, 5] / self.gas_cfg.cv) ** 4
+        for d in (1, 2, 3):
+            if self.grid.nx[d - 1] <= 1:
+                continue
+            inner, outer = self.grid.bc[d - 1]
+            ax = Er0.ndim - d
+            lo = float(np.take(Er0, 0, axis=ax).mean()) if inner == "ic" else None
+            hi = float(np.take(Er0, -1, axis=ax).mean()) if outer == "ic" else None
+            if lo is None and hi is None:
+                continue
+            self.driver.radiation.set_edge_dirichlet(d, lo=lo, hi=hi)
 
     def print_config(self):
         """Startup configuration banner (cf. PrintArtemisConfiguration,
@@ -177,6 +227,16 @@ class Simulation:
             c = self.gas_cfg
             lines.append(f"gas: {c.recon}+{c.rsolver} gamma={c.gamma:g} "
                          f"cfl={c.cfl:g} nspecies={c.nspecies}")
+        pkgs = [type(s).__name__ for s in self.driver.sources]
+        pkgs += [p for p, on in (("radiation", self.radiation_cfg is not None),
+                                 ("diffusion", self.driver.diffusion is not None)) if on]
+        if pkgs:
+            lines.append("packages: " + ", ".join(pkgs))
+        if self.driver.radiation is not None:
+            rad = self.driver.radiation
+            lines.append(f"radiation: FLD {self.radiation_cfg.opacity_model} opacity, "
+                         "operator " + ("fld_coeffs + fld_matvec kernels" if rad.use_kernels
+                                        else "tensor operations"))
         lines.append("=" * 60)
         print("\n".join(lines))
 

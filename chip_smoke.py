@@ -11,9 +11,9 @@ line is printed:
 1. toolchain: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi), torch's CUDA version, nvcc's version and
    whether triton imports;
-2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu`` and
-   ``stage_curv.cu`` with nvcc, both at once, and prints ptxas's registers
-   and spills;
+2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu``, ``fld.cu``
+   and ``stage_curv.cu`` (once per dtype) with nvcc, all at once, and
+   prints ptxas's registers and spills;
 3. kernel vs plain version on the card: the fused stage kernel against
    ``stage_reference`` over {periodic, outflow, reflecting} x {pcm, plm,
    ppm} x {float64 <= 1e-12, float32 <= 1e-5 abs} x {gam0 = 0, gam0 != 0}
@@ -47,7 +47,27 @@ line is printed:
    bench.py:100), and the kernel and plain end states compared after the
    same cycles;
 8. disk_cyl and disk_axi at deck size in float64 for 5 cycles through the
-   padded kernel: L2 <= 6e-3 and two launches per cycle.
+   padded kernel: L2 <= 6e-3 and two launches per cycle;
+9. the FLD kernels (``csrc/fld.cu``: fld_coeffs, fld_matvec) against their
+   plain versions on random states: float64 <= 1e-12 and float32 <= 1e-5
+   relative, Dirichlet flags off, on and mixed, an odd nz included;
+10. the six-face strip halo of ``stage_curv.cu`` against the plain version
+   and bitwise equal to the padded halo on small all-ic disks: the
+   Cartesian radiation-hydro disk (no diffusion, K5b) and the spherical
+   disk with x3 ic and alpha viscosity (K5a), both dtypes, four schemes;
+11. the RHD cell (``inputs/disk_rhd_amr.in`` without refinement at
+   bench.py's 512x512x64 root, float32, all faces ic, gray FLD): the main
+   path through ``Simulation.run`` with the three kernels' counts reset
+   before and read after (two six-face stage launches and one fld_coeffs
+   launch per cycle, one fld_matvec launch per CG matvec), CG iterations
+   per Newton outer iteration, host read-backs per cycle, zone-cycles/s of
+   the kernel path (20 cycles after 2 warm-up) and of the plain path, the
+   density L2 deviation from the initial condition (<= 3e-4, bench.py:185),
+   each kernel's time per launch against its plain version and bound, the
+   six-face halo bitwise equal to the padded one at full size, and the
+   cycle's split between the device's busy time and its idle share;
+12. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
+   tests/test_radiation.py's test_rad_shock.
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
@@ -73,11 +93,15 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 DECK = os.path.join(HERE, "inputs", "linwave.in")
 DISK = {name: os.path.join(HERE, "inputs", f"{name}.in")
-        for name in ("disk_sph", "disk_cyl", "disk_axi")}
+        for name in ("disk_sph", "disk_cyl", "disk_axi", "disk_rhd_amr")}
+SHOCK = os.path.join(HERE, "inputs", "rad_shock.in")
 DEVICE = "cuda"
 F64_TOL = 1e-12
 F32_TOL = 1e-5
 DISK_F32_TOL = 1e-4
+# the FLD kernels against their plain versions: max |kernel - plain| over
+# max |plain| of each output
+FLD_TOL = {"float64": 1e-12, "float32": 1e-5}
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
@@ -129,8 +153,8 @@ def phase_build(torch):
     from artemis_tpu_torch import _build
     from artemis_tpu_torch.ops import stage_curv as SC
 
-    builds = [("stage_cart", ())] + [("stage_curv", SC.build_defines(dt))
-                                     for dt in (torch.float32, torch.float64)]
+    builds = [("stage_cart", ()), ("fld", ())] + [("stage_curv", SC.build_defines(dt))
+                                                  for dt in (torch.float32, torch.float64)]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         for f in [pool.submit(_build.load, name, d) for name, d in builds]:
@@ -319,7 +343,7 @@ def warm_up(sim, ncycles):
           f"run stopped at cycle {sim.tm.ncycle}, wanted {sim.tm.nlim}")
 
 
-def run_cycles(torch, sim, ncycles):
+def run_cycles(torch, sim, ncycles, observers=None):
     """Advance ``ncycles`` through the evolution loop that Simulation.run
     drives, timed by CUDA events; returns zone-cycles/s."""
     from artemis_tpu_torch.driver import evolve
@@ -328,7 +352,7 @@ def run_cycles(torch, sim, ncycles):
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
-    sim.state, sim.tm, _, status = evolve(sim.driver, sim.state, sim.tm)
+    sim.state, sim.tm, _, status = evolve(sim.driver, sim.state, sim.tm, observers=observers)
     end.record()
     torch.cuda.synchronize()
     check(status == "complete" and sim.tm.ncycle == sim.tm.nlim,
@@ -661,8 +685,11 @@ def l2_vs_ic(torch, sim):
 def profile_cycles(torch, sim, ncycles):
     """Device busy time per cycle by kernel over ``ncycles`` of the
     evolution loop under torch.profiler; None when it records no device
-    time.  The profiler slows the host, so the idle share comes from the
-    unprofiled cycle time instead (``idle_share``)."""
+    time.  Only the device's own events count (an aten operator's row
+    repeats the time of the kernels it launched).  The profiler slows the
+    host, so the idle share comes from the unprofiled cycle time instead
+    (``idle_share``)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from artemis_tpu_torch.driver import evolve
@@ -674,8 +701,8 @@ def profile_cycles(torch, sim, ncycles):
         sim.state, sim.tm, _, _ = evolve(sim.driver, sim.state, sim.tm)
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / ncycles
-    rows = [(e.key, getattr(e, "self_device_time_total", 0.0) / 1e3 / ncycles)
-            for e in prof.key_averages()]
+    rows = [(e.key, e.self_device_time_total / 1e3 / ncycles)
+            for e in prof.key_averages() if e.device_type != DeviceType.CPU]
     rows = sorted([r for r in rows if r[1] > 0], key=lambda r: -r[1])
     if not rows:
         print("profile: no device time recorded (not measured)")
@@ -758,7 +785,7 @@ def phase_disk(torch, smi):
 
         w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
         res["padded_ms"] = time_launches(torch, lambda: SC._launch(
-            cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, gather=False), 20)
+            cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, "padded"), 20)
         res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
             cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, padded=True), 20)
         res["padded_bound_ms"], res["padded_bound_by"] = bound(
@@ -844,6 +871,358 @@ def phase_disk_decks(torch):
     return out
 
 
+# -- phase 9 -------------------------------------------------------------
+FLD_FLAGS = {"zero-flux": ((False, False),) * 3, "dirichlet": ((True, True),) * 3,
+             "mixed": ((True, False), (False, True), (True, True))}
+FLD_SHAPES = ((32, 16, 32), (5, 7, 9), (63, 48, 40))   # (nz, ny, nx), odd nz included
+
+
+def errs(pairs):
+    """(max abs, max relative) error over (kernel, plain) output pairs, the
+    relative one against each output's max |plain|."""
+    ab = max(float((k - p).abs().max()) for k, p in pairs)
+    rl = max(float((k - p).abs().max() / p.abs().max()) for k, p in pairs)
+    return ab, rl
+
+
+def fld_pairs(torch, E, chi, dt, dxs, c_code, ext, flags, sf):
+    """Both FLD kernels and their plain versions on the same inputs."""
+    from artemis_tpu_torch.ops import fld as FLD
+
+    args = (E, chi, dt, dxs, c_code, ext, flags)
+    kc = FLD.fld_coeffs(*args)
+    km = FLD.fld_matvec(E, kc[0], kc[1], sf)
+    torch.cuda.synchronize()
+    pc = FLD.fld_coeffs_reference(*args)
+    pm = FLD.fld_matvec_reference(E, pc[0], pc[1], sf)
+    return list(zip(kc, pc)) + [(km, pm)]
+
+
+def phase_fld_compare(torch):
+    """fld_coeffs and fld_matvec against their plain versions on random
+    states: float64 and float32, Dirichlet flags off, on and mixed, an odd
+    nz included."""
+    import numpy as np
+
+    worst = {}
+    ncase = 0
+    for shape in FLD_SHAPES:
+        rng = np.random.default_rng(sum(shape))
+        E, chi, sf = 0.5 + rng.random(shape), 3.0 * (1.0 + rng.random(shape)), rng.random(shape)
+        for dtype in (torch.float64, torch.float32):
+            name = str(dtype).removeprefix("torch.")
+            t = lambda a: torch.as_tensor(a, dtype=dtype, device=DEVICE)
+            for flags in FLD_FLAGS.values():
+                ab, rl = errs(fld_pairs(torch, t(E), t(chi), t(np.array([1e-3])),
+                                        (0.05, 0.07, 0.03), 10.0, 2.0, flags, t(sf)))
+                check(rl <= FLD_TOL[name], f"FLD kernels vs plain {shape} {name} {flags}: "
+                                           f"relative error {rl:.3e} > {FLD_TOL[name]:g}")
+                w = worst.setdefault(name, [0.0, 0.0])
+                w[0], w[1] = max(w[0], ab), max(w[1], rl)
+                ncase += 1
+    print(f"fld compare: {ncase} cases (coeffs + matvec) pass; max abs / relative err "
+          f"f64 {worst['float64'][0]:.3e} / {worst['float64'][1]:.3e} "
+          f"(tol {FLD_TOL['float64']:g} rel), f32 {worst['float32'][0]:.3e} / "
+          f"{worst['float32'][1]:.3e} (tol {FLD_TOL['float32']:g} rel)")
+    return worst
+
+
+# -- phase 10 ------------------------------------------------------------
+def allic_sim(torch, dtype, deck, data, rsolver, recon, nx=(20, 12, 6)):
+    """An all-ic disk through the user entry point at a small ragged size:
+    "cartesian" is the radiation-hydro deck without refinement and
+    radiation (no diffusion: K5b), "spherical" disk_sph with x3 ic over
+    r in [0.4, 2.4] (alpha viscosity: K5a)."""
+    from artemis_tpu_torch import Simulation
+
+    ov = [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
+          f"parthenon/mesh/nx3={nx[2]}", f"artemis/precision={dtype}",
+          f"gas/riemann={rsolver}", f"gas/reconstruct={recon}"]
+    if deck == "cartesian":
+        path = DISK["disk_rhd_amr"]
+        ov += ["parthenon/mesh/refinement=none", "physics/radiation=false"]
+    else:
+        path = DISK["disk_sph"]
+        ov += ["parthenon/mesh/x1min=0.4", "parthenon/mesh/x1max=2.4",
+               "parthenon/mesh/ix3_bc=ic", "parthenon/mesh/ox3_bc=ic"]
+    return Simulation(path, ov, data, device=DEVICE)
+
+
+def phase_gather6_compare(torch):
+    """The six-face strip halo against the plain version and bitwise equal
+    to the padded halo, with diffusion off (K5b, the Cartesian disk) and on
+    (K5a, the spherical disk with x3 ic), both dtypes, all four schemes."""
+    worst = {"float64": 0.0, "float32": 0.0}
+    ncase = 0
+    with tempfile.TemporaryDirectory() as data:
+        for deck in ("cartesian", "spherical"):
+            for dtype in ("float64", "float32"):
+                tol = F64_TOL if dtype == "float64" else DISK_F32_TOL
+                for scheme in ("hllc-plm", "hlle-plm", "hllc-pcm", "hlle-pcm"):
+                    sim = allic_sim(torch, dtype, deck, data, *scheme.split("-"))
+                    d = sim.driver
+                    check(d.stage_kernel == "stage_curv (gather6)"
+                          and (d.diffusion is not None) == (deck == "spherical"),
+                          f"all-ic {deck} took {d.stage_kernel}")
+                    w, u = sim.state["gas"]["w"], sim.state["gas"]["u"]
+                    eg, og = compare_curv(torch, d._curv, w, u, tol)
+                    ep, op = compare_curv(torch, d._curv, w, u, tol, padded=True)
+                    check(all(torch.equal(a, b) for a, b in zip(og, op)),
+                          f"all-ic {deck} {dtype} {scheme}: six-face and padded halo differ")
+                    worst[dtype] = max(worst[dtype], eg, ep)
+                    ncase += 4
+    print(f"gather6 compare: {ncase} cases, six-face == padded bitwise (K5b Cartesian, "
+          f"K5a spherical with viscosity); max abs err vs plain f64 {worst['float64']:.3e} "
+          f"(tol {F64_TOL:g}), f32 {worst['float32']:.3e} (tol {DISK_F32_TOL:g})")
+    return worst
+
+
+# -- phase 11 ------------------------------------------------------------
+RHD_CELL = (512, 512, 64)
+RHD_CYCLES = 20
+
+
+def rhd_sim(data, fused=True):
+    """The RHD cell: inputs/disk_rhd_amr.in without refinement at
+    bench.py's production root (512x512x64 over [-4, 4]^2 x [-0.5, 0.5]),
+    float32."""
+    from artemis_tpu_torch import Simulation
+
+    nx, ny, nz = RHD_CELL
+    args = ["parthenon/mesh/refinement=none", "artemis/precision=float32",
+            f"parthenon/mesh/nx1={nx}", f"parthenon/mesh/nx2={ny}", f"parthenon/mesh/nx3={nz}",
+            "parthenon/mesh/x1min=-4.0", "parthenon/mesh/x1max=4.0",
+            "parthenon/mesh/x2min=-4.0", "parthenon/mesh/x2max=4.0"]
+    return Simulation(DISK["disk_rhd_amr"], args, data, device=DEVICE, fused_stage=fused)
+
+
+def rhd_fld_inputs(torch, sim):
+    """The FLD operator's inputs as the radiation step makes them from the
+    cell's state: E, chi, dt (one element) and the first outer's sf."""
+    rad = sim.driver.radiation
+    cfg, gas = rad.cfg, rad.gas
+    u, Er = sim.state["gas"]["u"], sim.state["rad"]["Er"]
+    dt = torch.full((1,), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+    rho = torch.clamp_min(u[:1, 0], gas.dfloor)
+    T0 = u[:1, 5] / (rho * gas.cv)
+    rcv = rho * gas.cv
+    chi = (rad.kappa(rho, T0) + cfg.kappa_s) * rho
+    sig = dt * cfg.c_code * rad.kappa(rho, T0) * rho
+    sf = sig * (rcv / (rcv + sig * 4.0 * cfg.arad * T0 * T0 * T0))
+    flags = [tuple(v is not None for v in rad._edge_dirichlet.get(d, (None, None)))
+             for d in (1, 2, 3)]
+    shp = tuple(Er.shape[-3:])
+    return (Er.reshape(shp).contiguous(), chi.reshape(shp).contiguous(), dt, rad._wuni,
+            cfg.c_code, rad._ext, flags), sf.reshape(shp).contiguous()
+
+
+def phase_rhd(torch, smi):
+    from artemis_tpu_torch import bc as bc_mod
+    from artemis_tpu_torch.ops import fld as FLD
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    res = {}
+    ncell = RHD_CELL[0] * RHD_CELL[1] * RHD_CELL[2]
+    with tempfile.TemporaryDirectory() as data:
+        t0 = time.perf_counter()
+        sim = rhd_sim(data)
+        res["setup_s"] = time.perf_counter() - t0
+        drv, rad = sim.driver, sim.driver.radiation
+        check(drv.stage_kernel == "stage_curv (gather6)" and rad.use_kernels
+              and all(lo is not None and hi is not None
+                      for lo, hi in rad._edge_dirichlet.values())
+              and len(rad._edge_dirichlet) == 3,
+              f"RHD cell took {drv.stage_kernel}, radiation kernels {rad.use_kernels}, "
+              f"Dirichlet edges {rad._edge_dirichlet}")
+        print(f"RHD cell {RHD_CELL} f32: set-up {res['setup_s']:.1f} s, stage kernel "
+              f"{drv.stage_kernel}, radiation through fld_coeffs + fld_matvec")
+        iters = []
+
+        def record(state, tm):
+            iters.append(list(rad.cg_iters))
+
+        # the main path: 2 warm-up + RHD_CYCLES timed cycles, counting launches
+        reads0 = rad.host_reads
+        SC.stage_curv_launches = FLD.fld_coeffs_launches = FLD.fld_matvec_launches = 0
+        sim.tm.nlim = 2
+        sim.run(extra_observers=[record])
+        check(sim.status == "complete" and sim.tm.ncycle == 2, "RHD warm-up did not complete")
+        res["kernel_zcps"] = run_cycles(torch, sim, RHD_CYCLES, observers=[record])
+        launches = (SC.stage_curv_launches, FLD.fld_coeffs_launches, FLD.fld_matvec_launches)
+        ncyc = sim.tm.ncycle
+        matvecs = sum(1 + it for its in iters for it in its)
+        check(len(iters) == ncyc and launches == (2 * ncyc, ncyc, matvecs),
+              f"RHD cell: launches (stage_curv, fld_coeffs, fld_matvec) {launches} for "
+              f"{ncyc} cycles, {matvecs} matvecs expected from the CG counts")
+        res["launches"] = launches
+        res["cg_iters"] = iters
+        outers = [len(its) for its in iters]
+        res["cg_per_outer"] = sum(sum(its) for its in iters) / sum(outers)
+        res["reads_per_cycle"] = 1 + (rad.host_reads - reads0) / ncyc
+        res["l2"] = l2_vs_ic(torch, sim)
+        fin = all(bool(torch.isfinite(t).all()) for t in
+                  (sim.state["gas"]["u"], sim.state["gas"]["w"], sim.state["rad"]["Er"]))
+        check(fin and res["l2"] <= 3e-4,
+              f"RHD cell after {ncyc} cycles: L2 vs IC {res['l2']:.3e} > 3e-4 or not finite")
+        print(f"RHD f32 kernel path: {RHD_CYCLES} cycles, {res['kernel_zcps']:.6e} "
+              f"zone-cycles/s, dt {sim.tm.dt:.6e}, L2 vs IC {res['l2']:.3e} (gate 3e-4) [{smi}]")
+        print(f"RHD launches in {ncyc} cycles: stage_curv {launches[0]}, fld_coeffs "
+              f"{launches[1]}, fld_matvec {launches[2]}; Newton outers per cycle "
+              f"{sum(outers) / ncyc:.2f}, CG iterations per outer {res['cg_per_outer']:.2f} "
+              f"(per cycle: {iters}); host read-backs per cycle {res['reads_per_cycle']:.2f}")
+
+        # per-launch times of the three kernels on this state, with their
+        # plain versions, bounds and the halo checks
+        cs = drv._curv
+        u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
+        u1 = u.clone()
+        dt = torch.full((), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+        tnow = sim.tm.time
+        calls = itertools.cycle([(0.0, 1.0, 1.0), (0.5, 0.5, 0.5)])
+
+        def kern():
+            g0, g1, b = next(calls)
+            return SC.stage_curv(cs, w, u, u1, g0, g1, b, dt, tnow, False)
+
+        def plain():
+            g0, g1, b = next(calls)
+            return SC.stage_curv_reference(cs, w, u, u1, g0, g1, b, dt, tnow, False)
+
+        res["ms"] = time_launches(torch, kern, 20)
+        res["plain_ms"] = time_launches(torch, plain, 2)
+        nblk = cs.dtden_blocks()
+        nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*cs.strips.values(), *cs.rows)
+                  + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+        flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
+            cs, w, u, u1, *g, dt, tnow, False)) for g in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))) / 2
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+        ug, wg, dg = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+        up, wp, dp = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
+        ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+        torch.cuda.synchronize()
+        check(torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg, dp),
+              "RHD cell: six-face and padded halo differ")
+        res["stage_err"] = max(float((ug - ur).abs().max()), float((wg - wr).abs().max()))
+        check(res["stage_err"] <= DISK_F32_TOL,
+              f"RHD stage kernel vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
+        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+        res["padded_ms"] = time_launches(torch, lambda: SC._launch(
+            cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, "padded"), 20)
+        res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
+            cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True), 10)
+        print(f"RHD f32 stage per launch: six-face kernel (K5b) {res['ms']:.4f} ms, padded "
+              f"halo {res['padded_ms']:.4f} ms ({res['padded_stage_ms']:.4f} ms with the ic "
+              f"fill), plain {res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB and "
+              f"{flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; "
+              f"six-face == padded bitwise, vs plain {res['stage_err']:.3e} [{smi}]")
+        del ug, wg, dg, up, wp, dp, ur, wr, w_pad
+
+        args, sf = rhd_fld_inputs(torch, sim)
+        E = args[0]
+        res["coeffs_ms"] = time_launches(torch, lambda: FLD.fld_coeffs(*args), 20)
+        res["coeffs_plain_ms"] = time_launches(torch, lambda: FLD.fld_coeffs_reference(*args), 4)
+        A, dg3, Dc = FLD.fld_coeffs_reference(*args)
+        res["matvec_ms"] = time_launches(torch, lambda: FLD.fld_matvec(E, A, dg3, sf), 20)
+        res["matvec_plain_ms"] = time_launches(
+            torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf), 4)
+        pairs = fld_pairs(torch, *args, sf)
+        res["coeffs_err"] = errs(pairs[:3])
+        res["matvec_err"] = errs(pairs[3:])
+        check(res["coeffs_err"][1] <= FLD_TOL["float32"]
+              and res["matvec_err"][1] <= FLD_TOL["float32"],
+              f"RHD FLD kernels vs plain: relative {res['coeffs_err'][1]:.3e}, "
+              f"{res['matvec_err'][1]:.3e} > {FLD_TOL['float32']:g}")
+        res["coeffs_bound_ms"], res["coeffs_bound_by"] = bound(
+            tensor_bytes(E, args[1], A, dg3, Dc),
+            count_flops(torch, lambda: FLD.fld_coeffs_reference(*args)))
+        res["matvec_bound_ms"], res["matvec_bound_by"] = bound(
+            tensor_bytes(E, A, dg3, sf, E),
+            count_flops(torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf)))
+        print(f"RHD f32 fld_coeffs (K7) per launch: kernel {res['coeffs_ms']:.4f} ms, plain "
+              f"{res['coeffs_plain_ms']:.4f} ms, bound {res['coeffs_bound_ms']:.4f} ms "
+              f"({res['coeffs_bound_by']}); vs plain abs {res['coeffs_err'][0]:.3e} rel "
+              f"{res['coeffs_err'][1]:.3e} [{smi}]")
+        print(f"RHD f32 fld_matvec (K8) per launch: kernel {res['matvec_ms']:.4f} ms, plain "
+              f"{res['matvec_plain_ms']:.4f} ms, bound {res['matvec_bound_ms']:.4f} ms "
+              f"({res['matvec_bound_by']}); vs plain abs {res['matvec_err'][0]:.3e} rel "
+              f"{res['matvec_err'][1]:.3e} [{smi}]")
+        print("  " + smi_clocks())
+        del args, sf, E, A, dg3, Dc, pairs, u1, cs, u, w
+        torch.cuda.empty_cache()
+
+        # the cycle's split: the unprofiled cycle against the device's busy
+        # time under torch.profiler
+        cycle_ms = 1e3 * ncell / res["kernel_zcps"]
+        kern_ms = (2 * res["ms"] + res["coeffs_ms"]
+                   + res["matvec_ms"] * launches[2] / ncyc)
+        res["profile"] = profile_cycles(torch, sim, 3)
+        res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
+                             if res["profile"] else None)
+        print(f"RHD f32 cycle (unprofiled): {cycle_ms:.4f} ms; the three kernels "
+              f"{kern_ms:.4f} ms of it ({100 * kern_ms / cycle_ms:.1f}%); device idle "
+              + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
+                 else "not measured"))
+        del sim, drv, rad
+        torch.cuda.empty_cache()
+
+        # the plain path through the same entry point
+        psim = rhd_sim(data, fused=False)
+        check(psim.driver.stage_kernel == "none" and not psim.driver.radiation.use_kernels,
+              "plain RHD run took a kernel")
+        warm_up(psim, 1)
+        res["plain_zcps"] = run_cycles(torch, psim, 2)
+        l2p = l2_vs_ic(torch, psim)
+        check(bool(torch.isfinite(psim.state["rad"]["Er"]).all()) and l2p <= 3e-4,
+              f"plain RHD run: L2 {l2p:.3e} or not finite")
+        print(f"RHD f32 plain path: 2 cycles, {res['plain_zcps']:.6e} zone-cycles/s, "
+              f"L2 vs IC {l2p:.3e} [{smi}]")
+        del psim
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 12 ------------------------------------------------------------
+def phase_rad_shock(torch):
+    """rad_shock.in (1-D Lowrie-Edwards shock, float64, the tensor operator)
+    to t = 0.02 against tests/test_radiation.py's thresholds."""
+    import numpy as np
+
+    from artemis_tpu_torch import Simulation
+
+    with tempfile.TemporaryDirectory() as data:
+        sim = Simulation(SHOCK, ["parthenon/time/tlim=0.02"], data, device=DEVICE)
+        rad = sim.driver.radiation
+        check(not rad.use_kernels, "1-D rad_shock took the FLD kernels")
+        cg = []
+        t0 = time.perf_counter()
+        sim.run(extra_observers=[lambda state, tm: cg.append(sum(rad.cg_iters))])
+        secs = time.perf_counter() - t0
+    w = sim.state["gas"]["w"][0].cpu().numpy()
+    Er = sim.state["rad"]["Er"][0].cpu().numpy()
+    T = (w[5] / sim.gas_cfg.cv)[0, 0]
+    rho = w[0][0, 0]
+    Trad = (Er[0, 0] / sim.radiation_cfg.arad) ** 0.25
+    jump = int(np.argmax(np.diff(rho)))
+    ahead = Trad[max(0, jump - 40):jump]
+    d2 = float(np.abs(np.diff(Trad, 2)).max())
+    ok = (np.isfinite(w).all() and np.isfinite(Er).all()
+          and abs(rho[0] - 1.0) < 0.05 and abs(rho[-1] - 2.285714) / 2.285714 < 0.05
+          and abs(T[0] - 0.6) / 0.6 < 0.05 and abs(T[-1] - 1.246875) / 1.246875 < 0.05
+          and Trad.min() > 0.5 and Trad.max() < 1.5 and d2 < 0.05
+          and rho.max() >= 2.285714 and ahead.size and ahead.max() > 0.65)
+    check(ok, f"rad_shock: rho ends {rho[0]:.4f} {rho[-1]:.4f}, T ends {T[0]:.4f} "
+              f"{T[-1]:.4f}, Trad [{Trad.min():.4f}, {Trad.max():.4f}], d2 {d2:.3e}, "
+              f"precursor {ahead.max() if ahead.size else float('nan'):.4f}")
+    print(f"rad_shock f64 to t=0.02: {sim.tm.ncycle} cycles in {secs:.1f} s, {sum(cg)} CG "
+          f"iterations ({1e3 * secs / sum(cg):.4f} ms each, the cycle's other work included), "
+          f"{rad.host_reads} host read-backs of loop tests")
+    print(f"rad_shock thresholds: rho ends "
+          f"{rho[0]:.4f} / {rho[-1]:.4f}, T ends {T[0]:.4f} / {T[-1]:.4f}, Trad in "
+          f"[{Trad.min():.4f}, {Trad.max():.4f}], max |d2 Trad| {d2:.3e}, precursor "
+          f"Trad {ahead.max():.4f}: tests/test_radiation.py thresholds met")
+    return {"ncycle": sim.tm.ncycle, "d2": d2, "secs": secs, "cg_iters": sum(cg)}
+
+
 def main():
     import torch
 
@@ -860,6 +1239,10 @@ def main():
     cerr64, cerr32, cdisk32 = phase_curv_compare(torch)
     disk = phase_disk(torch, smi)
     decks = phase_disk_decks(torch)
+    fld = phase_fld_compare(torch)
+    g6 = phase_gather6_compare(torch)
+    rhd = phase_rhd(torch, smi)
+    shock = phase_rad_shock(torch)
     kernels = {"kernels": [{
         "name": "stage_cart",
         "route": "cuda",
@@ -918,6 +1301,71 @@ def main():
         "zone_cycles_per_s": {"kernel_f32": disk["kernel_zcps"],
                               "plain_f32": disk["plain_zcps"],
                               "kernel_f64": disk["kernel_f64_zcps"]},
+    }, {
+        "name": "stage_curv_gather6",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/stage_curv.cu",
+        "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1867",
+        "also_replaces": "artemis_tpu/ops/pallas_stage_curv.py:1783",
+        "launches": rhd["launches"][0],
+        "max_abs_err": max(g6["float32"], rhd["stage_err"]),
+        "max_abs_err_f64": g6["float64"],
+        "tol_f32": DISK_F32_TOL,
+        "tol_f64": F64_TOL,
+        "ms": rhd["ms"],
+        "plain_ms": rhd["plain_ms"],
+        "bound_ms": rhd["bound_ms"],
+        "bound_by": rhd["bound_by"],
+        "library_ms": None,
+        "padded_ms": rhd["padded_ms"],
+        "padded_stage_ms": rhd["padded_stage_ms"],
+        "shape": list(RHD_CELL),
+        "dtype": "float32",
+        "rhd_l2_vs_ic": rhd["l2"],
+        "zone_cycles_per_s": {"kernel_f32": rhd["kernel_zcps"],
+                              "plain_f32": rhd["plain_zcps"]},
+        "idle_share": rhd["idle_share"],
+        "host_reads_per_cycle": rhd["reads_per_cycle"],
+        "rad_shock_cycles": shock["ncycle"],
+    }, {
+        "name": "fld_coeffs",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/fld.cu",
+        "replaces": "artemis_tpu/ops/pallas_fld.py:88",
+        "launches": rhd["launches"][1],
+        "max_abs_err": max(fld["float32"][0], rhd["coeffs_err"][0]),
+        "max_abs_err_f64": fld["float64"][0],
+        "max_rel_err": max(fld["float32"][1], rhd["coeffs_err"][1]),
+        "max_rel_err_f64": fld["float64"][1],
+        "tol_rel_f32": FLD_TOL["float32"],
+        "tol_rel_f64": FLD_TOL["float64"],
+        "ms": rhd["coeffs_ms"],
+        "plain_ms": rhd["coeffs_plain_ms"],
+        "bound_ms": rhd["coeffs_bound_ms"],
+        "bound_by": rhd["coeffs_bound_by"],
+        "library_ms": None,
+        "shape": list(RHD_CELL),
+        "dtype": "float32",
+    }, {
+        "name": "fld_matvec",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/fld.cu",
+        "replaces": "artemis_tpu/ops/pallas_fld.py:188",
+        "launches": rhd["launches"][2],
+        "max_abs_err": max(fld["float32"][0], rhd["matvec_err"][0]),
+        "max_abs_err_f64": fld["float64"][0],
+        "max_rel_err": max(fld["float32"][1], rhd["matvec_err"][1]),
+        "max_rel_err_f64": fld["float64"][1],
+        "tol_rel_f32": FLD_TOL["float32"],
+        "tol_rel_f64": FLD_TOL["float64"],
+        "ms": rhd["matvec_ms"],
+        "plain_ms": rhd["matvec_plain_ms"],
+        "bound_ms": rhd["matvec_bound_ms"],
+        "bound_by": rhd["matvec_bound_by"],
+        "library_ms": None,
+        "shape": list(RHD_CELL),
+        "dtype": "float32",
+        "cg_iters_per_outer": rhd["cg_per_outer"],
     }]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,6 +18,11 @@ version.
   padded} x {full, partial} x {hllc, hlle} x {pcm, plm} and the diffusion,
   gravity and rotating-frame variants, with the gather and padded halo
   sources bitwise equal on the disk layout;
+* the six-face strip halo (K5a/K5b) on all-``ic`` layouts: the Cartesian
+  disk of the radiation-hydro deck without diffusion (K5b) and the
+  spherical disk with x3 ``ic`` and alpha viscosity (K5a, whose stencil
+  reads the corners between ghost regions), bitwise equal to the padded
+  halo and within the tolerances of the plain version;
 * the ``cuda``-marked tests run the same checks on the card.  They skip
   without a GPU; run them there with (``tests/conftest.py`` imports jax,
   which the card's machine lacks; the JAX comparisons import it only
@@ -51,6 +56,7 @@ from artemis_tpu_torch.units import Constants, Units  # noqa: E402
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DISK_SPH = os.path.join(HERE, "..", "inputs", "disk_sph.in")
+DISK_RHD = os.path.join(HERE, "..", "inputs", "disk_rhd_amr.in")
 CSRC = os.path.join(os.path.dirname(SC.__file__), "..", "csrc")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # the disk state: cells at the density floor (1e-10) amplify the two
@@ -345,11 +351,12 @@ void run_t(const CurvParams& p, int gather, int full, int block) {
   return full ? run<T, false, true>(p, block) : run<T, false, false>(p, block);
 }
 }  // namespace
-extern "C" int artemis_stage_curv(int dtype, int gather, int full, const int* ints,
+extern "C" int artemis_stage_curv(int dtype, int halo, int full, const int* ints,
                                   const double* reals, const void* const* ptrs,
-                                  int block, void*) {
+                                  int nptrs, int block, void*) {
   CurvParams p;
-  if (!make_params(ints, reals, ptrs, &p)) return 1;
+  if (!make_params(halo, ints, reals, ptrs, nptrs, &p)) return 1;
+  const int gather = halo != kPadded;
   if (dtype == 0) run_t<float>(p, gather, full, block);
   else run_t<double>(p, gather, full, block);
   return 0;
@@ -377,7 +384,7 @@ def host_kernel(tmp_path_factory):
     fn = ctypes.CDLL(str(so)).artemis_stage_curv
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.restype = i
-    fn.argtypes = [i, i, i, p, p, p, i, p]
+    fn.argtypes = [i, i, i, p, p, p, i, i, p]
     return fn
 
 
@@ -394,10 +401,10 @@ def on_host(host_kernel, monkeypatch):
 
         if cs.strips is not None and not padded:
             return SC._launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
-                              gather=True)
+                              cs.halo)
         w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
         return SC._launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
-                          gather=False)
+                          "padded")
 
     return launch
 
@@ -500,6 +507,85 @@ def test_host_compiled_kernel_float32(on_host, tmp_path):
     check_against_plain(cs, s.w, s.u, torch.float32, on_host)
 
 
+def allic_stage(dtype, device, deck, data_dir, nx=(20, 12, 6)):
+    """An all-``ic`` disk at a small ragged size through the user entry
+    point (plain path), and its CurvStage with the six face strips, as the
+    driver makes it on the card: ``deck`` "cartesian" is the radiation-hydro
+    deck without refinement and radiation (point gravity, no diffusion:
+    K5b); "spherical" is disk_sph with x3 ``ic`` over r in [0.4, 2.4]
+    (alpha viscosity, point gravity, rotating frame: K5a).  Returns the
+    stage, the initial w and u, and the driver."""
+    ov = [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
+          f"parthenon/mesh/nx3={nx[2]}", "parthenon/time/nlim=0",
+          "artemis/precision=" + str(dtype).removeprefix("torch.")]
+    if deck == "cartesian":
+        path = DISK_RHD
+        ov += ["parthenon/mesh/refinement=none", "physics/radiation=false"]
+    else:
+        path = DISK_SPH
+        ov += ["parthenon/mesh/x1min=0.4", "parthenon/mesh/x1max=2.4",
+               "parthenon/mesh/ix3_bc=ic", "parthenon/mesh/ox3_bc=ic"]
+    sim = Simulation(path, ov, data_dir, device=device, fused_stage=False)
+    d = sim.driver
+    grav = [s for s in d.sources if isinstance(s, Gravity)][0]
+    rf = [s for s in d.sources if isinstance(s, RotatingFrame)]
+    assert SC.gather6_supported(sim.grid) and not SC.gather_supported(
+        sim.grid, sim.gas_cfg, d.bc_custom)
+    strips = SC.prepare_gather6_root_strips(sim.grid, d.bc_custom["ic"].shard_caches[0])
+    cs = SC.CurvStage(d.hydro, omf=d.omf, rotating=rf[0] if rf else None, gravity=grav,
+                      gmode=curv_point_grav(sim.grid, grav), diffusion=d.diffusion,
+                      strips=strips, bc_custom=d.bc_custom)
+    assert cs.halo == "gather6" and (d.diffusion is not None) == (deck == "spherical")
+    return cs, sim.state["gas"]["w"], sim.state["gas"]["u"], d
+
+
+@pytest.mark.parametrize("deck", ["cartesian", "spherical"], ids=["K5b-cart", "K5a-sph-visc"])
+def test_host_compiled_gather6_equals_padded(on_host, tmp_path, deck):
+    """The six-face strip halo against the plain version and bitwise equal
+    to the padded halo (float64; the viscous stencil of the spherical case
+    reads every kind of ghost corner)."""
+    cs, w, u, _ = allic_stage(torch.float64, "cpu", deck, str(tmp_path))
+    ug, wg, dg = check_against_plain(cs, w, u, torch.float64, on_host, tols=TOL_DISK)
+    up, wp, dp = check_against_plain(cs, w, u, torch.float64, on_host, padded=True,
+                                     tols=TOL_DISK)
+    assert torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg, dp)
+
+
+def test_host_compiled_gather6_float32(on_host, tmp_path):
+    """Float32 on the Cartesian all-ic disk: six-face == padded bitwise,
+    both within TOL_DISK of the float32 plain version."""
+    cs, w, u, _ = allic_stage(torch.float32, "cpu", "cartesian", str(tmp_path))
+    ug, wg, _ = check_against_plain(cs, w, u, torch.float32, on_host, tols=TOL_DISK)
+    up, wp, _ = check_against_plain(cs, w, u, torch.float32, on_host, padded=True,
+                                    tols=TOL_DISK)
+    assert torch.equal(ug, up) and torch.equal(wg, wp)
+
+
+def test_gather6_strips_cover_the_ghost_faces(tmp_path):
+    """The x3 strips hold the padded array's x3 ghost slabs over the
+    interior x and y ranges, and the driver of a card run picks the
+    six-face halo for the all-ic layouts (its gate, checked on the CPU)."""
+    cs, w, _, d = allic_stage(torch.float64, "cpu", "cartesian", str(tmp_path))
+    assert d._make_curv_stage(cs.grid, cs.cfg).halo == "gather6"
+    from artemis_tpu_torch import bc as bc_mod
+
+    ng = cs.grid.nghost
+    nx, ny, nz = cs.grid.nx
+    wp = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)[0]
+    assert torch.equal(cs.strips[("x3", 0)], wp[:, :ng, ng:ng + ny, ng:ng + nx])
+    assert torch.equal(cs.strips[("x3", 1)], wp[:, nz + ng:, ng:ng + ny, ng:ng + nx])
+    assert tuple(cs.strips[("x1", 0)].shape) == (6, nz + 2 * ng, ny + 2 * ng, ng)
+
+
+def test_launch_refuses_a_halo_the_stage_lacks(tmp_path):
+    """A gather6 launch of a stage with the x1/x2 strips only raises before
+    reaching the kernel."""
+    cs, w, u = disk_stage(torch.float64, "cpu", data_dir=str(tmp_path))
+    dt = torch.full((), 1e-3, dtype=torch.float64)
+    with pytest.raises(ValueError, match="gather6"):
+        SC._launch(cs, w, w, u, u, 0.5, 0.5, 0.5, dt, 0.0, False, "gather6")
+
+
 def test_host_compiled_kernel_gravity_window(on_host):
     """Outside the gravity source's tstart/tstop window the kernel adds no
     gravity, as Gravity.apply does."""
@@ -542,6 +628,19 @@ def test_kernel_matches_plain(cuda, case, full, dtype):
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
 def test_kernel_disk_gather_and_padded(cuda, tmp_path, dtype):
     cs, w, u = disk_stage(dtype, cuda, data_dir=str(tmp_path))
+    ug, wg, dg = check_against_plain(cs, w, u, dtype, SC.stage_curv, tols=TOL_DISK)
+    up, wp, dp = check_against_plain(cs, w, u, dtype, SC.stage_curv, padded=True,
+                                     tols=TOL_DISK)
+    torch.cuda.synchronize()
+    assert torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("deck", ["cartesian", "spherical"], ids=["K5b-cart", "K5a-sph-visc"])
+def test_kernel_gather6_equals_padded(cuda, tmp_path, deck, dtype):
+    cs, w, u, d = allic_stage(dtype, cuda, deck, str(tmp_path))
+    assert d._make_curv_stage(cs.grid, cs.cfg).halo == "gather6"
     ug, wg, dg = check_against_plain(cs, w, u, dtype, SC.stage_curv, tols=TOL_DISK)
     up, wp, dp = check_against_plain(cs, w, u, dtype, SC.stage_curv, padded=True,
                                      tols=TOL_DISK)
