@@ -13,6 +13,13 @@
 //                        x3 strips given: the all-ic Cartesian disk of the
 //                        radiation-hydro configuration, with or without
 //                        diffusion)
+//   stage_curv_gather6_batched -> _stage_kernel_curv_gather6n (:2303, :2209):
+//                        K5b for N same-shape mesh-refinement nodes in one
+//                        launch (the node axis, gridDim.y, over a per-node
+//                        pointer table; each node's arrays are read where
+//                        they lie, nothing is stacked, so a launch moves
+//                        only its nodes' own compulsory bytes, without the
+//                        TPU path's stacked copies of w, u0 and u1)
 // All run the body _curv_body (:631-1402), with _plm_g (:518) and the
 // shared _hllc/_hlle/rk_blend (stage_common.cuh).  On the TPU the
 // frontends exist because of how Mosaic's DMAs fetch a halo; here a thread
@@ -59,8 +66,9 @@
 // make the same IEEE operations and agree bitwise on the disk layout.
 //
 // Binding: a plain C entry point (artemis_stage_curv) called through
-// ctypes with three packed arrays (ints, reals, pointers) whose layout is
-// checked by the ints' and reals' leading counts and the pointer count.  It launches on the caller's stream,
+// ctypes with three packed arrays (ints, reals, pointers: dt, then one row
+// per node) whose layout is checked by the ints' and reals' leading counts,
+// the node count and the pointer count.  It launches on the caller's stream,
 // reads dt from device memory (bdt = beta * dt[0] is formed here),
 // allocates nothing, does not synchronise, and returns cudaGetLastError().
 
@@ -131,13 +139,12 @@ struct CurvReals {
   double tiny;
 };
 
-struct CurvParams {
-  CurvInts n;
-  CurvReals r;
+// One node's tensors: a launch advances up to kMaxNodes nodes of one grid
+// shape (the TPU's node-batched K6), each read and written where it lies.
+struct NodePtrs {
   const void* w;            // GATHER: [6, nz, ny, nx]; else [6, nz+2g3, ny+2g2, nx+2g1]
   const void* u0;           // [6, nz, ny, nx] (unused when gam0 == 0)
   const void* u1;           // [6, nz, ny, nx] (unused when gam1 == 0)
-  const void* dt;           // one element
   void* u_out;              // [6, nz, ny, nx]
   void* w_out;              // [6, nz, ny, nx] (FULL only)
   void* dmax;               // [gridDim.x] (FULL only)
@@ -152,38 +159,44 @@ struct CurvParams {
   const void* sz_hi;
 };
 
+constexpr int kMaxNodes = 16;
+constexpr int kNodePtrs = int(sizeof(NodePtrs) / sizeof(void*));
+
+// The shared scalars once, then the node table (gridDim.y entries used);
+// about 3 KB, inside the 4 KB a kernel parameter may take.
+struct CurvParams {
+  CurvInts n;
+  CurvReals r;
+  const void* dt;           // one element, shared by the nodes
+  int nnodes;
+  NodePtrs node[kMaxNodes];
+};
+
 // halo sources (the entry point's ``halo`` argument)
 constexpr int kPadded = 0;
 constexpr int kGather = 1;    // x1/x2 strips, x3 wrapped
 constexpr int kGather6 = 2;   // x1/x2/x3 strips
-constexpr int kNumPtrs = 16;
 
-// Unpacks the caller's arrays; false when their layout differs from this
-// build's, or the x3 strips disagree with the halo source.
+// Unpacks the caller's arrays (ptrs: dt, then kNodePtrs pointers per node
+// in NodePtrs order); false when their layout differs from this build's,
+// the node count is out of range, or a node's x3 strips disagree with the
+// halo source.
 inline bool make_params(int halo, const int* ints, const double* reals,
-                        const void* const* ptrs, int nptrs, CurvParams* p) {
+                        const void* const* ptrs, int nptrs, int nnodes, CurvParams* p) {
   if (ints[0] != int(sizeof(CurvInts) / sizeof(int)) ||
-      reals[0] != double(sizeof(CurvReals) / sizeof(double)) || nptrs != kNumPtrs)
+      reals[0] != double(sizeof(CurvReals) / sizeof(double)) || nnodes < 1 ||
+      nnodes > kMaxNodes || nptrs != 1 + kNodePtrs * nnodes)
     return false;
-  if ((halo == kGather6) != (ptrs[14] != nullptr && ptrs[15] != nullptr)) return false;
+  memset(p, 0, sizeof(CurvParams));
   memcpy(&p->n, ints, sizeof(CurvInts));
   memcpy(&p->r, reals, sizeof(CurvReals));
-  p->w = ptrs[0];
-  p->u0 = ptrs[1];
-  p->u1 = ptrs[2];
-  p->dt = ptrs[3];
-  p->u_out = const_cast<void*>(ptrs[4]);
-  p->w_out = const_cast<void*>(ptrs[5]);
-  p->dmax = const_cast<void*>(ptrs[6]);
-  p->cx = ptrs[7];
-  p->cy = ptrs[8];
-  p->cz = ptrs[9];
-  p->sx_lo = ptrs[10];
-  p->sx_hi = ptrs[11];
-  p->sy_lo = ptrs[12];
-  p->sy_hi = ptrs[13];
-  p->sz_lo = ptrs[14];
-  p->sz_hi = ptrs[15];
+  p->dt = ptrs[0];
+  p->nnodes = nnodes;
+  for (int k = 0; k < nnodes; ++k) {
+    memcpy(&p->node[k], ptrs + 1 + kNodePtrs * k, sizeof(NodePtrs));
+    const NodePtrs& nd = p->node[k];
+    if ((halo == kGather6) != (nd.sz_lo != nullptr && nd.sz_hi != nullptr)) return false;
+  }
   return true;
 }
 
@@ -197,29 +210,20 @@ struct Ctx {
   const CurvInts& n;
   const CurvReals& r;
   const CurvIdx& ix;
-  const T* __restrict__ w;
-  const T* __restrict__ sxl;
-  const T* __restrict__ sxh;
-  const T* __restrict__ syl;
-  const T* __restrict__ syh;
-  const T* __restrict__ szl;
-  const T* __restrict__ szh;
-  const T* __restrict__ cx;
-  const T* __restrict__ cy;
-  const T* __restrict__ cz;
+  const NodePtrs& nd;
 
-  __device__ __forceinline__ Ctx(const CurvParams& p)
-      : n(p.n), r(p.r), ix(p.n.ix),
-        w(static_cast<const T*>(p.w)),
-        sxl(static_cast<const T*>(p.sx_lo)),
-        sxh(static_cast<const T*>(p.sx_hi)),
-        syl(static_cast<const T*>(p.sy_lo)),
-        syh(static_cast<const T*>(p.sy_hi)),
-        szl(static_cast<const T*>(p.sz_lo)),
-        szh(static_cast<const T*>(p.sz_hi)),
-        cx(static_cast<const T*>(p.cx)),
-        cy(static_cast<const T*>(p.cy)),
-        cz(static_cast<const T*>(p.cz)) {}
+  __device__ __forceinline__ Ctx(const CurvParams& p, const NodePtrs& node)
+      : n(p.n), r(p.r), ix(p.n.ix), nd(node) {}
+
+  // The node's arrays are read from its row of the parameter table where
+  // they are used.  Copied into members up front, the ten pointers of a row
+  // picked by blockIdx.y held 20 more registers through the whole stage (148
+  // in the f32 six-face kernel, three blocks per SM instead of four) and the
+  // gather variants ran 26-29% slower on the H100; read in place, they stay
+  // at 128 registers without spills.
+  __device__ __forceinline__ static const T* at(const void* q) {
+    return static_cast<const T*>(q);
+  }
 
   // Primitive c at (k, j, i).  GATHER sources every halo cell as
   // stage_curv_gather and _stage_kernel_curv_gather6 assemble their slabs,
@@ -235,32 +239,38 @@ struct Ctx {
     if (GATHER) {
       const int64_t zp = nz + 2 * n.g3, yp = ny + 2 * n.g2;
       if (i < 0 || i >= nx) {
-        const T* s = i < 0 ? sxl : sxh;
+        const T* s = at(i < 0 ? nd.sx_lo : nd.sx_hi);
         const int ii = i < 0 ? i + n.g1 : i - nx;
         return s[((c * zp + (k + n.g3)) * yp + (j + n.g2)) * n.g1 + ii];
       }
       if (j < 0 || j >= ny) {
-        const T* s = j < 0 ? syl : syh;
+        const T* s = at(j < 0 ? nd.sy_lo : nd.sy_hi);
         const int jj = j < 0 ? j + n.g2 : j - ny;
         return s[((c * zp + (k + n.g3)) * n.g2 + jj) * nx + i];
       }
       if (k < 0 || k >= nz) {
-        if (szl != nullptr) {
-          const T* s = k < 0 ? szl : szh;
+        if (nd.sz_lo != nullptr) {
+          const T* s = at(k < 0 ? nd.sz_lo : nd.sz_hi);
           const int kk = k < 0 ? k + n.g3 : k - nz;
           return s[((int64_t(c) * n.g3 + kk) * ny + j) * nx + i];
         }
         k = k < 0 ? k + nz : k - nz;
       }
-      return w[((int64_t(c) * nz + k) * ny + j) * nx + i];
+      return at(nd.w)[((int64_t(c) * nz + k) * ny + j) * nx + i];
     }
     const int64_t xp = nx + 2 * n.g1, yp = ny + 2 * n.g2, zp = nz + 2 * n.g3;
-    return w[((c * zp + (k + n.g3)) * yp + (j + n.g2)) * xp + (i + n.g1)];
+    return at(nd.w)[((c * zp + (k + n.g3)) * yp + (j + n.g2)) * xp + (i + n.g1)];
   }
 
-  __device__ __forceinline__ T X(int row, int I) const { return cx[int64_t(row) * n.n1p + I]; }
-  __device__ __forceinline__ T Y(int row, int J) const { return cy[int64_t(row) * n.n2p + J]; }
-  __device__ __forceinline__ T Z(int row, int K) const { return cz[int64_t(row) * n.n3p + K]; }
+  __device__ __forceinline__ T X(int row, int I) const {
+    return at(nd.cx)[int64_t(row) * n.n1p + I];
+  }
+  __device__ __forceinline__ T Y(int row, int J) const {
+    return at(nd.cy)[int64_t(row) * n.n2p + J];
+  }
+  __device__ __forceinline__ T Z(int row, int K) const {
+    return at(nd.cz)[int64_t(row) * n.n3p + K];
+  }
 
   // 1/h_c at the cell, from row-level reciprocals
   __device__ __forceinline__ T inv_h(int c, int I, int J) const {
@@ -534,11 +544,11 @@ __device__ __forceinline__ T diff_axis(const Ctx<T, GATHER>& C, int k, int j, in
 // the whole stage for one cell
 // ---------------------------------------------------------------------------
 
-// Writes u_out (and, FULL, w_out) at interior cell ``cell`` (flat index into
-// [nz, ny, nx]); returns its CFL denominator (FULL) or 0.
+// Writes node ``nd``'s u_out (and, FULL, w_out) at interior cell ``cell``
+// (flat index into [nz, ny, nx]); returns its CFL denominator (FULL) or 0.
 template <typename T, bool GATHER, bool FULL>
-__device__ __forceinline__ T curv_cell(const CurvParams& p, int64_t cell) {
-  const Ctx<T, GATHER> C(p);
+__device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, int64_t cell) {
+  const Ctx<T, GATHER> C(p, nd);
   const CurvInts& n = p.n;
   const CurvReals& r = p.r;
   const CurvIdx& ix = n.ix;
@@ -570,8 +580,8 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, int64_t cell) {
     c3 = C.Z(ix.upd3_iv, K) * C.X(ix.upd_t1[2], I) * C.Y(ix.upd_t2[2], J);
   }
   const T bdt = T(r.beta) * static_cast<const T*>(p.dt)[0];
-  const T* u0 = static_cast<const T*>(p.u0);
-  const T* u1 = static_cast<const T*>(p.u1);
+  const T* u0 = static_cast<const T*>(nd.u0);
+  const T* u1 = static_cast<const T*>(nd.u1);
   T u[6];
 #pragma unroll
   for (int c = 0; c < 6; ++c) {
@@ -731,7 +741,7 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, int64_t cell) {
     }
   }
 
-  T* uo = static_cast<T*>(p.u_out);
+  T* uo = static_cast<T*>(nd.u_out);
   if (!FULL) {
 #pragma unroll
     for (int c = 0; c < 6; ++c) uo[c * ncell + cell] = u[c];
@@ -759,7 +769,7 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, int64_t cell) {
   const T pres = T(r.gamma - 1.0) * rho * sie;
   const T eint = sie * rho;
   const T etot = eint + half * rho * (v1 * v1 + v2 * v2 + v3 * v3);
-  T* wo = static_cast<T*>(p.w_out);
+  T* wo = static_cast<T*>(nd.w_out);
   uo[0 * ncell + cell] = rho;
   uo[1 * ncell + cell] = rho * v1 * hx[0];
   uo[2 * ncell + cell] = rho * v2 * hx[1];
@@ -792,14 +802,17 @@ constexpr int kBlock = 128;
 
 // The launch's parameters are a __grid_constant__ kernel argument: uniform
 // across threads, read from the constant bank, and addressable in place
-// (diff_face takes references into them) without a per-thread copy.
+// (diff_face takes references into them, and blockIdx.y picks the node's
+// row of the table) without a per-thread copy.  blockIdx.x walks one
+// node's cells, blockIdx.y the nodes: a one-node launch is the N = 1 case.
 template <typename T, bool GATHER, bool FULL>
 __global__ void __launch_bounds__(kBlock)
 stage_curv_kernel(const __grid_constant__ CurvParams p) {
   __shared__ T red[kBlock];
+  const NodePtrs& nd = p.node[blockIdx.y];
   const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
   const int64_t cell = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  const T den = cell < n ? curv_cell<T, GATHER, FULL>(p, cell) : T(0);
+  const T den = cell < n ? curv_cell<T, GATHER, FULL>(p, nd, cell) : T(0);
   if (!FULL) return;
   // block maximum of the denominator (masked threads contribute 0)
   red[threadIdx.x] = den;
@@ -808,14 +821,14 @@ stage_curv_kernel(const __grid_constant__ CurvParams p) {
     if (threadIdx.x < s) red[threadIdx.x] = vmax(red[threadIdx.x], red[threadIdx.x + s]);
     __syncthreads();
   }
-  if (threadIdx.x == 0) static_cast<T*>(p.dmax)[blockIdx.x] = red[0];
+  if (threadIdx.x == 0) static_cast<T*>(nd.dmax)[blockIdx.x] = red[0];
 }
 
 template <typename T, bool GATHER, bool FULL>
 cudaError_t launch(const CurvParams& p, cudaStream_t stream) {
   const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
-  const unsigned nblk = unsigned((n + kBlock - 1) / kBlock);
-  stage_curv_kernel<T, GATHER, FULL><<<nblk, kBlock, 0, stream>>>(p);
+  const dim3 grid(unsigned((n + kBlock - 1) / kBlock), unsigned(p.nnodes));
+  stage_curv_kernel<T, GATHER, FULL><<<grid, kBlock, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -830,17 +843,19 @@ cudaError_t launch_t(const CurvParams& p, int gather, int full, cudaStream_t s) 
 // dtype: 0 float32, 1 float64 (a build with -DARTEMIS_CURV_DTYPE=0 or 1
 // carries that type only; the wrapper builds the two in parallel).  halo:
 // kPadded (a padded array), kGather (interior + x1/x2 strips, x3 wrapped)
-// or kGather6 (interior + the six face strips).  ptrs: kNumPtrs pointers,
-// the x3 strips (the last two) given exactly for kGather6.  full: 1 whole
-// stage, 0 partial.  block must equal the kernel's block size (one dtden
-// entry per block).  Returns a cudaError_t (0 on success).
+// or kGather6 (interior + the six face strips).  nnodes: 1..kMaxNodes
+// nodes of one grid shape sharing ints, reals and dt.  ptrs: dt, then
+// kNodePtrs pointers per node in NodePtrs order, the x3 strips (the last
+// two) given exactly for kGather6.  full: 1 whole stage, 0 partial.
+// block must equal the kernel's block size (one dtden entry per block and
+// node).  Returns a cudaError_t (0 on success).
 extern "C" int artemis_stage_curv(int dtype, int halo, int full,
                                   const int* ints, const double* reals,
-                                  const void* const* ptrs, int nptrs, int block,
-                                  void* stream) {
+                                  const void* const* ptrs, int nptrs, int nnodes,
+                                  int block, void* stream) {
   CurvParams p;
   if (block != kBlock || halo < kPadded || halo > kGather6 ||
-      !make_params(halo, ints, reals, ptrs, nptrs, &p))
+      !make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p))
     return int(cudaErrorInvalidValue);
   const int gather = halo != kPadded;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,6 +1,6 @@
-"""Fused curvilinear gas-hydro RK stage: the CUDA kernel's wrapper, its
-plain PyTorch version and the kernel's coefficient rows (port of the K3,
-K4, K5a and K5b parts of ``artemis_tpu/ops/pallas_stage_curv.py``).
+"""Fused curvilinear gas-hydro RK stage: the CUDA kernel's wrappers, their
+plain PyTorch versions and the kernel's coefficient rows (port of the K3,
+K4, K5a, K5b and K6 parts of ``artemis_tpu/ops/pallas_stage_curv.py``).
 
 One stage is everything between two ghost fills on every supported
 coordinate system (the production disk path): PLM_G/PCM reconstruction,
@@ -20,7 +20,10 @@ disk boundary layout (x1/x2 ``ic``, x3 periodic) is gathered in-kernel
 from the unpadded interior and the x1/x2 ic strips; the all-``ic`` layout
 (the Cartesian disk of the radiation-hydro configuration) from the interior
 and six face strips; every other layout is read from primitives padded by
-``bc``.
+``bc``.  ``stage_curv_batched`` launches the same kernel over N nodes of
+one grid shape (a refined tree's nodes, each with its own coefficient rows
+and six strips), the node index on the launch grid's y axis: the TPU's
+node-batched K6 ``stage_curv_gather6_batched``.
 
 The coefficient packing (``_axis_pack`` ... ``CurvCoeffs.pack``,
 ``_dp_tuple``) is numpy only, copied from the JAX module; the rows are
@@ -533,6 +536,25 @@ def gather6_supported(grid) -> bool:
     return grid.nghost == 2 and grid.nx[0] > 1 and grid.nx[1] > 1 and grid.nx[2] > 1
 
 
+def gather6_batch_ok(stages) -> bool:
+    """May these nodes' stages run as one node-batched six-face launch?
+    (``gather6_batch_ok``, pallas_stage_curv.py:2446: two or more nodes of
+    one grid shape and ghost width, Cartesian, without diffusion or a
+    folded rotating frame, with the same point-gravity scalars; here also
+    no more than the kernel's node table holds, MAX_NODES.)"""
+    def gspec(cs):
+        g = cs.gravity
+        return None if g is None else (cs.gmode, g.gm, g.soft2, tuple(g.pos), g.tstart,
+                                       g.tstop)
+
+    c0 = stages[0]
+    return 2 <= len(stages) <= MAX_NODES and all(
+        cs.grid.nx == c0.grid.nx and cs.grid.ng == c0.grid.ng
+        and geo.is_cartesian(cs.grid.coords) and cs.diffusion is None
+        and (cs.rotating.omega if cs.rotating is not None else 0.0) == 0.0
+        and gspec(cs) == gspec(c0) for cs in stages)
+
+
 def prepare_gather_strips(grid, ic_caches):
     """The halo strips of the gather kernel from the ic BC value caches
     (make_ic_bc's shard_caches[0]), numpy: x1 lo/hi ghost slabs over the
@@ -654,8 +676,10 @@ class CurvStage:
         return -(-(nx * ny * nz) // BLOCK)
 
 
-def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm):
-    """The plain version: the composable sequence pad_and_fill ->
+def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
+                         w_pad=None):
+    """The plain version: the composable sequence pad_and_fill (or the
+    given padded prims ``w_pad``) ->
     compute_fluxes -> apply_update -> flux_source(omf) -> Diffusion
     fluxes/update -> Gravity point kick -> RotatingFrame torque, then (full)
     set_auxiliary -> C2P -> P2C and the CFL denominator maximum with the
@@ -663,7 +687,8 @@ def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, f
     (zero in partial mode, where w passes through)."""
     hyd, cfg = cs.hyd, cs.cfg
     bdt = beta * dt
-    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    if w_pad is None:
+        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
     fx = hyd.compute_fluxes(w_pad, cfg, force_pcm)
     u = hyd.apply_update(u0, u1, fx, gam0, gam1, bdt)
     u = hyd.flux_source(u, w, fx, bdt, omf=cs.omf)
@@ -685,21 +710,29 @@ def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, f
 
 
 def stage_curv(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
-               padded=False):
+               padded=False, strips=None, w_pad=None):
     """One fused curvilinear RK stage from interior prims ``w`` [1, 6, nz,
     ny, nx] and the registers u0, u1; ``dt`` is a one-element tensor on w's
-    device, ``time`` the stage's host time (the gravity window).  On the GPU
-    the halo is gathered in-kernel from ``cs``'s strips (``cs.halo``)
-    unless ``padded``, else read from ``bc.pad_and_fill``'s array.  Returns
-    (u, w, dtden); on the GPU dtden holds one maximum per block (full
-    mode)."""
+    device, ``time`` the stage's host time (the gravity window).  The halo
+    comes from this call's six face strips ``strips`` (a refined patch's,
+    which change every stage), or its padded prims ``w_pad``, or else (on
+    the GPU) from ``cs``'s strips (``cs.halo``) unless ``padded``, else
+    from ``bc.pad_and_fill``'s array.  Returns (u, w, dtden); on the GPU
+    dtden holds one maximum per block (full mode)."""
     if w.device.type == "cpu":
-        return stage_curv_reference(cs, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm)
+        if strips is not None:
+            w_pad = pad_from_strips(w, cs.grid, strips)
+        return stage_curv_reference(cs, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
+                                    w_pad=w_pad)
     if w.device.type != "cuda":
         raise RuntimeError(f"no curvilinear stage kernel for device {w.device}")
-    if cs.strips is not None and not padded:
+    if strips is not None:
+        return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, "gather6",
+                       strips=strips)
+    if w_pad is None and cs.strips is not None and not padded:
         return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, cs.halo)
-    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    if w_pad is None:
+        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
     return _launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, "padded")
 
 
@@ -716,72 +749,175 @@ def _lib(dtype):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
-        fn.argtypes = [i, i, i, p, p, p, i, i, p]
+        fn.argtypes = [i, i, i, p, p, p, i, i, i, p]
     return fn
 
 
 # the kernel's halo source codes (kPadded, kGather, kGather6)
 HALO_CODES = {"padded": 0, "gather": 1, "gather6": 2}
 STRIP_KEYS = (("x1", 0), ("x1", 1), ("x2", 0), ("x2", 1), ("x3", 0), ("x3", 1))
+MAX_NODES = 16  # the kernel's kMaxNodes
 
 
-def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, halo):
-    """Launch the kernel with halo source ``halo`` (a HALO_CODES key) on
-    primitives ``src`` (the interior ``w`` itself when gathering, else the
-    padded array)."""
-    global stage_curv_launches
-    grid = cs.grid
+def strip_shapes(grid):
+    """The six-face strips' shapes (STRIP_KEYS order): x1 [6, zp, yp, ng],
+    x2 [6, zp, ng, nx], x3 [6, ng, ny, nx]."""
     nx, ny, nz = grid.nx
     g1, g2, g3 = grid.ng
+    zp, yp = nz + 2 * g3, ny + 2 * g2
+    return ((6, zp, yp, g1),) * 2 + ((6, zp, g2, nx),) * 2 + ((6, g3, ny, nx),) * 2
+
+
+def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, halo, strips=None):
+    """Launch the kernel for one node with halo source ``halo`` (a
+    HALO_CODES key) on primitives ``src`` (the interior ``w`` itself when
+    gathering, else the padded array), with ``strips`` or else the stage's
+    own strips."""
+    global stage_curv_launches
+    if strips is None:
+        strips = cs.strips
+        if halo != "padded" and halo != cs.halo:
+            raise ValueError(f"a {halo} launch needs the {halo} strips; the stage has "
+                             f"{cs.halo}")
+    out = _launch_nodes([cs], [src], [u0], [u1], gam0, gam1, beta, dt, time, force_pcm,
+                        halo, [strips if halo != "padded" else None])
+    stage_curv_launches += 1
+    u, w_out, dmax = out[0]
+    if not cs.full:
+        return u, w, torch.zeros(1, dtype=u.dtype, device=u.device)
+    return u, w_out, dmax
+
+
+def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm, halo,
+                  strips_list):
+    """One launch over the nodes of ``stages`` (one grid shape, the same
+    scalars): node k reads ``srcs[k]``, its registers and ``strips_list[k]``
+    (a STRIP_KEYS dict, or None for the padded halo).  Returns one
+    (u, w, dtden) per node; w is None in partial mode."""
+    cs0 = stages[0]
+    nx, ny, nz = cs0.grid.nx
+    g1, g2, g3 = cs0.grid.ng
     gather = halo != "padded"
-    if gather and halo != cs.halo:
-        raise ValueError(f"a {halo} launch needs the {halo} strips; the stage has "
-                         f"{cs.halo}")
     shape = (1, 6, nz, ny, nx)
     src_shape = shape if gather else (1, 6, nz + 2 * g3, ny + 2 * g2, nx + 2 * g1)
-    dtype = src.dtype
+    dtype, device = srcs[0].dtype, srcs[0].device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"stage_curv kernel takes float32 or float64, not {dtype}")
-    if tuple(src.shape) != src_shape:
-        raise ValueError(f"prims of shape {tuple(src.shape)}, expected {src_shape}")
-    live = [t for t, g in ((u0, gam0), (u1, gam1)) if g != 0.0]
-    for t in live:
-        if tuple(t.shape) != shape:
-            raise ValueError(f"register of shape {tuple(t.shape)}, expected {shape}")
-    strips = list(cs.strips.values()) if gather else []
-    for t in [src, dt, *live, *cs.rows, *strips]:
-        if t.device != src.device or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError("stage_curv kernel inputs must be contiguous tensors of "
-                             "one dtype on one device")
+    if not 1 <= len(stages) <= MAX_NODES:
+        raise ValueError(f"a launch takes 1 to {MAX_NODES} nodes, not {len(stages)}")
     if dt.numel() != 1:
         raise ValueError("dt must be a one-element tensor")
-    fn = _lib(dtype)
-    u = torch.empty(shape, dtype=dtype, device=src.device)
-    w_out = torch.empty(shape, dtype=dtype, device=src.device) if cs.full else None
-    dmax = (torch.empty((cs.dtden_blocks(),), dtype=dtype, device=src.device)
-            if cs.full else None)
-    pcm = int(force_pcm or cs.cfg.recon == "pcm")
-    ints = cs._ints_head + [pcm] + cs._ints_tail
-    ints = [len(ints) + 1] + ints
-    gfac = 1.0 if cs.gravity is None or cs.gravity.active(time) else 0.0
-    reals = [float(gam0), float(gam1), float(beta)] + cs._reals_mid + [gfac] + cs._reals_tail
-    reals = [float(len(reals) + 1)] + reals
+    ints = cs0._ints_head + [int(force_pcm or cs0.cfg.recon == "pcm")] + cs0._ints_tail
+    gfac = 1.0 if cs0.gravity is None or cs0.gravity.active(time) else 0.0
+    reals = [float(gam0), float(gam1), float(beta)] + cs0._reals_mid + [gfac] + cs0._reals_tail
     ptr = lambda t: None if t is None else t.data_ptr()
-    s = cs.strips if gather else {}
-    ptrs = [src.data_ptr(), ptr(u0) if gam0 != 0.0 else None,
-            ptr(u1) if gam1 != 0.0 else None, dt.data_ptr(), u.data_ptr(),
-            ptr(w_out), ptr(dmax), *(t.data_ptr() for t in cs.rows),
-            *(ptr(s.get(k)) for k in STRIP_KEYS)]
+    ptrs = [dt.data_ptr()]
+    outs = []
+    for cs, src, u0, u1, strips in zip(stages, srcs, u0s, u1s, strips_list):
+        if cs is not cs0 and (
+                cs.grid.nx != cs0.grid.nx or cs.grid.ng != cs0.grid.ng
+                or cs._ints_head != cs0._ints_head or cs._ints_tail != cs0._ints_tail
+                or cs._reals_mid != cs0._reals_mid or cs._reals_tail != cs0._reals_tail
+                or cs.full != cs0.full
+                or (cs.gravity is None) != (cs0.gravity is None)
+                or (cs.gravity is not None and cs.gravity.active(time) != bool(gfac))):
+            raise ValueError("the nodes of one launch must share the grid shape and "
+                             "every scalar of the stage")
+        if tuple(src.shape) != src_shape:
+            raise ValueError(f"prims of shape {tuple(src.shape)}, expected {src_shape}")
+        live = [t for t, g in ((u0, gam0), (u1, gam1)) if g != 0.0]
+        for t in live:
+            if tuple(t.shape) != shape:
+                raise ValueError(f"register of shape {tuple(t.shape)}, expected {shape}")
+        strip_ts = [] if not gather else [strips[k] for k in STRIP_KEYS
+                                          if strips.get(k) is not None]
+        if gather:
+            want = strip_shapes(cs.grid)[:len(strip_ts)]
+            if [tuple(t.shape) for t in strip_ts] != list(want):
+                raise ValueError("halo strips of the wrong shape")
+        for t in [src, dt, *live, *cs.rows, *strip_ts]:
+            if t.device != device or t.dtype != dtype or not t.is_contiguous():
+                raise ValueError("stage_curv kernel inputs must be contiguous tensors of "
+                                 "one dtype on one device")
+        u = torch.empty(shape, dtype=dtype, device=device)
+        w_out = torch.empty(shape, dtype=dtype, device=device) if cs.full else None
+        dmax = (torch.empty((cs.dtden_blocks(),), dtype=dtype, device=device)
+                if cs.full else None)
+        s = strips if gather else {}
+        ptrs += [src.data_ptr(), ptr(u0) if gam0 != 0.0 else None,
+                 ptr(u1) if gam1 != 0.0 else None, u.data_ptr(), ptr(w_out), ptr(dmax),
+                 *(t.data_ptr() for t in cs.rows), *(ptr(s.get(k)) for k in STRIP_KEYS)]
+        outs.append((u, w_out, dmax))
+    if halo == "gather6" and any(("x3", 0) not in (s or {}) for s in strips_list):
+        raise ValueError("a gather6 launch needs the six face strips of every node")
+    fn = _lib(dtype)
+    ints = [len(ints) + 1] + ints
+    reals = [float(len(reals) + 1)] + reals
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_reals = (ctypes.c_double * len(reals))(*reals)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(0 if dtype == torch.float32 else 1, HALO_CODES[halo], int(cs.full),
-                 c_ints, c_reals, c_ptrs, len(ptrs), BLOCK, stream)
+        err = fn(0 if dtype == torch.float32 else 1, HALO_CODES[halo], int(cs0.full),
+                 c_ints, c_reals, c_ptrs, len(ptrs), len(stages), BLOCK, stream)
     if err != 0:
         raise RuntimeError(f"stage_curv kernel launch failed: CUDA error {err}")
-    stage_curv_launches += 1
-    if not cs.full:
-        return u, w, torch.zeros(1, dtype=dtype, device=src.device)
-    return u, w_out, dmax
+    return outs
+
+
+# ---------------------------------------------------------------------------
+# the node-batched six-face stage (K6)
+# ---------------------------------------------------------------------------
+
+# node-batched launches since the last reset
+stage_curv_batched_launches = 0
+
+
+def pad_from_strips(w, grid, strips):
+    """Interior prims [1, 6, nz, ny, nx] padded from the six face strips as
+    the kernel reads them: an x1 strip over an x2 strip over an x3 strip
+    over the interior (every halo cell belongs to one of them)."""
+    nx, ny, nz = grid.nx
+    g1, g2, g3 = grid.ng
+    wp = w.new_zeros((1, 6, nz + 2 * g3, ny + 2 * g2, nx + 2 * g1))
+    wp[:, :, g3:g3 + nz, g2:g2 + ny, g1:g1 + nx] = w
+    wp[0, :, :g3, g2:g2 + ny, g1:g1 + nx] = strips[("x3", 0)]
+    wp[0, :, g3 + nz:, g2:g2 + ny, g1:g1 + nx] = strips[("x3", 1)]
+    wp[0, :, :, :g2, g1:g1 + nx] = strips[("x2", 0)]
+    wp[0, :, :, g2 + ny:, g1:g1 + nx] = strips[("x2", 1)]
+    wp[0, :, :, :, :g1] = strips[("x1", 0)]
+    wp[0, :, :, :, g1 + nx:] = strips[("x1", 1)]
+    return wp
+
+
+def stage_curv_batched_reference(stages, ws, u0s, u1s, strips_list, gam0, gam1, beta, dt,
+                                 time, force_pcm):
+    """The plain version: per node, its prims padded from its six strips
+    (``pad_from_strips``: ``pad_and_fill`` on an all-ic root, the prolonged
+    ghost fill on a patch), then ``stage_curv_reference``'s chain.  Returns
+    one (u, w, dtden) per node."""
+    return [stage_curv_reference(cs, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
+                                 w_pad=pad_from_strips(w, cs.grid, strips))
+            for cs, w, u0, u1, strips in zip(stages, ws, u0s, u1s, strips_list)]
+
+
+def stage_curv_batched(stages, ws, u0s, u1s, strips_list, gam0, gam1, beta, dt, time,
+                       force_pcm):
+    """One fused stage for N nodes of one grid shape with six-face strip
+    halos (``strips_list[k]``: node k's STRIP_KEYS dict for this stage;
+    ``stages[k]``: its CurvStage, whose rows carry the node's geometry).
+    On the CPU the plain version; on a CUDA device one launch of
+    ``csrc/stage_curv.cu`` with N nodes on its grid's y axis (TPU kernel
+    K6), or raise.  Returns one (u, w, dtden) per node."""
+    global stage_curv_batched_launches
+    if ws[0].device.type == "cpu":
+        return stage_curv_batched_reference(stages, ws, u0s, u1s, strips_list, gam0, gam1,
+                                            beta, dt, time, force_pcm)
+    if ws[0].device.type != "cuda":
+        raise RuntimeError(f"no curvilinear stage kernel for device {ws[0].device}")
+    if not all(cs.full for cs in stages):
+        raise ValueError("the node-batched stage runs full stages only")
+    out = _launch_nodes(stages, ws, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
+                        "gather6", strips_list)
+    stage_curv_batched_launches += 1
+    return out

@@ -79,9 +79,11 @@ class Simulation:
                 raise NotImplementedError(f"<physics> {key} is not ported yet "
                                           f"(ROADMAP Queue 1 item {item})")
         refinement = pin.get_or_add_str("parthenon/mesh", "refinement", "none")
-        if refinement != "none":
-            raise NotImplementedError("mesh refinement is not ported yet "
+        if refinement == "adaptive":
+            raise NotImplementedError("adaptive mesh refinement is not ported yet "
                                       "(ROADMAP Queue 1 item 10)")
+        if refinement not in ("none", "static"):
+            raise ValueError(f"refinement {refinement!r} not recognized")
 
         self.grid = grid_from_input(pin)
 
@@ -155,10 +157,16 @@ class Simulation:
                                                       fused=fused_stage)
 
         integrator = Integrator.make(pin.get_or_add_str("parthenon/time", "integrator", "rk2"))
-        self.driver = Driver(self.grid, integrator, gas_cfg, None, sources=srcs,
-                             bc_custom=self.problem.bc_custom, omf=omf,
-                             diffusion=diffusion_factory, radiation=radiation_factory,
-                             device=self.device, dtype=self.dtype, fused_stage=fused_stage)
+        if refinement == "static":
+            self.driver = self._smr_driver(pin, problem_name, integrator, gas_cfg, srcs,
+                                           diffusion_factory, radiation_factory, omf,
+                                           fused_stage)
+        else:
+            self.driver = Driver(self.grid, integrator, gas_cfg, None, sources=srcs,
+                                 bc_custom=self.problem.bc_custom, omf=omf,
+                                 diffusion=diffusion_factory, radiation=radiation_factory,
+                                 device=self.device, dtype=self.dtype,
+                                 fused_stage=fused_stage)
 
         state = {name: {"u": None, "w": torch.as_tensor(w, dtype=self.dtype, device=self.device)}
                  for name, w in self.problem.prims.items()}
@@ -182,6 +190,43 @@ class Simulation:
             dt_min=pin.get_or_add_real("parthenon/time", "dt_min", 0.0),
             dt_max=pin.get_or_add_real("parthenon/time", "dt_max", 1.0e300),
         )
+
+    def _smr_driver(self, pin, problem_name, integrator, gas_cfg, srcs, diffusion_factory,
+                    radiation_factory, omf, fused_stage):
+        """The static refinement tree (artemis_tpu/simulation.py:223-296):
+        every node gets the deck's sources and the problem's own, built on
+        its grid; each patch's initial state comes from the problem
+        generator on the patch grid (built once per patch, for its sources
+        and its prims).  The tree's stage kernels run on the card
+        (``fused_stage``)."""
+        from .amr import SMRDriver
+
+        problems = {}
+
+        def problem_on(g):
+            if id(g) not in problems:
+                problems[id(g)] = build_problem(
+                    problem_name, ParameterInput.from_string(repr(pin)), g, gas_cfg, None)
+            return problems[id(g)]
+
+        def src_factory(g):
+            if g is self.grid:
+                return srcs
+            ss = sources_from_input(pin, g, gas_cfg, None, self.constants)
+            ss += list(problem_on(g).sources)
+            for s in ss:
+                if isinstance(s, Gravity) and s.gtype == "binary":
+                    s.omf = omf
+            return ss
+
+        drv = SMRDriver(self.grid, integrator, gas_cfg, pin, device=self.device,
+                        dtype=self.dtype, sources_factory=src_factory,
+                        diffusion_factory=diffusion_factory,
+                        bc_custom=self.problem.bc_custom, omf=omf,
+                        radiation_factory=radiation_factory,
+                        fused=fused_stage and self.device.type == "cuda")
+        drv._fine_prims = [dict(problem_on(nd.grid).prims) for nd in drv.smr.nodes[1:]]
+        return drv
 
     def _set_radiation_ic_edges(self):
         """Pin the FLD field outside ``ic`` boundaries to the IC equilibrium.

@@ -7,7 +7,10 @@ convert through numpy, every name and key included (the fused paths'
 per-block CFL denominators ``dtden`` and the radiation energy density
 ``Er`` too), so a state made by one can be stepped by the other: the disk,
 linear-wave and radiation slice tests hand the JAX run's initial state to
-the port this way.
+the port this way.  A refinement tree holds one such state per node, in
+the tree's node order (the JAX package's ``SMRDriver._states``, the port's
+``amr.SMRDriver._states``): ``tree_from_numpy`` and ``tree_to_numpy``
+carry the whole list.
 """
 
 from __future__ import annotations
@@ -27,3 +30,16 @@ def state_to_numpy(state):
     """{name: {key: tensor}} -> {name: {key: numpy array on the host}}."""
     return {name: {k: v.detach().cpu().numpy() for k, v in kinds.items()}
             for name, kinds in state.items()}
+
+
+def tree_from_numpy(states_np, device, dtype):
+    """A refinement tree's per-node states, numpy -> tensors."""
+    return [state_from_numpy(st, device, dtype) for st in states_np]
+
+
+def tree_to_numpy(states):
+    """A refinement tree's per-node states, tensors (or any array the
+    numpy interface reads, as the JAX package's) -> numpy."""
+    return [{name: {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
+                    for k, v in kinds.items()}
+             for name, kinds in st.items()} for st in states]

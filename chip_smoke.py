@@ -66,7 +66,27 @@ line is printed:
    each kernel's time per launch against its plain version and bound, the
    six-face halo bitwise equal to the padded one at full size, and the
    cycle's split between the device's busy time and its idle share;
-12. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
+12. the node axis of ``stage_curv.cu`` (K6): N = 1, 2, 3 Cartesian nodes
+   with their own coefficient rows and random six-face strips in one
+   launch, bitwise equal to N one-node six-face launches and within
+   1e-12 (f64) / 1e-5 (f32) of ``stage_curv_batched_reference``;
+13. the equal-shape AMR RHD cell (``inputs/disk_rhd_amr.in`` as written,
+   its static patch included, at a 256x256x64 root, whose patch is
+   256x256x64 too; float32): the main path through ``Simulation.run`` with
+   every kernel count reset before and read after (K6 with N = 2 twice
+   per cycle, fld_coeffs once per node per cycle, fld_matvec once per CG
+   matvec of each node), zone-cycles/s over every zone of every level
+   (20 cycles after 2 warm-up) and of the plain path, the root density L2
+   deviation from the initial condition (<= 3e-4), K6's time per launch
+   against two one-node six-face launches (K5b) and two padded launches
+   (K4) with and without their ghost fill, all bitwise equal, the tree
+   stage's glue and the radiation pass per node, CG iterations per node,
+   host read-backs per cycle and the device's idle share;
+14. bench.py's production AMR shape (512x512x64 root over [-4, 4]^2 and a
+   256x256x64 patch; the shapes differ, so one K5b launch per node):
+   zone-cycles/s over every level, launch counts and the density L2 gate
+   of bench.py:185;
+15. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
    tests/test_radiation.py's test_rad_shock.
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
@@ -536,10 +556,11 @@ def diff_params():
     return visc, cond
 
 
-def curv_case(torch, coords, rsolver, recon, dtype, visc, cond, grav, rf, full):
+def curv_case(torch, coords, rsolver, recon, dtype, visc, cond, grav, rf, full, box=None,
+              seed=2):
     """A CurvStage on a random smooth state (as tests/test_pallas_curv.py
     makes it) on a ragged 20x12x6 grid (20x12 axisymmetric), outflow x1/x2,
-    periodic x3."""
+    periodic x3; ``box`` replaces the coordinates' default bounds."""
     import numpy as np
 
     from artemis_tpu_torch.config import ParameterInput
@@ -552,7 +573,8 @@ def curv_case(torch, coords, rsolver, recon, dtype, visc, cond, grav, rf, full):
     from artemis_tpu_torch.units import Constants, Units
 
     nx3 = 1 if coords == "axisymmetric" else 6
-    mesh = CURV_MESHES[coords].split() + ["nx1=20", "nx2=12", f"nx3={nx3}", "nghost=2"]
+    mesh = (box or CURV_MESHES[coords]).split() + ["nx1=20", "nx2=12", f"nx3={nx3}",
+                                                   "nghost=2"]
     pin = ParameterInput.from_string(
         f"<artemis>\ncoordinates = {coords}\n<parthenon/mesh>\n" + "\n".join(mesh)
         + "\nix1_bc = outflow\nox1_bc = outflow\nix2_bc = outflow\nox2_bc = outflow\n"
@@ -563,7 +585,7 @@ def curv_case(torch, coords, rsolver, recon, dtype, visc, cond, grav, rf, full):
     cfg = FluidCfg(fluid="gas", recon=recon, rsolver=rsolver, gamma=1.4, cfl=0.3)
     hyd = Hydro(grid, cfg, device=DEVICE, dtype=dtype)
     nz, ny, nx = tuple(reversed(grid.nx))
-    rng = np.random.default_rng(2)
+    rng = np.random.default_rng(seed)
     w = np.empty((1, 6, nz, ny, nx))
     w[:, 0] = 1 + 0.2 * rng.random((nz, ny, nx))
     w[:, 1:4] = 0.3 * (rng.random((1, 3, nz, ny, nx)) - 0.5)
@@ -1182,6 +1204,342 @@ def phase_rhd(torch, smi):
 
 
 # -- phase 12 ------------------------------------------------------------
+RK2 = ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))   # (gam0, gam1, beta) of the two stages
+
+
+def random_strips(torch, grid, rng, dtype):
+    """Six-face strips (STRIP_KEYS order) of smooth positive random prims."""
+    import numpy as np
+
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    out = {}
+    for key, shp in zip(SC.STRIP_KEYS, SC.strip_shapes(grid)):
+        a = np.empty(shp)
+        a[0] = 1 + 0.2 * rng.random(shp[1:])
+        a[1:4] = 0.3 * (rng.random((3,) + shp[1:]) - 0.5)
+        a[5] = 1 + 0.2 * rng.random(shp[1:])
+        a[4] = 0.4 * a[0] * a[5]
+        out[key] = torch.as_tensor(a, dtype=dtype, device=DEVICE)
+    return out
+
+
+def phase_batched_compare(torch):
+    """K6, the node axis of stage_curv.cu: N = 1, 2, 3 Cartesian nodes of
+    one shape over different boxes (each its own coefficient rows), the
+    same point mass, random states and random six-face strips, in one
+    launch: bitwise equal to N one-node six-face launches and within
+    F64_TOL / F32_TOL of stage_curv_batched_reference, both RK patterns."""
+    import numpy as np
+
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    ncase = 0
+    for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+        for n in (1, 2, 3):
+            rng = np.random.default_rng(7 + n)
+            stages, ws, us, strips = [], [], [], []
+            for k in range(n):
+                box = (f"x1min={-2.0 + 0.25 * k} x1max={2.0 + 0.5 * k} "
+                       f"x2min={-1.0 - 0.125 * k} x2max=1.0 x3min=-0.25 x3max=0.25")
+                cs, w, u = curv_case(torch, "cartesian", "hllc", "plm", dtype, None, None,
+                                     True, False, True, box=box, seed=2 + k)
+                stages.append(cs)
+                ws.append(w)
+                us.append(u)
+                strips.append(random_strips(torch, cs.grid, rng, dtype))
+            check(SC.gather6_batch_ok(stages) == (n >= 2), f"batch gate wrong for n={n}")
+            dt = torch.full((1,), 2e-3, dtype=dtype, device=DEVICE)
+            for g in RK2:
+                u1s = [u.clone() for u in us]
+                nb = SC.stage_curv_batched_launches
+                out = SC.stage_curv_batched(stages, ws, us, u1s, strips, *g, dt, 0.0, False)
+                one = [SC.stage_curv(cs, w, u, u1, *g, dt, 0.0, False, strips=st)
+                       for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)]
+                torch.cuda.synchronize()
+                ref = SC.stage_curv_batched_reference(stages, ws, us, u1s, strips, *g, dt, 0.0,
+                                                      False)
+                check(SC.stage_curv_batched_launches == nb + 1, "batched launch not counted")
+                for (ub, wb, db), (uo, wo, do), (ur, wr, dr) in zip(out, one, ref):
+                    check(torch.equal(ub, uo) and torch.equal(wb, wo) and torch.equal(db, do),
+                          f"K6 n={n} {dtype} gam0={g[0]}: not bitwise the one-node launches")
+                    err = max(float((ub - ur).abs().max()), float((wb - wr).abs().max()))
+                    derr = float((db.max() - dr.max()).abs() / dr.max())
+                    check(err <= tol and derr <= tol and bool(torch.isfinite(ub).all()),
+                          f"K6 n={n} {dtype} gam0={g[0]} vs plain: max abs {err:.3e}, "
+                          f"dtden rel {derr:.3e} > {tol:g}")
+                    worst[dtype] = max(worst[dtype], err)
+                ncase += 1
+    print(f"batched compare (K6): {ncase} launches of N = 1, 2, 3 nodes, each bitwise equal "
+          f"to N one-node six-face launches; max abs err vs plain f64 "
+          f"{worst[torch.float64]:.3e} (tol {F64_TOL:g}), f32 {worst[torch.float32]:.3e} "
+          f"(tol {F32_TOL:g})")
+    return worst[torch.float64], worst[torch.float32]
+
+
+# -- phases 13 and 14 ----------------------------------------------------
+AMR_CELL = (256, 256, 64)      # root over the deck's own domain; its patch has its shape
+AMR_CYCLES = 20
+AMR_PROD = (512, 512, 64)      # bench.py's production root; patch 256x256x64
+AMR_PROD_CYCLES = 10
+
+
+def amr_sim(data, shape, dom, fused=True):
+    """inputs/disk_rhd_amr.in as written (its static refinement patch, gray
+    FLD, all faces ic), float32, at root ``shape`` over [-dom, dom]^2 x
+    [-0.5, 0.5]."""
+    from artemis_tpu_torch import Simulation
+
+    nx, ny, nz = shape
+    args = ["artemis/precision=float32", f"parthenon/mesh/nx1={nx}",
+            f"parthenon/mesh/nx2={ny}", f"parthenon/mesh/nx3={nz}",
+            f"parthenon/mesh/x1min={-dom}", f"parthenon/mesh/x1max={dom}",
+            f"parthenon/mesh/x2min={-dom}", f"parthenon/mesh/x2max={dom}"]
+    return Simulation(DISK["disk_rhd_amr"], args, data, device=DEVICE, fused_stage=fused)
+
+
+def ncells(grid):
+    return grid.nx[0] * grid.nx[1] * grid.nx[2]
+
+
+def amr_main_path(torch, sim, ncycles):
+    """The tree's main path through the user entry points: every kernel
+    count set to 0, 2 warm-up cycles through Simulation.run and
+    ``ncycles`` timed through its evolution loop, the counts read after.
+    Returns the counts, each cycle's CG iterations per node and outer, the
+    zone-cycles/s over every zone of every level (bench.py:149; evolve's
+    own rate counts the root, as the JAX package's evolve does), the root-only
+    rate and the host read-backs per cycle."""
+    from artemis_tpu_torch.ops import fld as FLD
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    smr = sim.driver.smr
+    iters = []
+
+    def record(state, tm):
+        iters.append([list(nd.radiation.cg_iters) for nd in smr.nodes])
+
+    reads0 = sum(nd.radiation.host_reads for nd in smr.nodes)
+    SC.stage_curv_launches = SC.stage_curv_batched_launches = 0
+    FLD.fld_coeffs_launches = FLD.fld_matvec_launches = 0
+    sim.tm.nlim = 2
+    sim.run(extra_observers=[record])
+    check(sim.status == "complete" and sim.tm.ncycle == 2, "AMR warm-up did not complete")
+    root_zcps = run_cycles(torch, sim, ncycles, observers=[record])
+    out = {"launches": {"stage_curv_batched": SC.stage_curv_batched_launches,
+                        "stage_curv": SC.stage_curv_launches,
+                        "fld_coeffs": FLD.fld_coeffs_launches,
+                        "fld_matvec": FLD.fld_matvec_launches}}
+    ncyc = sim.tm.ncycle
+    nnodes = len(smr.nodes)
+    matvecs = sum(1 + it for cyc in iters for its in cyc for it in its)
+    launches = out["launches"]
+    check(len(iters) == ncyc and launches["fld_coeffs"] == nnodes * ncyc
+          and launches["fld_matvec"] == matvecs,
+          f"AMR {sim.grid.nx}: launches {launches} for {ncyc} cycles on {nnodes} nodes, "
+          f"{matvecs} matvecs expected from the CG counts")
+    zones = sum(ncells(nd.grid) for nd in smr.nodes)
+    out.update(ncyc=ncyc, iters=iters, zones=zones, root_zcps=root_zcps,
+               zcps=root_zcps * zones / ncells(sim.grid),
+               reads_per_cycle=1 + (sum(nd.radiation.host_reads for nd in smr.nodes)
+                                    - reads0) / ncyc,
+               l2=l2_vs_ic(torch, sim))
+    out["cg_per_outer"] = [
+        sum(sum(cyc[k]) for cyc in iters) / max(1, sum(len(cyc[k]) for cyc in iters))
+        for k in range(nnodes)]
+    fin = all(bool(torch.isfinite(t).all()) for st in sim.driver._states
+              for t in (st["gas"]["u"], st["gas"]["w"], st["rad"]["Er"]))
+    check(fin and out["l2"] <= 3e-4,
+          f"AMR {sim.grid.nx} after {ncyc} cycles: root density L2 vs IC {out['l2']:.3e} "
+          "> 3e-4 or not finite")
+    return out
+
+
+def phase_amr(torch, smi):
+    """The equal-shape AMR RHD cell: the deck as written at a 256x256x64
+    root, whose patch is 256x256x64 too, so one K6 launch with N = 2
+    advances both nodes per RK stage."""
+    from artemis_tpu_torch import bc as bc_mod
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        t0 = time.perf_counter()
+        sim = amr_sim(data, AMR_CELL, 2.0)
+        res["setup_s"] = time.perf_counter() - t0
+        smr = sim.driver.smr
+        nodes = smr.nodes
+        check(len(nodes) == 2 and nodes[1].grid.nx == nodes[0].grid.nx and smr._batched
+              and sim.driver.stage_kernel == "stage_curv_batched (2 nodes, gather6)"
+              and all(nd.radiation.use_kernels for nd in nodes),
+              f"AMR cell: {len(nodes)} nodes {[nd.grid.nx for nd in nodes]}, stage kernel "
+              f"{sim.driver.stage_kernel}")
+        print(f"AMR cell root {AMR_CELL} + patch {nodes[1].grid.nx} at {nodes[1].lo} f32: "
+              f"set-up {res['setup_s']:.1f} s, stage kernel {sim.driver.stage_kernel}, "
+              "radiation through fld_coeffs + fld_matvec on each node")
+        m = amr_main_path(torch, sim, AMR_CYCLES)
+        ncyc, launches = m["ncyc"], m["launches"]
+        check(launches["stage_curv_batched"] == 2 * ncyc and launches["stage_curv"] == 0,
+              f"AMR cell: {launches} for {ncyc} rk2 cycles (K6 twice per cycle expected)")
+        res.update(m)
+        print(f"AMR cell f32 kernel path: {AMR_CYCLES} cycles, {m['zcps']:.6e} zone-cycles/s "
+              f"over all {m['zones']} zones ({m['root_zcps']:.6e} root-only, evolve's count), "
+              f"dt {sim.tm.dt:.6e}, root density L2 vs IC {m['l2']:.3e} (gate 3e-4) [{smi}]")
+        print(f"AMR cell launches in {ncyc} cycles: {launches}; CG iterations per outer by "
+              f"node {[round(c, 2) for c in m['cg_per_outer']]} (per cycle and node: "
+              f"{m['iters']}); host read-backs per cycle {m['reads_per_cycle']:.2f}")
+
+        # per-launch times on this state: K6, the same nodes as two one-node
+        # six-face launches (K5b), as two padded launches (K4) alone and
+        # with their ghost fill, and the plain version
+        states = sim.driver._states
+        ws = [st["gas"]["w"] for st in states]
+        us = [st["gas"]["u"] for st in states]
+        u1s = [u.clone() for u in us]
+        patch = nodes[1]
+        strips = [smr._gather6, patch.ghost_strips(ws[0], patch.lo)[0]]
+        stages = smr._fused
+        dt1 = torch.full((1,), sim.tm.dt, dtype=us[0].dtype, device=DEVICE)
+        tnow = sim.tm.time
+        calls = itertools.cycle(RK2)
+
+        def pads():
+            return [bc_mod.pad_and_fill(ws[0], nodes[0].grid, "gas", smr.bc_custom),
+                    patch.fill_fine_ghosts(ws[1], ws[0], patch.lo)]
+
+        wpads = pads()
+        res["ms"] = time_launches(torch, lambda: SC.stage_curv_batched(
+            stages, ws, us, u1s, strips, *next(calls), dt1, tnow, False), 20)
+        res["k5b_pair_ms"] = time_launches(torch, lambda: [
+            SC.stage_curv(cs, w, u, u1, *g, dt1, tnow, False, strips=st)
+            for g in [next(calls)] for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)], 20)
+        res["padded_pair_ms"] = time_launches(torch, lambda: [
+            SC._launch(cs, wp, w, u, u1, *g, dt1, tnow, False, "padded")
+            for g in [next(calls)] for cs, wp, w, u, u1 in zip(stages, wpads, ws, us, u1s)], 20)
+        res["padded_fill_pair_ms"] = time_launches(torch, lambda: [
+            SC.stage_curv(cs, w, u, u1, *g, dt1, tnow, False, w_pad=wp)
+            for g in [next(calls)] for cs, wp, w, u, u1 in zip(stages, pads(), ws, us, u1s)],
+            10)
+        res["plain_ms"] = time_launches(torch, lambda: SC.stage_curv_batched_reference(
+            stages, ws, us, u1s, strips, *next(calls), dt1, tnow, False), 2)
+        kb = SC.stage_curv_batched(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow, False)
+        k1 = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, strips=st)
+              for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)]
+        kp = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, w_pad=wp)
+              for cs, wp, w, u, u1 in zip(stages, wpads, ws, us, u1s)]
+        ref = SC.stage_curv_batched_reference(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow,
+                                              False)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for x, y in zip(kb, k1) for a, b in zip(x, y)),
+              "AMR cell: K6 and the two one-node six-face launches differ")
+        check(all(torch.equal(a, b) for x, y in zip(kb, kp) for a, b in zip(x[:2], y[:2])),
+              "AMR cell: K6 and the padded launches differ")
+        res["stage_err"] = max(float((a - b).abs().max()) for x, y in zip(kb, ref)
+                               for a, b in zip(x[:2], y[:2]))
+        check(res["stage_err"] <= DISK_F32_TOL,
+              f"AMR cell K6 vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
+        del kb, k1, kp, ref
+        nblk = stages[0].dtden_blocks()
+        nbytes = sum((tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*st.values(), *cs.rows)
+                      + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+                     for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips))
+        flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_batched_reference(
+            stages, ws, us, u1s, strips, *g, dt1, tnow, False)) for g in RK2) / 2
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+        print(f"AMR cell f32 stage per launch over both nodes: K6 {res['ms']:.4f} ms; two "
+              f"K5b launches {res['k5b_pair_ms']:.4f} ms; two padded K4 launches "
+              f"{res['padded_pair_ms']:.4f} ms ({res['padded_fill_pair_ms']:.4f} ms with the "
+              f"ic fill and the prolonged ghost fill); plain {res['plain_ms']:.4f} ms; bound "
+              f"{nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, "
+              f"{res['bound_by']}-bound; K6 == K5b == K4 bitwise, vs plain "
+              f"{res['stage_err']:.3e} [{smi}]")
+        print("  " + smi_clocks())
+
+        # the tree stage around the kernel: the patch's ghost strips, and
+        # the whole stage (strips, K6, rim deltas, restriction, re-sync)
+        u1d = [{"gas": u} for u in u1s]
+        dt_t = dt1.reshape(())
+        stage_no = itertools.cycle((1, 2))
+        res["strips_ms"] = time_launches(torch, lambda: patch.ghost_strips(ws[0], patch.lo), 20)
+        res["tree_stage_ms"] = time_launches(torch, lambda: smr._stage(
+            states, u1d, dt_t, tnow, next(stage_no)), 20)
+        res["glue_ms"] = res["tree_stage_ms"] - res["ms"] - res["strips_ms"]
+        # the radiation pass, and each node's solve within it
+        sib_Er = [st["rad"]["Er"] for st in states]
+        gh = smr._rad_ghost_planes(patch, states[0]["rad"]["Er"], sib_Er)
+        res["rad_pass_ms"] = time_launches(torch, lambda: smr._radiation_pass(states, dt_t), 3)
+        res["rad_node_ms"] = [
+            time_launches(torch, lambda: nodes[0].radiation.step(dict(states[0]), dt_t), 3),
+            time_launches(torch, lambda: patch.radiation.step(dict(states[1]), dt_t,
+                                                               ghosts=gh), 3)]
+        print(f"AMR cell f32 tree stage: {res['tree_stage_ms']:.4f} ms per RK stage = K6 "
+              f"{res['ms']:.4f} + patch ghost strips {res['strips_ms']:.4f} + glue (rim "
+              f"deltas, dual-energy switch, restriction, re-sync) {res['glue_ms']:.4f} ms; "
+              f"radiation pass {res['rad_pass_ms']:.4f} ms per cycle, of which the solves "
+              f"root {res['rad_node_ms'][0]:.4f} ms and patch {res['rad_node_ms'][1]:.4f} ms "
+              f"[{smi}]")
+        del states, ws, us, u1s, u1d, strips, wpads, sib_Er, gh
+
+        cycle_ms = 1e3 * ncells(sim.grid) / m["root_zcps"]
+        res["profile"] = profile_cycles(torch, sim, 3)
+        res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
+                             if res["profile"] else None)
+        print(f"AMR cell f32 cycle (unprofiled): {cycle_ms:.4f} ms; 2 K6 launches "
+              f"{2 * res['ms']:.4f} ms ({100 * 2 * res['ms'] / cycle_ms:.1f}%); device idle "
+              + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
+                 else "not measured"))
+        del sim, smr, nodes, patch, stages
+        torch.cuda.empty_cache()
+
+        # the plain path through the same entry point
+        psim = amr_sim(data, AMR_CELL, 2.0, fused=False)
+        pnodes = psim.driver.smr.nodes
+        check(psim.driver.stage_kernel == "none"
+              and not any(nd.radiation.use_kernels for nd in pnodes),
+              "plain AMR run took a kernel")
+        warm_up(psim, 1)
+        zones = sum(ncells(nd.grid) for nd in pnodes)
+        res["plain_zcps"] = run_cycles(torch, psim, 2) * zones / ncells(psim.grid)
+        res["plain_l2"] = l2_vs_ic(torch, psim)
+        check(bool(torch.isfinite(psim.state["rad"]["Er"]).all()) and res["plain_l2"] <= 3e-4,
+              f"plain AMR run: L2 {res['plain_l2']:.3e} or not finite")
+        print(f"AMR cell f32 plain path: 2 cycles, {res['plain_zcps']:.6e} zone-cycles/s over "
+              f"all levels, L2 vs IC {res['plain_l2']:.3e} [{smi}]")
+        del psim, pnodes
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_amr_prod(torch, smi):
+    """bench.py's production shape: a 512x512x64 root over [-4, 4]^2 and
+    the deck's window as a 256x256x64 patch; the shapes differ, so each
+    node runs its own six-face launch (K5b) per RK stage."""
+    with tempfile.TemporaryDirectory() as data:
+        t0 = time.perf_counter()
+        sim = amr_sim(data, AMR_PROD, 4.0)
+        setup_s = time.perf_counter() - t0
+        smr = sim.driver.smr
+        check(len(smr.nodes) == 2 and smr.nodes[1].grid.nx == (256, 256, 64)
+              and sim.driver.stage_kernel == "stage_curv per node (gather6)",
+              f"AMR production tree: {[nd.grid.nx for nd in smr.nodes]}, stage kernel "
+              f"{sim.driver.stage_kernel}")
+        m = amr_main_path(torch, sim, AMR_PROD_CYCLES)
+        ncyc, launches = m["ncyc"], m["launches"]
+        check(launches["stage_curv"] == 4 * ncyc and launches["stage_curv_batched"] == 0,
+              f"AMR production: {launches} for {ncyc} rk2 cycles (2 K5b per stage expected)")
+        print(f"AMR production root {AMR_PROD} + patch {smr.nodes[1].grid.nx} f32 (set-up "
+              f"{setup_s:.1f} s): {AMR_PROD_CYCLES} cycles, {m['zcps']:.6e} zone-cycles/s over "
+              f"all {m['zones']} zones ({m['root_zcps']:.6e} root-only), root density L2 vs "
+              f"IC {m['l2']:.3e} (gate 3e-4, bench.py:185); launches {launches}; CG iterations "
+              f"per outer by node {[round(c, 2) for c in m['cg_per_outer']]}; host read-backs "
+              f"per cycle {m['reads_per_cycle']:.2f} [{smi}]")
+        del sim, smr
+        torch.cuda.empty_cache()
+    return m
+
+
+# -- phase 15 ------------------------------------------------------------
 def phase_rad_shock(torch):
     """rad_shock.in (1-D Lowrie-Edwards shock, float64, the tensor operator)
     to t = 0.02 against tests/test_radiation.py's thresholds."""
@@ -1242,6 +1600,9 @@ def main():
     fld = phase_fld_compare(torch)
     g6 = phase_gather6_compare(torch)
     rhd = phase_rhd(torch, smi)
+    berr64, berr32 = phase_batched_compare(torch)
+    amr = phase_amr(torch, smi)
+    prod = phase_amr_prod(torch, smi)
     shock = phase_rad_shock(torch)
     kernels = {"kernels": [{
         "name": "stage_cart",
@@ -1366,6 +1727,37 @@ def main():
         "shape": list(RHD_CELL),
         "dtype": "float32",
         "cg_iters_per_outer": rhd["cg_per_outer"],
+    }, {
+        "name": "stage_curv_batched",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/stage_curv.cu",
+        "replaces": "artemis_tpu/ops/pallas_stage_curv.py:2209",
+        "launches": amr["launches"]["stage_curv_batched"],
+        "max_abs_err": max(berr32, amr["stage_err"]),
+        "max_abs_err_f64": berr64,
+        "tol_f32": F32_TOL,
+        "tol_disk_f32": DISK_F32_TOL,
+        "tol_f64": F64_TOL,
+        "ms": amr["ms"],
+        "plain_ms": amr["plain_ms"],
+        "bound_ms": amr["bound_ms"],
+        "bound_by": amr["bound_by"],
+        "library_ms": None,
+        "nodes": 2,
+        "k5b_pair_ms": amr["k5b_pair_ms"],
+        "padded_pair_ms": amr["padded_pair_ms"],
+        "padded_fill_pair_ms": amr["padded_fill_pair_ms"],
+        "tree_stage_ms": amr["tree_stage_ms"],
+        "glue_ms": amr["glue_ms"],
+        "shape": list(AMR_CELL),
+        "dtype": "float32",
+        "amr_l2_vs_ic": amr["l2"],
+        "amr_production_l2_vs_ic": prod["l2"],
+        "zone_cycles_per_s": {"kernel_f32_all_levels": amr["zcps"],
+                              "plain_f32_all_levels": amr["plain_zcps"],
+                              "production_kernel_f32_all_levels": prod["zcps"]},
+        "idle_share": amr["idle_share"],
+        "host_reads_per_cycle": amr["reads_per_cycle"],
     }]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,6 +23,10 @@ version.
   spherical disk with x3 ``ic`` and alpha viscosity (K5a, whose stencil
   reads the corners between ghost regions), bitwise equal to the padded
   halo and within the tolerances of the plain version;
+* the node axis (TPU kernel K6): N = 1, 2, 3 Cartesian nodes with their
+  own rows and six strips in one launch of the host-compiled device code,
+  bitwise equal to N one-node launches and within 1e-13 (f64) / 1e-5 (f32)
+  of ``stage_curv_batched_reference``;
 * the ``cuda``-marked tests run the same checks on the card.  They skip
   without a GPU; run them there with (``tests/conftest.py`` imports jax,
   which the card's machine lacks; the JAX comparisons import it only
@@ -337,12 +341,15 @@ HOST_ENTRY = r"""
 template <typename T, bool G, bool F>
 void run(const CurvParams& p, int block) {
   const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
-  T* dmax = static_cast<T*>(p.dmax);
-  for (int64_t b = 0; b * block < n; ++b) {
-    T m = T(0);
-    for (int64_t cell = b * block; cell < n && cell < (b + 1) * block; ++cell)
-      m = vmax(m, curv_cell<T, G, F>(p, cell));
-    if (F) dmax[b] = m;
+  for (int k = 0; k < p.nnodes; ++k) {
+    const NodePtrs& nd = p.node[k];
+    T* dmax = static_cast<T*>(nd.dmax);
+    for (int64_t b = 0; b * block < n; ++b) {
+      T m = T(0);
+      for (int64_t cell = b * block; cell < n && cell < (b + 1) * block; ++cell)
+        m = vmax(m, curv_cell<T, G, F>(p, nd, cell));
+      if (F) dmax[b] = m;
+    }
   }
 }
 template <typename T>
@@ -353,9 +360,9 @@ void run_t(const CurvParams& p, int gather, int full, int block) {
 }  // namespace
 extern "C" int artemis_stage_curv(int dtype, int halo, int full, const int* ints,
                                   const double* reals, const void* const* ptrs,
-                                  int nptrs, int block, void*) {
+                                  int nptrs, int nnodes, int block, void*) {
   CurvParams p;
-  if (!make_params(halo, ints, reals, ptrs, nptrs, &p)) return 1;
+  if (!make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p)) return 1;
   const int gather = halo != kPadded;
   if (dtype == 0) run_t<float>(p, gather, full, block);
   else run_t<double>(p, gather, full, block);
@@ -384,7 +391,7 @@ def host_kernel(tmp_path_factory):
     fn = ctypes.CDLL(str(so)).artemis_stage_curv
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.restype = i
-    fn.argtypes = [i, i, i, p, p, p, i, i, p]
+    fn.argtypes = [i, i, i, p, p, p, i, i, i, p]
     return fn
 
 
@@ -597,6 +604,124 @@ def test_host_compiled_kernel_gravity_window(on_host):
 
 
 # ---------------------------------------------------------------------------
+# the node axis (K6): N nodes of one shape in one launch
+# ---------------------------------------------------------------------------
+
+def random_strips(grid, rng, dtype, device):
+    """Six-face strips of smooth positive random primitives."""
+    out = {}
+    for key, shp in zip(SC.STRIP_KEYS, SC.strip_shapes(grid)):
+        a = np.empty(shp)
+        a[0] = 1 + 0.2 * rng.random(shp[1:])
+        a[1:4] = 0.3 * (rng.random((3,) + shp[1:]) - 0.5)
+        a[5] = 1 + 0.2 * rng.random(shp[1:])
+        a[4] = 0.4 * a[0] * a[5]
+        out[key] = torch.as_tensor(a, dtype=dtype, device=device)
+    return out
+
+
+def batch_nodes(n, dtype, device, seed=4):
+    """``n`` Cartesian nodes of one shape (20x12x6) over different boxes, so
+    each has its own coefficient rows, with the same folded point mass
+    (xyz mode), random states and random six-face strips: (stages, ws, us,
+    strips)."""
+    rng = np.random.default_rng(seed)
+    stages, ws, us, strips = [], [], [], []
+    for k in range(n):
+        s = port_setup("cartesian", dtype=dtype, device=device, pos=(0.3, -0.2, 0.1))
+        pin = s.pin
+        pin.apply_overrides([f"parthenon/mesh/x1min={-2.0 + 0.25 * k}",
+                             f"parthenon/mesh/x1max={2.0 + 0.5 * k}",
+                             f"parthenon/mesh/x2min={-1.0 - 0.125 * k}"])
+        grid = grid_from_input(pin)
+        hyd = Hydro(grid, s.cfg, device=device, dtype=dtype)
+        u, w = hyd.prim_to_cons(torch.as_tensor(random_prims(grid, seed + k), dtype=dtype,
+                                                device=device), s.cfg)
+        grav = Gravity(pin, grid, Constants.from_units(Units.from_input(pin))).place(device,
+                                                                                     dtype)
+        stages.append(SC.CurvStage(hyd, gravity=grav, gmode=curv_point_grav(grid, grav)))
+        ws.append(w)
+        us.append(u)
+        strips.append(random_strips(grid, rng, dtype, device))
+    return stages, ws, us, strips
+
+
+def check_batched(stages, ws, us, strips, dtype, batched, single, tol):
+    """Both RK register patterns: the N-node launch bitwise equal to N
+    one-node launches of the same nodes, each node within ``tol`` (u, w
+    absolute; dtden maximum relative) of the plain version."""
+    dt = torch.full((1,), 2e-3, dtype=dtype, device=ws[0].device)
+    for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+        u1s = [u.clone() for u in us]
+        args = (gam0, gam1, beta, dt, 0.0, False)
+        nb = SC.stage_curv_batched_launches
+        out = batched(stages, ws, us, u1s, strips, *args)
+        one = [single(cs, w, u, u1, st, *args) for cs, w, u, u1, st in zip(stages, ws, us, u1s,
+                                                                          strips)]
+        ref = SC.stage_curv_batched_reference(stages, ws, us, u1s, strips, *args)
+        assert SC.stage_curv_batched_launches == nb + (batched is SC.stage_curv_batched)
+        for (ub, wb, db), (uo, wo, do), (ur, wr, dr) in zip(out, one, ref):
+            assert torch.equal(ub, uo) and torch.equal(wb, wo) and torch.equal(db, do)
+            assert torch.isfinite(ub).all() and torch.isfinite(wb).all()
+            assert float((ub - ur).abs().max()) <= tol
+            assert float((wb - wr).abs().max()) <= tol
+            assert float((db.max() - dr.max()).abs() / dr.max()) <= tol
+
+
+def host_batched(stages, ws, us, u1s, strips, *args):
+    return SC._launch_nodes(stages, ws, us, u1s, *args, "gather6", strips)
+
+
+def host_single(cs, w, u, u1, strips, *args):
+    return SC._launch_nodes([cs], [w], [u], [u1], *args, "gather6", [strips])[0]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_host_compiled_batched_kernel(on_host, n, dtype, tol):
+    """The kernel's node axis, compiled for the host: N = 1, 2, 3 nodes with
+    their own rows and strips, bitwise equal to N one-node launches, within
+    1e-13 (f64) / 1e-5 (f32) of stage_curv_batched_reference."""
+    stages, ws, us, strips = batch_nodes(n, dtype, "cpu")
+    assert SC.gather6_batch_ok(stages) == (n >= 2)
+    assert all(not torch.equal(stages[0].rows[0], cs.rows[0]) for cs in stages[1:])
+    check_batched(stages, ws, us, strips, dtype, host_batched, host_single, tol)
+
+
+def test_batched_launch_refuses_mixed_nodes(on_host):
+    """Nodes of two grid shapes, or strips of the wrong shape, raise before
+    the launch; the gate refuses a node with diffusion or a rotating frame."""
+    stages, ws, us, strips = batch_nodes(2, torch.float64, "cpu")
+    dt = torch.full((1,), 1e-3, dtype=torch.float64)
+    args = (0.5, 0.5, 0.5, dt, 0.0, False, "gather6")
+    other = port_setup("cartesian")
+    odd = SC.CurvStage(other.hyd)
+    with pytest.raises(ValueError, match="share the grid shape"):
+        SC._launch_nodes([stages[0], odd], ws, us, us, *args, strips)
+    bad = dict(strips[1])
+    bad[("x3", 0)] = bad[("x3", 0)][:, :1].contiguous()
+    with pytest.raises(ValueError, match="wrong shape"):
+        SC._launch_nodes(stages, ws, us, us, *args, [strips[0], bad])
+    s = port_setup("spherical", rotating=True)
+    assert not SC.gather6_batch_ok([curv_stage(s), curv_stage(s, omf=1.0, rf=True)])
+    assert not SC.gather6_batch_ok([curv_stage(s), curv_stage(s, visc=VISC["alpha"])])
+
+
+def test_cpu_batched_stage_runs_the_plain_version():
+    """On the CPU, stage_curv_batched is its plain version and launches
+    nothing."""
+    stages, ws, us, strips = batch_nodes(2, torch.float64, "cpu")
+    dt = torch.full((1,), 1e-3, dtype=torch.float64)
+    n0 = SC.stage_curv_batched_launches
+    a = SC.stage_curv_batched(stages, ws, us, us, strips, 0.5, 0.5, 0.5, dt, 0.0, False)
+    b = SC.stage_curv_batched_reference(stages, ws, us, us, strips, 0.5, 0.5, 0.5, dt, 0.0,
+                                        False)
+    assert SC.stage_curv_batched_launches == n0
+    assert all(torch.equal(x, y) for p, q in zip(a, b) for x, y in zip(p, q))
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -657,3 +782,19 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="one dtype"):
         SC.stage_curv(cs, s.w.float(), s.u.float(), s.u.float(), 0.5, 0.5, 0.5, dt, 0.0,
                       False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_kernel_batched_matches_single_launches(cuda, n, dtype, tol):
+    """On the card: N = 1, 2, 3 nodes in one launch, bitwise equal to N
+    one-node six-face launches, within tol of the plain version."""
+    stages, ws, us, strips = batch_nodes(n, dtype, cuda)
+
+    def single(cs, w, u, u1, st, *args):
+        return SC.stage_curv(cs, w, u, u1, *args, strips=st)
+
+    check_batched(stages, ws, us, strips, dtype, SC.stage_curv_batched, single, tol)
+    torch.cuda.synchronize()
