@@ -50,6 +50,7 @@ from .grid import Grid
 from .ops import recon as recon_mod
 from .ops import riemann as riemann_mod
 from .ops import stage_curv as curv_mod
+from .ops import sweeps
 from .ops.hydro import FluidCfg, Hydro
 from .sources import RotatingFrame
 
@@ -667,6 +668,9 @@ class MultiLevelSMR:
     def stage_kernel(self) -> str:
         """Which stage path the tree takes."""
         if self._fused is None:
+            if (self.fused and self.device.type == "cuda"
+                    and sweeps.sweep_supported(self.root.grid, self.cfg, self.dtype)):
+                return "sweep"
             return "none"
         if self._batched:
             return f"stage_curv_batched ({len(self.nodes)} nodes, gather6)"
@@ -1012,8 +1016,11 @@ class MultiLevelSMR:
                 wpads.append(self._apply_sib_links(
                     node.fill_fine_ghosts(ws[i], ws[node.parent.index], node.lo),
                     self._sib_links[i], ws))
-        # 2. fluxes; 3. flux correction, deepest level first
-        fxs = [node.hydro.compute_fluxes(wpads[node.index], self.cfg, force_pcm)
+        # 2. fluxes (through the sweep kernel on a fused GPU tree, as the
+        # single-level composable stage); 3. flux correction, deepest level
+        # first
+        kernel = self.fused and self.device.type == "cuda"
+        fxs = [node.hydro.compute_fluxes(wpads[node.index], self.cfg, force_pcm, kernel=kernel)
                for node in self.nodes]
         for node in reversed(self.nodes[1:]):
             p = node.parent.index

@@ -10,7 +10,10 @@ one of three sources: the x1/x2 ic strips with x3 wrapped (the spherical
 disk), all six face strips (the all-``ic`` Cartesian disk of the
 radiation-hydro configuration), or a padded array.  Every other stage, and
 every stage on the CPU, runs the composable tensor sequence, as the JAX
-package runs its jnp path.  With radiation, the operator-split FLD step
+package runs its jnp path; on the GPU its Cartesian gas fluxes come from
+the fused sweep kernel (``ops.sweeps``, one launch per direction), as the
+JAX package's come from its Pallas sweep (the shearing box, and the gas of
+a gas+dust run).  With radiation, the operator-split FLD step
 (``radiation.Radiation``) follows the stages of every cycle.
 
 The JAX driver marches chunks of up to 256 cycles on the device inside a
@@ -32,6 +35,7 @@ from . import bc as bc_mod
 from .geometry import geometry as geo
 from .ops import stage as stage_mod
 from .ops import stage_curv as curv_mod
+from .ops import sweeps as sweep_mod
 from .ops.hydro import FluidCfg, Hydro
 from .sources import Gravity, RotatingFrame
 
@@ -100,7 +104,8 @@ class Driver:
 
     ``device``/``dtype`` place the geometry constants and the sources'
     fields; ``fused_stage=False`` keeps a CUDA run on the composable path
-    (the plain version the kernels are measured against).  ``diffusion``
+    with the tensor flux chain (the plain version the kernels, the sweep
+    kernel included, are measured against).  ``diffusion``
     and ``radiation`` are factories ``fn(hydro) -> Diffusion`` and
     ``fn(hydro) -> Radiation``."""
 
@@ -148,6 +153,10 @@ class Driver:
         if (on_gpu and not self._fused_stage and dust_cfg is None
                 and curv_mod.supported_curv(grid, gas_cfg)):
             self._curv = self._make_curv_stage(grid, gas_cfg)
+        # the composable path's gas fluxes: the fused sweep kernel (K9) on
+        # the GPU; dust, and every fluid outside its envelope, keep the
+        # tensor chain
+        self._sweep = on_gpu
 
     def _make_curv_stage(self, grid, gas_cfg):
         """The CurvStage for this run, or None where the composable path
@@ -200,6 +209,8 @@ class Driver:
             if self._curv.full:
                 return f"stage_curv ({self._curv.halo})"
             return "stage_curv (padded, partial)"
+        if self._sweep and sweep_mod.sweep_supported(self.grid, self.gas_cfg, self.dtype):
+            return "sweep"
         return "none"
 
     # ------------------------------------------------------------------
@@ -279,7 +290,7 @@ class Driver:
         for name, cfg in self._fluids():
             u, w = state[name]["u"], state[name]["w"]
             w_pad = self.fill_ghosts(w, name)
-            fx = hyd.compute_fluxes(w_pad, cfg, force_pcm)
+            fx = hyd.compute_fluxes(w_pad, cfg, force_pcm, kernel=self._sweep)
             fluxes[name] = fx
             u = hyd.apply_update(u, u1[name], fx, gam0, gam1, bdt)
             u = hyd.flux_source(u, w, fx, bdt, omf=self.omf)

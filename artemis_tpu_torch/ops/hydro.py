@@ -6,7 +6,8 @@ SetAuxillaryFields -> ConsToPrim -> BCs -> PrimToCons``, each as a
 whole-array tensor pass.  The reference's runtime->template dispatch
 (fluid_fluxes.hpp:216-292) becomes Python specialization.  These are the
 plain (composable) versions; the fused CUDA stage kernel in ``ops.stage``
-replaces the gas sequence on the GPU.
+replaces the gas sequence on the GPU, and on the composable path the
+fused flux sweep of ``ops.sweeps`` replaces the gas fluxes.
 
 State representation (mirrors the reference's communication pattern, where
 only primitives carry FillGhost):
@@ -32,6 +33,7 @@ import torch
 from ..geometry import geometry as geo
 from . import recon as recon_mod
 from . import riemann as riemann_mod
+from . import sweeps
 
 
 @dataclass(frozen=True)
@@ -170,14 +172,22 @@ class Hydro:
         return X[_axslice(X.ndim, d, slice(side, side + n))]
 
     # -- fluxes ----------------------------------------------------------
-    def compute_fluxes(self, w_pad, cfg: FluidCfg, force_pcm: bool):
+    def compute_fluxes(self, w_pad, cfg: FluidCfg, force_pcm: bool, kernel: bool = False):
         """Hydro fluxes in all active directions from padded primitives.
 
         Returns dict d -> (F, pface, vface) on interior faces
-        (cf. CalculateFluxesImpl, fluid_fluxes.hpp:73-213).
+        (cf. CalculateFluxesImpl, fluid_fluxes.hpp:73-213).  ``kernel``: a
+        fluid inside ``sweeps.sweep_supported`` goes through the fused
+        sweep (on a CUDA tensor the K9 kernel), one launch per direction;
+        the default keeps the tensor chain, which the other kernels' plain
+        versions call.
         """
         out = {}
         method = "pcm" if force_pcm else cfg.recon
+        if kernel and sweeps.sweep_supported(self.grid, cfg, w_pad.dtype, force_pcm):
+            for d in self.dims:
+                out[d] = sweeps.sweep(w_pad, d, self.grid, cfg.gamma, method)
+            return out
         for d in self.dims:
             rows = self.recon_rows.get(d) if self.recon_rows else None
             wl, wr = recon_mod.reconstruct(w_pad, d, method, self.grid.geom, rows=rows)

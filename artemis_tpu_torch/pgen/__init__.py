@@ -1,7 +1,9 @@
 """Problem generators (reference: src/pgen/pgen.hpp name dispatch; port of
-``artemis_tpu/pgen/__init__.py``).  The linear-wave, disk, shock and
-thermalization problems are ported so far; the others raise and name the
-ROADMAP item that brings them."""
+``artemis_tpu/pgen/__init__.py``).  The linear-wave, advection, disk,
+shearing-box (strat), shock and thermalization problems are ported so far;
+the others raise and name the ROADMAP item that brings them.  ``ssheet``
+has no module in the reference (its deck, inputs/ssheet.in, runs
+``problem = strat``), so it is an unknown problem here."""
 
 from __future__ import annotations
 
@@ -10,9 +12,7 @@ from typing import Callable, Dict, List, Optional
 
 # problem name -> ROADMAP Queue 1 item that ports it
 _NOT_PORTED = {
-    "strat": 6, "ssheet": 6,
-    "advection": 7, "constant": 7, "blast": 7, "gaussian_bump": 7,
-    "conduction": 7,
+    "constant": 7, "blast": 7, "gaussian_bump": 7, "conduction": 7,
 }
 
 
@@ -34,6 +34,12 @@ def build_problem(name: str, pin, grid, gas_cfg=None, dust_cfg=None) -> Problem:
     if name in ("linear_wave", "linear_wave1d"):
         from . import linear_wave
         return linear_wave.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "advection":
+        from . import advection
+        return advection.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "strat":
+        from . import strat
+        return strat.build(pin, grid, gas_cfg, dust_cfg)
     if name == "disk":
         from . import disk
         return disk.build(pin, grid, gas_cfg, dust_cfg)

@@ -1,8 +1,9 @@
 """Top-level simulation assembly (reference: src/artemis.cpp ProcessPackages
-+ src/main.cpp LaunchWorkFlow; port of ``artemis_tpu/simulation.py`` for
-single-level gas hydro on one device).
++ src/main.cpp LaunchWorkFlow; port of ``artemis_tpu/simulation.py`` on one
+device).
 
-Reads the input deck, builds the problem generator, the source packages
+Reads the input deck, builds the gas and dust fluids, the problem
+generator, the source packages
 (gravity, rotating frame, viscosity/conduction, gray FLD radiation) and the
 driver on the requested device, and runs the evolution loop.  Physics the port does not
 carry yet raises ``NotImplementedError`` naming its ROADMAP item.
@@ -27,7 +28,7 @@ from .units import Constants, Units
 
 # <physics> switch -> ROADMAP Queue 1 item that ports it
 _NOT_PORTED = {
-    "dust": 7, "cooling": 6, "drag": 6, "nbody": 8,
+    "cooling": 6, "drag": 6, "nbody": 8,
 }
 
 
@@ -74,6 +75,7 @@ class Simulation:
         self.constants = Constants.from_units(self.units)
 
         self.do_gas = pin.get_or_add_bool("physics", "gas", True)
+        self.do_dust = pin.get_or_add_bool("physics", "dust", False)
         for key, item in _NOT_PORTED.items():
             if pin.get_or_add_bool("physics", key, False):
                 raise NotImplementedError(f"<physics> {key} is not ported yet "
@@ -111,18 +113,35 @@ class Simulation:
                 nspecies=pin.get_or_add_int("gas", "nspecies", 1),
             )
             self.eos = eos
+        dust_cfg = None
+        if self.do_dust:
+            if refinement == "static":
+                raise NotImplementedError("dust on refinement trees is not ported yet "
+                                          "(ROADMAP Queue 1 item 10)")
+            drecon = pin.get_or_add_str("dust", "reconstruct", "plm")
+            drsolver = pin.get_or_add_str("dust", "riemann", "hlle")
+            _check("reconstruction", drecon, ("pcm", "plm", "ppm"))
+            _check("riemann solver (dust)", drsolver, ("hlle", "llf"))
+            dust_cfg = FluidCfg(
+                fluid="dust",
+                recon=drecon,
+                rsolver=drsolver,
+                cfl=pin.get_or_add_real("dust", "cfl", 0.8),
+                dfloor=pin.get_or_add_real("dust", "dfloor", 1.0e-20),
+                nspecies=pin.get_or_add_int("dust", "nspecies", 1),
+            )
         self.gas_cfg = gas_cfg
-        self.dust_cfg = None
+        self.dust_cfg = dust_cfg
 
         # problem generator (may reset tlim etc.)
         problem_name = pin.get_str("artemis", "problem")
-        self.problem = build_problem(problem_name, pin, self.grid, gas_cfg, None)
+        self.problem = build_problem(problem_name, pin, self.grid, gas_cfg, dust_cfg)
 
         # physics source packages (artemis.cpp:63-164 wiring order)
         omf = 0.0
         if pin.get_or_add_bool("physics", "rotating_frame", False):
             omf = pin.get_or_add_real("rotating_frame", "omega", 0.0)
-        srcs = sources_from_input(pin, self.grid, gas_cfg, None, self.constants)
+        srcs = sources_from_input(pin, self.grid, gas_cfg, dust_cfg, self.constants)
         srcs += list(self.problem.sources)
         for s in srcs:
             # binary-orbit gravity solves its orbit in the rotating frame
@@ -162,7 +181,7 @@ class Simulation:
                                            diffusion_factory, radiation_factory, omf,
                                            fused_stage)
         else:
-            self.driver = Driver(self.grid, integrator, gas_cfg, None, sources=srcs,
+            self.driver = Driver(self.grid, integrator, gas_cfg, dust_cfg, sources=srcs,
                                  bc_custom=self.problem.bc_custom, omf=omf,
                                  diffusion=diffusion_factory, radiation=radiation_factory,
                                  device=self.device, dtype=self.dtype,
@@ -272,6 +291,9 @@ class Simulation:
             c = self.gas_cfg
             lines.append(f"gas: {c.recon}+{c.rsolver} gamma={c.gamma:g} "
                          f"cfl={c.cfl:g} nspecies={c.nspecies}")
+        if self.dust_cfg:
+            lines.append(f"dust: {self.dust_cfg.recon}+{self.dust_cfg.rsolver} "
+                         f"nspecies={self.dust_cfg.nspecies}")
         pkgs = [type(s).__name__ for s in self.driver.sources]
         pkgs += [p for p, on in (("radiation", self.radiation_cfg is not None),
                                  ("diffusion", self.driver.diffusion is not None)) if on]

@@ -1,7 +1,8 @@
 """Carry simulation state between the JAX package and the port.
 
 A state is ``{name: {key: array}}``: ``{fluid: {"u": ..., "w": ...,
-["dtden": ...]}}`` per fluid, and ``{"rad": {"Er": ...}}`` when radiation is
+["dtden": ...]}}`` per fluid (gas [1, 6, ...]; dust [nspecies, 4, ...]
+where the run has it), and ``{"rad": {"Er": ...}}`` when radiation is
 on.  The JAX package holds jax arrays, this package torch tensors; both
 convert through numpy, every name and key included (the fused paths'
 per-block CFL denominators ``dtden`` and the radiation energy density

@@ -11,9 +11,9 @@ line is printed:
 1. toolchain: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi), torch's CUDA version, nvcc's version and
    whether triton imports;
-2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu``, ``fld.cu``
-   and ``stage_curv.cu`` (once per dtype) with nvcc, all at once, and
-   prints ptxas's registers and spills;
+2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu``, ``fld.cu``,
+   ``sweep.cu`` and ``stage_curv.cu`` (once per dtype) with nvcc, all at
+   once, and prints ptxas's registers and spills;
 3. kernel vs plain version on the card: the fused stage kernel against
    ``stage_reference`` over {periodic, outflow, reflecting} x {pcm, plm,
    ppm} x {float64 <= 1e-12, float32 <= 1e-5 abs} x {gam0 = 0, gam0 != 0}
@@ -87,7 +87,31 @@ line is printed:
    zone-cycles/s over every level, launch counts and the density L2 gate
    of bench.py:185;
 15. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
-   tests/test_radiation.py's test_rad_shock.
+   tests/test_radiation.py's test_rad_shock;
+16. the six-face launch with alpha viscosity (K5a) at disk_sph's
+   256x64x64 float32 with x3 ic: its launches through Simulation.run, its
+   time per launch against the plain stage and the bound;
+17. the flux sweep kernel (``csrc/sweep.cu``, K9) against
+   ``sweep_reference`` on random padded states: d = 1, 2, 3 x {plm, pcm} x
+   {float64 <= 1e-12, float32 <= 1e-5 abs} on a ragged 3-D and a 2-D
+   shape, and its outputs against the tensor chain
+   (``compute_fluxes(kernel=False)``) in shape, layout and value;
+18. the strat cell (``inputs/strat.in`` at 256x128x512 float32, the
+   shearing box on the composable path): the main path through
+   ``Simulation.run`` with the sweep count reset before and read after (2
+   stages x 3 directions per cycle), the equilibrium thresholds of
+   tests/test_strat.py, zone-cycles/s of the kernel path (20 cycles after 2
+   warm-up) and of the plain path, the kernel's time per launch in each
+   direction against its plain version and bound, the cycle's device
+   busy time and idle share, and the kernel and plain end states after the
+   same 4 cycles;
+19. ``inputs/ssheet.in`` at deck size (128x128 float64, point gravity,
+   inflow x2) for 10 cycles: 2 sweep launches per stage, kernel and plain
+   end states within 1e-10;
+20. ``inputs/advection.in`` (gas on HLLC through the sweep, two dust
+   species on HLLE): test_advection's N = 16 and 32 runs in float64 held to
+   BASELINE's advection row, and the deck as written (128x64x64 float32):
+   6 sweep launches per cycle and zone-cycles/s of both paths.
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
@@ -173,7 +197,7 @@ def phase_build(torch):
     from artemis_tpu_torch import _build
     from artemis_tpu_torch.ops import stage_curv as SC
 
-    builds = [("stage_cart", ()), ("fld", ())] + [("stage_curv", SC.build_defines(dt))
+    builds = [("stage_cart", ()), ("fld", ()), ("sweep", ())] + [("stage_curv", SC.build_defines(dt))
                                                   for dt in (torch.float32, torch.float64)]
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
@@ -1581,6 +1605,409 @@ def phase_rad_shock(torch):
     return {"ncycle": sim.tm.ncycle, "d2": d2, "secs": secs, "cg_iters": sum(cg)}
 
 
+# -- phase 16 ------------------------------------------------------------
+def phase_k5a(torch, smi):
+    """The six-face launch with viscosity (K5a) at disk_sph's 256x64x64 in
+    float32 with x3 ic (the layout of phase 10 at full size): its launches
+    on that path through Simulation.run, its time per launch, the plain
+    stage's and the bound."""
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        sim = allic_sim(torch, "float32", "spherical", data, "hlle", "plm", nx=DISK_BENCH)
+        d = sim.driver
+        check(d.stage_kernel == "stage_curv (gather6)" and d.diffusion is not None,
+              f"K5a cell took {d.stage_kernel}, diffusion {d.diffusion is not None}")
+        SC.stage_curv_launches = 0
+        warm_up(sim, 5)
+        res["launches"] = SC.stage_curv_launches
+        check(res["launches"] == 2 * sim.tm.ncycle,
+              f"K5a cell: {res['launches']} launches for {sim.tm.ncycle} rk2 cycles")
+        cs = d._curv
+        u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
+        check(bool(torch.isfinite(u).all()), "K5a cell state not finite")
+        u1 = u.clone()
+        dt = torch.full((), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+        tnow = sim.tm.time
+        calls = itertools.cycle(RK2)
+
+        def kern():
+            return SC.stage_curv(cs, w, u, u1, *next(calls), dt, tnow, False)
+
+        def plain():
+            return SC.stage_curv_reference(cs, w, u, u1, *next(calls), dt, tnow, False)
+
+        res["ms"] = time_launches(torch, kern, 20)
+        res["plain_ms"] = time_launches(torch, plain, 4)
+        nblk = cs.dtden_blocks()
+        nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*cs.strips.values(), *cs.rows)
+                  + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+        flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
+            cs, w, u, u1, *g, dt, tnow, False)) for g in RK2) / 2
+        res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+        uk, wk, _ = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+        ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+        res["err"] = max(float((uk - ur).abs().max()), float((wk - wr).abs().max()))
+        check(res["err"] <= DISK_F32_TOL,
+              f"K5a stage kernel vs plain: {res['err']:.3e} > {DISK_F32_TOL:g}")
+        print(f"K5a (six-face halo, alpha viscosity) disk_sph {DISK_BENCH} f32 x3 ic: "
+              f"{res['launches']} launches in {sim.tm.ncycle} cycles; per launch kernel "
+              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB "
+              f"and {flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; "
+              f"vs plain {res['err']:.3e} (tol {DISK_F32_TOL:g}) [{smi}]")
+        del sim, d, cs, u, w, u1, uk, wk, ur, wr
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 17 ------------------------------------------------------------
+SWEEP_SHAPES = ((48, 20, 12), (40, 22, 1))    # ragged 3-D (nx2 % 8 != 0), 2-D
+SWEEP_GAMMA = 5.0 / 3.0
+
+
+def sweep_grid(shape, deck=DECK, extra=()):
+    from artemis_tpu_torch.config import ParameterInput
+    from artemis_tpu_torch.grid import grid_from_input
+
+    pin = ParameterInput.from_file(deck)
+    pin.apply_overrides([f"parthenon/mesh/nx1={shape[0]}", f"parthenon/mesh/nx2={shape[1]}",
+                         f"parthenon/mesh/nx3={shape[2]}", "parthenon/mesh/nghost=2",
+                         *extra])
+    return grid_from_input(pin)
+
+
+def random_padded(torch, grid, dtype, seed=3):
+    """Random smooth primitives over the whole padded grid, ghosts
+    included, made with numpy from ``seed``."""
+    import numpy as np
+
+    nx, ny, nz = grid.nx
+    g1, g2, g3 = grid.ng
+    shape = (nz + 2 * g3, ny + 2 * g2, nx + 2 * g1)
+    rng = np.random.default_rng(seed)
+    w = np.empty((1, 6) + shape)
+    w[0, 0] = 1.0 + 0.2 * rng.random(shape)
+    w[0, 1:4] = 0.3 * (rng.random((3,) + shape) - 0.5)
+    w[0, 5] = 1.0 + 0.2 * rng.random(shape)
+    w[0, 4] = (SWEEP_GAMMA - 1.0) * w[0, 0] * w[0, 5]
+    return torch.as_tensor(w, dtype=dtype, device=DEVICE)
+
+
+def phase_sweep_compare(torch):
+    """The sweep kernel (K9) against sweep_reference on random padded
+    states: d = 1, 2, 3 x {plm, pcm} x {float64 <= 1e-12, float32 <= 1e-5
+    abs} on a ragged 3-D and a 2-D shape; and its three outputs against
+    compute_fluxes(kernel=False) (the tensor chain) in shape, layout and
+    value."""
+    from artemis_tpu_torch.ops import sweeps as SW
+    from artemis_tpu_torch.ops.hydro import FluidCfg, Hydro
+
+    worst = {torch.float64: 0.0, torch.float32: 0.0}
+    chain = {torch.float64: 0.0, torch.float32: 0.0}
+    ncase = 0
+    for shape in SWEEP_SHAPES:
+        grid = sweep_grid(shape)
+        for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+            w = random_padded(torch, grid, dtype)
+            for recon in ("plm", "pcm"):
+                cfg = FluidCfg(fluid="gas", recon=recon, rsolver="hllc", gamma=SWEEP_GAMMA)
+                hyd = Hydro(grid, cfg, device=DEVICE, dtype=dtype)
+                fx = hyd.compute_fluxes(w, cfg, False)
+                n0 = SW.sweep_launches
+                fk = hyd.compute_fluxes(w, cfg, False, kernel=True)
+                torch.cuda.synchronize()
+                check(SW.sweep_launches == n0 + len(hyd.dims),
+                      f"compute_fluxes(kernel=True) made {SW.sweep_launches - n0} launches")
+                for d in hyd.dims:
+                    ref = SW.sweep_reference(w, d, grid, SWEEP_GAMMA, recon)
+                    for name, k, p, c in zip(("F", "pface", "vface"), fk[d], ref, fx[d]):
+                        check(k.shape == p.shape == c.shape and k.is_contiguous(),
+                              f"sweep {shape} d={d} {name}: shapes {tuple(k.shape)}, "
+                              f"{tuple(p.shape)}, chain {tuple(c.shape)}")
+                        err = float((k - p).abs().max())
+                        cerr = float((k - c).abs().max())
+                        check(err <= tol and cerr <= tol,
+                              f"sweep {shape} d={d} {recon} {dtype} {name}: vs plain "
+                              f"{err:.3e}, vs the chain {cerr:.3e} > {tol:g}")
+                        worst[dtype] = max(worst[dtype], err)
+                        chain[dtype] = max(chain[dtype], cerr)
+                    ncase += 1
+    print(f"sweep compare: {ncase} kernel-vs-plain cases pass (d = 1, 2, 3; plm, pcm; "
+          f"{SWEEP_SHAPES}); max abs err f64 {worst[torch.float64]:.3e} (tol {F64_TOL:g}), "
+          f"f32 {worst[torch.float32]:.3e} (tol {F32_TOL:g}); against the tensor chain "
+          f"f64 {chain[torch.float64]:.3e}, f32 {chain[torch.float32]:.3e}, same layout")
+    return worst[torch.float64], worst[torch.float32]
+
+
+# -- phase 18 ------------------------------------------------------------
+STRAT = os.path.join(HERE, "inputs", "strat.in")
+STRAT_CELL = (256, 128, 512)    # strat.in's 16x8x32 scaled by 16, its domain and aspect
+STRAT_CYCLES = 20
+# the strat cell's kernel and plain end states after the same cycles: max
+# |diff| / max(1, max |field|) per component (the energies are ~6e4 at
+# gamma = 1.000001, and the two flux forms part at float32 rounding)
+STRAT_F32_TOL = 1e-4
+
+
+def strat_sim(data, fused=True, precision="float32"):
+    from artemis_tpu_torch import Simulation
+
+    nx, ny, nz = STRAT_CELL
+    return Simulation(STRAT, [f"parthenon/mesh/nx1={nx}", f"parthenon/mesh/nx2={ny}",
+                              f"parthenon/mesh/nx3={nz}", f"artemis/precision={precision}"],
+                      data, device=DEVICE, fused_stage=fused)
+
+
+def scaled_err(torch, a, b):
+    """max |a - b| / max(1, max |b|) over each component (axis 1)."""
+    dims = (0,) + tuple(range(2, a.ndim))
+    scale = b.abs().amax(dim=dims).clamp(min=1.0)
+    return float(((a - b).abs().amax(dim=dims) / scale).max())
+
+
+def strat_equilibrium(torch, sim):
+    """tests/test_strat.py's equilibrium numbers: the density's largest
+    relative drift from the initial profile inside ~3 scale heights and
+    the largest |vz|."""
+    import numpy as np
+
+    w = sim.state["gas"]["w"][0]
+    d, vz = w[0].double().cpu().numpy(), w[3]
+    _, _, x3v = sim.grid.cell_centers()
+    h = sim.pin.get_real("problem", "h")
+    rho_eq = np.broadcast_to(np.maximum(1e-5, np.exp(-(x3v**2) / (2 * h * h))), d.shape)
+    rel = np.abs(d - rho_eq) / rho_eq
+    return (float(rel[rho_eq > 1e-2].max()), float(vz.abs().max()),
+            bool(torch.isfinite(w).all()))
+
+
+def sweep_timings(torch, sim, nlaunch=20):
+    """Per direction on the run's state: the kernel's ms per launch, the
+    plain version's, the bound (the padded prims cut to the interior across
+    d read once, the 8 face arrays written once; the plain version's
+    operations) and the largest kernel - plain difference per output row,
+    scaled by max(1, max |plain|)."""
+    from artemis_tpu_torch.ops import sweeps as SW
+
+    grid, cfg = sim.grid, sim.gas_cfg
+    w_pad = sim.driver.fill_ghosts(sim.state["gas"]["w"], "gas")
+    out = {"ms": [], "plain_ms": [], "bound_ms": [], "bound_by": [], "err": 0.0, "mb": []}
+    for d in sim.driver.hydro.dims:
+        out["ms"].append(time_launches(torch, lambda: SW.sweep(w_pad, d, grid, cfg.gamma,
+                                                               cfg.recon), nlaunch))
+        out["plain_ms"].append(time_launches(
+            torch, lambda: SW.sweep_reference(w_pad, d, grid, cfg.gamma, cfg.recon), 3))
+        k = SW.sweep(w_pad, d, grid, cfg.gamma, cfg.recon)
+        p = SW.sweep_reference(w_pad, d, grid, cfg.gamma, cfg.recon)
+        out["err"] = max(out["err"], scaled_err(torch, k[0], p[0]),
+                         scaled_err(torch, k[1][:, None], p[1][:, None]),
+                         scaled_err(torch, k[2][:, None], p[2][:, None]))
+        nbytes = tensor_bytes(SW._interior_faces(w_pad[0], d, grid), *k)
+        flops = count_flops(torch, lambda: SW.sweep_reference(w_pad, d, grid, cfg.gamma,
+                                                              cfg.recon))
+        b_ms, b_by = bound(nbytes, flops)
+        out["bound_ms"].append(b_ms)
+        out["bound_by"].append(b_by)
+        out["mb"].append(nbytes / 1e6)
+        del k, p
+    del w_pad
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_strat(torch, smi):
+    """The strat cell: inputs/strat.in at 256x128x512 float32 through
+    Simulation.run on the sweep kernel (the shearing box's composable
+    path), the count reset before and read after."""
+    from artemis_tpu_torch.ops import sweeps as SW
+
+    res = {}
+    ncell = STRAT_CELL[0] * STRAT_CELL[1] * STRAT_CELL[2]
+    with tempfile.TemporaryDirectory() as data:
+        t0 = time.perf_counter()
+        sim = strat_sim(data)
+        res["setup_s"] = time.perf_counter() - t0
+        check(sim.driver.stage_kernel == "sweep",
+              f"strat cell took {sim.driver.stage_kernel}, not the sweep kernel")
+        SW.sweep_launches = 0
+        warm_up(sim, 2)
+        res["kernel_zcps"] = run_cycles(torch, sim, STRAT_CYCLES)
+        res["launches"] = SW.sweep_launches
+        ncyc = sim.tm.ncycle
+        check(res["launches"] == 2 * 3 * ncyc,
+              f"strat cell: {res['launches']} sweep launches for {ncyc} rk2 cycles "
+              "(2 stages x 3 directions expected)")
+        drift, vz, fin = strat_equilibrium(torch, sim)
+        res.update(drift=drift, vz=vz, t=sim.tm.time)
+        check(fin and drift <= 0.03 and vz <= 0.1,
+              f"strat cell after {ncyc} cycles: density drift {drift:.3e} (<= 0.03), "
+              f"|vz| {vz:.3e} (<= 0.1), finite {fin}")
+        print(f"strat cell {STRAT_CELL} f32 (set-up {res['setup_s']:.1f} s): {STRAT_CYCLES} "
+              f"cycles, {res['kernel_zcps']:.6e} zone-cycles/s, {res['launches']} sweep "
+              f"launches in {ncyc} cycles, dt {sim.tm.dt:.6e}, t {sim.tm.time:.6e}; density "
+              f"drift {drift:.3e} (<= 0.03), max |vz| {vz:.3e} (<= 0.1) [{smi}]")
+        tm = sweep_timings(torch, sim)
+        res.update(tm)
+        check(tm["err"] <= F32_TOL,
+              f"strat cell sweep kernel vs plain: {tm['err']:.3e} > {F32_TOL:g}")
+        for d, (k, p, b, by, mb) in enumerate(zip(tm["ms"], tm["plain_ms"], tm["bound_ms"],
+                                                  tm["bound_by"], tm["mb"]), 1):
+            print(f"strat f32 sweep d={d} per launch: kernel {k:.4f} ms, plain {p:.4f} ms, "
+                  f"bound {b:.4f} ms ({mb:.1f} MB, {by}) [{smi}]")
+        print(f"strat f32 sweep vs plain: max |diff| / max(1, |row|) {tm['err']:.3e} "
+              f"(tol {F32_TOL:g})")
+        print("  " + smi_clocks())
+        cycle_ms = 1e3 * ncell / res["kernel_zcps"]
+        kern_ms = 2 * sum(tm["ms"])
+        res["profile"] = profile_cycles(torch, sim, 3)
+        res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
+                             if res["profile"] else None)
+        print(f"strat f32 cycle (unprofiled): {cycle_ms:.4f} ms; 6 sweep launches "
+              f"{kern_ms:.4f} ms of it ({100 * kern_ms / cycle_ms:.1f}%); device idle "
+              + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
+                 else "not measured"))
+        del sim
+        torch.cuda.empty_cache()
+
+        # the plain path through the same entry point, then the kernel path
+        # over the same cycles for an end-state comparison
+        psim = strat_sim(data, fused=False)
+        check(psim.driver.stage_kernel == "none", "plain strat run took a kernel")
+        warm_up(psim, 1)
+        n0 = SW.sweep_launches
+        res["plain_zcps"] = run_cycles(torch, psim, 3)
+        check(SW.sweep_launches == n0, "the plain strat run launched the sweep kernel")
+        print(f"strat f32 plain path: 3 cycles, {res['plain_zcps']:.6e} zone-cycles/s [{smi}]")
+        ksim = strat_sim(data)
+        warm_up(ksim, 4)
+        res["end_err"] = max(scaled_err(torch, ksim.state["gas"][k_], psim.state["gas"][k_])
+                             for k_ in ("u", "w"))
+        check(abs(ksim.tm.time - psim.tm.time) <= 1e-5 * psim.tm.time
+              and res["end_err"] <= STRAT_F32_TOL,
+              f"strat 4-cycle kernel vs plain: t {ksim.tm.time} vs {psim.tm.time}, "
+              f"max |diff| / max(1, field max) {res['end_err']:.3e} > {STRAT_F32_TOL:g}")
+        print(f"strat f32 after 4 cycles: kernel vs plain max |diff| / max(1, field max) "
+              f"{res['end_err']:.3e} (tol {STRAT_F32_TOL:g}), t {ksim.tm.time:.9e} vs "
+              f"{psim.tm.time:.9e}")
+        del psim, ksim
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 19 ------------------------------------------------------------
+SSHEET = os.path.join(HERE, "inputs", "ssheet.in")
+SSHEET_CYCLES = 10
+SSHEET_F64_TOL = 1e-10
+
+
+def phase_ssheet(torch, smi):
+    """inputs/ssheet.in at deck size (128x128, 2-D, float64, point gravity,
+    inflow x2) for 10 cycles through the sweep kernel (2 launches per
+    stage) and through the plain path: end states within 1e-10 of each
+    component's scale."""
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch.ops import sweeps as SW
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        sims = {}
+        for fused in (True, False):
+            sim = Simulation(SSHEET, [f"parthenon/time/nlim={SSHEET_CYCLES}"], data,
+                             device=DEVICE, fused_stage=fused)
+            check(sim.driver.stage_kernel == ("sweep" if fused else "none"),
+                  f"ssheet (fused_stage={fused}) took {sim.driver.stage_kernel}")
+            SW.sweep_launches = 0
+            sim.run()
+            check(sim.tm.ncycle == SSHEET_CYCLES
+                  and SW.sweep_launches == (2 * 2 * SSHEET_CYCLES if fused else 0),
+                  f"ssheet (fused_stage={fused}): {SW.sweep_launches} sweep launches in "
+                  f"{sim.tm.ncycle} cycles")
+            if fused:
+                res["launches"] = SW.sweep_launches
+            sims[fused] = sim
+        k, p = sims[True], sims[False]
+        res["end_err"] = max(scaled_err(torch, k.state["gas"][k_], p.state["gas"][k_])
+                             for k_ in ("u", "w"))
+        check(abs(k.tm.time - p.tm.time) <= 1e-12 * p.tm.time
+              and res["end_err"] <= SSHEET_F64_TOL
+              and bool(torch.isfinite(k.state["gas"]["u"]).all()),
+              f"ssheet kernel vs plain after {SSHEET_CYCLES} cycles: t {k.tm.time} vs "
+              f"{p.tm.time}, {res['end_err']:.3e} > {SSHEET_F64_TOL:g}")
+        print(f"ssheet 128x128 f64: {res['launches']} sweep launches in {SSHEET_CYCLES} "
+              f"cycles; kernel vs plain max |diff| / max(1, field max) {res['end_err']:.3e} "
+              f"(tol {SSHEET_F64_TOL:g}), t {k.tm.time:.9e}")
+    return res
+
+
+# -- phase 20 ------------------------------------------------------------
+ADVECTION = os.path.join(HERE, "inputs", "advection.in")
+ADV_CELL = (128, 64, 64)
+ADV_CYCLES = 10
+
+
+def phase_advection(torch, smi):
+    """Gas+dust: inputs/advection.in (gas on HLLC through the sweep kernel,
+    two dust species on the HLLE chain).  test_advection's convergence runs
+    (N = 16, 32, float64, gas/riemann=hllc) held to BASELINE's advection
+    row, then the deck as written (128x64x64, float32): launches and
+    zone-cycles/s over 10 timed cycles."""
+    import numpy as np
+
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch.ops import sweeps as SW
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        for n in (16, 32):
+            sim = Simulation(ADVECTION, [
+                "parthenon/job/problem_id=advection", "problem/nperiod=1",
+                "parthenon/time/nlim=1000", "parthenon/time/integrator=rk2",
+                "parthenon/mesh/nghost=4", f"parthenon/mesh/nx1={n}",
+                f"parthenon/mesh/nx2={n // 2}", f"parthenon/mesh/nx3={n // 2}",
+                "problem/amp=1.0e-6", "gas/reconstruct=plm", "dust/reconstruct=plm",
+                "gas/riemann=hllc", "dust/riemann=hlle"], data, device=DEVICE)
+            check(sim.driver.stage_kernel == "sweep",
+                  f"advection N={n} took {sim.driver.stage_kernel}")
+            SW.sweep_launches = 0
+            sim.run()
+            check(sim.status == "complete" and SW.sweep_launches == 6 * sim.tm.ncycle,
+                  f"advection N={n}: {SW.sweep_launches} launches in {sim.tm.ncycle} cycles")
+        e = np.loadtxt(os.path.join(data, "advection-errs.dat"), ndmin=2)
+        l1 = [float(e[1, 4 + s]) for s in range(3)]
+        ratio = [float(e[1, 4 + s] / e[0, 4 + s]) for s in range(3)]
+        res.update(l1=l1, ratio=ratio)
+        check(e.shape == (2, 20) and all(x <= 2.21e-7 for x in l1)
+              and all(r <= 0.30 for r in ratio),
+              f"advection (gas, dust1, dust2): N=32 L1 {l1} (<= 2.21e-7), N16->N32 {ratio} "
+              "(<= 0.30)")
+        print(f"advection f64 through the sweep kernel: N=32 L1 RMS gas/dust1/dust2 "
+              f"{l1[0]:.4e} / {l1[1]:.4e} / {l1[2]:.4e} (<= 2.21e-7), N16->N32 "
+              f"{ratio[0]:.4f} / {ratio[1]:.4f} / {ratio[2]:.4f} (<= 0.30)")
+
+        for fused in (True, False):
+            nx, ny, nz = ADV_CELL
+            sim = Simulation(ADVECTION, [f"parthenon/mesh/nx1={nx}", f"parthenon/mesh/nx2={ny}",
+                                         f"parthenon/mesh/nx3={nz}", "artemis/precision=float32"],
+                             data, device=DEVICE, fused_stage=fused)
+            SW.sweep_launches = 0
+            warm_up(sim, 2)
+            zcps = run_cycles(torch, sim, ADV_CYCLES)
+            fin = all(bool(torch.isfinite(sim.state[f]["u"]).all()) for f in ("gas", "dust"))
+            check(fin and SW.sweep_launches == (6 * sim.tm.ncycle if fused else 0),
+                  f"advection deck (fused_stage={fused}): {SW.sweep_launches} launches in "
+                  f"{sim.tm.ncycle} cycles, finite {fin}")
+            res["kernel_zcps" if fused else "plain_zcps"] = zcps
+            if fused:
+                res["launches"] = SW.sweep_launches
+            print(f"advection {ADV_CELL} f32 {'kernel' if fused else 'plain'} path: "
+                  f"{ADV_CYCLES} cycles, {zcps:.6e} zone-cycles/s, {SW.sweep_launches} sweep "
+                  f"launches in {sim.tm.ncycle} cycles [{smi}]")
+            del sim
+            torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
 
@@ -1604,6 +2031,11 @@ def main():
     amr = phase_amr(torch, smi)
     prod = phase_amr_prod(torch, smi)
     shock = phase_rad_shock(torch)
+    k5a = phase_k5a(torch, smi)
+    serr64, serr32 = phase_sweep_compare(torch)
+    strat = phase_strat(torch, smi)
+    sheet = phase_ssheet(torch, smi)
+    adv = phase_advection(torch, smi)
     kernels = {"kernels": [{
         "name": "stage_cart",
         "route": "cuda",
@@ -1688,6 +2120,13 @@ def main():
         "idle_share": rhd["idle_share"],
         "host_reads_per_cycle": rhd["reads_per_cycle"],
         "rad_shock_cycles": shock["ncycle"],
+        "k5a_launches": k5a["launches"],
+        "k5a_ms": k5a["ms"],
+        "k5a_plain_ms": k5a["plain_ms"],
+        "k5a_bound_ms": k5a["bound_ms"],
+        "k5a_bound_by": k5a["bound_by"],
+        "k5a_max_abs_err": k5a["err"],
+        "k5a_shape": list(DISK_BENCH),
     }, {
         "name": "fld_coeffs",
         "route": "cuda",
@@ -1758,6 +2197,41 @@ def main():
                               "production_kernel_f32_all_levels": prod["zcps"]},
         "idle_share": amr["idle_share"],
         "host_reads_per_cycle": amr["reads_per_cycle"],
+    }, {
+        "name": "sweep",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/sweep.cu",
+        "replaces": "artemis_tpu/ops/pallas_sweeps.py:162",
+        "also_replaces": "artemis_tpu/ops/pallas_sweeps.py:210",
+        "launches": strat["launches"],
+        "max_abs_err": serr32,
+        "max_abs_err_f64": serr64,
+        "strat_max_scaled_err": strat["err"],
+        "tol_f32": F32_TOL,
+        "tol_f64": F64_TOL,
+        "ms": sum(strat["ms"]) / 3,
+        "plain_ms": sum(strat["plain_ms"]) / 3,
+        "bound_ms": sum(strat["bound_ms"]) / 3,
+        "bound_by": strat["bound_by"][0],
+        "library_ms": None,
+        "ms_by_direction": strat["ms"],
+        "plain_ms_by_direction": strat["plain_ms"],
+        "bound_ms_by_direction": strat["bound_ms"],
+        "shape": list(STRAT_CELL),
+        "dtype": "float32",
+        "strat_density_drift": strat["drift"],
+        "strat_max_vz": strat["vz"],
+        "strat_4cycle_err": strat["end_err"],
+        "ssheet_launches": sheet["launches"],
+        "ssheet_10cycle_err_f64": sheet["end_err"],
+        "advection_l1_n32": adv["l1"],
+        "advection_ratio": adv["ratio"],
+        "advection_launches": adv["launches"],
+        "zone_cycles_per_s": {"kernel_f32": strat["kernel_zcps"],
+                              "plain_f32": strat["plain_zcps"],
+                              "advection_kernel_f32": adv["kernel_zcps"],
+                              "advection_plain_f32": adv["plain_zcps"]},
+        "idle_share": strat["idle_share"],
     }]}
     print(json.dumps(kernels))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

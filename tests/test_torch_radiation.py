@@ -129,8 +129,10 @@ def operator_inputs(dtype, device, shape=(NZ, NY, NX), seed=1):
 @pytest.mark.parametrize("flags", list(FLAGS))
 def test_plain_operator_matches_interpret_kernels(flags):
     """fld_coeffs_reference / fld_matvec_reference vs the TPU kernels in
-    interpret mode: every output <= 1e-12 relative (float64)."""
-    pytest.importorskip("jax")
+    interpret mode: every output <= 1e-12 relative (float64).  x64 is
+    turned on around the JAX calls and their outputs asserted float64: a
+    float32 JAX Simulation elsewhere in the process turns x64 off."""
+    jax = pytest.importorskip("jax")
     import jax.numpy as jnp
 
     from artemis_tpu.ops import pallas_fld as pf
@@ -138,15 +140,21 @@ def test_plain_operator_matches_interpret_kernels(flags):
     rad = port_radiation()
     E, chi, dt, sf = operator_inputs(torch.float64, "cpu")
     fl = FLAGS[flags]
-    ja = pf.fld_coeffs(jnp.asarray(E.numpy()), jnp.asarray(chi.numpy()), 1e-3, rad._wuni,
-                       RAD_CFG["c_code"], rad._ext, fl, interpret=True)
+    f64 = lambda t: jnp.asarray(t.numpy(), dtype=jnp.float64)
+    with jax.enable_x64(True):
+        ja = pf.fld_coeffs(f64(E), f64(chi), 1e-3, rad._wuni, RAD_CFG["c_code"], rad._ext,
+                           fl, interpret=True)
+        jm = pf.fld_matvec(f64(E), ja[0], ja[1], f64(sf), interpret=True)
+        ja = [np.asarray(j) for j in ja]
+        jm = np.asarray(jm)
+    assert all(j.dtype == np.float64 for j in ja + [jm])
     pa = FLD.fld_coeffs_reference(E, chi, dt, rad._wuni, RAD_CFG["c_code"], rad._ext, fl)
-    for j, p in zip(ja, pa):
-        assert rel(p.numpy(), j) <= 1e-12
-    jm = pf.fld_matvec(jnp.asarray(E.numpy()), ja[0], ja[1], jnp.asarray(sf.numpy()),
-                       interpret=True)
+    for name, j, p in zip(("A", "diag_geo", "Dcell"), ja, pa):
+        r = rel(p.numpy(), j)
+        assert r <= 1e-12, f"fld_coeffs {name}: rel {r:.3e}"
     pm = FLD.fld_matvec_reference(E, pa[0], pa[1], sf)
-    assert rel(pm.numpy(), jm) <= 1e-12
+    r = rel(pm.numpy(), jm)
+    assert r <= 1e-12, f"fld_matvec: rel {r:.3e}"
 
 
 def jax_radiation():

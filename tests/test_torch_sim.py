@@ -95,15 +95,16 @@ def test_linwave_slice_float32(tmp_path, jax_run):
 
 def test_package_imports_no_jax():
     """artemis_tpu_torch runs where JAX is absent: importing it (its CLI,
-    sources, diffusion, curvilinear stage, radiation, FLD operator, the
-    disk and radiation problems and mesh refinement included) pulls in
-    neither jax nor artemis_tpu."""
+    sources, diffusion, curvilinear stage, radiation, FLD operator, flux
+    sweep, the disk, radiation, shearing-box and advection problems and
+    mesh refinement included) pulls in neither jax nor artemis_tpu."""
     code = ("import sys, artemis_tpu_torch, artemis_tpu_torch.cli, artemis_tpu_torch.state, "
             "artemis_tpu_torch.sources, artemis_tpu_torch.ops.diffusion, "
             "artemis_tpu_torch.ops.stage_curv, artemis_tpu_torch.pgen.disk, "
             "artemis_tpu_torch.radiation, artemis_tpu_torch.ops.fld, "
             "artemis_tpu_torch.pgen.shock, artemis_tpu_torch.pgen.thermalization, "
-            "artemis_tpu_torch.amr; "
+            "artemis_tpu_torch.amr, artemis_tpu_torch.ops.sweeps, "
+            "artemis_tpu_torch.pgen.strat, artemis_tpu_torch.pgen.advection; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'artemis_tpu' or m.startswith('artemis_tpu.')]; "
             "assert not bad, bad; print('clean')")
@@ -130,7 +131,7 @@ def test_cli_cpu_runs(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("override,item", [
-    ("physics/dust=true", 7), ("physics/cooling=true", 6), ("physics/nbody=true", 8),
+    ("physics/drag=true", 6), ("physics/cooling=true", 6), ("physics/nbody=true", 8),
     ("parthenon/mesh/refinement=adaptive", 10),
 ])
 def test_unported_physics_raises(tmp_path, override, item):
