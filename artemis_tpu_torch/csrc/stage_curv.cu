@@ -20,8 +20,9 @@
 //                        they lie, nothing is stacked, so a launch moves
 //                        only its nodes' own compulsory bytes, without the
 //                        TPU path's stacked copies of w, u0 and u1)
-// All run the body _curv_body (:631-1402), with _plm_g (:518) and the
-// shared _hllc/_hlle/rk_blend (stage_common.cuh).  On the TPU the
+// All compute the body _curv_body (:631-1402), with _plm_g (:518) and the
+// shared _hllc/_hlle/rk_blend (stage_common.cuh); K5b and K6 through the
+// tiled body below, the others through the per-cell body.  On the TPU the
 // frontends exist because of how Mosaic's DMAs fetch a halo; here a thread
 // reads its halo by index, so one kernel templated on the halo source
 // covers them (the x3 strips are a runtime switch of the gather variant,
@@ -53,17 +54,44 @@
 // solves, 2 x ndim viscous face stresses each needing the velocity
 // divergence, contravariant velocities, transverse gradients and the
 // viscosity model at two cells, plus some 60 divisions and square roots.
-// The design's first cost is that one thread per cell recomputes every
-// face it touches, so each face (hydro and viscous) is solved twice,
-// identically, by the two threads that share it, and the viscous stress
-// re-derives each cell quantity for every face that needs it.  Stencil and
-// coefficient-row loads go through L1/L2.  Shared-memory face caching and
-// tiling are later work.
 //
-// Built with -fmad=false (_build.SOURCE_FLAGS): the GATHER and padded
-// kernels are compiled separately, and with multiply-add contraction each
-// may fuse different products, parting in the last bit; without it they
-// make the same IEEE operations and agree bitwise on the disk layout.
+// Two bodies.  The per-cell body (stage_curv_kernel, one thread per cell in
+// flat 128-thread blocks) runs K3, K4, K5a and partial mode: each thread
+// recomputes every face it touches, so each face (hydro and viscous) is
+// solved twice, identically, by the two threads that share it, the viscous
+// stress re-derives each cell quantity for every face that needs it, and
+// every stencil read of a gather variant makes up to four range tests to
+// pick its strip; stencil and coefficient-row loads go through L1/L2.
+//
+// The tiled body (stage_tiled_kernel) runs every full six-face launch
+// without diffusion: K5b, and K6 as its node axis.  A block owns a TX x TY
+// footprint of columns (32 x 8 in f32, 32 x 4 in f64) and marches up a
+// chunk of kTileZ planes of one node.  Each plane of primitives, with its
+// x/y halo of two, is staged once into a ring of kRing planes in shared
+// memory, every element read from the interior or from exactly one strip
+// (the precedence of Ctx::src), by cp.async while the planes below are
+// computed: a footprint row is one contiguous run of its source, copied 16
+// bytes at a time past L1 where aligned, the halo columns 4 or 8 bytes.
+// In f32 the registers u0, u1 of the plane are staged the same way, so the
+// update waits on no device-memory load.  Each cell's face values are
+// reconstructed once per axis, each x and y face is solved once into shared
+// memory (fluxes, face pressure and velocity), and each z face once by its
+// column's thread, carried in registers to the next plane; the update,
+// sources, C2P/P2C and CFL denominator (flux_update, cell_finish) are the
+// per-cell body's own code.  Two barriers per plane: the faces (B), then
+// the cells and the next plane's face values (C).  The ring holds four
+// planes, not the five the z stencil spans: the upper z face value of the
+// plane below is carried in registers, so plane k reads planes k..k+2
+// while k+3 lands.  What bounds it is latency, not bytes or operations: at
+// 128 registers per thread two 256-thread blocks fill an SM's register
+// file (16 warps), and each plane's solves and update are long chains of
+// IEEE divisions and roots (PERF.md has the measured split).  The stage
+// has no matrix product, so the tensor cores (wgmma) have nothing to do.
+//
+// Built with -fmad=false (_build.SOURCE_FLAGS): the GATHER, padded and
+// tiled kernels are compiled separately, and with multiply-add contraction
+// each may fuse different products, parting in the last bit; without it
+// they make the same IEEE operations and agree bitwise on the disk layout.
 //
 // Binding: a plain C entry point (artemis_stage_curv) called through
 // ctypes with three packed arrays (ints, reals, pointers: dt, then one row
@@ -180,7 +208,8 @@ constexpr int kGather6 = 2;   // x1/x2/x3 strips
 // Unpacks the caller's arrays (ptrs: dt, then kNodePtrs pointers per node
 // in NodePtrs order); false when their layout differs from this build's,
 // the node count is out of range, or a node's x3 strips disagree with the
-// halo source.
+// halo source (a 2-D six-face node, nz = 1, has empty x3 strips: no z
+// face reads them).
 inline bool make_params(int halo, const int* ints, const double* reals,
                         const void* const* ptrs, int nptrs, int nnodes, CurvParams* p) {
   if (ints[0] != int(sizeof(CurvInts) / sizeof(int)) ||
@@ -195,7 +224,9 @@ inline bool make_params(int halo, const int* ints, const double* reals,
   for (int k = 0; k < nnodes; ++k) {
     memcpy(&p->node[k], ptrs + 1 + kNodePtrs * k, sizeof(NodePtrs));
     const NodePtrs& nd = p->node[k];
-    if ((halo == kGather6) != (nd.sz_lo != nullptr && nd.sz_hi != nullptr)) return false;
+    const bool sz = nd.sz_lo != nullptr && nd.sz_hi != nullptr;
+    if (halo == kGather6 ? !sz && p->n.nz > 1 : nd.sz_lo != nullptr || nd.sz_hi != nullptr)
+      return false;
   }
   return true;
 }
@@ -225,7 +256,7 @@ struct Ctx {
     return static_cast<const T*>(q);
   }
 
-  // Primitive c at (k, j, i).  GATHER sources every halo cell as
+  // Where primitive c at (k, j, i) lies.  GATHER sources every halo cell as
   // stage_curv_gather and _stage_kernel_curv_gather6 assemble their slabs,
   // by precedence x1 strip > x2 strip > x3 strip > interior: x1 ghosts (any
   // y, z) from the x1 strips over the padded y and z extents; x2 ghosts
@@ -234,33 +265,36 @@ struct Ctx {
   // from the interior with x3 wrapped (nz >= g3).  Corners read by the
   // viscous stencil thus come from the higher-precedence strip; the ic
   // caches the strips are cut from agree wherever two of them overlap.
-  __device__ __forceinline__ T W(int c, int k, int j, int i) const {
+  // The tiled body reads each element once through src, the per-cell body
+  // every stencil element through W.
+  __device__ __forceinline__ const T* src(int c, int k, int j, int i) const {
     const int nx = n.nx, ny = n.ny, nz = n.nz;
     if (GATHER) {
       const int64_t zp = nz + 2 * n.g3, yp = ny + 2 * n.g2;
       if (i < 0 || i >= nx) {
         const T* s = at(i < 0 ? nd.sx_lo : nd.sx_hi);
         const int ii = i < 0 ? i + n.g1 : i - nx;
-        return s[((c * zp + (k + n.g3)) * yp + (j + n.g2)) * n.g1 + ii];
+        return s + ((c * zp + (k + n.g3)) * yp + (j + n.g2)) * n.g1 + ii;
       }
       if (j < 0 || j >= ny) {
         const T* s = at(j < 0 ? nd.sy_lo : nd.sy_hi);
         const int jj = j < 0 ? j + n.g2 : j - ny;
-        return s[((c * zp + (k + n.g3)) * n.g2 + jj) * nx + i];
+        return s + ((c * zp + (k + n.g3)) * n.g2 + jj) * nx + i;
       }
       if (k < 0 || k >= nz) {
         if (nd.sz_lo != nullptr) {
           const T* s = at(k < 0 ? nd.sz_lo : nd.sz_hi);
           const int kk = k < 0 ? k + n.g3 : k - nz;
-          return s[((int64_t(c) * n.g3 + kk) * ny + j) * nx + i];
+          return s + ((int64_t(c) * n.g3 + kk) * ny + j) * nx + i;
         }
         k = k < 0 ? k + nz : k - nz;
       }
-      return at(nd.w)[((int64_t(c) * nz + k) * ny + j) * nx + i];
+      return at(nd.w) + ((int64_t(c) * nz + k) * ny + j) * nx + i;
     }
     const int64_t xp = nx + 2 * n.g1, yp = ny + 2 * n.g2, zp = nz + 2 * n.g3;
-    return at(nd.w)[((c * zp + (k + n.g3)) * yp + (j + n.g2)) * xp + (i + n.g1)];
+    return at(nd.w) + ((c * zp + (k + n.g3)) * yp + (j + n.g2)) * xp + (i + n.g1);
   }
+  __device__ __forceinline__ T W(int c, int k, int j, int i) const { return *src(c, k, j, i); }
 
   __device__ __forceinline__ T X(int row, int I) const {
     return at(nd.cx)[int64_t(row) * n.n1p + I];
@@ -321,6 +355,43 @@ __device__ __forceinline__ void plm_g_ratios(const Ctx<T, GATHER>& C, const int 
   g[3] = (xvp - xv0) / (xhi0 - xv0);
   g[4] = (xhi0 - xv0) / dx0;
   g[5] = (xv0 - xlo0) / dx0;
+}
+
+// A cell's upper (up) and lower (lo) face values along an axis from its
+// neighbours there (q0 the cell, g its ratios for the Mignone limiter), in
+// axis_flux's operations.  (axis_flux keeps its own copy: routed through
+// this function and solve_face, the per-cell kernels compiled slower.)
+template <typename T>
+__device__ __forceinline__ void face_values(bool pcm, bool mignone, T qm, T q0, T qp,
+                                            const T (&g)[6], T& up, T& lo) {
+  if (pcm) {
+    up = q0;
+    lo = q0;
+  } else if (mignone) {
+    plm_g(qm, q0, qp, g, up, lo);
+  } else {
+    const T s = plm_slope(qm, q0, qp);
+    up = q0 + s;
+    lo = q0 - s;
+  }
+}
+
+// Solves the face along D between states wl and wr into q[0..7] (6 fluxes,
+// momentum scaled by the face scale factors at padded (I, J), pressure,
+// velocity), in axis_flux's operations.
+template <typename T, bool GATHER, int D>
+__device__ __forceinline__ void solve_face(const Ctx<T, GATHER>& C, const T (&wl)[6],
+                                           const T (&wr)[6], int I, int J, T (&q)[8]) {
+  T F[6];
+  if (C.n.hlle)
+    hlle<T, D>(wl, wr, C.r.gamma, F, q[6], q[7]);
+  else
+    hllc<T, D>(wl, wr, C.r.gamma, F, q[6], q[7]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    F[1 + c] = F[1 + c] * (C.X(C.ix.fh_1[D - 1][c], I) * C.Y(C.ix.fh_2[D - 1][c], J));
+#pragma unroll
+  for (int c = 0; c < 6; ++c) q[c] = F[c];
 }
 
 // Fluxes through the lower (F[0]) and upper (F[1]) faces of the cell along
@@ -544,29 +615,40 @@ __device__ __forceinline__ T diff_axis(const Ctx<T, GATHER>& C, int k, int j, in
 // the whole stage for one cell
 // ---------------------------------------------------------------------------
 
-// Writes node ``nd``'s u_out (and, FULL, w_out) at interior cell ``cell``
-// (flat index into [nz, ny, nx]); returns its CFL denominator (FULL) or 0.
-template <typename T, bool GATHER, bool FULL>
-__device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, int64_t cell) {
-  const Ctx<T, GATHER> C(p, nd);
+// The fluxes of one cell's six faces, momentum fluxes scaled, with the face
+// pressures and velocities (the per-cell body's, in registers).
+template <typename T>
+struct CellFluxes {
+  T F[3][2][6], P[3][2], V[3][2];
+  __device__ __forceinline__ T f(int d, int s, int c) const { return F[d][s][c]; }
+  __device__ __forceinline__ T pf(int d, int s) const { return P[d][s]; }
+  __device__ __forceinline__ T vf(int d, int s) const { return V[d][s]; }
+};
+
+// A cell's lower/upper face areas and A/V factors per axis, and beta * dt.
+template <typename T>
+struct CellGeom {
+  T af1, af1p, c1, af2, af2p, c2, af3, af3p, c3, bdt;
+};
+
+// The update of interior cell (k, j, i) (flat index ``cell``) through its
+// folded sources: u = gam0 u0 + gam1 u1 + bdt divF, the pressure-gradient
+// and PdV, connection, rotating-frame and point-gravity terms.  ``fl``
+// gives the cell's face fluxes (f, pf, vf of axis d = 0..2, side s = 0
+// lower, 1 upper), ``wc(c)`` its own primitive c, and the registers hold
+// its field c at u0[c * us + uo], u1[c * us + uo] (read where gam0, gam1 !=
+// 0).
+template <typename T, bool GATHER, class Fl, class Wc>
+__device__ __forceinline__ void flux_update(const Ctx<T, GATHER>& C, const CurvParams& p, int k,
+                                            int j, int i, const Fl& fl, const Wc& wc,
+                                            const T* u0, const T* u1, int64_t us, int64_t uo,
+                                            T (&u)[6], CellGeom<T>& gm) {
   const CurvInts& n = p.n;
   const CurvReals& r = p.r;
   const CurvIdx& ix = n.ix;
-  const int nx = n.nx, ny = n.ny, nz = n.nz;
-  const int64_t ncell = int64_t(nx) * ny * nz;
-  const bool az = nz > 1;
-  const int i = int(cell % nx);
-  const int j = int((cell / nx) % ny);
-  const int k = int(cell / (int64_t(nx) * ny));
+  const bool az = n.nz > 1;
   const int I = i + n.g1, J = j + n.g2, K = k + n.g3;
   const T half = T(0.5);
-
-  // ---- fluxes
-  T Fx[2][6], Fy[2][6], Fz[2][6];
-  T px[2], vx[2], py[2], vy[2], pz[2] = {T(0), T(0)}, vz[2] = {T(0), T(0)};
-  axis_flux<T, GATHER, 1>(C, k, j, i, Fx, px, vx);
-  axis_flux<T, GATHER, 2>(C, k, j, i, Fy, py, vy);
-  if (az) axis_flux<T, GATHER, 3>(C, k, j, i, Fz, pz, vz);
 
   // ---- update: divF with exact A/V factors
   const T af1 = C.X(ix.upd1_face, I), af1p = C.X(ix.upd1_facep, I);
@@ -580,34 +662,35 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, 
     c3 = C.Z(ix.upd3_iv, K) * C.X(ix.upd_t1[2], I) * C.Y(ix.upd_t2[2], J);
   }
   const T bdt = T(r.beta) * static_cast<const T*>(p.dt)[0];
-  const T* u0 = static_cast<const T*>(nd.u0);
-  const T* u1 = static_cast<const T*>(nd.u1);
-  T u[6];
+  gm = CellGeom<T>{af1, af1p, c1, af2, af2p, c2, af3, af3p, c3, bdt};
 #pragma unroll
   for (int c = 0; c < 6; ++c) {
-    T dv = (Fx[0][c] * af1 - Fx[1][c] * af1p) * c1;
-    dv = dv + (Fy[0][c] * af2 - Fy[1][c] * af2p) * c2;
-    if (az) dv = dv + (Fz[0][c] * af3 - Fz[1][c] * af3p) * c3;
-    u[c] = rk_blend(r.gam0, r.gam1, u0, u1, c * ncell + cell, bdt * dv);
+    T dv = (fl.f(0, 0, c) * af1 - fl.f(0, 1, c) * af1p) * c1;
+    dv = dv + (fl.f(1, 0, c) * af2 - fl.f(1, 1, c) * af2p) * c2;
+    if (az) dv = dv + (fl.f(2, 0, c) * af3 - fl.f(2, 1, c) * af3p) * c3;
+    u[c] = rk_blend(r.gam0, r.gam1, u0, u1, c * us + uo, bdt * dv);
   }
 
   // ---- pressure-gradient + PdV flux sources
-  u[1] = u[1] + bdt * C.X(ix.idx1, I) * (px[0] - px[1]);
-  u[2] = u[2] + bdt * C.Y(ix.idx2, J) * (py[0] - py[1]);
-  u[5] = u[5] - bdt * half * (px[0] + px[1]) * (vx[1] * af1p - vx[0] * af1) * c1;
-  u[5] = u[5] - bdt * half * (py[0] + py[1]) * (vy[1] * af2p - vy[0] * af2) * c2;
+  u[1] = u[1] + bdt * C.X(ix.idx1, I) * (fl.pf(0, 0) - fl.pf(0, 1));
+  u[2] = u[2] + bdt * C.Y(ix.idx2, J) * (fl.pf(1, 0) - fl.pf(1, 1));
+  u[5] = u[5] - bdt * half * (fl.pf(0, 0) + fl.pf(0, 1)) *
+                    (fl.vf(0, 1) * af1p - fl.vf(0, 0) * af1) * c1;
+  u[5] = u[5] - bdt * half * (fl.pf(1, 0) + fl.pf(1, 1)) *
+                    (fl.vf(1, 1) * af2p - fl.vf(1, 0) * af2) * c2;
   if (az) {
-    u[3] = u[3] + bdt * C.Z(ix.idx3, K) * (pz[0] - pz[1]);
-    u[5] = u[5] - bdt * half * (pz[0] + pz[1]) * (vz[1] * af3p - vz[0] * af3) * c3;
+    u[3] = u[3] + bdt * C.Z(ix.idx3, K) * (fl.pf(2, 0) - fl.pf(2, 1));
+    u[5] = u[5] - bdt * half * (fl.pf(2, 0) + fl.pf(2, 1)) *
+                      (fl.vf(2, 1) * af3p - fl.vf(2, 0) * af3) * c3;
   }
 
   // ---- connection sources (curvilinear momenta), rotation velocity included
   if (n.x1dep || n.x2dep) {
-    const T rho_w = C.W(0, k, j, i);
+    const T rho_w = wc(0);
     T vt[3];
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      vt[c] = C.W(1 + c, k, j, i);
+      vt[c] = wc(1 + c);
       if (n.has_rot) vt[c] = vt[c] + C.X(ix.vrot_1[c], I) * C.Y(ix.vrot_2[c], J);
     }
     const T rdt = rho_w * bdt;
@@ -628,12 +711,15 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, 
       const int(&t2)[3][2] = hi ? ix.rfw_hi_2 : ix.rfw_lo_2;
       return C.X(t1[dd][0], I) * C.Y(t2[dd][0], J) + C.X(t1[dd][1], I) * C.Y(t2[dd][1], J);
     };
-    T rdivf = (Fx[0][0] * af1 * wrow(0, false) + Fx[1][0] * af1p * wrow(0, true)) * c1;
-    rdivf = rdivf + (Fy[0][0] * af2 * wrow(1, false) + Fy[1][0] * af2p * wrow(1, true)) * c2;
-    T favg[3] = {half * (Fx[0][0] + Fx[1][0]), half * (Fy[0][0] + Fy[1][0]), T(0)};
+    T rdivf = (fl.f(0, 0, 0) * af1 * wrow(0, false) + fl.f(0, 1, 0) * af1p * wrow(0, true)) * c1;
+    rdivf = rdivf +
+            (fl.f(1, 0, 0) * af2 * wrow(1, false) + fl.f(1, 1, 0) * af2p * wrow(1, true)) * c2;
+    T favg[3] = {half * (fl.f(0, 0, 0) + fl.f(0, 1, 0)), half * (fl.f(1, 0, 0) + fl.f(1, 1, 0)),
+                 T(0)};
     if (az) {
-      rdivf = rdivf + (Fz[0][0] * af3 * wrow(2, false) + Fz[1][0] * af3p * wrow(2, true)) * c3;
-      favg[2] = half * (Fz[0][0] + Fz[1][0]);
+      rdivf = rdivf +
+              (fl.f(2, 0, 0) * af3 * wrow(2, false) + fl.f(2, 1, 0) * af3p * wrow(2, true)) * c3;
+      favg[2] = half * (fl.f(2, 0, 0) + fl.f(2, 1, 0));
     }
     T fdotr = T(0);
 #pragma unroll
@@ -671,76 +757,42 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, 
       const T irs = rsqrt_t(r2 + T(r.soft2));
       gmag = (-gm) * irs * irs * irs;
     }
-    const T rho_g = C.W(0, k, j, i);
+    const T rho_g = wc(0);
     T vdotg = T(0);
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
       if (n.grav == 2) {
         const T g_c = gmag * rv[c];
         u[1 + c] = u[1 + c] + gdt * rho_g * g_c;
-        vdotg = vdotg + C.W(1 + c, k, j, i) * g_c;
+        vdotg = vdotg + wc(1 + c) * g_c;
       } else {
         const T hx = C.X(ix.hv_1[c], I) * C.Y(ix.hv_2[c], J);
         const T rh = C.X(ix.rhat_1[c], I) * C.Y(ix.rhat_2[c], J);
         const T zh = C.X(ix.zhat_1[c], I) * C.Y(ix.zhat_2[c], J);
         const T g_c = gmag * (Rc * rh + zc * zh);
         u[1 + c] = u[1 + c] + gdt * rho_g * hx * g_c;
-        vdotg = vdotg + C.W(1 + c, k, j, i) * g_c;
+        vdotg = vdotg + wc(1 + c) * g_c;
       }
     }
     u[4] = u[4] + gdt * rho_g * vdotg;
   }
+}
 
-  // ---- viscous/thermal diffusion (DiffusionUpdateImpl)
-  const bool visc = n.visc >= 0;
-  const bool diff = visc || n.cond >= 0;
-  T den_diff = T(0);
-  if (diff) {
-    T ddv[4] = {T(0), T(0), T(0), T(0)};
-    diff_axis<T, GATHER, 1>(C, k, j, i, af1, af1p, c1, ddv);
-    const T diag2 = diff_axis<T, GATHER, 2>(C, k, j, i, af2, af2p, c2, ddv);
-    T diag3 = T(0);
-    if (az) diag3 = diff_axis<T, GATHER, 3>(C, k, j, i, af3, af3p, c3, ddv);
-    if (visc && n.x1dep) {
-      ddv[0] = ddv[0] + C.X(ix.conn1[1], I) * diag2;
-      if (az) ddv[0] = ddv[0] + C.X(ix.conn1[2], I) * diag3;
-    }
-    if (visc && n.x2dep && az) ddv[1] = ddv[1] + C.Y(ix.conn2, J) * diag3;
-    if (visc) {
-      u[1] = u[1] - bdt * ddv[0];
-      u[2] = u[2] - bdt * ddv[1];
-      u[3] = u[3] - bdt * ddv[2];
-    }
-    u[4] = u[4] - bdt * ddv[3];
-    T heat = -bdt * ddv[3];
-    if (visc)
-      heat = heat + bdt * (ddv[0] * C.W(1, k, j, i) * C.inv_h(0, I, J) +
-                           ddv[1] * C.W(2, k, j, i) * C.inv_h(1, I, J) +
-                           ddv[2] * C.W(3, k, j, i) * C.inv_h(2, I, J));
-    u[5] = u[5] + heat;
-
-    if (FULL) {
-      // diffusive CFL denominator 2 ndim nu_eff / min_dx^2
-      T imd = vmax(C.X(ix.invw_1[0], I) * C.Y(ix.invw_2[0], J),
-                   C.X(ix.invw_1[1], I) * C.Y(ix.invw_2[1], J));
-      if (az)
-        imd = vmax(imd, C.X(ix.invw_1[2], I) * C.Y(ix.invw_2[2], J) * C.Z(ix.inv_dx3, K));
-      const T rho_i = C.W(0, k, j, i);
-      const T ndim2 = T(az ? 6 : 4);
-      if (visc) {
-        const double eta = r.visc_p[1];
-        const T m = mu_model(C, n.visc, r.visc_p, k, j, i) *
-                    T(1.0 + (eta > 1.0 ? eta - 1.0 : 0.0)) / rho_i;
-        den_diff = vmax(den_diff, ndim2 * m * imd * imd);
-      }
-      if (n.cond >= 0) {
-        T m = mu_model(C, n.cond, r.cond_p, k, j, i);
-        if (n.cond == kCondPlaw) m = m / (rho_i * T(r.cv));
-        den_diff = vmax(den_diff, ndim2 * m * imd * imd);
-      }
-    }
-  }
-
+// Writes node ``nd``'s u_out (and, FULL, w_out) at interior cell ``cell``
+// from the updated conserved state ``u``; returns its CFL denominator, the
+// diffusive one ``den_diff`` folded in when ``diff`` (FULL), or 0.
+template <typename T, bool GATHER, bool FULL>
+__device__ __forceinline__ T cell_finish(const Ctx<T, GATHER>& C, const CurvParams& p,
+                                         const NodePtrs& nd, int k, int j, int i,
+                                         int64_t cell, const T (&u)[6], bool diff,
+                                         T den_diff) {
+  const CurvInts& n = p.n;
+  const CurvReals& r = p.r;
+  const CurvIdx& ix = n.ix;
+  const int64_t ncell = int64_t(n.nx) * n.ny * n.nz;
+  const bool az = n.nz > 1;
+  const int I = i + n.g1, J = j + n.g2, K = k + n.g3;
+  const T half = T(0.5);
   T* uo = static_cast<T*>(nd.u_out);
   if (!FULL) {
 #pragma unroll
@@ -793,12 +845,533 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, 
   return diff ? vmax(den, den_diff) : den;
 }
 
-// ---- CUDA-only below: the kernel, its launch and the C entry point.
+// The per-cell body: writes node ``nd``'s u_out (and, FULL, w_out) at
+// interior cell ``cell`` (flat index into [nz, ny, nx]); returns its CFL
+// denominator (FULL) or 0.
+template <typename T, bool GATHER, bool FULL>
+__device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, int64_t cell) {
+  const Ctx<T, GATHER> C(p, nd);
+  const CurvInts& n = p.n;
+  const CurvReals& r = p.r;
+  const CurvIdx& ix = n.ix;
+  const int nx = n.nx, ny = n.ny, nz = n.nz;
+  const bool az = nz > 1;
+  const int i = int(cell % nx);
+  const int j = int((cell / nx) % ny);
+  const int k = int(cell / (int64_t(nx) * ny));
+  const int I = i + n.g1, J = j + n.g2, K = k + n.g3;
+
+  // ---- fluxes
+  CellFluxes<T> fl;
+  fl.P[2][0] = fl.P[2][1] = fl.V[2][0] = fl.V[2][1] = T(0);
+  axis_flux<T, GATHER, 1>(C, k, j, i, fl.F[0], fl.P[0], fl.V[0]);
+  axis_flux<T, GATHER, 2>(C, k, j, i, fl.F[1], fl.P[1], fl.V[1]);
+  if (az) axis_flux<T, GATHER, 3>(C, k, j, i, fl.F[2], fl.P[2], fl.V[2]);
+
+  // ---- update and the folded flux, connection, frame and gravity sources
+  T u[6];
+  CellGeom<T> gm;
+  flux_update(C, p, k, j, i, fl, [&](int c) { return C.W(c, k, j, i); },
+              static_cast<const T*>(nd.u0), static_cast<const T*>(nd.u1),
+              int64_t(nx) * ny * nz, cell, u, gm);
+  const T bdt = gm.bdt;
+
+  // ---- viscous/thermal diffusion (DiffusionUpdateImpl)
+  const bool visc = n.visc >= 0;
+  const bool diff = visc || n.cond >= 0;
+  T den_diff = T(0);
+  if (diff) {
+    T ddv[4] = {T(0), T(0), T(0), T(0)};
+    diff_axis<T, GATHER, 1>(C, k, j, i, gm.af1, gm.af1p, gm.c1, ddv);
+    const T diag2 = diff_axis<T, GATHER, 2>(C, k, j, i, gm.af2, gm.af2p, gm.c2, ddv);
+    T diag3 = T(0);
+    if (az) diag3 = diff_axis<T, GATHER, 3>(C, k, j, i, gm.af3, gm.af3p, gm.c3, ddv);
+    if (visc && n.x1dep) {
+      ddv[0] = ddv[0] + C.X(ix.conn1[1], I) * diag2;
+      if (az) ddv[0] = ddv[0] + C.X(ix.conn1[2], I) * diag3;
+    }
+    if (visc && n.x2dep && az) ddv[1] = ddv[1] + C.Y(ix.conn2, J) * diag3;
+    if (visc) {
+      u[1] = u[1] - bdt * ddv[0];
+      u[2] = u[2] - bdt * ddv[1];
+      u[3] = u[3] - bdt * ddv[2];
+    }
+    u[4] = u[4] - bdt * ddv[3];
+    T heat = -bdt * ddv[3];
+    if (visc)
+      heat = heat + bdt * (ddv[0] * C.W(1, k, j, i) * C.inv_h(0, I, J) +
+                           ddv[1] * C.W(2, k, j, i) * C.inv_h(1, I, J) +
+                           ddv[2] * C.W(3, k, j, i) * C.inv_h(2, I, J));
+    u[5] = u[5] + heat;
+
+    if (FULL) {
+      // diffusive CFL denominator 2 ndim nu_eff / min_dx^2
+      T imd = vmax(C.X(ix.invw_1[0], I) * C.Y(ix.invw_2[0], J),
+                   C.X(ix.invw_1[1], I) * C.Y(ix.invw_2[1], J));
+      if (az)
+        imd = vmax(imd, C.X(ix.invw_1[2], I) * C.Y(ix.invw_2[2], J) * C.Z(ix.inv_dx3, K));
+      const T rho_i = C.W(0, k, j, i);
+      const T ndim2 = T(az ? 6 : 4);
+      if (visc) {
+        const double eta = r.visc_p[1];
+        const T m = mu_model(C, n.visc, r.visc_p, k, j, i) *
+                    T(1.0 + (eta > 1.0 ? eta - 1.0 : 0.0)) / rho_i;
+        den_diff = vmax(den_diff, ndim2 * m * imd * imd);
+      }
+      if (n.cond >= 0) {
+        T m = mu_model(C, n.cond, r.cond_p, k, j, i);
+        if (n.cond == kCondPlaw) m = m / (rho_i * T(r.cv));
+        den_diff = vmax(den_diff, ndim2 * m * imd * imd);
+      }
+    }
+  }
+  return cell_finish<T, GATHER, FULL>(C, p, nd, k, j, i, cell, u, diff, den_diff);
+}
+
+// ---------------------------------------------------------------------------
+// the tiled body (K5b, and K6 as its node axis)
+// ---------------------------------------------------------------------------
+
+// A block's footprint of columns per dtype (f64 halves it in y, so two
+// blocks still fit an SM's shared memory) and whether it stages the
+// registers u0, u1 (UREG; f64 has no room left for them), the planes of
+// its z chunk, and the planes of its ring.
+template <typename T>
+struct TileDims;
+template <>
+struct TileDims<float> {
+  static constexpr int TX = 32, TY = 8;
+  static constexpr bool UREG = true;
+};
+template <>
+struct TileDims<double> {
+  static constexpr int TX = 32, TY = 4;
+  static constexpr bool UREG = false;
+};
+constexpr int kTileZ = 16;
+constexpr int kRing = 4;
+
+// Shared-memory layout of a block, in elements of T: the ring of primitive
+// planes [kRing][6][RY][RX] (the footprint with its halo of two), the x
+// face values of cells -1..TX of each row, upper (xl) and lower (xr)
+// [6][TY][TX + 2], the y face values [6][TY + 2][TX] (yl, yr), the solved
+// x faces [8][TY][TX + 1] and y faces [8][TY + 1][TX] (6 fluxes, the face
+// pressure, the face velocity), and (UREG) the plane's registers u0, u1
+// [12][TY][TX].
+template <typename T>
+struct TileLayout {
+  static constexpr int TX = TileDims<T>::TX, TY = TileDims<T>::TY, NT = TX * TY;
+  // a plane row holds the footprint's TX columns 16-byte aligned, with
+  // two halo columns on each side and two more of padding
+  static constexpr int RX = TX + 8, RY = TY + 4, VEC = 16 / int(sizeof(T));
+  static constexpr int PLANE = 6 * RY * RX;
+  static constexpr int XV = 6 * TY * (TX + 2), YV = 6 * (TY + 2) * TX;
+  static constexpr int XF = 8 * TY * (TX + 1), YF = 8 * (TY + 1) * TX;
+  static constexpr bool UREG = TileDims<T>::UREG;
+  static constexpr int UR = UREG ? 12 * NT : 0;
+  static constexpr int ELEMS = kRing * PLANE + 2 * XV + 2 * YV + XF + YF + UR;
+  static_assert((kRing * PLANE + 2 * XV + 2 * YV + XF + YF) % VEC == 0 && PLANE % VEC == 0,
+                "16-byte copies need aligned planes and registers");
+  static constexpr int BYTES = ELEMS * int(sizeof(T));
+};
+
+// Blocks of one node: x tiles fastest, then y tiles, then z chunks.
+template <typename T>
+__host__ __device__ __forceinline__ int64_t tile_count(int nx, int ny, int nz) {
+  using L = TileLayout<T>;
+  return int64_t((nx + L::TX - 1) / L::TX) * ((ny + L::TY - 1) / L::TY) *
+         ((nz + kTileZ - 1) / kTileZ);
+}
+
+struct TilePos {
+  int x0, y0, z0, z1;       // footprint origin and the chunk's planes [z0, z1)
+};
+
+template <typename T>
+__device__ __forceinline__ TilePos tile_pos(const CurvInts& n, int64_t blk) {
+  using L = TileLayout<T>;
+  const int nbx = (n.nx + L::TX - 1) / L::TX, nby = (n.ny + L::TY - 1) / L::TY;
+  TilePos t;
+  t.x0 = int(blk % nbx) * L::TX;
+  t.y0 = int((blk / nbx) % nby) * L::TY;
+  t.z0 = int(blk / (int64_t(nbx) * nby)) * kTileZ;
+  t.z1 = t.z0 + kTileZ < n.nz ? t.z0 + kTileZ : n.nz;
+  return t;
+}
+
+// One element copied global -> shared: cp.async on the card (committed and
+// waited for by group), a plain copy in the host build of the tests.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+// 16 bytes copied global -> shared (both 16-byte aligned), past L1.
+template <typename T>
+__device__ __forceinline__ void copy_async16(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+template <typename T>
+struct TileMem {
+  using L = TileLayout<T>;
+  T *ring, *xl, *xr, *yl, *yr, *xf, *yf, *ureg;
+  __device__ __forceinline__ explicit TileMem(T* s)
+      : ring(s), xl(s + kRing * L::PLANE), xr(xl + L::XV), yl(xr + L::XV), yr(yl + L::YV),
+        xf(yr + L::YV), yf(xf + L::XF), ureg(yf + L::YF) {}
+  // primitive c in ring slot s at halo-relative row jj and column ii
+  __device__ __forceinline__ T& w(int s, int c, int jj, int ii) const {
+    return ring[((s * 6 + c) * L::RY + jj) * L::RX + ii + 2];
+  }
+  // face values of cell-row jj (x: tile row; y: tile row + 1), cell-column ii
+  __device__ __forceinline__ int xv(int c, int jj, int ii) const {
+    return (c * L::TY + jj) * (L::TX + 2) + ii;
+  }
+  __device__ __forceinline__ int yv(int c, int jj, int ii) const {
+    return (c * (L::TY + 2) + jj) * L::TX + ii;
+  }
+  // quantity q of x face fi (the lower face of tile column fi) of tile row jj,
+  // and of y face fj of tile column ii
+  __device__ __forceinline__ T& fx(int q, int jj, int fi) const {
+    return xf[(q * L::TY + jj) * (L::TX + 1) + fi];
+  }
+  __device__ __forceinline__ T& fy(int q, int fj, int ii) const {
+    return yf[(q * (L::TY + 1) + fj) * L::TX + ii];
+  }
+};
+
+// What a thread carries from plane to plane: the upper z face value of its
+// column's cell below the next z face, the z faces below (bot) and above
+// (top) the current plane, and its running CFL maximum.
+template <typename T>
+struct TileThread {
+  T zup[6], bot[8], top[8], den;
+};
+
+// Stages plane kk into ring slot s: the footprint's rows with the x halo,
+// and the y halo rows over the footprint's columns (the corners, which no
+// face reads, are left out), each element read once from the interior or
+// from one strip; elements past the ghost layer are not read.  Over the
+// footprint's columns, where they all lie inside [0, nx), a row is one
+// contiguous run of its source (the interior, an x2 strip or an x3 strip
+// is chosen by j and k alone), copied 16 bytes at a time where aligned.
+template <typename T>
+__device__ __forceinline__ void tile_load(const Ctx<T, true>& C, const TileMem<T>& m,
+                                          const TilePos& tp, int s, int kk, int tid) {
+  using L = TileLayout<T>;
+  const CurvInts& n = C.n;
+  constexpr int NV = L::TX / L::VEC;
+  const bool whole = tp.x0 + L::TX <= n.nx;
+  for (int e = tid; e < 6 * (L::TY + 4) * NV; e += L::NT) {
+    const int c = e / ((L::TY + 4) * NV), jj = (e / NV) % (L::TY + 4), v = e % NV;
+    const int j = tp.y0 + jj - 2;
+    if (j >= n.ny + 2) continue;
+    if (whole) {
+      const T* row = C.src(c, kk, j, tp.x0) + v * L::VEC;
+      if (reinterpret_cast<uintptr_t>(row) % 16 == 0) {
+        copy_async16(&m.w(s, c, jj, 2 + v * L::VEC), row);
+      } else {
+#pragma unroll
+        for (int q = 0; q < L::VEC; ++q) copy_async(&m.w(s, c, jj, 2 + v * L::VEC + q), row + q);
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < L::VEC; ++q) {
+        const int i = tp.x0 + v * L::VEC + q;
+        if (i < n.nx + 2) copy_async(&m.w(s, c, jj, 2 + v * L::VEC + q), C.src(c, kk, j, i));
+      }
+    }
+  }
+  // the x halo columns of the footprint's rows
+  for (int e = tid; e < 6 * L::TY * 4; e += L::NT) {
+    const int c = e / (L::TY * 4), jj = 2 + (e / 4) % L::TY, h = e % 4;
+    const int ii = h < 2 ? h : L::TX + h, i = tp.x0 + ii - 2, j = tp.y0 + jj - 2;
+    if (i < n.nx + 2 && j < n.ny + 2) copy_async(&m.w(s, c, jj, ii), C.src(c, kk, j, i));
+  }
+}
+
+// The registers u0, u1 of plane k over the footprint into ureg[c * NT +
+// r * TX + x] and ureg[(6 + c) * NT + ...] (those read: gam0, gam1 != 0),
+// 16 bytes at a time where a row is whole and aligned.
+template <typename T>
+__device__ __forceinline__ void tile_load_u(const CurvParams& p, const NodePtrs& nd,
+                                            const TileMem<T>& m, const TilePos& tp, int k,
+                                            int tid) {
+  using L = TileLayout<T>;
+  const CurvInts& n = p.n;
+  constexpr int NV = L::TX / L::VEC;
+  const int64_t ncell = int64_t(n.nx) * n.ny * n.nz;
+  const bool whole = tp.x0 + L::TX <= n.nx;
+  for (int e = tid; e < 12 * L::TY * NV; e += L::NT) {
+    const int f = e / (L::TY * NV), r = (e / NV) % L::TY, v = e % NV;
+    const int j = tp.y0 + r;
+    if (j >= n.ny || (f < 6 ? p.r.gam0 : p.r.gam1) == 0.0) continue;
+    const T* row = static_cast<const T*>(f < 6 ? nd.u0 : nd.u1) + (f % 6) * ncell +
+                   (int64_t(k) * n.ny + j) * n.nx + tp.x0 + v * L::VEC;
+    T* dst = &m.ureg[f * L::NT + r * L::TX + v * L::VEC];
+    if (whole && reinterpret_cast<uintptr_t>(row) % 16 == 0) {
+      copy_async16(dst, row);
+    } else {
+#pragma unroll
+      for (int q = 0; q < L::VEC; ++q)
+        if (tp.x0 + v * L::VEC + q < n.nx) copy_async(dst + q, row + q);
+    }
+  }
+}
+
+// The x and y face values of every cell of ring slot s whose faces the
+// footprint needs (cells -1..TX along x, -1..TY along y).
+template <typename T>
+__device__ __forceinline__ void tile_face_values(const Ctx<T, true>& C, const TileMem<T>& m,
+                                                 const TilePos& tp, int s, int tid) {
+  using L = TileLayout<T>;
+  const CurvInts& n = C.n;
+  const bool migx = !n.pcm && n.x1dep, migy = !n.pcm && n.x2dep;
+  T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  for (int e = tid; e < L::TY * (L::TX + 2); e += L::NT) {
+    const int jj = e / (L::TX + 2), ci = e % (L::TX + 2);   // cell column ci - 1
+    const int i = tp.x0 + ci - 1, j = tp.y0 + jj;
+    if (i > n.nx || j >= n.ny) continue;
+    if (migx) plm_g_ratios(C, C.ix.recon1, true, i + n.g1, g);
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      face_values(bool(n.pcm), migx, m.w(s, c, jj + 2, ci), m.w(s, c, jj + 2, ci + 1),
+                  m.w(s, c, jj + 2, ci + 2), g, m.xl[m.xv(c, jj, ci)], m.xr[m.xv(c, jj, ci)]);
+  }
+  for (int e = tid; e < (L::TY + 2) * L::TX; e += L::NT) {
+    const int cj = e / L::TX, ii = e % L::TX;               // cell row cj - 1
+    const int i = tp.x0 + ii, j = tp.y0 + cj - 1;
+    if (i >= n.nx || j > n.ny) continue;
+    if (migy) plm_g_ratios(C, C.ix.recon2, false, j + n.g2, g);
+#pragma unroll
+    for (int c = 0; c < 6; ++c)
+      face_values(bool(n.pcm), migy, m.w(s, c, cj, ii + 2), m.w(s, c, cj + 1, ii + 2),
+                  m.w(s, c, cj + 2, ii + 2), g, m.yl[m.yv(c, cj, ii)], m.yr[m.yv(c, cj, ii)]);
+  }
+}
+
+// The z face above plane k - 1 of the thread's column (ring slots sm, s0,
+// sp hold planes k - 1, k, k + 1): solved from the carried upper value of
+// cell k - 1 into ``q``, cell k's upper value carried on.
+template <typename T>
+__device__ __forceinline__ void tile_zface(const Ctx<T, true>& C, const TileMem<T>& m, int sm,
+                                           int s0, int sp, int tx, int ty, int I, int J,
+                                           TileThread<T>& st, T (&q)[8]) {
+  const T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+  T wr[6], up[6];
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+    face_values(bool(C.n.pcm), false, m.w(sm, c, ty + 2, tx + 2), m.w(s0, c, ty + 2, tx + 2),
+                m.w(sp, c, ty + 2, tx + 2), g, up[c], wr[c]);
+  solve_face<T, true, 3>(C, st.zup, wr, I, J, q);
+#pragma unroll
+  for (int c = 0; c < 6; ++c) st.zup[c] = up[c];
+}
+
+// Phase B: every x and y face of the footprint's plane in ring slot s,
+// once each, into shared memory (the extra x face column falls to the
+// first warp, the extra y face row to the last), and the thread's z face
+// above the plane into its registers (slots of planes k + 1 and k + 2:
+// s1, s2).
+template <typename T>
+__device__ __forceinline__ void tile_solve(const Ctx<T, true>& C, const TileMem<T>& m,
+                                           const TilePos& tp, int s, int s1, int s2, int tid,
+                                           TileThread<T>& st) {
+  using L = TileLayout<T>;
+  const CurvInts& n = C.n;
+  for (int e = tid; e < L::TY * (L::TX + 1); e += L::NT) {
+    const int jj = e / (L::TX + 1), fi = e % (L::TX + 1);
+    const int i = tp.x0 + fi, j = tp.y0 + jj;
+    if (i > n.nx || j >= n.ny) continue;
+    T wl[6], wr[6], q[8];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      wl[c] = m.xl[m.xv(c, jj, fi)];
+      wr[c] = m.xr[m.xv(c, jj, fi + 1)];
+    }
+    solve_face<T, true, 1>(C, wl, wr, i + n.g1, j + n.g2, q);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) m.fx(c, jj, fi) = q[c];
+  }
+  for (int e = L::NT - 1 - tid; e < (L::TY + 1) * L::TX; e += L::NT) {
+    const int fj = e / L::TX, ii = e % L::TX;
+    const int i = tp.x0 + ii, j = tp.y0 + fj;
+    if (i >= n.nx || j > n.ny) continue;
+    T wl[6], wr[6], q[8];
+#pragma unroll
+    for (int c = 0; c < 6; ++c) {
+      wl[c] = m.yl[m.yv(c, fj, ii)];
+      wr[c] = m.yr[m.yv(c, fj + 1, ii)];
+    }
+    solve_face<T, true, 2>(C, wl, wr, i + n.g1, j + n.g2, q);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) m.fy(c, fj, ii) = q[c];
+  }
+  const int tx = tid % L::TX, ty = tid / L::TX, i = tp.x0 + tx, j = tp.y0 + ty;
+  if (n.nz > 1 && i < n.nx && j < n.ny)
+    tile_zface(C, m, s, s1, s2, tx, ty, i + n.g1, j + n.g2, st, st.top);
+}
+
+// The fluxes of the thread's cell for flux_update: x and y faces from
+// shared memory, z faces from the thread's registers.
+template <typename T>
+struct TileFluxes {
+  const TileMem<T>& m;
+  const TileThread<T>& st;
+  int tx, ty;
+  __device__ __forceinline__ T q(int d, int s, int c) const {
+    if (d == 0) return m.fx(c, ty, tx + s);
+    if (d == 1) return m.fy(c, ty + s, tx);
+    return s == 0 ? st.bot[c] : st.top[c];
+  }
+  __device__ __forceinline__ T f(int d, int s, int c) const { return q(d, s, c); }
+  __device__ __forceinline__ T pf(int d, int s) const { return q(d, s, 6); }
+  __device__ __forceinline__ T vf(int d, int s) const { return q(d, s, 7); }
+};
+
+// One block of the tiled body, phase by phase: ``ex.each(f)`` runs f(tid,
+// state) for every thread of the block and then synchronises it (on the
+// card, each thread runs its own call between __syncthreads; the host
+// build of the tests loops over the threads).  ``smem`` holds
+// TileLayout<T>::ELEMS elements.
+template <typename T, class Exec>
+__device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& nd, int64_t blk,
+                                           T* smem, Exec& ex) {
+  using L = TileLayout<T>;
+  const Ctx<T, true> C(p, nd);
+  const CurvInts& n = p.n;
+  const TileMem<T> m(smem);
+  const TilePos tp = tile_pos<T>(n, blk);
+  const bool az = n.nz > 1;
+  auto slot = [&](int kk) { return (kk - tp.z0 + 2) & (kRing - 1); };
+
+  // prologue: planes z0 - 2 .. z0 + 1; each column's z face below z0; then
+  // plane z0 + 2 lands in the slot of z0 - 2 while plane z0's face values
+  // are made
+  ex.each([&](int tid, TileThread<T>& st) {
+    st.den = T(0);
+    for (int kk = az ? tp.z0 - 2 : 0; kk < (az ? tp.z0 + 2 : 1); ++kk)
+      tile_load(C, m, tp, slot(kk), kk, tid);
+    copy_commit();
+    copy_wait<0>();
+  });
+  if (az)
+    ex.each([&](int tid, TileThread<T>& st) {
+      const int tx = tid % L::TX, ty = tid / L::TX, i = tp.x0 + tx, j = tp.y0 + ty;
+      if (i >= n.nx || j >= n.ny) return;
+      const T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
+      T lo[6];
+#pragma unroll
+      for (int c = 0; c < 6; ++c)
+        face_values(bool(n.pcm), false, m.w(slot(tp.z0 - 2), c, ty + 2, tx + 2),
+                    m.w(slot(tp.z0 - 1), c, ty + 2, tx + 2), m.w(slot(tp.z0), c, ty + 2, tx + 2),
+                    g, st.zup[c], lo[c]);
+      tile_zface(C, m, slot(tp.z0 - 1), slot(tp.z0), slot(tp.z0 + 1), tx, ty, i + n.g1,
+                 j + n.g2, st, st.bot);
+    });
+  ex.each([&](int tid, TileThread<T>&) {
+    if (az) tile_load(C, m, tp, slot(tp.z0 + 2), tp.z0 + 2, tid);
+    copy_commit();
+    tile_face_values(C, m, tp, slot(tp.z0), tid);
+    copy_wait<0>();
+  });
+
+  // Two phases per plane k.  B: its faces, while plane k + 3 lands in the
+  // slot of plane k - 1 and (UREG) its registers in ureg.  C: its cells,
+  // and the face values of plane k + 1.
+  for (int k = tp.z0; k < tp.z1; ++k) {
+    ex.each([&](int tid, TileThread<T>& st) {
+      if (az && k + 3 <= tp.z1 + 1) tile_load(C, m, tp, slot(k + 3), k + 3, tid);
+      if (L::UREG) tile_load_u(p, nd, m, tp, k, tid);
+      copy_commit();
+      tile_solve(C, m, tp, slot(k), slot(k + 1), slot(k + 2), tid, st);
+      copy_wait<0>();
+    });
+    ex.each([&](int tid, TileThread<T>& st) {
+      const int tx = tid % L::TX, ty = tid / L::TX, i = tp.x0 + tx, j = tp.y0 + ty;
+      if (i < n.nx && j < n.ny) {
+        const int s = slot(k);
+        const int64_t cell = (int64_t(k) * n.ny + j) * n.nx + i;
+        T u[6];
+        CellGeom<T> gm;
+        const int64_t ncell = int64_t(n.nx) * n.ny * n.nz;
+        flux_update(C, p, k, j, i, TileFluxes<T>{m, st, tx, ty},
+                    [&](int c) { return m.w(s, c, ty + 2, tx + 2); },
+                    L::UREG ? m.ureg : static_cast<const T*>(nd.u0),
+                    L::UREG ? m.ureg + 6 * L::NT : static_cast<const T*>(nd.u1),
+                    L::UREG ? int64_t(L::NT) : ncell, L::UREG ? int64_t(tid) : cell, u, gm);
+        st.den = vmax(st.den, cell_finish<T, true, true>(C, p, nd, k, j, i, cell, u, false,
+                                                         T(0)));
+#pragma unroll
+        for (int q = 0; q < 8; ++q) st.bot[q] = st.top[q];
+      }
+      if (k + 1 < tp.z1) tile_face_values(C, m, tp, slot(k + 1), tid);
+    });
+  }
+
+  // the block's maximum of the CFL denominator (the x face area is free)
+  T* red = m.xf;
+  ex.each([&](int tid, TileThread<T>& st) { red[tid] = st.den; });
+  for (int h = L::NT / 2; h > 0; h >>= 1)
+    ex.each([&](int tid, TileThread<T>&) {
+      if (tid < h) red[tid] = vmax(red[tid], red[tid + h]);
+    });
+  ex.each([&](int tid, TileThread<T>&) {
+    if (tid == 0) static_cast<T*>(nd.dmax)[blk] = red[0];
+  });
+}
+
+// Threads per block of the per-cell body, one cell each.
+constexpr int kBlock = 128;
+
+// May a launch take the tiled body?  Full six-face stages without
+// diffusion, on a ghost width of two (none along x3 for a 2-D node).
+inline bool tiled_ok(const CurvParams& p, int halo, int full) {
+  const CurvInts& n = p.n;
+  return halo == kGather6 && full && n.visc < 0 && n.cond < 0 && n.g1 == 2 && n.g2 == 2 &&
+         n.g3 == (n.nz > 1 ? 2 : 0);
+}
+
+// Entries of a node's dtden output: one per block of the launch's body.
+inline int64_t dtden_len(const CurvParams& p, int dtype, int tiled) {
+  const CurvInts& n = p.n;
+  if (tiled)
+    return dtype == 0 ? tile_count<float>(n.nx, n.ny, n.nz) : tile_count<double>(n.nx, n.ny, n.nz);
+  return (int64_t(n.nx) * n.ny * n.nz + kBlock - 1) / kBlock;
+}
+
+// ---- CUDA-only below: the kernels, their launches and the C entry point.
 // Everything above also compiles as host C++: tests/test_torch_stage_curv.py
 // builds it with g++ behind a few macros, loops curv_cell over the cells
-// and holds the result against the plain version on the CPU.
-
-constexpr int kBlock = 128;
+// (the per-cell body) or tile_block over the blocks (the tiled body) and
+// holds the result against the plain version on the CPU.
 
 // The launch's parameters are a __grid_constant__ kernel argument: uniform
 // across threads, read from the constant bank, and addressable in place
@@ -832,8 +1405,50 @@ cudaError_t launch(const CurvParams& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// The tiled body: one block per footprint and z chunk (blockIdx.x), the
+// node on blockIdx.y; each thread keeps its TileThread in registers.
 template <typename T>
-cudaError_t launch_t(const CurvParams& p, int gather, int full, cudaStream_t s) {
+struct DeviceExec {
+  TileThread<T> st;
+  template <class F>
+  __device__ __forceinline__ void each(F&& f) {
+    f(int(threadIdx.x), st);
+    __syncthreads();
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(TileLayout<T>::NT, 2)
+stage_tiled_kernel(const __grid_constant__ CurvParams p) {
+  extern __shared__ __align__(16) unsigned char tile_smem[];
+  DeviceExec<T> ex;
+  tile_block<T>(p, p.node[blockIdx.y], int64_t(blockIdx.x), reinterpret_cast<T*>(tile_smem),
+                ex);
+}
+
+template <typename T>
+cudaError_t launch_tiled(const CurvParams& p, cudaStream_t stream) {
+  // above 48 KB a block's dynamic shared memory is asked for, once; the
+  // carveout leaves room for two blocks on an SM
+  static const cudaError_t attr = [] {
+    cudaError_t e = cudaFuncSetAttribute(stage_tiled_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         TileLayout<T>::BYTES);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(stage_tiled_kernel<T>,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               int(cudaSharedmemCarveoutMaxShared));
+    return e;
+  }();
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(unsigned(tile_count<T>(p.n.nx, p.n.ny, p.n.nz)), unsigned(p.nnodes));
+  stage_tiled_kernel<T><<<grid, TileLayout<T>::NT, TileLayout<T>::BYTES, stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_t(const CurvParams& p, int gather, int full, int tiled, cudaStream_t s) {
+  if (tiled) return launch_tiled<T>(p, s);
   if (gather) return full ? launch<T, true, true>(p, s) : launch<T, true, false>(p, s);
   return full ? launch<T, false, true>(p, s) : launch<T, false, false>(p, s);
 }
@@ -843,27 +1458,30 @@ cudaError_t launch_t(const CurvParams& p, int gather, int full, cudaStream_t s) 
 // dtype: 0 float32, 1 float64 (a build with -DARTEMIS_CURV_DTYPE=0 or 1
 // carries that type only; the wrapper builds the two in parallel).  halo:
 // kPadded (a padded array), kGather (interior + x1/x2 strips, x3 wrapped)
-// or kGather6 (interior + the six face strips).  nnodes: 1..kMaxNodes
-// nodes of one grid shape sharing ints, reals and dt.  ptrs: dt, then
-// kNodePtrs pointers per node in NodePtrs order, the x3 strips (the last
-// two) given exactly for kGather6.  full: 1 whole stage, 0 partial.
-// block must equal the kernel's block size (one dtden entry per block and
-// node).  Returns a cudaError_t (0 on success).
-extern "C" int artemis_stage_curv(int dtype, int halo, int full,
+// or kGather6 (interior + the six face strips).  full: 1 whole stage, 0
+// partial.  tiled: 1 the tiled body (tiled_ok), 0 the per-cell body.
+// ptrs: dt, then kNodePtrs pointers per node in NodePtrs order, the x3
+// strips (the last two) given exactly for kGather6 (empty for a 2-D
+// node).  nnodes: 1..kMaxNodes nodes of one grid shape sharing ints, reals
+// and dt.  ndmax: the dtden entries the caller gave each node (full; 0 in
+// partial mode), which must be the body's block count (dtden_len).
+// Returns a cudaError_t (0 on success).
+extern "C" int artemis_stage_curv(int dtype, int halo, int full, int tiled,
                                   const int* ints, const double* reals,
                                   const void* const* ptrs, int nptrs, int nnodes,
-                                  int block, void* stream) {
+                                  int ndmax, void* stream) {
   CurvParams p;
-  if (block != kBlock || halo < kPadded || halo > kGather6 ||
-      !make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p))
+  if (halo < kPadded || halo > kGather6 ||
+      !make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p) ||
+      (tiled && !tiled_ok(p, halo, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
     return int(cudaErrorInvalidValue);
   const int gather = halo != kPadded;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #if !defined(ARTEMIS_CURV_DTYPE) || ARTEMIS_CURV_DTYPE == 0
-  if (dtype == 0) return int(launch_t<float>(p, gather, full, s));
+  if (dtype == 0) return int(launch_t<float>(p, gather, full, tiled, s));
 #endif
 #if !defined(ARTEMIS_CURV_DTYPE) || ARTEMIS_CURV_DTYPE == 1
-  if (dtype == 1) return int(launch_t<double>(p, gather, full, s));
+  if (dtype == 1) return int(launch_t<double>(p, gather, full, tiled, s));
 #endif
   return int(cudaErrorInvalidValue);
 }

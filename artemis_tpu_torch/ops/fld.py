@@ -34,6 +34,17 @@ def shift(a, d, sign):
     return torch.roll(a, -sign, dims=a.ndim - d)
 
 
+def grad_norm(gs):
+    """sqrt(g_1^2 + g_2^2 + ...) of the gradient components ``gs``, summed
+    in their order, with an IEEE square root.  ``torch.sqrt`` (and
+    ``pow(x, 0.5)``) of a float64 CPU tensor goes through MKL's vector math
+    library, one chunk per thread: it is not correctly rounded (one-ulp
+    differences from the IEEE root), and its first call on a worker thread
+    was seen to return one chunk off by ~2e-11 relative.  The reduction of
+    ``vector_norm`` takes the root without that library."""
+    return torch.linalg.vector_norm(torch.stack(gs), dim=0)
+
+
 def edge_masks(a, d):
     """(first, last) boolean masks of the physical edges along d,
     broadcastable against a."""
@@ -52,11 +63,8 @@ def fld_coeffs_reference(E, chi, dt, dxs, c_code, ext, flags):
     operations follow the TPU kernel's order."""
     tiny = torch.finfo(E.dtype).tiny
     dt = dt.reshape(())
-    g2 = 0.0
-    for d in (1, 2, 3):
-        g = (shift(E, d, 1) - shift(E, d, -1)) * (0.5 / dxs[d - 1])
-        g2 = g2 + g * g
-    R = torch.sqrt(g2) / (chi * torch.clamp_min(E, tiny) + tiny)
+    gs = [(shift(E, d, 1) - shift(E, d, -1)) * (0.5 / dxs[d - 1]) for d in (1, 2, 3)]
+    R = grad_norm(gs) / (chi * torch.clamp_min(E, tiny) + tiny)
     lam = (2.0 + R) / (6.0 + 3.0 * R + R * R)        # Levermore-Pomraning
     Dc = torch.clamp_max(c_code * lam / (chi + tiny), c_code * ext)
     diag = torch.ones_like(Dc)

@@ -23,7 +23,12 @@ and six face strips; every other layout is read from primitives padded by
 ``bc``.  ``stage_curv_batched`` launches the same kernel over N nodes of
 one grid shape (a refined tree's nodes, each with its own coefficient rows
 and six strips), the node index on the launch grid's y axis: the TPU's
-node-batched K6 ``stage_curv_gather6_batched``.
+node-batched K6 ``stage_curv_gather6_batched``.  The kernel has two bodies:
+a full six-face launch without diffusion (K5b, K6) takes the tiled one,
+which stages each plane of its footprint with the halo in shared memory
+and solves each face once; every other launch takes the per-cell one
+(``CurvStage.tiled``).  Each body writes one dtden entry per block of its
+own (``CurvStage.dtden_blocks``).
 
 The coefficient packing (``_axis_pack`` ... ``CurvCoeffs.pack``,
 ``_dp_tuple``) is numpy only, copied from the JAX module; the rows are
@@ -32,6 +37,7 @@ built in float64 and cast to the run's dtype when they move to the device.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import numpy as np
@@ -40,7 +46,11 @@ import torch
 from .. import bc as bc_mod
 from ..geometry import geometry as geo
 
-BLOCK = 128  # threads per CUDA block (the kernel's kBlock); one dtden entry per block
+BLOCK = 128  # threads per block of the per-cell body (kBlock); one dtden entry per block
+# the tiled body's footprint per dtype (TileDims) and planes per block
+# (kTileZ); one dtden entry per block
+TILE = {torch.float32: (32, 8), torch.float64: (32, 4)}
+TILE_Z = 16
 
 # kernel launches since the last reset (the count a run reads to show that
 # the main path went through the kernel)
@@ -670,10 +680,20 @@ class CurvStage:
             return "padded"
         return "gather6" if ("x3", 0) in self.strips else "gather"
 
-    def dtden_blocks(self) -> int:
-        """Entries of the kernel's dtden output (one per CUDA block)."""
+    def dtden_blocks(self, tiled=False) -> int:
+        """Entries of the kernel's dtden output: one per block of the
+        per-cell body, or of the tiled body when ``tiled``."""
         nx, ny, nz = self.grid.nx
-        return -(-(nx * ny * nz) // BLOCK)
+        if not tiled:
+            return -(-(nx * ny * nz) // BLOCK)
+        tx, ty = TILE[self.hyd.dtype]
+        return -(-nx // tx) * -(-ny // ty) * -(-nz // TILE_Z)
+
+    def tiled(self, halo) -> bool:
+        """Does a launch with halo source ``halo`` take the tiled body?
+        Full six-face stages without diffusion (K5b, K6) do, unless
+        ``_percell_body`` is on."""
+        return halo == "gather6" and self.full and self.diffusion is None and not _percell
 
 
 def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
@@ -749,8 +769,24 @@ def _lib(dtype):
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
-        fn.argtypes = [i, i, i, p, p, p, i, i, i, p]
+        fn.argtypes = [i, i, i, i, p, p, p, i, i, i, p]
     return fn
+
+
+# Measurement only: while on, six-face launches take the per-cell body, so
+# that chip_smoke.py and the tests can time and compare the two designs on
+# one state.  Nothing in Simulation, the deck or the CLI reaches it.
+_percell = False
+
+
+@contextlib.contextmanager
+def _percell_body():
+    global _percell
+    before, _percell = _percell, True
+    try:
+        yield
+    finally:
+        _percell = before
 
 
 # the kernel's halo source codes (kPadded, kGather, kGather6)
@@ -811,6 +847,7 @@ def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
     gfac = 1.0 if cs0.gravity is None or cs0.gravity.active(time) else 0.0
     reals = [float(gam0), float(gam1), float(beta)] + cs0._reals_mid + [gfac] + cs0._reals_tail
     ptr = lambda t: None if t is None else t.data_ptr()
+    tiled = cs0.tiled(halo)
     ptrs = [dt.data_ptr()]
     outs = []
     for cs, src, u0, u1, strips in zip(stages, srcs, u0s, u1s, strips_list):
@@ -841,7 +878,7 @@ def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
                                  "one dtype on one device")
         u = torch.empty(shape, dtype=dtype, device=device)
         w_out = torch.empty(shape, dtype=dtype, device=device) if cs.full else None
-        dmax = (torch.empty((cs.dtden_blocks(),), dtype=dtype, device=device)
+        dmax = (torch.empty((cs.dtden_blocks(tiled),), dtype=dtype, device=device)
                 if cs.full else None)
         s = strips if gather else {}
         ptrs += [src.data_ptr(), ptr(u0) if gam0 != 0.0 else None,
@@ -859,7 +896,8 @@ def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(0 if dtype == torch.float32 else 1, HALO_CODES[halo], int(cs0.full),
-                 c_ints, c_reals, c_ptrs, len(ptrs), len(stages), BLOCK, stream)
+                 int(tiled), c_ints, c_reals, c_ptrs, len(ptrs), len(stages),
+                 cs0.dtden_blocks(tiled) if cs0.full else 0, stream)
     if err != 0:
         raise RuntimeError(f"stage_curv kernel launch failed: CUDA error {err}")
     return outs

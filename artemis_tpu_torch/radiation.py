@@ -35,7 +35,7 @@ from dataclasses import dataclass
 import torch
 
 from .ops import fld as fld_mod
-from .ops.fld import edge_masks, shift
+from .ops.fld import edge_masks, grad_norm, shift
 
 
 @dataclass(frozen=True)
@@ -199,12 +199,8 @@ class Radiation:
                                          with_iters)
 
         def grad_mag(E):
-            g2 = 0.0
-            for d in self.dims:
-                w = self.widths[d - 1]
-                gp = (shift(E, d, 1) - shift(E, d, -1)) / (2 * w)
-                g2 = g2 + gp * gp
-            return torch.sqrt(g2)
+            return grad_norm([(shift(E, d, 1) - shift(E, d, -1)) / (2 * self.widths[d - 1])
+                              for d in self.dims])
 
         R = grad_mag(Er0) / (chi * torch.clamp_min(Er0, ftiny) + ftiny)
         lam = (2.0 + R) / (6.0 + 3.0 * R + R * R)  # Levermore-Pomraning

@@ -53,8 +53,11 @@ line is printed:
    relative, Dirichlet flags off, on and mixed, an odd nz included;
 10. the six-face strip halo of ``stage_curv.cu`` against the plain version
    and bitwise equal to the padded halo on small all-ic disks: the
-   Cartesian radiation-hydro disk (no diffusion, K5b) and the spherical
-   disk with x3 ic and alpha viscosity (K5a), both dtypes, four schemes;
+   Cartesian radiation-hydro disk and the spherical disk with x3 ic
+   without viscosity (K5b, on the tiled body, also bitwise equal to the
+   per-cell body through the wrapper's private switch) and with alpha
+   viscosity (K5a), both dtypes, four schemes (the dtden outputs compared
+   by their maxima: the two bodies have different block counts);
 11. the RHD cell (``inputs/disk_rhd_amr.in`` without refinement at
    bench.py's 512x512x64 root, float32, all faces ic, gray FLD): the main
    path through ``Simulation.run`` with the three kernels' counts reset
@@ -63,13 +66,17 @@ line is printed:
    per Newton outer iteration, host read-backs per cycle, zone-cycles/s of
    the kernel path (20 cycles after 2 warm-up) and of the plain path, the
    density L2 deviation from the initial condition (<= 3e-4, bench.py:185),
-   each kernel's time per launch against its plain version and bound, the
-   six-face halo bitwise equal to the padded one at full size, and the
-   cycle's split between the device's busy time and its idle share;
+   each kernel's time per launch against its plain version and bound (K5b
+   on the tiled body and on the per-cell body, with ptxas's registers and
+   spills of both), the tiled body bitwise equal to the per-cell body and
+   to the padded halo at full size, and the cycle's split between the
+   device's busy time and its idle share;
 12. the node axis of ``stage_curv.cu`` (K6): N = 1, 2, 3 Cartesian nodes
    with their own coefficient rows and random six-face strips in one
-   launch, bitwise equal to N one-node six-face launches and within
-   1e-12 (f64) / 1e-5 (f32) of ``stage_curv_batched_reference``;
+   launch, bitwise equal to N one-node six-face launches, to the same
+   launch on the per-cell body and to N padded launches of the same
+   strips, and within 1e-12 (f64) / 1e-5 (f32) of
+   ``stage_curv_batched_reference``;
 13. the equal-shape AMR RHD cell (``inputs/disk_rhd_amr.in`` as written,
    its static patch included, at a 256x256x64 root, whose patch is
    256x256x64 too; float32): the main path through ``Simulation.run`` with
@@ -78,8 +85,9 @@ line is printed:
    matvec of each node), zone-cycles/s over every zone of every level
    (20 cycles after 2 warm-up) and of the plain path, the root density L2
    deviation from the initial condition (<= 3e-4), K6's time per launch
-   against two one-node six-face launches (K5b) and two padded launches
-   (K4) with and without their ghost fill, all bitwise equal, the tree
+   on the tiled and on the per-cell body, against two one-node six-face
+   launches (K5b) and two padded launches (K4) with and without their
+   ghost fill, all bitwise equal, the tree
    stage's glue and the radiation pass per node, CG iterations per node,
    host read-backs per cycle and the device's idle share;
 14. bench.py's production AMR shape (512x512x64 root over [-4, 4]^2 and a
@@ -251,6 +259,43 @@ def bound(nbytes, flops):
 
 def tensor_bytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+# the six-face launch's two bodies in stage_curv.cu: a mangled-name piece
+# of each f32 kernel (the per-cell one with the gather halo, full mode)
+KERNEL_ENTRIES = (("tiled", "stage_tiled_kernelIfE"),
+                  ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
+
+
+def ptxas_usage(torch, dtype, entry):
+    """(registers, spill store bytes, spill load bytes) that ptxas printed
+    for the stage_curv kernel of ``dtype`` whose mangled name holds
+    ``entry``, from this process's build; None when it did not build."""
+    import re
+
+    from artemis_tpu_torch import _build
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    log = _build.build_log.get(_build.variant("stage_curv", SC.build_defines(dtype)))
+    cur = spill = None
+    for line in (log[1] if log else "").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur, spill = m.group(1), None
+        elif cur is not None and entry in cur:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m and spill is None:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                return (int(m.group(1)),) + (spill or (0, 0))
+    return None
+
+
+def regs_text(regs):
+    return "; ".join(f"{body} body " + (f"{r[0]} registers, spills {r[1]}/{r[2]} B st/ld"
+                                         if r else "registers not read")
+                     for body, r in regs.items())
 
 
 # -- phase 3 -------------------------------------------------------------
@@ -978,7 +1023,8 @@ def allic_sim(torch, dtype, deck, data, rsolver, recon, nx=(20, 12, 6)):
     """An all-ic disk through the user entry point at a small ragged size:
     "cartesian" is the radiation-hydro deck without refinement and
     radiation (no diffusion: K5b), "spherical" disk_sph with x3 ic over
-    r in [0.4, 2.4] (alpha viscosity: K5a)."""
+    r in [0.4, 2.4] (alpha viscosity: K5a), "spherical-inviscid" the same
+    without viscosity (K5b with Mignone PLM, connection and frame terms)."""
     from artemis_tpu_torch import Simulation
 
     ov = [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
@@ -991,34 +1037,58 @@ def allic_sim(torch, dtype, deck, data, rsolver, recon, nx=(20, 12, 6)):
         path = DISK["disk_sph"]
         ov += ["parthenon/mesh/x1min=0.4", "parthenon/mesh/x1max=2.4",
                "parthenon/mesh/ix3_bc=ic", "parthenon/mesh/ox3_bc=ic"]
+        if deck == "spherical-inviscid":
+            ov += ["physics/viscosity=false"]
     return Simulation(path, ov, data, device=DEVICE)
+
+
+def same_stage(torch, a, b):
+    """Two launches' (u, w, dtden) bitwise equal: u and w, and the dtden
+    maxima (the tiled and per-cell bodies have different block counts)."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2].amax(), b[2].amax()))
 
 
 def phase_gather6_compare(torch):
     """The six-face strip halo against the plain version and bitwise equal
-    to the padded halo, with diffusion off (K5b, the Cartesian disk) and on
+    to the padded halo, with diffusion off (K5b on the tiled body: the
+    Cartesian disk, and the spherical disk without viscosity; also bitwise
+    equal to the per-cell body through the wrapper's private switch) and on
     (K5a, the spherical disk with x3 ic), both dtypes, all four schemes."""
+    from artemis_tpu_torch.ops import stage_curv as SC
+
     worst = {"float64": 0.0, "float32": 0.0}
-    ncase = 0
+    ncase = ntiled = 0
     with tempfile.TemporaryDirectory() as data:
-        for deck in ("cartesian", "spherical"):
+        for deck in ("cartesian", "spherical-inviscid", "spherical"):
             for dtype in ("float64", "float32"):
                 tol = F64_TOL if dtype == "float64" else DISK_F32_TOL
                 for scheme in ("hllc-plm", "hlle-plm", "hllc-pcm", "hlle-pcm"):
                     sim = allic_sim(torch, dtype, deck, data, *scheme.split("-"))
                     d = sim.driver
+                    tiled = deck != "spherical"
                     check(d.stage_kernel == "stage_curv (gather6)"
-                          and (d.diffusion is not None) == (deck == "spherical"),
+                          and (d.diffusion is None) == tiled and d._curv.tiled("gather6") == tiled,
                           f"all-ic {deck} took {d.stage_kernel}")
                     w, u = sim.state["gas"]["w"], sim.state["gas"]["u"]
                     eg, og = compare_curv(torch, d._curv, w, u, tol)
                     ep, op = compare_curv(torch, d._curv, w, u, tol, padded=True)
-                    check(all(torch.equal(a, b) for a, b in zip(og, op)),
+                    check(same_stage(torch, og, op),
                           f"all-ic {deck} {dtype} {scheme}: six-face and padded halo differ")
                     worst[dtype] = max(worst[dtype], eg, ep)
                     ncase += 4
-    print(f"gather6 compare: {ncase} cases, six-face == padded bitwise (K5b Cartesian, "
-          f"K5a spherical with viscosity); max abs err vs plain f64 {worst['float64']:.3e} "
+                    if tiled:
+                        with SC._percell_body():
+                            ec, oc = compare_curv(torch, d._curv, w, u, tol)
+                        check(same_stage(torch, og, oc),
+                              f"all-ic {deck} {dtype} {scheme}: tiled and per-cell bodies "
+                              "differ")
+                        worst[dtype] = max(worst[dtype], ec)
+                        ncase += 2
+                        ntiled += 1
+    print(f"gather6 compare: {ncase} cases, six-face == padded bitwise (K5b Cartesian and "
+          f"spherical inviscid, K5a spherical with viscosity), tiled == per-cell bitwise on "
+          f"the {ntiled} K5b states; max abs err vs plain f64 {worst['float64']:.3e} "
           f"(tol {F64_TOL:g}), f32 {worst['float32']:.3e} (tol {DISK_F32_TOL:g})")
     return worst
 
@@ -1134,20 +1204,26 @@ def phase_rhd(torch, smi):
             g0, g1, b = next(calls)
             return SC.stage_curv_reference(cs, w, u, u1, g0, g1, b, dt, tnow, False)
 
+        check(cs.tiled("gather6"), "RHD cell: the six-face launch does not take the tiled body")
         res["ms"] = time_launches(torch, kern, 20)
+        with SC._percell_body():
+            res["percell_ms"] = time_launches(torch, kern, 10)
         res["plain_ms"] = time_launches(torch, plain, 2)
-        nblk = cs.dtden_blocks()
+        nblk = cs.dtden_blocks(True)
         nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*cs.strips.values(), *cs.rows)
                   + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
         flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
             cs, w, u, u1, *g, dt, tnow, False)) for g in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))) / 2
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
-        ug, wg, dg = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
-        up, wp, dp = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
+        og = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+        with SC._percell_body():
+            oc = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+        op = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
         ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
         torch.cuda.synchronize()
-        check(torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg, dp),
-              "RHD cell: six-face and padded halo differ")
+        check(same_stage(torch, og, oc), "RHD cell: tiled and per-cell bodies differ")
+        check(same_stage(torch, og, op), "RHD cell: six-face and padded halo differ")
+        ug, wg = og[:2]
         res["stage_err"] = max(float((ug - ur).abs().max()), float((wg - wr).abs().max()))
         check(res["stage_err"] <= DISK_F32_TOL,
               f"RHD stage kernel vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
@@ -1156,12 +1232,17 @@ def phase_rhd(torch, smi):
             cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, "padded"), 20)
         res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
             cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True), 10)
-        print(f"RHD f32 stage per launch: six-face kernel (K5b) {res['ms']:.4f} ms, padded "
-              f"halo {res['padded_ms']:.4f} ms ({res['padded_stage_ms']:.4f} ms with the ic "
-              f"fill), plain {res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB and "
-              f"{flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; "
-              f"six-face == padded bitwise, vs plain {res['stage_err']:.3e} [{smi}]")
-        del ug, wg, dg, up, wp, dp, ur, wr, w_pad
+        res["regs"] = {body: ptxas_usage(torch, torch.float32, entry)
+                       for body, entry in KERNEL_ENTRIES}
+        print(f"RHD f32 stage per launch: six-face kernel (K5b) on the tiled body "
+              f"{res['ms']:.4f} ms, on the per-cell body {res['percell_ms']:.4f} ms "
+              f"({res['percell_ms'] / res['ms']:.2f}x), padded halo {res['padded_ms']:.4f} ms "
+              f"({res['padded_stage_ms']:.4f} ms with the ic fill), plain "
+              f"{res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} "
+              f"GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; tiled == per-cell "
+              f"== padded bitwise, vs plain {res['stage_err']:.3e}; {regs_text(res['regs'])} "
+              f"[{smi}]")
+        del og, oc, op, ug, wg, ur, wr, w_pad
 
         args, sf = rhd_fld_inputs(torch, sim)
         E = args[0]
@@ -1252,8 +1333,10 @@ def phase_batched_compare(torch):
     """K6, the node axis of stage_curv.cu: N = 1, 2, 3 Cartesian nodes of
     one shape over different boxes (each its own coefficient rows), the
     same point mass, random states and random six-face strips, in one
-    launch: bitwise equal to N one-node six-face launches and within
-    F64_TOL / F32_TOL of stage_curv_batched_reference, both RK patterns."""
+    launch: bitwise equal to N one-node six-face launches, to the same
+    launch on the per-cell body and to N padded launches of the same strips
+    (dtden by maximum), and within F64_TOL / F32_TOL of
+    stage_curv_batched_reference, both RK patterns."""
     import numpy as np
 
     from artemis_tpu_torch.ops import stage_curv as SC
@@ -1281,10 +1364,18 @@ def phase_batched_compare(torch):
                 out = SC.stage_curv_batched(stages, ws, us, u1s, strips, *g, dt, 0.0, False)
                 one = [SC.stage_curv(cs, w, u, u1, *g, dt, 0.0, False, strips=st)
                        for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)]
+                with SC._percell_body():
+                    pc = SC.stage_curv_batched(stages, ws, us, u1s, strips, *g, dt, 0.0, False)
+                pads = [SC.stage_curv(cs, w, u, u1, *g, dt, 0.0, False,
+                                      w_pad=SC.pad_from_strips(w, cs.grid, st))
+                        for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)]
                 torch.cuda.synchronize()
+                check(all(same_stage(torch, a, b) and same_stage(torch, a, c)
+                          for a, b, c in zip(out, pc, pads)),
+                      f"K6 n={n} {dtype} gam0={g[0]}: tiled, per-cell and padded differ")
                 ref = SC.stage_curv_batched_reference(stages, ws, us, u1s, strips, *g, dt, 0.0,
                                                       False)
-                check(SC.stage_curv_batched_launches == nb + 1, "batched launch not counted")
+                check(SC.stage_curv_batched_launches == nb + 2, "batched launches not counted")
                 for (ub, wb, db), (uo, wo, do), (ur, wr, dr) in zip(out, one, ref):
                     check(torch.equal(ub, uo) and torch.equal(wb, wo) and torch.equal(db, do),
                           f"K6 n={n} {dtype} gam0={g[0]}: not bitwise the one-node launches")
@@ -1295,8 +1386,9 @@ def phase_batched_compare(torch):
                           f"dtden rel {derr:.3e} > {tol:g}")
                     worst[dtype] = max(worst[dtype], err)
                 ncase += 1
-    print(f"batched compare (K6): {ncase} launches of N = 1, 2, 3 nodes, each bitwise equal "
-          f"to N one-node six-face launches; max abs err vs plain f64 "
+    print(f"batched compare (K6): {ncase} launches of N = 1, 2, 3 nodes on the tiled body, "
+          f"each bitwise equal to N one-node six-face launches, to the per-cell body and to N "
+          f"padded launches; max abs err vs plain f64 "
           f"{worst[torch.float64]:.3e} (tol {F64_TOL:g}), f32 {worst[torch.float32]:.3e} "
           f"(tol {F32_TOL:g})")
     return worst[torch.float64], worst[torch.float32]
@@ -1433,8 +1525,16 @@ def phase_amr(torch, smi):
                     patch.fill_fine_ghosts(ws[1], ws[0], patch.lo)]
 
         wpads = pads()
-        res["ms"] = time_launches(torch, lambda: SC.stage_curv_batched(
-            stages, ws, us, u1s, strips, *next(calls), dt1, tnow, False), 20)
+        check(all(cs.tiled("gather6") for cs in stages),
+              "AMR cell: the node-batched launch does not take the tiled body")
+
+        def k6():
+            return SC.stage_curv_batched(stages, ws, us, u1s, strips, *next(calls), dt1, tnow,
+                                         False)
+
+        res["ms"] = time_launches(torch, k6, 20)
+        with SC._percell_body():
+            res["percell_ms"] = time_launches(torch, k6, 10)
         res["k5b_pair_ms"] = time_launches(torch, lambda: [
             SC.stage_curv(cs, w, u, u1, *g, dt1, tnow, False, strips=st)
             for g in [next(calls)] for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)], 20)
@@ -1448,6 +1548,8 @@ def phase_amr(torch, smi):
         res["plain_ms"] = time_launches(torch, lambda: SC.stage_curv_batched_reference(
             stages, ws, us, u1s, strips, *next(calls), dt1, tnow, False), 2)
         kb = SC.stage_curv_batched(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow, False)
+        with SC._percell_body():
+            kc = SC.stage_curv_batched(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow, False)
         k1 = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, strips=st)
               for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)]
         kp = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, w_pad=wp)
@@ -1457,27 +1559,33 @@ def phase_amr(torch, smi):
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for x, y in zip(kb, k1) for a, b in zip(x, y)),
               "AMR cell: K6 and the two one-node six-face launches differ")
+        check(all(same_stage(torch, x, y) for x, y in zip(kb, kc)),
+              "AMR cell: K6 on the tiled and the per-cell bodies differ")
         check(all(torch.equal(a, b) for x, y in zip(kb, kp) for a, b in zip(x[:2], y[:2])),
               "AMR cell: K6 and the padded launches differ")
         res["stage_err"] = max(float((a - b).abs().max()) for x, y in zip(kb, ref)
                                for a, b in zip(x[:2], y[:2]))
         check(res["stage_err"] <= DISK_F32_TOL,
               f"AMR cell K6 vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
-        del kb, k1, kp, ref
-        nblk = stages[0].dtden_blocks()
+        del kb, kc, k1, kp, ref
+        nblk = stages[0].dtden_blocks(True)
         nbytes = sum((tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*st.values(), *cs.rows)
                       + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
                      for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips))
         flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_batched_reference(
             stages, ws, us, u1s, strips, *g, dt1, tnow, False)) for g in RK2) / 2
         res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
-        print(f"AMR cell f32 stage per launch over both nodes: K6 {res['ms']:.4f} ms; two "
-              f"K5b launches {res['k5b_pair_ms']:.4f} ms; two padded K4 launches "
+        res["regs"] = {body: ptxas_usage(torch, torch.float32, entry)
+                       for body, entry in KERNEL_ENTRIES}
+        print(f"AMR cell f32 stage per launch over both nodes: K6 on the tiled body "
+              f"{res['ms']:.4f} ms, on the per-cell body {res['percell_ms']:.4f} ms "
+              f"({res['percell_ms'] / res['ms']:.2f}x); two K5b launches "
+              f"{res['k5b_pair_ms']:.4f} ms; two padded K4 launches "
               f"{res['padded_pair_ms']:.4f} ms ({res['padded_fill_pair_ms']:.4f} ms with the "
               f"ic fill and the prolonged ghost fill); plain {res['plain_ms']:.4f} ms; bound "
               f"{nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, "
-              f"{res['bound_by']}-bound; K6 == K5b == K4 bitwise, vs plain "
-              f"{res['stage_err']:.3e} [{smi}]")
+              f"{res['bound_by']}-bound; K6 == per-cell K6 == K5b == K4 bitwise, vs plain "
+              f"{res['stage_err']:.3e}; {regs_text(res['regs'])} [{smi}]")
         print("  " + smi_clocks())
 
         # the tree stage around the kernel: the patch's ghost strips, and
@@ -2096,6 +2204,7 @@ def main():
                               "kernel_f64": disk["kernel_f64_zcps"]},
     }, {
         "name": "stage_curv_gather6",
+        "kernel": "stage_tiled_kernel (the tiled body)",
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/stage_curv.cu",
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1867",
@@ -2110,6 +2219,8 @@ def main():
         "bound_ms": rhd["bound_ms"],
         "bound_by": rhd["bound_by"],
         "library_ms": None,
+        "percell_ms": rhd["percell_ms"],
+        "registers_spills": rhd["regs"],
         "padded_ms": rhd["padded_ms"],
         "padded_stage_ms": rhd["padded_stage_ms"],
         "shape": list(RHD_CELL),
@@ -2168,6 +2279,7 @@ def main():
         "cg_iters_per_outer": rhd["cg_per_outer"],
     }, {
         "name": "stage_curv_batched",
+        "kernel": "stage_tiled_kernel (the tiled body)",
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/stage_curv.cu",
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:2209",
@@ -2182,6 +2294,8 @@ def main():
         "bound_ms": amr["bound_ms"],
         "bound_by": amr["bound_by"],
         "library_ms": None,
+        "percell_ms": amr["percell_ms"],
+        "registers_spills": amr["regs"],
         "nodes": 2,
         "k5b_pair_ms": amr["k5b_pair_ms"],
         "padded_pair_ms": amr["padded_pair_ms"],

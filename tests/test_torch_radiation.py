@@ -157,6 +157,20 @@ def test_plain_operator_matches_interpret_kernels(flags):
     assert r <= 1e-12, f"fld_matvec: rel {r:.3e}"
 
 
+def test_grad_norm_is_the_ieee_root():
+    """The plain versions' gradient magnitude (``grad_norm``) is the IEEE
+    square root of g_1^2 + g_2^2 + g_3^2 summed in that order: bitwise
+    numpy's, in float64 on tensors large enough to be split across the two
+    threads (torch.sqrt there goes through a vector library that is not
+    correctly rounded)."""
+    rng = np.random.default_rng(3)
+    gs = [rng.standard_normal((NZ, NY, NX)) * 10.0 ** rng.uniform(-5, 5, (NZ, NY, NX))
+          for _ in range(3)]
+    want = np.sqrt((gs[0] * gs[0] + gs[1] * gs[1]) + gs[2] * gs[2])
+    got = FLD.grad_norm([torch.as_tensor(g) for g in gs])
+    assert got.dtype == torch.float64 and np.array_equal(got.numpy(), want)
+
+
 def jax_radiation():
     """The JAX package's Radiation on the same grid and configuration."""
     from artemis_tpu.config import ParameterInput as JPin

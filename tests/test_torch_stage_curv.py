@@ -27,6 +27,14 @@ version.
   own rows and six strips in one launch of the host-compiled device code,
   bitwise equal to N one-node launches and within 1e-13 (f64) / 1e-5 (f32)
   of ``stage_curv_batched_reference``;
+* the tiled body, which full six-face launches without diffusion take
+  (K5b, K6): its blocks run on the host phase by phase with shared memory
+  starting as NaN, bitwise equal to the per-cell body on the same halo
+  (the wrapper's private switch ``_percell_body``) and to the padded halo
+  (u, w, and the dtden maxima: the bodies' block counts differ), within
+  the plain version's tolerances, on the all-ic Cartesian disk and the
+  all-ic spherical disk without viscosity (PLM/PCM x HLLC/HLLE), N = 1, 2,
+  3 nodes, ragged shapes with one and two z chunks, and a 2-D node;
 * the ``cuda``-marked tests run the same checks on the card.  They skip
   without a GPU; run them there with (``tests/conftest.py`` imports jax,
   which the card's machine lacks; the JAX comparisons import it only
@@ -96,8 +104,10 @@ COND = {
 }
 
 
-def deck_text(coords, rotating):
-    mesh = MESHES[coords]
+def deck_text(coords, rotating, nx=None):
+    mesh = dict(MESHES[coords])
+    if nx is not None:
+        mesh.update(nx1=nx[0], nx2=nx[1], nx3=nx[2])
     return f"""
 <artemis>
 problem = constant
@@ -139,9 +149,10 @@ def random_prims(grid, seed=2):
 
 
 def port_setup(coords, rsolver="hllc", recon="plm", dtype=torch.float64, device="cpu",
-               rotating=False, pos=None):
-    """Grid, Hydro, sources and a random state of the port."""
-    pin = ParameterInput.from_string(deck_text(coords, rotating))
+               rotating=False, pos=None, nx=None):
+    """Grid, Hydro, sources and a random state of the port (``nx``
+    overrides the mesh's cell counts)."""
+    pin = ParameterInput.from_string(deck_text(coords, rotating, nx))
     if pos is not None:
         pin.apply_overrides([f"gravity/point/{k}={v}" for k, v in zip("xyz", pos)])
     grid = grid_from_input(pin)
@@ -324,6 +335,9 @@ HOST_SHIM = r"""
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <limits>
+#include <vector>
+#define __host__
 #define __device__
 #define __global__
 #define __forceinline__ inline
@@ -339,33 +353,58 @@ using std::pow;
 
 HOST_ENTRY = r"""
 template <typename T, bool G, bool F>
-void run(const CurvParams& p, int block) {
+void run(const CurvParams& p) {
   const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
   for (int k = 0; k < p.nnodes; ++k) {
     const NodePtrs& nd = p.node[k];
     T* dmax = static_cast<T*>(nd.dmax);
-    for (int64_t b = 0; b * block < n; ++b) {
+    for (int64_t b = 0; b * kBlock < n; ++b) {
       T m = T(0);
-      for (int64_t cell = b * block; cell < n && cell < (b + 1) * block; ++cell)
+      for (int64_t cell = b * kBlock; cell < n && cell < (b + 1) * kBlock; ++cell)
         m = vmax(m, curv_cell<T, G, F>(p, nd, cell));
       if (F) dmax[b] = m;
     }
   }
 }
+// The tiled body's block, phase by phase: each phase runs for every thread
+// before the next starts (what __syncthreads gives on the card).
 template <typename T>
-void run_t(const CurvParams& p, int gather, int full, int block) {
-  if (gather) return full ? run<T, true, true>(p, block) : run<T, true, false>(p, block);
-  return full ? run<T, false, true>(p, block) : run<T, false, false>(p, block);
+struct HostExec {
+  std::vector<TileThread<T>> st = std::vector<TileThread<T>>(TileLayout<T>::NT);
+  template <class Fn>
+  void each(Fn&& f) {
+    for (int t = 0; t < TileLayout<T>::NT; ++t) f(t, st[t]);
+  }
+};
+// Shared memory starts as NaN in every block: a read of an element no
+// phase wrote would show in the outputs.
+template <typename T>
+void run_tiled(const CurvParams& p) {
+  const int64_t nb = tile_count<T>(p.n.nx, p.n.ny, p.n.nz);
+  for (int k = 0; k < p.nnodes; ++k)
+    for (int64_t b = 0; b < nb; ++b) {
+      std::vector<T> smem(TileLayout<T>::ELEMS, std::numeric_limits<T>::quiet_NaN());
+      HostExec<T> ex;
+      tile_block<T>(p, p.node[k], b, smem.data(), ex);
+    }
+}
+template <typename T>
+void run_t(const CurvParams& p, int gather, int full, int tiled) {
+  if (tiled) return run_tiled<T>(p);
+  if (gather) return full ? run<T, true, true>(p) : run<T, true, false>(p);
+  return full ? run<T, false, true>(p) : run<T, false, false>(p);
 }
 }  // namespace
-extern "C" int artemis_stage_curv(int dtype, int halo, int full, const int* ints,
+extern "C" int artemis_stage_curv(int dtype, int halo, int full, int tiled, const int* ints,
                                   const double* reals, const void* const* ptrs,
-                                  int nptrs, int nnodes, int block, void*) {
+                                  int nptrs, int nnodes, int ndmax, void*) {
   CurvParams p;
-  if (!make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p)) return 1;
+  if (!make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p) ||
+      (tiled && !tiled_ok(p, halo, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
+    return 1;
   const int gather = halo != kPadded;
-  if (dtype == 0) run_t<float>(p, gather, full, block);
-  else run_t<double>(p, gather, full, block);
+  if (dtype == 0) run_t<float>(p, gather, full, tiled);
+  else run_t<double>(p, gather, full, tiled);
   return 0;
 }
 """
@@ -391,7 +430,7 @@ def host_kernel(tmp_path_factory):
     fn = ctypes.CDLL(str(so)).artemis_stage_curv
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.restype = i
-    fn.argtypes = [i, i, i, p, p, p, i, i, i, p]
+    fn.argtypes = [i, i, i, i, p, p, p, i, i, i, p]
     return fn
 
 
@@ -514,17 +553,24 @@ def test_host_compiled_kernel_float32(on_host, tmp_path):
     check_against_plain(cs, s.w, s.u, torch.float32, on_host)
 
 
-def allic_stage(dtype, device, deck, data_dir, nx=(20, 12, 6)):
+def allic_stage(dtype, device, deck, data_dir, nx=(20, 12, 6), scheme=None):
     """An all-``ic`` disk at a small ragged size through the user entry
     point (plain path), and its CurvStage with the six face strips, as the
     driver makes it on the card: ``deck`` "cartesian" is the radiation-hydro
     deck without refinement and radiation (point gravity, no diffusion:
     K5b); "spherical" is disk_sph with x3 ``ic`` over r in [0.4, 2.4]
-    (alpha viscosity, point gravity, rotating frame: K5a).  Returns the
-    stage, the initial w and u, and the driver."""
+    (alpha viscosity, point gravity, rotating frame: K5a); "spherical-
+    inviscid" the same without viscosity (a six-face launch of the tiled
+    body with Mignone PLM on x1 and x2, connection and frame terms).
+    ``scheme`` ("hllc-plm", ...) overrides the deck's solver and
+    reconstruction.  Returns the stage, the initial w and u, and the
+    driver."""
     ov = [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
           f"parthenon/mesh/nx3={nx[2]}", "parthenon/time/nlim=0",
           "artemis/precision=" + str(dtype).removeprefix("torch.")]
+    if scheme is not None:
+        rsolver, recon = scheme.split("-")
+        ov += [f"gas/riemann={rsolver}", f"gas/reconstruct={recon}"]
     if deck == "cartesian":
         path = DISK_RHD
         ov += ["parthenon/mesh/refinement=none", "physics/radiation=false"]
@@ -532,6 +578,8 @@ def allic_stage(dtype, device, deck, data_dir, nx=(20, 12, 6)):
         path = DISK_SPH
         ov += ["parthenon/mesh/x1min=0.4", "parthenon/mesh/x1max=2.4",
                "parthenon/mesh/ix3_bc=ic", "parthenon/mesh/ox3_bc=ic"]
+        if deck == "spherical-inviscid":
+            ov += ["physics/viscosity=false"]
     sim = Simulation(path, ov, data_dir, device=device, fused_stage=False)
     d = sim.driver
     grav = [s for s in d.sources if isinstance(s, Gravity)][0]
@@ -555,7 +603,8 @@ def test_host_compiled_gather6_equals_padded(on_host, tmp_path, deck):
     ug, wg, dg = check_against_plain(cs, w, u, torch.float64, on_host, tols=TOL_DISK)
     up, wp, dp = check_against_plain(cs, w, u, torch.float64, on_host, padded=True,
                                      tols=TOL_DISK)
-    assert torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg, dp)
+    # K5b takes the tiled body, whose dtden holds one maximum per tile
+    assert torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg.amax(), dp.amax())
 
 
 def test_host_compiled_gather6_float32(on_host, tmp_path):
@@ -722,6 +771,129 @@ def test_cpu_batched_stage_runs_the_plain_version():
 
 
 # ---------------------------------------------------------------------------
+# the tiled body (K5b, and K6 as its node axis)
+# ---------------------------------------------------------------------------
+
+def check_tiled(cs, w, u, dtype, tol):
+    """A six-face launch of ``cs`` (with its strips) takes the tiled body:
+    bitwise equal (u, w, the dtden maximum) to the per-cell body on the same
+    halo (the wrapper's private switch) and to the padded halo made from
+    the same strips, and within ``tol`` of the plain version (u, w
+    absolute, the dtden maximum relative), both RK register patterns; dtden
+    has one entry per block of each body."""
+    assert cs.halo == "gather6" and cs.tiled("gather6")
+    w_pad = SC.pad_from_strips(w, cs.grid, cs.strips)
+    dt = torch.full((1,), 2e-3, dtype=dtype, device=w.device)
+    for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+        args = (u, u.clone(), gam0, gam1, beta, dt, 0.0, False)
+        ut, wt, dt_ = SC._launch(cs, w, w, *args, "gather6")
+        with SC._percell_body():
+            uc, wc, dc = SC._launch(cs, w, w, *args, "gather6")
+        up, wp, dp = SC._launch(cs, w_pad, w, *args, "padded")
+        ur, wr, dr = SC.stage_curv_reference(cs, w, *args, w_pad=w_pad)
+        assert dt_.numel() == cs.dtden_blocks(True) and dc.numel() == cs.dtden_blocks()
+        assert torch.equal(ut, uc) and torch.equal(wt, wc) and torch.equal(dt_.amax(), dc.amax())
+        assert torch.equal(ut, up) and torch.equal(wt, wp) and torch.equal(dt_.amax(), dp.amax())
+        assert torch.isfinite(ut).all() and torch.isfinite(wt).all()
+        assert float((ut - ur).abs().max()) <= tol and float((wt - wr).abs().max()) <= tol
+        assert float((dt_.max() - dr.max()).abs() / dr.max()) <= tol
+
+
+SCHEMES = ["hllc-plm", "hlle-plm", "hllc-pcm", "hlle-pcm"]
+TILED_DECKS = ["cartesian", "spherical-inviscid"]
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("deck", TILED_DECKS, ids=["K5b-cart", "K5b-sph"])
+def test_host_compiled_tiled_matches_percell(on_host, tmp_path, deck, scheme):
+    """The tiled body compiled for the host (float64), block by block and
+    phase by phase, with shared memory starting as NaN: the all-ic
+    Cartesian disk and the all-ic spherical disk without viscosity, PLM and
+    PCM x HLLC and HLLE."""
+    cs, w, u, _ = allic_stage(torch.float64, "cpu", deck, str(tmp_path), scheme=scheme)
+    check_tiled(cs, w, u, torch.float64, TOL_DISK[torch.float64])
+
+
+@pytest.mark.parametrize("deck", TILED_DECKS, ids=["K5b-cart", "K5b-sph"])
+def test_host_compiled_tiled_float32(on_host, tmp_path, deck):
+    cs, w, u, _ = allic_stage(torch.float32, "cpu", deck, str(tmp_path))
+    check_tiled(cs, w, u, torch.float32, TOL_DISK[torch.float32])
+
+
+def strip_node(coords, dtype, device, nx=None, seed=5):
+    """A node of ``coords`` (``nx`` cells, default the mesh's) with point
+    gravity, a random state and random six-face strips: its CurvStage, w
+    and u."""
+    s = port_setup(coords, dtype=dtype, device=device, nx=nx)
+    strips = random_strips(s.grid, np.random.default_rng(seed), torch.float64, "cpu")
+    cs = SC.CurvStage(s.hyd, gravity=s.grav, gmode=curv_point_grav(s.grid, s.grav),
+                      strips={k: v.numpy() for k, v in strips.items()})
+    return cs, s.w, s.u
+
+
+# shapes off the footprint in x and y: one z chunk shorter than the ring's
+# reach, and two z chunks with a short second one
+RAGGED = [(40, 12, 6), (36, 10, 18)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("nx", RAGGED, ids=["40x12x6", "36x10x18"])
+def test_host_compiled_tiled_ragged(on_host, nx, dtype):
+    """Cartesian nodes with random states and strips at ragged shapes."""
+    cs, w, u = strip_node("cartesian", dtype, "cpu", nx=nx)
+    tx, ty = SC.TILE[dtype]
+    assert cs.dtden_blocks(True) == -(-nx[0] // tx) * -(-nx[1] // ty) * -(-nx[2] // SC.TILE_Z)
+    check_tiled(cs, w, u, dtype, TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-13), (torch.float32, 1e-5)],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_host_compiled_tiled_batched_matches_percell(on_host, n, dtype, tol):
+    """K6 on the tiled body: N = 1, 2, 3 nodes with their own rows and
+    random strips in one launch, bitwise equal to the same launch on the
+    per-cell body (dtden by maximum) and to N one-node tiled launches, and
+    within tol of the plain version."""
+    stages, ws, us, strips = batch_nodes(n, dtype, "cpu")
+    check_batched(stages, ws, us, strips, dtype, host_batched, host_single, tol)
+    dt = torch.full((1,), 2e-3, dtype=dtype)
+    args = (0.5, 0.5, 0.5, dt, 0.0, False)
+    tiled = host_batched(stages, ws, us, us, strips, *args)
+    with SC._percell_body():
+        percell = host_batched(stages, ws, us, us, strips, *args)
+    for (ut, wt, dt_), (uc, wc, dc) in zip(tiled, percell):
+        assert torch.equal(ut, uc) and torch.equal(wt, wc) and torch.equal(dt_.amax(), dc.amax())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_host_compiled_tiled_two_d(on_host, dtype):
+    """A 2-D axisymmetric node (20x12x1: Mignone PLM on x1 and x2, no z
+    faces, empty x3 strips)."""
+    cs, w, u = strip_node("axisymmetric", dtype, "cpu")
+    assert cs.strips[("x3", 0)].numel() == 0
+    check_tiled(cs, w, u, dtype, TOL[dtype])
+
+
+def test_tiled_body_choice():
+    """Which launches take the tiled body: full six-face stages without
+    diffusion, unless the private switch is on; partial stages, diffusion
+    and the other halo sources keep the per-cell body.  The dtden length
+    follows the body."""
+    s = port_setup("cartesian")
+    cs = SC.CurvStage(s.hyd)
+    assert cs.tiled("gather6") and not cs.tiled("gather") and not cs.tiled("padded")
+    assert not SC.CurvStage(s.hyd, full=False).tiled("gather6")
+    with SC._percell_body():
+        assert not cs.tiled("gather6")
+    assert cs.tiled("gather6")
+    sp = port_setup("spherical")
+    assert not curv_stage(sp, visc=VISC["alpha"]).tiled("gather6")
+    assert cs.dtden_blocks() == -(-20 * 12 * 6 // 128) and cs.dtden_blocks(True) == 1 * 3 * 1
+    c32 = SC.CurvStage(port_setup("cartesian", dtype=torch.float32).hyd)
+    assert c32.dtden_blocks(True) == 1 * 2 * 1
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -770,7 +942,7 @@ def test_kernel_gather6_equals_padded(cuda, tmp_path, deck, dtype):
     up, wp, dp = check_against_plain(cs, w, u, dtype, SC.stage_curv, padded=True,
                                      tols=TOL_DISK)
     torch.cuda.synchronize()
-    assert torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg, dp)
+    assert torch.equal(ug, up) and torch.equal(wg, wp) and torch.equal(dg.amax(), dp.amax())
 
 
 @pytest.mark.cuda
@@ -797,4 +969,46 @@ def test_kernel_batched_matches_single_launches(cuda, n, dtype, tol):
         return SC.stage_curv(cs, w, u, u1, *args, strips=st)
 
     check_batched(stages, ws, us, strips, dtype, SC.stage_curv_batched, single, tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("deck", TILED_DECKS, ids=["K5b-cart", "K5b-sph"])
+def test_kernel_tiled_matches_percell(cuda, tmp_path, deck, dtype):
+    """On the card: the tiled body against the plain version and bitwise
+    equal to the per-cell six-face and the padded launches, four schemes."""
+    for scheme in SCHEMES:
+        cs, w, u, _ = allic_stage(dtype, cuda, deck, str(tmp_path), scheme=scheme)
+        check_tiled(cs, w, u, dtype, TOL_DISK[dtype])
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_tiled_ragged(cuda, dtype):
+    for nx in RAGGED:
+        check_tiled(*strip_node("cartesian", dtype, cuda, nx=nx), dtype, TOL[dtype])
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("n", [1, 2, 3])
+def test_kernel_tiled_batched_matches_percell(cuda, n, dtype):
+    stages, ws, us, strips = batch_nodes(n, dtype, cuda)
+    dt = torch.full((1,), 2e-3, dtype=dtype, device=cuda)
+    args = (0.5, 0.5, 0.5, dt, 0.0, False)
+    tiled = SC.stage_curv_batched(stages, ws, us, us, strips, *args)
+    with SC._percell_body():
+        percell = SC.stage_curv_batched(stages, ws, us, us, strips, *args)
+    torch.cuda.synchronize()
+    for (ut, wt, dt_), (uc, wc, dc) in zip(tiled, percell):
+        assert torch.equal(ut, uc) and torch.equal(wt, wc) and torch.equal(dt_.amax(), dc.amax())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_tiled_two_d(cuda, dtype):
+    check_tiled(*strip_node("axisymmetric", dtype, cuda), dtype, TOL[dtype])
     torch.cuda.synchronize()
