@@ -21,8 +21,8 @@
 //                        only its nodes' own compulsory bytes, without the
 //                        TPU path's stacked copies of w, u0 and u1)
 // All compute the body _curv_body (:631-1402), with _plm_g (:518) and the
-// shared _hllc/_hlle/rk_blend (stage_common.cuh); K5b and K6 through the
-// tiled body below, the others through the per-cell body.  On the TPU the
+// shared _hllc/_hlle/rk_blend (stage_common.cuh); K3, K5a, K5b and K6
+// through the tiled body below, K4 through the per-cell body.  On the TPU the
 // frontends exist because of how Mosaic's DMAs fetch a halo; here a thread
 // reads its halo by index, so one kernel templated on the halo source
 // covers them (the x3 strips are a runtime switch of the gather variant,
@@ -55,25 +55,30 @@
 // divergence, contravariant velocities, transverse gradients and the
 // viscosity model at two cells, plus some 60 divisions and square roots.
 //
-// Two bodies.  The per-cell body (stage_curv_kernel, one thread per cell in
-// flat 128-thread blocks) runs K3, K4, K5a and partial mode: each thread
-// recomputes every face it touches, so each face (hydro and viscous) is
-// solved twice, identically, by the two threads that share it, the viscous
-// stress re-derives each cell quantity for every face that needs it, and
-// every stencil read of a gather variant makes up to four range tests to
-// pick its strip; stencil and coefficient-row loads go through L1/L2.
+// Two bodies.  The tiled body (stage_tiled_kernel) runs every full launch
+// with a gather halo: K3 (x1/x2 strips, x3 wrapped) and K5a (six strips)
+// with the viscous stencil, K5b without it, and K6 as K5b's node axis.
+// The per-cell body (stage_curv_kernel, one thread per cell in flat
+// 128-thread blocks) runs the padded halo (K4) and partial mode: each
+// thread recomputes every face it touches, so each face (hydro and
+// viscous) is solved twice, identically, by the two threads that share it,
+// the viscous stress re-derives each cell quantity for every face that
+// needs it, and every stencil read of a gather variant makes up to four
+// range tests to pick its strip (gather launches reach it only through the
+// wrapper's measurement switch); stencil and coefficient-row loads go
+// through L1/L2.
 //
-// The tiled body (stage_tiled_kernel) runs every full six-face launch
-// without diffusion: K5b, and K6 as its node axis.  A block owns a TX x TY
-// footprint of columns (32 x 8 in f32, 32 x 4 in f64) and marches up a
-// chunk of kTileZ planes of one node.  Each plane of primitives, with its
-// x/y halo of two, is staged once into a ring of kRing planes in shared
-// memory, every element read from the interior or from exactly one strip
-// (the precedence of Ctx::src), by cp.async while the planes below are
-// computed: a footprint row is one contiguous run of its source, copied 16
-// bytes at a time past L1 where aligned, the halo columns 4 or 8 bytes.
-// In f32 the registers u0, u1 of the plane are staged the same way, so the
-// update waits on no device-memory load.  Each cell's face values are
+// The tiled body: a block owns a TX x TY footprint of columns (32 x 8; 32
+// x 4 for f64 without diffusion) and marches up a chunk of TZ planes of one
+// node.  Each plane of primitives, with its x/y halo of two, is staged once
+// into a ring of kRing planes in shared memory, every element read from
+// the interior or from exactly one strip (the precedence of Ctx::src; with
+// x3 wrapped, a plane past either end is another plane of the interior),
+// by cp.async while the planes below are computed: a footprint row is one
+// contiguous run of its source, copied 16 bytes at a time past L1 where
+// aligned, the halo columns 4 or 8 bytes.  Without diffusion, in f32, the
+// registers u0, u1 of the plane are staged the same way, so the update
+// waits on no device-memory load.  Each cell's face values are
 // reconstructed once per axis, each x and y face is solved once into shared
 // memory (fluxes, face pressure and velocity), and each z face once by its
 // column's thread, carried in registers to the next plane; the update,
@@ -82,11 +87,28 @@
 // the cells and the next plane's face values (C).  The ring holds four
 // planes, not the five the z stencil spans: the upper z face value of the
 // plane below is carried in registers, so plane k reads planes k..k+2
-// while k+3 lands.  What bounds it is latency, not bytes or operations: at
-// 128 registers per thread two 256-thread blocks fill an SM's register
-// file (16 warps), and each plane's solves and update are long chains of
-// IEEE divisions and roots (PERF.md has the measured split).  The stage
-// has no matrix product, so the tensor cores (wgmma) have nothing to do.
+// while k+3 lands.
+//
+// With diffusion (the DIFF instantiation) the viscous stencil rides the
+// same planes.  The ring also holds the four 1-wide xy corners, whose v1
+// and v2 the stress reads.  Each cell quantity is made once per plane into
+// shared memory (QCell: the contravariant velocities, the coefficients of
+// viscosity and conduction, the velocity divergence, the x3 gradients of
+// v^1 and v^2) over cells -1..TX x -1..TY; the x and y diffusive faces are
+// solved once beside the hydro ones in B (rows m1, m2, m3, energy), and
+// the z one once per column in C, from the column's cell of plane k in
+// QCell and of plane k + 1 made there, whose rows then replace k's (the
+// rim's are made by the block), with the face below carried in registers.
+// Its reach is the hydro z face's, planes k..k+2, so the ring keeps four
+// planes.  The diffusive update (diff_update, diff_den) is the per-cell
+// body's own code too; its f32 variant spends the room of u0, u1 on QCell
+// and the diffusive faces (114,592 B a block, two per SM), its f64 one
+// holds one block per SM.  What bounds the tiled body is latency, not
+// bytes or operations: at 128 registers per thread two 256-thread blocks
+// fill an SM's register file (16 warps), and each plane's solves and
+// update are long chains of IEEE divisions and roots (PERF.md has the
+// measured split).  The stage has no matrix product, so the tensor cores
+// (wgmma) have nothing to do.
 //
 // Built with -fmad=false (_build.SOURCE_FLAGS): the GATHER, padded and
 // tiled kernels are compiled separately, and with multiply-add contraction
@@ -463,14 +485,12 @@ __device__ __forceinline__ void axis_flux(const Ctx<T, GATHER>& C, int k, int j,
 // viscous stress and conduction (Diffusion.fluxes/update, ops/diffusion.py)
 // ---------------------------------------------------------------------------
 
-// The diffusion coefficient (mu_model) of model ``kind`` at cell (k, j, i).
+// The diffusion coefficient (mu_model) of model ``kind`` for a cell of
+// density rho and specific internal energy sie at padded (I, J, K).
 template <typename T, bool GATHER>
-__device__ __forceinline__ T mu_model(const Ctx<T, GATHER>& C, int kind, const double (&q)[6],
-                                      int k, int j, int i) {
+__device__ __forceinline__ T mu_of(const Ctx<T, GATHER>& C, int kind, const double (&q)[6], T rho,
+                                   T sie, int I, int J, int K) {
   const CurvIdx& ix = C.ix;
-  const int I = i + C.n.g1, J = j + C.n.g2, K = k + C.n.g3;
-  const T rho = C.W(0, k, j, i);
-  const T sie = C.W(5, k, j, i);
   if (kind == kViscPlaw) {
     T out = T(q[0]) * rho;
     if (q[2] != 0.0) {
@@ -495,44 +515,75 @@ __device__ __forceinline__ T mu_model(const Ctx<T, GATHER>& C, int kind, const d
   return T(q[0]) * base * rho * T(C.r.cv);
 }
 
-// Velocity divergence at cell (k, j, i) (jnp _divu, factored A/V).
+// The coefficient of model ``kind`` at cell (k, j, i).
 template <typename T, bool GATHER>
-__device__ __forceinline__ T divv(const Ctx<T, GATHER>& C, int k, int j, int i) {
+__device__ __forceinline__ T mu_model(const Ctx<T, GATHER>& C, int kind, const double (&q)[6],
+                                      int k, int j, int i) {
+  return mu_of(C, kind, q, C.W(0, k, j, i), C.W(5, k, j, i), i + C.n.g1, j + C.n.g2,
+               k + C.n.g3);
+}
+
+// Velocity divergence at padded (I, J, K) (jnp _divu, factored A/V):
+// ``v(d, o)`` reads the velocity along axis d = 0..2 at the cell (o = 0)
+// and its neighbours below (o = -1) and above (o = 1) along d, each where
+// the expression needs it (the x3 ones only when nz > 1).
+template <typename T, bool GATHER, class V>
+__device__ __forceinline__ T div_of(const Ctx<T, GATHER>& C, int I, int J, int K, const V& v) {
   const CurvIdx& ix = C.ix;
-  const int I = i + C.n.g1, J = j + C.n.g2, K = k + C.n.g3;
-  const T v1 = C.W(1, k, j, i);
-  T dv = (C.X(ix.upd1_facep, I) * (v1 + C.W(1, k, j, i + 1)) -
-          C.X(ix.upd1_face, I) * (v1 + C.W(1, k, j, i - 1))) *
+  const T v1 = v(0, 0);
+  T dv = (C.X(ix.upd1_facep, I) * (v1 + v(0, 1)) - C.X(ix.upd1_face, I) * (v1 + v(0, -1))) *
          C.X(ix.upd1_iv, I) * (C.Y(ix.upd_t2[0], J) * C.Z(ix.upd_t3[0], K));
-  const T v2 = C.W(2, k, j, i);
-  dv = dv + (C.Y(ix.upd2_facep, J) * (v2 + C.W(2, k, j + 1, i)) -
-             C.Y(ix.upd2_face, J) * (v2 + C.W(2, k, j - 1, i))) *
+  const T v2 = v(1, 0);
+  dv = dv + (C.Y(ix.upd2_facep, J) * (v2 + v(1, 1)) - C.Y(ix.upd2_face, J) * (v2 + v(1, -1))) *
                 C.Y(ix.upd2_iv, J) * (C.X(ix.upd_t1[1], I) * C.Z(ix.upd_t3[1], K));
   if (C.n.nz > 1) {
-    const T v3 = C.W(3, k, j, i);
-    dv = dv + (C.Z(ix.upd3_facep, K) * (v3 + C.W(3, k + 1, j, i)) -
-               C.Z(ix.upd3_face, K) * (v3 + C.W(3, k - 1, j, i))) *
+    const T v3 = v(2, 0);
+    dv = dv + (C.Z(ix.upd3_facep, K) * (v3 + v(2, 1)) - C.Z(ix.upd3_face, K) * (v3 + v(2, -1))) *
                   C.Z(ix.upd3_iv, K) * (C.X(ix.upd_t1[2], I) * C.Y(ix.upd_t2[2], J));
   }
   return dv * T(0.5);
 }
 
-// Diagonal connection source src_d = v^k dh_d/dx_k at a cell.
+// Velocity divergence at cell (k, j, i).
+template <typename T, bool GATHER>
+__device__ __forceinline__ T divv(const Ctx<T, GATHER>& C, int k, int j, int i) {
+  return div_of(C, i + C.n.g1, j + C.n.g2, k + C.n.g3, [&](int d, int o) {
+    return C.W(1 + d, k + (d == 2) * o, j + (d == 1) * o, i + (d == 0) * o);
+  });
+}
+
+// Diagonal connection source src_d = v^k dh_d/dx_k at padded (I, J) from the
+// cell's contravariant velocity v^1 (v0) and, read where needed, v^2 (v1()).
+template <typename T, bool GATHER, int D, class V1>
+__device__ __forceinline__ T conn_of(const Ctx<T, GATHER>& C, T v0, const V1& v1, int I, int J) {
+  if (D == 1) return T(0);
+  const T s = v0 * C.X(C.ix.conn1[D - 1], I);
+  if (D == 2) return s;
+  return s + v1() * C.Y(C.ix.conn2, J);
+}
+
 template <typename T, bool GATHER, int D>
 __device__ __forceinline__ T conn_src(const Ctx<T, GATHER>& C, int k, int j, int i) {
   if (D == 1) return T(0);
-  const T s = C.vcon(0, k, j, i) * C.X(C.ix.conn1[D - 1], i + C.n.g1);
-  if (D == 2) return s;
-  return s + C.vcon(1, k, j, i) * C.Y(C.ix.conn2, j + C.n.g2);
+  return conn_of<T, GATHER, D>(C, C.vcon(0, k, j, i), [&] { return C.vcon(1, k, j, i); },
+                               i + C.n.g1, j + C.n.g2);
+}
+
+// Transverse gradient along COMP at cell (k, j, i) from a contravariant
+// velocity at the neighbours above (vp) and below (vm) along COMP.
+template <typename T, bool GATHER>
+__device__ __forceinline__ T tgrad(const Ctx<T, GATHER>& C, T vp, T vm, int comp, int k, int j,
+                                   int i) {
+  const CurvIdx& ix = C.ix;
+  return (vp - vm) * C.inv_dist(ix.d2_1, ix.d2_2, ix.d2_3, comp, k, j, i);
 }
 
 // Transverse gradient of v^(D) along COMP at a cell.
 template <typename T, bool GATHER, int D, int COMP>
 __device__ __forceinline__ T trans_grad(const Ctx<T, GATHER>& C, int k, int j, int i) {
   constexpr int ci = COMP == 1, cj = COMP == 2, ck = COMP == 3;
-  const CurvIdx& ix = C.ix;
-  return (C.vcon(D - 1, k + ck, j + cj, i + ci) - C.vcon(D - 1, k - ck, j - cj, i - ci)) *
-         C.inv_dist(ix.d2_1, ix.d2_2, ix.d2_3, COMP, k, j, i);
+  return tgrad(C, C.vcon(D - 1, k + ck, j + cj, i + ci), C.vcon(D - 1, k - ck, j - cj, i - ci),
+               COMP, k, j, i);
 }
 
 template <typename T>
@@ -540,75 +591,83 @@ __device__ __forceinline__ T face_avg(bool harmonic, T lo, T hi) {
   return harmonic ? T(2) * lo * hi / (lo + hi) : T(0.5) * (lo + hi);
 }
 
+// A cell of the viscous stencil as the per-cell body sees it: each
+// quantity derived from the primitives where asked for.  The tiled body
+// hands visc_face its own kinds of cell (QCell, ZCell), which read the
+// same quantities from where it computed them once.
+template <typename T, bool GATHER, int D>
+struct LazyCell {
+  const Ctx<T, GATHER>& C;
+  int k, j, i;
+  __device__ __forceinline__ T muv() const { return mu_model(C, C.n.visc, C.r.visc_p, k, j, i); }
+  __device__ __forceinline__ T muc() const { return mu_model(C, C.n.cond, C.r.cond_p, k, j, i); }
+  __device__ __forceinline__ T vcon(int c) const { return C.vcon(c, k, j, i); }
+  __device__ __forceinline__ T conn() const { return conn_src<T, GATHER, D>(C, k, j, i); }
+  __device__ __forceinline__ T div() const { return divv(C, k, j, i); }
+  template <int COMP>
+  __device__ __forceinline__ T tg() const { return trans_grad<T, GATHER, D, COMP>(C, k, j, i); }
+  __device__ __forceinline__ T w5() const { return C.W(5, k, j, i); }
+};
+
 // Off-diagonal stress row COMP of the viscous flux through the face along D
-// between A = (ka, ja, ia) (below) and B = (k, j, i) (above).
-template <typename T, bool GATHER, int D, int COMP>
-__device__ __forceinline__ T visc_offdiag(const Ctx<T, GATHER>& C, int k, int j, int i,
-                                          int ka, int ja, int ia, T i1r, T hdfmus) {
+// whose upper cell b is (k, j, i) and lower cell a.
+template <typename T, bool GATHER, int D, int COMP, class CA, class CB>
+__device__ __forceinline__ T visc_offdiag(const Ctx<T, GATHER>& C, int j, int i, const CA& a,
+                                          const CB& b, T i1r, T hdfmus) {
   const CurvIdx& ix = C.ix;
   const int I = i + C.n.g1, J = j + C.n.g2;
-  const T t = (C.vcon(COMP - 1, k, j, i) - C.vcon(COMP - 1, ka, ja, ia)) * i1r;
+  const T t = (b.vcon(COMP - 1) - a.vcon(COMP - 1)) * i1r;
   const T ratio = sq(C.X(ix.fh_1[D - 1][COMP - 1], I) / C.X(ix.fh_1[D - 1][D - 1], I)) *
                   sq(C.Y(ix.fh_2[D - 1][COMP - 1], J) / C.Y(ix.fh_2[D - 1][D - 1], J));
   T tt = T(0);
   if (COMP != 3 || C.n.nz > 1)
-    tt = T(0.5) * (trans_grad<T, GATHER, D, COMP>(C, k, j, i) +
-                   trans_grad<T, GATHER, D, COMP>(C, ka, ja, ia));
+    tt = T(0.5) * (b.template tg<COMP>() + a.template tg<COMP>());
   return hdfmus * (tt + ratio * t);
 }
 
 // Diffusive flux rows (m1, m2, m3, energy) through the face along D whose
-// upper cell is (k, j, i).  Not inlined: each thread calls it twice per
-// direction, and one body per direction keeps the build short.
-template <typename T, bool GATHER, int D>
-__device__ __noinline__ void diff_face(const Ctx<T, GATHER>& C, int k, int j, int i,
-                                          T (&F)[4]) {
+// upper cell b is (k, j, i) and lower cell a: the one expression of both
+// bodies.
+template <typename T, bool GATHER, int D, class CA, class CB>
+__device__ __forceinline__ void visc_face(const Ctx<T, GATHER>& C, int k, int j, int i,
+                                          const CA& a, const CB& b, T (&F)[4]) {
   const CurvIdx& ix = C.ix;
-  const int ka = k - (D == 3), ja = j - (D == 2), ia = i - (D == 1);
   const int I = i + C.n.g1, J = j + C.n.g2;
   const T i1r = C.inv_dist(ix.d1_1, ix.d1_2, ix.d1_3, D, k, j, i);
   F[0] = F[1] = F[2] = F[3] = T(0);
   if (C.n.visc >= 0) {
-    const T mus = face_avg(C.n.visc_harm != 0, mu_model(C, C.n.visc, C.r.visc_p, ka, ja, ia),
-                           mu_model(C, C.n.visc, C.r.visc_p, k, j, i));
+    const T mus = face_avg(C.n.visc_harm != 0, a.muv(), b.muv());
     const T hdf = C.X(ix.fh_1[D - 1][D - 1], I) * C.Y(ix.fh_2[D - 1][D - 1], J);
     const T hdfmus = hdf * mus;
     // diagonal: 2 dv^d/dx_d + <v^k dh_d/dx_k> - (1/3)(1 - eta) div v
-    const T t = T(2) * (C.vcon(D - 1, k, j, i) - C.vcon(D - 1, ka, ja, ia)) * i1r +
-                T(0.5) * (conn_src<T, GATHER, D>(C, k, j, i) +
-                          conn_src<T, GATHER, D>(C, ka, ja, ia));
+    const T t = T(2) * (b.vcon(D - 1) - a.vcon(D - 1)) * i1r + T(0.5) * (b.conn() + a.conn());
     const T bulk = T((1.0 / 3.0) * (1.0 - C.r.visc_p[1]));
-    F[D - 1] = hdfmus * (t - bulk * (divv(C, k, j, i) + divv(C, ka, ja, ia)));
+    F[D - 1] = hdfmus * (t - bulk * (b.div() + a.div()));
     constexpr int o1 = D == 1 ? 2 : 1;
     constexpr int o2 = D == 3 ? 2 : 3;
-    F[o1 - 1] = visc_offdiag<T, GATHER, D, o1>(C, k, j, i, ka, ja, ia, i1r, hdfmus);
-    F[o2 - 1] = visc_offdiag<T, GATHER, D, o2>(C, k, j, i, ka, ja, ia, i1r, hdfmus);
+    F[o1 - 1] = visc_offdiag<T, GATHER, D, o1>(C, j, i, a, b, i1r, hdfmus);
+    F[o2 - 1] = visc_offdiag<T, GATHER, D, o2>(C, j, i, a, b, i1r, hdfmus);
     // energy: v.T with face-averaged contravariant velocities
     T fen = T(0);
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      fen = fen + T(0.5) * (C.vcon(c, k, j, i) + C.vcon(c, ka, ja, ia)) * F[c];
+    for (int c = 0; c < 3; ++c) fen = fen + T(0.5) * (b.vcon(c) + a.vcon(c)) * F[c];
     F[3] = fen;
   }
   if (C.n.cond >= 0) {
-    const T kc = face_avg(C.n.cond_harm != 0, mu_model(C, C.n.cond, C.r.cond_p, ka, ja, ia),
-                          mu_model(C, C.n.cond, C.r.cond_p, k, j, i));
+    const T kc = face_avg(C.n.cond_harm != 0, a.muc(), b.muc());
     const T icv = T(1.0 / C.r.cv);
-    F[3] = F[3] + kc * (C.W(5, k, j, i) * icv - C.W(5, ka, ja, ia) * icv) * i1r;
+    F[3] = F[3] + kc * (b.w5() * icv - a.w5() * icv) * i1r;
   }
 }
 
-// Accumulates the diffusive divergence of direction D into ddv (rows m1,
-// m2, m3, energy) and returns the cell average of its diagonal row.
+// The per-cell body's face along D whose upper cell is (k, j, i).  Not
+// inlined: each thread calls it twice per direction, and one body per
+// direction keeps the build short.
 template <typename T, bool GATHER, int D>
-__device__ __forceinline__ T diff_axis(const Ctx<T, GATHER>& C, int k, int j, int i,
-                                       T af_lo, T af_hi, T cfac, T (&ddv)[4]) {
-  T Flo[4], Fhi[4];
-  diff_face<T, GATHER, D>(C, k, j, i, Flo);
-  diff_face<T, GATHER, D>(C, k + (D == 3), j + (D == 2), i + (D == 1), Fhi);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) ddv[q] = ddv[q] + (Flo[q] * af_lo - Fhi[q] * af_hi) * cfac;
-  return T(0.5) * (Flo[D - 1] + Fhi[D - 1]);
+__device__ __noinline__ void diff_face(const Ctx<T, GATHER>& C, int k, int j, int i,
+                                       T (&F)[4]) {
+  const LazyCell<T, GATHER, D> a{C, k - (D == 3), j - (D == 2), i - (D == 1)}, b{C, k, j, i};
+  visc_face<T, GATHER, D>(C, k, j, i, a, b, F);
 }
 
 // ---------------------------------------------------------------------------
@@ -845,6 +904,81 @@ __device__ __forceinline__ T cell_finish(const Ctx<T, GATHER>& C, const CurvPara
   return diff ? vmax(den, den_diff) : den;
 }
 
+// The viscous/thermal diffusion of interior cell (k, j, i) (DiffusionUpdateImpl),
+// after flux_update: ``faces(d, lo, hi)`` gives the diffusive flux rows (m1,
+// m2, m3, energy) through its lower and upper faces along axis d = 0..2,
+// ``wc(c)`` its own primitive c; adds the stress divergence with its
+// connection terms and the heating to ``u``.  Both bodies run it.
+template <typename T, bool GATHER, class Faces, class Wc>
+__device__ __forceinline__ void diff_update(const Ctx<T, GATHER>& C, const CurvParams& p, int k,
+                                            int j, int i, const Faces& faces, const Wc& wc,
+                                            const CellGeom<T>& gm, T (&u)[6]) {
+  const CurvInts& n = p.n;
+  const CurvIdx& ix = n.ix;
+  const bool az = n.nz > 1;
+  const bool visc = n.visc >= 0;
+  const int I = i + n.g1, J = j + n.g2;
+  const T bdt = gm.bdt;
+  T ddv[4] = {T(0), T(0), T(0), T(0)};
+  // one axis: ddv += (F_lo A_lo - F_hi A_hi) / V; returns the cell average
+  // of its diagonal row
+  const auto axis = [&](int d, T af_lo, T af_hi, T cfac) {
+    T lo[4], hi[4];
+    faces(d, lo, hi);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) ddv[q] = ddv[q] + (lo[q] * af_lo - hi[q] * af_hi) * cfac;
+    return T(0.5) * (lo[d] + hi[d]);
+  };
+  axis(0, gm.af1, gm.af1p, gm.c1);
+  const T diag2 = axis(1, gm.af2, gm.af2p, gm.c2);
+  T diag3 = T(0);
+  if (az) diag3 = axis(2, gm.af3, gm.af3p, gm.c3);
+  if (visc && n.x1dep) {
+    ddv[0] = ddv[0] + C.X(ix.conn1[1], I) * diag2;
+    if (az) ddv[0] = ddv[0] + C.X(ix.conn1[2], I) * diag3;
+  }
+  if (visc && n.x2dep && az) ddv[1] = ddv[1] + C.Y(ix.conn2, J) * diag3;
+  if (visc) {
+    u[1] = u[1] - bdt * ddv[0];
+    u[2] = u[2] - bdt * ddv[1];
+    u[3] = u[3] - bdt * ddv[2];
+  }
+  u[4] = u[4] - bdt * ddv[3];
+  T heat = -bdt * ddv[3];
+  if (visc)
+    heat = heat + bdt * (ddv[0] * wc(1) * C.inv_h(0, I, J) + ddv[1] * wc(2) * C.inv_h(1, I, J) +
+                         ddv[2] * wc(3) * C.inv_h(2, I, J));
+  u[5] = u[5] + heat;
+}
+
+// The diffusive CFL denominator 2 ndim nu_eff / min_dx^2 of cell (k, j, i)
+// of density rho_i and coefficients own.muv(), own.muc().
+template <typename T, bool GATHER, class Own>
+__device__ __forceinline__ T diff_den(const Ctx<T, GATHER>& C, const CurvParams& p, int k, int j,
+                                      int i, T rho_i, const Own& own) {
+  const CurvInts& n = p.n;
+  const CurvReals& r = p.r;
+  const CurvIdx& ix = n.ix;
+  const bool az = n.nz > 1;
+  const int I = i + n.g1, J = j + n.g2, K = k + n.g3;
+  T imd = vmax(C.X(ix.invw_1[0], I) * C.Y(ix.invw_2[0], J),
+               C.X(ix.invw_1[1], I) * C.Y(ix.invw_2[1], J));
+  if (az) imd = vmax(imd, C.X(ix.invw_1[2], I) * C.Y(ix.invw_2[2], J) * C.Z(ix.inv_dx3, K));
+  const T ndim2 = T(az ? 6 : 4);
+  T den_diff = T(0);
+  if (n.visc >= 0) {
+    const double eta = r.visc_p[1];
+    const T m = own.muv() * T(1.0 + (eta > 1.0 ? eta - 1.0 : 0.0)) / rho_i;
+    den_diff = vmax(den_diff, ndim2 * m * imd * imd);
+  }
+  if (n.cond >= 0) {
+    T m = own.muc();
+    if (n.cond == kCondPlaw) m = m / (rho_i * T(r.cv));
+    den_diff = vmax(den_diff, ndim2 * m * imd * imd);
+  }
+  return den_diff;
+}
+
 // The per-cell body: writes node ``nd``'s u_out (and, FULL, w_out) at
 // interior cell ``cell`` (flat index into [nz, ny, nx]); returns its CFL
 // denominator (FULL) or 0.
@@ -852,14 +986,11 @@ template <typename T, bool GATHER, bool FULL>
 __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, int64_t cell) {
   const Ctx<T, GATHER> C(p, nd);
   const CurvInts& n = p.n;
-  const CurvReals& r = p.r;
-  const CurvIdx& ix = n.ix;
   const int nx = n.nx, ny = n.ny, nz = n.nz;
   const bool az = nz > 1;
   const int i = int(cell % nx);
   const int j = int((cell / nx) % ny);
   const int k = int(cell / (int64_t(nx) * ny));
-  const int I = i + n.g1, J = j + n.g2, K = k + n.g3;
 
   // ---- fluxes
   CellFluxes<T> fl;
@@ -874,128 +1005,123 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, 
   flux_update(C, p, k, j, i, fl, [&](int c) { return C.W(c, k, j, i); },
               static_cast<const T*>(nd.u0), static_cast<const T*>(nd.u1),
               int64_t(nx) * ny * nz, cell, u, gm);
-  const T bdt = gm.bdt;
 
   // ---- viscous/thermal diffusion (DiffusionUpdateImpl)
-  const bool visc = n.visc >= 0;
-  const bool diff = visc || n.cond >= 0;
+  const bool diff = n.visc >= 0 || n.cond >= 0;
   T den_diff = T(0);
   if (diff) {
-    T ddv[4] = {T(0), T(0), T(0), T(0)};
-    diff_axis<T, GATHER, 1>(C, k, j, i, gm.af1, gm.af1p, gm.c1, ddv);
-    const T diag2 = diff_axis<T, GATHER, 2>(C, k, j, i, gm.af2, gm.af2p, gm.c2, ddv);
-    T diag3 = T(0);
-    if (az) diag3 = diff_axis<T, GATHER, 3>(C, k, j, i, gm.af3, gm.af3p, gm.c3, ddv);
-    if (visc && n.x1dep) {
-      ddv[0] = ddv[0] + C.X(ix.conn1[1], I) * diag2;
-      if (az) ddv[0] = ddv[0] + C.X(ix.conn1[2], I) * diag3;
-    }
-    if (visc && n.x2dep && az) ddv[1] = ddv[1] + C.Y(ix.conn2, J) * diag3;
-    if (visc) {
-      u[1] = u[1] - bdt * ddv[0];
-      u[2] = u[2] - bdt * ddv[1];
-      u[3] = u[3] - bdt * ddv[2];
-    }
-    u[4] = u[4] - bdt * ddv[3];
-    T heat = -bdt * ddv[3];
-    if (visc)
-      heat = heat + bdt * (ddv[0] * C.W(1, k, j, i) * C.inv_h(0, I, J) +
-                           ddv[1] * C.W(2, k, j, i) * C.inv_h(1, I, J) +
-                           ddv[2] * C.W(3, k, j, i) * C.inv_h(2, I, J));
-    u[5] = u[5] + heat;
-
-    if (FULL) {
-      // diffusive CFL denominator 2 ndim nu_eff / min_dx^2
-      T imd = vmax(C.X(ix.invw_1[0], I) * C.Y(ix.invw_2[0], J),
-                   C.X(ix.invw_1[1], I) * C.Y(ix.invw_2[1], J));
-      if (az)
-        imd = vmax(imd, C.X(ix.invw_1[2], I) * C.Y(ix.invw_2[2], J) * C.Z(ix.inv_dx3, K));
-      const T rho_i = C.W(0, k, j, i);
-      const T ndim2 = T(az ? 6 : 4);
-      if (visc) {
-        const double eta = r.visc_p[1];
-        const T m = mu_model(C, n.visc, r.visc_p, k, j, i) *
-                    T(1.0 + (eta > 1.0 ? eta - 1.0 : 0.0)) / rho_i;
-        den_diff = vmax(den_diff, ndim2 * m * imd * imd);
+    const auto faces = [&](int d, T(&lo)[4], T(&hi)[4]) {
+      if (d == 0) {
+        diff_face<T, GATHER, 1>(C, k, j, i, lo);
+        diff_face<T, GATHER, 1>(C, k, j, i + 1, hi);
+      } else if (d == 1) {
+        diff_face<T, GATHER, 2>(C, k, j, i, lo);
+        diff_face<T, GATHER, 2>(C, k, j + 1, i, hi);
+      } else {
+        diff_face<T, GATHER, 3>(C, k, j, i, lo);
+        diff_face<T, GATHER, 3>(C, k + 1, j, i, hi);
       }
-      if (n.cond >= 0) {
-        T m = mu_model(C, n.cond, r.cond_p, k, j, i);
-        if (n.cond == kCondPlaw) m = m / (rho_i * T(r.cv));
-        den_diff = vmax(den_diff, ndim2 * m * imd * imd);
-      }
-    }
+    };
+    diff_update(C, p, k, j, i, faces, [&](int c) { return C.W(c, k, j, i); }, gm, u);
+    if (FULL)
+      den_diff = diff_den(C, p, k, j, i, C.W(0, k, j, i), LazyCell<T, GATHER, 1>{C, k, j, i});
   }
   return cell_finish<T, GATHER, FULL>(C, p, nd, k, j, i, cell, u, diff, den_diff);
 }
 
 // ---------------------------------------------------------------------------
-// the tiled body (K5b, and K6 as its node axis)
+// the tiled body (every full gather launch: K3, K5a, K5b, and K6 as its node
+// axis)
 // ---------------------------------------------------------------------------
 
-// A block's footprint of columns per dtype (f64 halves it in y, so two
-// blocks still fit an SM's shared memory) and whether it stages the
-// registers u0, u1 (UREG; f64 has no room left for them), the planes of
-// its z chunk, and the planes of its ring.
-template <typename T>
+// A block's footprint of columns per dtype and body (DIFF: the viscous and
+// conductive stage), whether it stages the registers u0, u1 (UREG), the
+// planes of its z chunk (TZ) and the blocks an SM is to hold (MINB, the
+// launch bound).  Without diffusion f64 halves the footprint in y and
+// drops UREG, so two blocks still fit an SM's shared memory; the
+// diffusive body spends UREG's room on its cell quantities and faces, and
+// in f64 holds one block per SM.
+template <typename T, bool DIFF>
 struct TileDims;
 template <>
-struct TileDims<float> {
-  static constexpr int TX = 32, TY = 8;
+struct TileDims<float, false> {
+  static constexpr int TX = 32, TY = 8, TZ = 16, MINB = 2;
   static constexpr bool UREG = true;
 };
 template <>
-struct TileDims<double> {
-  static constexpr int TX = 32, TY = 4;
+struct TileDims<double, false> {
+  static constexpr int TX = 32, TY = 4, TZ = 16, MINB = 2;
   static constexpr bool UREG = false;
 };
-constexpr int kTileZ = 16;
+template <>
+struct TileDims<float, true> {
+  static constexpr int TX = 32, TY = 8, TZ = 16, MINB = 2;
+  static constexpr bool UREG = false;
+};
+template <>
+struct TileDims<double, true> {
+  static constexpr int TX = 32, TY = 8, TZ = 16, MINB = 1;
+  static constexpr bool UREG = false;
+};
 constexpr int kRing = 4;
+
+// Rows of the diffusive body's cell quantities (QCell): the three
+// contravariant velocities, the coefficients of viscosity and conduction,
+// the velocity divergence and the x3 gradients of v^1 and v^2 (the kQCell
+// rows of every cell the plane's faces read), then, at the tile's own
+// cells only, the x1 and x2 gradients of v^3 for the x3 face above.
+constexpr int kQmuv = 3, kQmuc = 4, kQdiv = 5, kQtg13 = 6, kQtg23 = 7, kQCell = 8;
+constexpr int kQtg31 = 8, kQtg32 = 9, kQRows = 10;
 
 // Shared-memory layout of a block, in elements of T: the ring of primitive
 // planes [kRing][6][RY][RX] (the footprint with its halo of two), the x
 // face values of cells -1..TX of each row, upper (xl) and lower (xr)
 // [6][TY][TX + 2], the y face values [6][TY + 2][TX] (yl, yr), the solved
-// x faces [8][TY][TX + 1] and y faces [8][TY + 1][TX] (6 fluxes, the face
-// pressure, the face velocity), and (UREG) the plane's registers u0, u1
-// [12][TY][TX].
-template <typename T>
+// x faces [NF][TY][TX + 1] and y faces [NF][TY + 1][TX] (6 fluxes, the face
+// pressure, the face velocity; DIFF: the four diffusive rows m1, m2, m3,
+// energy), (UREG) the plane's registers u0, u1 [12][TY][TX], and (DIFF)
+// the cell quantities of one plane [kQRows][TY + 2][TX + 2] over cells
+// -1..TX x -1..TY (QCell).
+template <typename T, bool DIFF>
 struct TileLayout {
-  static constexpr int TX = TileDims<T>::TX, TY = TileDims<T>::TY, NT = TX * TY;
+  static constexpr int TX = TileDims<T, DIFF>::TX, TY = TileDims<T, DIFF>::TY, NT = TX * TY;
   // a plane row holds the footprint's TX columns 16-byte aligned, with
   // two halo columns on each side and two more of padding
   static constexpr int RX = TX + 8, RY = TY + 4, VEC = 16 / int(sizeof(T));
   static constexpr int PLANE = 6 * RY * RX;
+  static constexpr int NF = DIFF ? 12 : 8;
   static constexpr int XV = 6 * TY * (TX + 2), YV = 6 * (TY + 2) * TX;
-  static constexpr int XF = 8 * TY * (TX + 1), YF = 8 * (TY + 1) * TX;
-  static constexpr bool UREG = TileDims<T>::UREG;
+  static constexpr int XF = NF * TY * (TX + 1), YF = NF * (TY + 1) * TX;
+  static constexpr bool UREG = TileDims<T, DIFF>::UREG;
   static constexpr int UR = UREG ? 12 * NT : 0;
-  static constexpr int ELEMS = kRing * PLANE + 2 * XV + 2 * YV + XF + YF + UR;
+  static constexpr int QX = TX + 2, QY = TY + 2, QR = DIFF ? kQRows * QY * QX : 0;
+  static constexpr int ELEMS = kRing * PLANE + 2 * XV + 2 * YV + XF + YF + UR + QR;
   static_assert((kRing * PLANE + 2 * XV + 2 * YV + XF + YF) % VEC == 0 && PLANE % VEC == 0,
                 "16-byte copies need aligned planes and registers");
   static constexpr int BYTES = ELEMS * int(sizeof(T));
 };
 
 // Blocks of one node: x tiles fastest, then y tiles, then z chunks.
-template <typename T>
+template <typename T, bool DIFF>
 __host__ __device__ __forceinline__ int64_t tile_count(int nx, int ny, int nz) {
-  using L = TileLayout<T>;
-  return int64_t((nx + L::TX - 1) / L::TX) * ((ny + L::TY - 1) / L::TY) *
-         ((nz + kTileZ - 1) / kTileZ);
+  using D = TileDims<T, DIFF>;
+  return int64_t((nx + D::TX - 1) / D::TX) * ((ny + D::TY - 1) / D::TY) *
+         ((nz + D::TZ - 1) / D::TZ);
 }
 
 struct TilePos {
   int x0, y0, z0, z1;       // footprint origin and the chunk's planes [z0, z1)
 };
 
-template <typename T>
+template <typename T, bool DIFF>
 __device__ __forceinline__ TilePos tile_pos(const CurvInts& n, int64_t blk) {
-  using L = TileLayout<T>;
-  const int nbx = (n.nx + L::TX - 1) / L::TX, nby = (n.ny + L::TY - 1) / L::TY;
+  using D = TileDims<T, DIFF>;
+  const int nbx = (n.nx + D::TX - 1) / D::TX, nby = (n.ny + D::TY - 1) / D::TY;
   TilePos t;
-  t.x0 = int(blk % nbx) * L::TX;
-  t.y0 = int((blk / nbx) % nby) * L::TY;
-  t.z0 = int(blk / (int64_t(nbx) * nby)) * kTileZ;
-  t.z1 = t.z0 + kTileZ < n.nz ? t.z0 + kTileZ : n.nz;
+  t.x0 = int(blk % nbx) * D::TX;
+  t.y0 = int((blk / nbx) % nby) * D::TY;
+  t.z0 = int(blk / (int64_t(nbx) * nby)) * D::TZ;
+  t.z1 = t.z0 + D::TZ < n.nz ? t.z0 + D::TZ : n.nz;
   return t;
 }
 
@@ -1039,13 +1165,13 @@ __device__ __forceinline__ void copy_wait() {
 #endif
 }
 
-template <typename T>
+template <typename T, bool DIFF>
 struct TileMem {
-  using L = TileLayout<T>;
-  T *ring, *xl, *xr, *yl, *yr, *xf, *yf, *ureg;
+  using L = TileLayout<T, DIFF>;
+  T *ring, *xl, *xr, *yl, *yr, *xf, *yf, *ureg, *qs;
   __device__ __forceinline__ explicit TileMem(T* s)
       : ring(s), xl(s + kRing * L::PLANE), xr(xl + L::XV), yl(xr + L::XV), yr(yl + L::YV),
-        xf(yr + L::YV), yf(xf + L::XF), ureg(yf + L::YF) {}
+        xf(yr + L::YV), yf(xf + L::XF), ureg(yf + L::YF), qs(ureg + L::UR) {}
   // primitive c in ring slot s at halo-relative row jj and column ii
   __device__ __forceinline__ T& w(int s, int c, int jj, int ii) const {
     return ring[((s * 6 + c) * L::RY + jj) * L::RX + ii + 2];
@@ -1065,27 +1191,35 @@ struct TileMem {
   __device__ __forceinline__ T& fy(int q, int fj, int ii) const {
     return yf[(q * (L::TY + 1) + fj) * L::TX + ii];
   }
+  // (DIFF) cell quantity q of the cell at tile row r - 1, column c - 1
+  __device__ __forceinline__ T& q(int row, int r, int c) const {
+    return qs[(row * L::QY + r) * L::QX + c];
+  }
 };
 
 // What a thread carries from plane to plane: the upper z face value of its
 // column's cell below the next z face, the z faces below (bot) and above
-// (top) the current plane, and its running CFL maximum.
-template <typename T>
+// (top) the current plane, and its running CFL maximum; DIFF: the
+// diffusive z face below (vbot), unused otherwise.
+template <typename T, bool DIFF>
 struct TileThread {
   T zup[6], bot[8], top[8], den;
+  T vbot[4];
 };
 
 // Stages plane kk into ring slot s: the footprint's rows with the x halo,
-// and the y halo rows over the footprint's columns (the corners, which no
-// face reads, are left out), each element read once from the interior or
-// from one strip; elements past the ghost layer are not read.  Over the
-// footprint's columns, where they all lie inside [0, nx), a row is one
-// contiguous run of its source (the interior, an x2 strip or an x3 strip
-// is chosen by j and k alone), copied 16 bytes at a time where aligned.
-template <typename T>
-__device__ __forceinline__ void tile_load(const Ctx<T, true>& C, const TileMem<T>& m,
+// and the y halo rows over the footprint's columns, each element read once
+// from the interior or from one strip; elements past the ghost layer are
+// not read.  The corners, which no hydro face reads, are left out, but for
+// DIFF's four of width one, whose v1 and v2 the viscous stencil reads.
+// Over the footprint's columns, where they all lie inside [0, nx), a row
+// is one contiguous run of its source (the interior, an x2 strip, an x3
+// strip or, x3 wrapped, another plane of the interior is chosen by j and k
+// alone), copied 16 bytes at a time where aligned.
+template <typename T, bool DIFF>
+__device__ __forceinline__ void tile_load(const Ctx<T, true>& C, const TileMem<T, DIFF>& m,
                                           const TilePos& tp, int s, int kk, int tid) {
-  using L = TileLayout<T>;
+  using L = TileLayout<T, DIFF>;
   const CurvInts& n = C.n;
   constexpr int NV = L::TX / L::VEC;
   const bool whole = tp.x0 + L::TX <= n.nx;
@@ -1115,16 +1249,22 @@ __device__ __forceinline__ void tile_load(const Ctx<T, true>& C, const TileMem<T
     const int ii = h < 2 ? h : L::TX + h, i = tp.x0 + ii - 2, j = tp.y0 + jj - 2;
     if (i < n.nx + 2 && j < n.ny + 2) copy_async(&m.w(s, c, jj, ii), C.src(c, kk, j, i));
   }
+  // DIFF: v1 and v2 at the corner cells (-1 | TY, -1 | TX)
+  if (DIFF && tid < 8) {
+    const int c = 1 + tid / 4, jj = tid & 2 ? L::TY + 2 : 1, ii = tid & 1 ? L::TX + 2 : 1;
+    const int i = tp.x0 + ii - 2, j = tp.y0 + jj - 2;
+    if (i < n.nx + 2 && j < n.ny + 2) copy_async(&m.w(s, c, jj, ii), C.src(c, kk, j, i));
+  }
 }
 
 // The registers u0, u1 of plane k over the footprint into ureg[c * NT +
 // r * TX + x] and ureg[(6 + c) * NT + ...] (those read: gam0, gam1 != 0),
 // 16 bytes at a time where a row is whole and aligned.
-template <typename T>
+template <typename T, bool DIFF>
 __device__ __forceinline__ void tile_load_u(const CurvParams& p, const NodePtrs& nd,
-                                            const TileMem<T>& m, const TilePos& tp, int k,
+                                            const TileMem<T, DIFF>& m, const TilePos& tp, int k,
                                             int tid) {
-  using L = TileLayout<T>;
+  using L = TileLayout<T, DIFF>;
   const CurvInts& n = p.n;
   constexpr int NV = L::TX / L::VEC;
   const int64_t ncell = int64_t(n.nx) * n.ny * n.nz;
@@ -1148,10 +1288,10 @@ __device__ __forceinline__ void tile_load_u(const CurvParams& p, const NodePtrs&
 
 // The x and y face values of every cell of ring slot s whose faces the
 // footprint needs (cells -1..TX along x, -1..TY along y).
-template <typename T>
-__device__ __forceinline__ void tile_face_values(const Ctx<T, true>& C, const TileMem<T>& m,
+template <typename T, bool DIFF>
+__device__ __forceinline__ void tile_face_values(const Ctx<T, true>& C, const TileMem<T, DIFF>& m,
                                                  const TilePos& tp, int s, int tid) {
-  using L = TileLayout<T>;
+  using L = TileLayout<T, DIFF>;
   const CurvInts& n = C.n;
   const bool migx = !n.pcm && n.x1dep, migy = !n.pcm && n.x2dep;
   T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
@@ -1180,10 +1320,10 @@ __device__ __forceinline__ void tile_face_values(const Ctx<T, true>& C, const Ti
 // The z face above plane k - 1 of the thread's column (ring slots sm, s0,
 // sp hold planes k - 1, k, k + 1): solved from the carried upper value of
 // cell k - 1 into ``q``, cell k's upper value carried on.
-template <typename T>
-__device__ __forceinline__ void tile_zface(const Ctx<T, true>& C, const TileMem<T>& m, int sm,
-                                           int s0, int sp, int tx, int ty, int I, int J,
-                                           TileThread<T>& st, T (&q)[8]) {
+template <typename T, bool DIFF>
+__device__ __forceinline__ void tile_zface(const Ctx<T, true>& C, const TileMem<T, DIFF>& m,
+                                           int sm, int s0, int sp, int tx, int ty, int I, int J,
+                                           TileThread<T, DIFF>& st, T (&q)[8]) {
   const T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
   T wr[6], up[6];
 #pragma unroll
@@ -1195,16 +1335,150 @@ __device__ __forceinline__ void tile_zface(const Ctx<T, true>& C, const TileMem<
   for (int c = 0; c < 6; ++c) st.zup[c] = up[c];
 }
 
-// Phase B: every x and y face of the footprint's plane in ring slot s,
-// once each, into shared memory (the extra x face column falls to the
-// first warp, the extra y face row to the last), and the thread's z face
-// above the plane into its registers (slots of planes k + 1 and k + 2:
-// s1, s2).
+// ---- the diffusive body's cells: each quantity computed once per plane
+
+// A cell of plane k in the viscous stencil, the lower or upper cell of an
+// x or y face (D = 1, 2) or the lower one of the thread's x3 face (D = 3):
+// its quantities from the plane's QCell rows at (r, c) (the tile cell
+// (r - 1, c - 1), global (k, j, i)), its energy from ring slot s; the
+// in-plane transverse gradient from its neighbours' rows.
+template <typename T, bool DIFF, int D>
+struct QCell {
+  const Ctx<T, true>& C;
+  const TileMem<T, DIFF>& m;
+  int s, r, c, k, j, i;
+  __device__ __forceinline__ T muv() const { return m.q(kQmuv, r, c); }
+  __device__ __forceinline__ T muc() const { return m.q(kQmuc, r, c); }
+  __device__ __forceinline__ T vcon(int cc) const { return m.q(cc, r, c); }
+  __device__ __forceinline__ T conn() const {
+    return conn_of<T, true, D>(C, m.q(0, r, c), [&] { return m.q(1, r, c); }, i + C.n.g1,
+                               j + C.n.g2);
+  }
+  __device__ __forceinline__ T div() const { return m.q(kQdiv, r, c); }
+  template <int COMP>
+  __device__ __forceinline__ T tg() const {
+    if (D == 3) return m.q(COMP == 1 ? kQtg31 : kQtg32, r, c);
+    if (COMP == 3) return m.q(D == 1 ? kQtg13 : kQtg23, r, c);
+    constexpr int dr = COMP == 2, dc = COMP == 1;
+    return tgrad(C, m.q(D - 1, r + dr, c + dc), m.q(D - 1, r - dr, c - dc), COMP, k, j, i);
+  }
+  __device__ __forceinline__ T w5() const { return m.w(s, 5, r + 1, c + 1); }
+};
+
+// A cell of the thread's column for the x3 face (D = 3), in registers.
 template <typename T>
-__device__ __forceinline__ void tile_solve(const Ctx<T, true>& C, const TileMem<T>& m,
-                                           const TilePos& tp, int s, int s1, int s2, int tid,
-                                           TileThread<T>& st) {
-  using L = TileLayout<T>;
+struct ZCell {
+  T v[3], mv, mc, dv, cn, t1, t2, e5;
+  __device__ __forceinline__ T muv() const { return mv; }
+  __device__ __forceinline__ T muc() const { return mc; }
+  __device__ __forceinline__ T vcon(int c) const { return v[c]; }
+  __device__ __forceinline__ T conn() const { return cn; }
+  __device__ __forceinline__ T div() const { return dv; }
+  template <int COMP>
+  __device__ __forceinline__ T tg() const { return COMP == 1 ? t1 : t2; }
+  __device__ __forceinline__ T w5() const { return e5; }
+};
+
+// The QCell rows of cell (k, j, i) at tile cell (r - 1, c - 1) into q, from
+// ring slots sm, s0, sp (planes k - 1, k, k + 1), in the per-cell body's
+// operations (Ctx::vcon, mu_model, divv, trans_grad); a corner cell gets
+// its v^1 and v^2 only.
+template <typename T, bool DIFF>
+__device__ __forceinline__ void cell_q(const Ctx<T, true>& C, const TileMem<T, DIFF>& m, int sm,
+                                       int s0, int sp, int r, int c, int k, int j, int i,
+                                       bool corner, T (&q)[kQCell]) {
+  const CurvInts& n = C.n;
+  const int I = i + n.g1, J = j + n.g2, K = k + n.g3;
+  const int rr = r + 1, cc = c + 1;
+  const bool az = n.nz > 1;
+  const T ih0 = C.inv_h(0, I, J), ih1 = C.inv_h(1, I, J);
+  q[0] = m.w(s0, 1, rr, cc) * ih0;
+  q[1] = m.w(s0, 2, rr, cc) * ih1;
+  if (corner) return;
+  q[2] = m.w(s0, 3, rr, cc) * C.inv_h(2, I, J);
+  const T rho = m.w(s0, 0, rr, cc), sie = m.w(s0, 5, rr, cc);
+  q[kQmuv] = n.visc >= 0 ? mu_of(C, n.visc, C.r.visc_p, rho, sie, I, J, K) : T(0);
+  q[kQmuc] = n.cond >= 0 ? mu_of(C, n.cond, C.r.cond_p, rho, sie, I, J, K) : T(0);
+  q[kQdiv] = div_of(C, I, J, K, [&](int d, int o) {
+    return d == 0 ? m.w(s0, 1, rr, cc + o)
+                  : d == 1 ? m.w(s0, 2, rr + o, cc) : m.w(o < 0 ? sm : o > 0 ? sp : s0, 3, rr, cc);
+  });
+  q[kQtg13] = q[kQtg23] = T(0);
+  if (az) {
+    q[kQtg13] = tgrad(C, m.w(sp, 1, rr, cc) * ih0, m.w(sm, 1, rr, cc) * ih0, 3, k, j, i);
+    q[kQtg23] = tgrad(C, m.w(sp, 2, rr, cc) * ih1, m.w(sm, 2, rr, cc) * ih1, 3, k, j, i);
+  }
+}
+
+// The thread's column cell (k, j, i) at tile cell (r - 1, c - 1) for the
+// x3 face, from its QCell rows q and ring slot s0 (plane k): the
+// connection term and the x1/x2 gradients of v^3.
+template <typename T, bool DIFF>
+__device__ __forceinline__ ZCell<T> zcell(const Ctx<T, true>& C, const TileMem<T, DIFF>& m, int s0,
+                                          int r, int c, int k, int j, int i,
+                                          const T (&q)[kQCell]) {
+  const int I = i + C.n.g1, J = j + C.n.g2, rr = r + 1, cc = c + 1;
+  ZCell<T> z;
+  z.v[0] = q[0];
+  z.v[1] = q[1];
+  z.v[2] = q[2];
+  z.mv = q[kQmuv];
+  z.mc = q[kQmuc];
+  z.dv = q[kQdiv];
+  z.cn = conn_of<T, true, 3>(C, q[0], [&] { return q[1]; }, I, J);
+  z.t1 = tgrad(C, m.w(s0, 3, rr, cc + 1) * C.inv_h(2, I + 1, J),
+               m.w(s0, 3, rr, cc - 1) * C.inv_h(2, I - 1, J), 1, k, j, i);
+  z.t2 = tgrad(C, m.w(s0, 3, rr + 1, cc) * C.inv_h(2, I, J + 1),
+               m.w(s0, 3, rr - 1, cc) * C.inv_h(2, I, J - 1), 2, k, j, i);
+  z.e5 = m.w(s0, 5, rr, cc);
+  return z;
+}
+
+// The QCell rows of plane k (ring slots sm, s0, sp: planes k - 1, k,
+// k + 1) at the cells its faces read, tile cells -1..TX x -1..TY up to the
+// ghost cells nx, ny; only those of the rectangle's rim when ``rim`` (the
+// threads hold their own cells).
+template <typename T, bool DIFF>
+__device__ __forceinline__ void tile_q(const Ctx<T, true>& C, const TileMem<T, DIFF>& m,
+                                       const TilePos& tp, int sm, int s0, int sp, int k, int tid,
+                                       bool rim) {
+  using L = TileLayout<T, DIFF>;
+  const CurvInts& n = C.n;
+  const int nrim = 2 * L::QX + 2 * L::TY;
+  for (int e = tid; e < (rim ? nrim : L::QX * L::QY); e += L::NT) {
+    int r, c;
+    if (!rim) {
+      r = e / L::QX;
+      c = e % L::QX;
+    } else if (e < 2 * L::QX) {
+      r = e < L::QX ? 0 : L::TY + 1;
+      c = e % L::QX;
+    } else {
+      r = 1 + (e - 2 * L::QX) / 2;
+      c = (e & 1) ? L::TX + 1 : 0;
+    }
+    const int i = tp.x0 + c - 1, j = tp.y0 + r - 1;
+    if (i > n.nx || j > n.ny) continue;
+    T q[kQCell];
+    const bool corner = (r == 0 || r == L::TY + 1) && (c == 0 || c == L::TX + 1);
+    cell_q(C, m, sm, s0, sp, r, c, k, j, i, corner, q);
+#pragma unroll
+    for (int w = 0; w < kQCell; ++w)
+      if (!corner || w < 2) m.q(w, r, c) = q[w];
+  }
+}
+
+// Phase B: every x and y face of the footprint's plane k in ring slot s,
+// once each, into shared memory (the extra x face column falls to the
+// first warp, the extra y face row to the last; DIFF: the diffusive rows
+// beside the hydro ones, from plane k's QCell rows), and the thread's z
+// face above the plane into its registers (slots of planes k + 1 and
+// k + 2: s1, s2).
+template <typename T, bool DIFF>
+__device__ __forceinline__ void tile_solve(const Ctx<T, true>& C, const TileMem<T, DIFF>& m,
+                                           const TilePos& tp, int k, int s, int s1, int s2,
+                                           int tid, TileThread<T, DIFF>& st) {
+  using L = TileLayout<T, DIFF>;
   const CurvInts& n = C.n;
   for (int e = tid; e < L::TY * (L::TX + 1); e += L::NT) {
     const int jj = e / (L::TX + 1), fi = e % (L::TX + 1);
@@ -1219,6 +1493,13 @@ __device__ __forceinline__ void tile_solve(const Ctx<T, true>& C, const TileMem<
     solve_face<T, true, 1>(C, wl, wr, i + n.g1, j + n.g2, q);
 #pragma unroll
     for (int c = 0; c < 8; ++c) m.fx(c, jj, fi) = q[c];
+    if (DIFF) {
+      T F[4];
+      visc_face<T, true, 1>(C, k, j, i, QCell<T, DIFF, 1>{C, m, s, jj + 1, fi, k, j, i - 1},
+                            QCell<T, DIFF, 1>{C, m, s, jj + 1, fi + 1, k, j, i}, F);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) m.fx(8 + c, jj, fi) = F[c];
+    }
   }
   for (int e = L::NT - 1 - tid; e < (L::TY + 1) * L::TX; e += L::NT) {
     const int fj = e / L::TX, ii = e % L::TX;
@@ -1233,6 +1514,13 @@ __device__ __forceinline__ void tile_solve(const Ctx<T, true>& C, const TileMem<
     solve_face<T, true, 2>(C, wl, wr, i + n.g1, j + n.g2, q);
 #pragma unroll
     for (int c = 0; c < 8; ++c) m.fy(c, fj, ii) = q[c];
+    if (DIFF) {
+      T F[4];
+      visc_face<T, true, 2>(C, k, j, i, QCell<T, DIFF, 2>{C, m, s, fj, ii + 1, k, j - 1, i},
+                            QCell<T, DIFF, 2>{C, m, s, fj + 1, ii + 1, k, j, i}, F);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) m.fy(8 + c, fj, ii) = F[c];
+    }
   }
   const int tx = tid % L::TX, ty = tid / L::TX, i = tp.x0 + tx, j = tp.y0 + ty;
   if (n.nz > 1 && i < n.nx && j < n.ny)
@@ -1241,10 +1529,10 @@ __device__ __forceinline__ void tile_solve(const Ctx<T, true>& C, const TileMem<
 
 // The fluxes of the thread's cell for flux_update: x and y faces from
 // shared memory, z faces from the thread's registers.
-template <typename T>
+template <typename T, bool DIFF>
 struct TileFluxes {
-  const TileMem<T>& m;
-  const TileThread<T>& st;
+  const TileMem<T, DIFF>& m;
+  const TileThread<T, DIFF>& st;
   int tx, ty;
   __device__ __forceinline__ T q(int d, int s, int c) const {
     if (d == 0) return m.fx(c, ty, tx + s);
@@ -1260,22 +1548,24 @@ struct TileFluxes {
 // state) for every thread of the block and then synchronises it (on the
 // card, each thread runs its own call between __syncthreads; the host
 // build of the tests loops over the threads).  ``smem`` holds
-// TileLayout<T>::ELEMS elements.
-template <typename T, class Exec>
+// TileLayout<T, DIFF>::ELEMS elements.
+template <typename T, bool DIFF, class Exec>
 __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& nd, int64_t blk,
                                            T* smem, Exec& ex) {
-  using L = TileLayout<T>;
+  using L = TileLayout<T, DIFF>;
+  using St = TileThread<T, DIFF>;
   const Ctx<T, true> C(p, nd);
   const CurvInts& n = p.n;
-  const TileMem<T> m(smem);
-  const TilePos tp = tile_pos<T>(n, blk);
+  const TileMem<T, DIFF> m(smem);
+  const TilePos tp = tile_pos<T, DIFF>(n, blk);
   const bool az = n.nz > 1;
   auto slot = [&](int kk) { return (kk - tp.z0 + 2) & (kRing - 1); };
 
-  // prologue: planes z0 - 2 .. z0 + 1; each column's z face below z0; then
-  // plane z0 + 2 lands in the slot of z0 - 2 while plane z0's face values
-  // are made
-  ex.each([&](int tid, TileThread<T>& st) {
+  // prologue: planes z0 - 2 .. z0 + 1; each column's z face below z0
+  // (DIFF: its diffusive rows too, from the column's cells z0 - 1 and z0);
+  // then plane z0 + 2 lands in the slot of z0 - 2 while plane z0's face
+  // values (DIFF: and QCell rows) are made
+  ex.each([&](int tid, St& st) {
     st.den = T(0);
     for (int kk = az ? tp.z0 - 2 : 0; kk < (az ? tp.z0 + 2 : 1); ++kk)
       tile_load(C, m, tp, slot(kk), kk, tid);
@@ -1283,7 +1573,7 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
     copy_wait<0>();
   });
   if (az)
-    ex.each([&](int tid, TileThread<T>& st) {
+    ex.each([&](int tid, St& st) {
       const int tx = tid % L::TX, ty = tid / L::TX, i = tp.x0 + tx, j = tp.y0 + ty;
       if (i >= n.nx || j >= n.ny) return;
       const T g[6] = {T(0), T(0), T(0), T(0), T(0), T(0)};
@@ -1295,75 +1585,141 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
                     g, st.zup[c], lo[c]);
       tile_zface(C, m, slot(tp.z0 - 1), slot(tp.z0), slot(tp.z0 + 1), tx, ty, i + n.g1,
                  j + n.g2, st, st.bot);
+      if (DIFF) {
+        const int z0 = tp.z0;
+        T qa[kQCell], qb[kQCell];
+        cell_q(C, m, slot(z0 - 2), slot(z0 - 1), slot(z0), ty + 1, tx + 1, z0 - 1, j, i, false,
+               qa);
+        cell_q(C, m, slot(z0 - 1), slot(z0), slot(z0 + 1), ty + 1, tx + 1, z0, j, i, false, qb);
+        const ZCell<T> a = zcell(C, m, slot(z0 - 1), ty + 1, tx + 1, z0 - 1, j, i, qa);
+        const ZCell<T> b = zcell(C, m, slot(z0), ty + 1, tx + 1, z0, j, i, qb);
+        visc_face<T, true, 3>(C, z0, j, i, a, b, st.vbot);
+        m.q(kQtg31, ty + 1, tx + 1) = b.t1;
+        m.q(kQtg32, ty + 1, tx + 1) = b.t2;
+      }
     });
-  ex.each([&](int tid, TileThread<T>&) {
+  ex.each([&](int tid, St&) {
     if (az) tile_load(C, m, tp, slot(tp.z0 + 2), tp.z0 + 2, tid);
     copy_commit();
     tile_face_values(C, m, tp, slot(tp.z0), tid);
+    if (DIFF)
+      tile_q(C, m, tp, slot(tp.z0 - 1), slot(tp.z0), slot(tp.z0 + 1), tp.z0, tid, false);
     copy_wait<0>();
   });
 
   // Two phases per plane k.  B: its faces, while plane k + 3 lands in the
-  // slot of plane k - 1 and (UREG) its registers in ureg.  C: its cells,
-  // and the face values of plane k + 1.
+  // slot of plane k - 1 and (UREG) its registers in ureg.  C: its cells
+  // (DIFF: first each column's diffusive z face above k, from its cell of
+  // plane k in the QCell rows and its cell of k + 1, whose rows it then
+  // writes in place of k's), and the face values (DIFF: and the rim's
+  // QCell rows) of plane k + 1.
   for (int k = tp.z0; k < tp.z1; ++k) {
-    ex.each([&](int tid, TileThread<T>& st) {
+    ex.each([&](int tid, St& st) {
       if (az && k + 3 <= tp.z1 + 1) tile_load(C, m, tp, slot(k + 3), k + 3, tid);
       if (L::UREG) tile_load_u(p, nd, m, tp, k, tid);
       copy_commit();
-      tile_solve(C, m, tp, slot(k), slot(k + 1), slot(k + 2), tid, st);
+      tile_solve(C, m, tp, k, slot(k), slot(k + 1), slot(k + 2), tid, st);
       copy_wait<0>();
     });
-    ex.each([&](int tid, TileThread<T>& st) {
+    ex.each([&](int tid, St& st) {
       const int tx = tid % L::TX, ty = tid / L::TX, i = tp.x0 + tx, j = tp.y0 + ty;
-      if (i < n.nx && j < n.ny) {
-        const int s = slot(k);
+      const int s = slot(k);
+      const bool own = i < n.nx && j < n.ny;
+      // the column's cell of plane k, read from its QCell rows until the
+      // rows of plane k + 1 replace them
+      const QCell<T, DIFF, 3> za{C, m, s, ty + 1, tx + 1, k, j, i};
+      T vtop[4], den_diff = T(0);
+      if (DIFF && own) den_diff = diff_den(C, p, k, j, i, m.w(s, 0, ty + 2, tx + 2), za);
+      if (DIFF && az && i <= n.nx && j <= n.ny && (own || k + 1 < tp.z1)) {
+        T qb[kQCell];
+        cell_q(C, m, s, slot(k + 1), slot(k + 2), ty + 1, tx + 1, k + 1, j, i, false, qb);
+        if (own) {
+          const ZCell<T> zb = zcell(C, m, slot(k + 1), ty + 1, tx + 1, k + 1, j, i, qb);
+          visc_face<T, true, 3>(C, k + 1, j, i, za, zb, vtop);
+          m.q(kQtg31, ty + 1, tx + 1) = zb.t1;
+          m.q(kQtg32, ty + 1, tx + 1) = zb.t2;
+        }
+#pragma unroll
+        for (int w = 0; w < kQCell; ++w) m.q(w, ty + 1, tx + 1) = qb[w];
+      }
+      if (own) {
         const int64_t cell = (int64_t(k) * n.ny + j) * n.nx + i;
         T u[6];
         CellGeom<T> gm;
         const int64_t ncell = int64_t(n.nx) * n.ny * n.nz;
-        flux_update(C, p, k, j, i, TileFluxes<T>{m, st, tx, ty},
-                    [&](int c) { return m.w(s, c, ty + 2, tx + 2); },
+        const auto wc = [&](int c) { return m.w(s, c, ty + 2, tx + 2); };
+        flux_update(C, p, k, j, i, TileFluxes<T, DIFF>{m, st, tx, ty}, wc,
                     L::UREG ? m.ureg : static_cast<const T*>(nd.u0),
                     L::UREG ? m.ureg + 6 * L::NT : static_cast<const T*>(nd.u1),
                     L::UREG ? int64_t(L::NT) : ncell, L::UREG ? int64_t(tid) : cell, u, gm);
-        st.den = vmax(st.den, cell_finish<T, true, true>(C, p, nd, k, j, i, cell, u, false,
-                                                         T(0)));
+        if (DIFF) {
+          const auto faces = [&](int d, T(&lo)[4], T(&hi)[4]) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              lo[c] = d == 0 ? m.fx(8 + c, ty, tx) : d == 1 ? m.fy(8 + c, ty, tx) : st.vbot[c];
+              hi[c] = d == 0 ? m.fx(8 + c, ty, tx + 1) : d == 1 ? m.fy(8 + c, ty + 1, tx) : vtop[c];
+            }
+          };
+          diff_update(C, p, k, j, i, faces, wc, gm, u);
+        }
+        st.den = vmax(st.den, cell_finish<T, true, true>(C, p, nd, k, j, i, cell, u, DIFF,
+                                                         den_diff));
 #pragma unroll
         for (int q = 0; q < 8; ++q) st.bot[q] = st.top[q];
+        if (DIFF && az)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) st.vbot[q] = vtop[q];
       }
-      if (k + 1 < tp.z1) tile_face_values(C, m, tp, slot(k + 1), tid);
+      if (k + 1 < tp.z1) {
+        tile_face_values(C, m, tp, slot(k + 1), tid);
+        if (DIFF) tile_q(C, m, tp, s, slot(k + 1), slot(k + 2), k + 1, tid, true);
+      }
     });
   }
 
   // the block's maximum of the CFL denominator (the x face area is free)
   T* red = m.xf;
-  ex.each([&](int tid, TileThread<T>& st) { red[tid] = st.den; });
+  ex.each([&](int tid, St& st) { red[tid] = st.den; });
   for (int h = L::NT / 2; h > 0; h >>= 1)
-    ex.each([&](int tid, TileThread<T>&) {
+    ex.each([&](int tid, St&) {
       if (tid < h) red[tid] = vmax(red[tid], red[tid + h]);
     });
-  ex.each([&](int tid, TileThread<T>&) {
+  ex.each([&](int tid, St&) {
     if (tid == 0) static_cast<T*>(nd.dmax)[blk] = red[0];
   });
 }
 
-// Threads per block of the per-cell body, one cell each.
+// Threads per block of the per-cell body, one cell each, and the blocks an
+// SM is to hold: in f32 four, at 128 registers a thread (left free, the
+// compiler gives the padded f32 kernel, K4, 134 registers and three blocks
+// per SM, and it runs ~25% slower: PERF.md), in f64 no bound.
 constexpr int kBlock = 128;
+template <typename T>
+struct CellDims {
+  static constexpr int MINB = sizeof(T) == 4 ? 4 : 1;
+};
 
-// May a launch take the tiled body?  Full six-face stages without
-// diffusion, on a ghost width of two (none along x3 for a 2-D node).
+// May a launch take the tiled body?  Full stages with a gather halo (six
+// strips, or the x1/x2 strips with x3 wrapped), with or without diffusion,
+// on a ghost width of two (none along x3 for a 2-D node).
 inline bool tiled_ok(const CurvParams& p, int halo, int full) {
   const CurvInts& n = p.n;
-  return halo == kGather6 && full && n.visc < 0 && n.cond < 0 && n.g1 == 2 && n.g2 == 2 &&
+  return (halo == kGather || halo == kGather6) && full && n.g1 == 2 && n.g2 == 2 &&
          n.g3 == (n.nz > 1 ? 2 : 0);
 }
+
+// Does a tiled launch take the diffusive body?
+inline bool tiled_diff(const CurvParams& p) { return p.n.visc >= 0 || p.n.cond >= 0; }
 
 // Entries of a node's dtden output: one per block of the launch's body.
 inline int64_t dtden_len(const CurvParams& p, int dtype, int tiled) {
   const CurvInts& n = p.n;
-  if (tiled)
-    return dtype == 0 ? tile_count<float>(n.nx, n.ny, n.nz) : tile_count<double>(n.nx, n.ny, n.nz);
+  if (tiled) {
+    const bool d = tiled_diff(p);
+    if (dtype == 0)
+      return d ? tile_count<float, true>(n.nx, n.ny, n.nz) : tile_count<float, false>(n.nx, n.ny, n.nz);
+    return d ? tile_count<double, true>(n.nx, n.ny, n.nz) : tile_count<double, false>(n.nx, n.ny, n.nz);
+  }
   return (int64_t(n.nx) * n.ny * n.nz + kBlock - 1) / kBlock;
 }
 
@@ -1379,7 +1735,7 @@ inline int64_t dtden_len(const CurvParams& p, int dtype, int tiled) {
 // row of the table) without a per-thread copy.  blockIdx.x walks one
 // node's cells, blockIdx.y the nodes: a one-node launch is the N = 1 case.
 template <typename T, bool GATHER, bool FULL>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kBlock, (CellDims<T>::MINB))
 stage_curv_kernel(const __grid_constant__ CurvParams p) {
   __shared__ T red[kBlock];
   const NodePtrs& nd = p.node[blockIdx.y];
@@ -1407,9 +1763,9 @@ cudaError_t launch(const CurvParams& p, cudaStream_t stream) {
 
 // The tiled body: one block per footprint and z chunk (blockIdx.x), the
 // node on blockIdx.y; each thread keeps its TileThread in registers.
-template <typename T>
+template <typename T, bool DIFF>
 struct DeviceExec {
-  TileThread<T> st;
+  TileThread<T, DIFF> st;
   template <class F>
   __device__ __forceinline__ void each(F&& f) {
     f(int(threadIdx.x), st);
@@ -1417,38 +1773,39 @@ struct DeviceExec {
   }
 };
 
-template <typename T>
-__global__ void __launch_bounds__(TileLayout<T>::NT, 2)
+template <typename T, bool DIFF>
+__global__ void __launch_bounds__((TileLayout<T, DIFF>::NT), (TileDims<T, DIFF>::MINB))
 stage_tiled_kernel(const __grid_constant__ CurvParams p) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
-  DeviceExec<T> ex;
-  tile_block<T>(p, p.node[blockIdx.y], int64_t(blockIdx.x), reinterpret_cast<T*>(tile_smem),
-                ex);
+  DeviceExec<T, DIFF> ex;
+  tile_block<T, DIFF>(p, p.node[blockIdx.y], int64_t(blockIdx.x),
+                      reinterpret_cast<T*>(tile_smem), ex);
 }
 
-template <typename T>
+template <typename T, bool DIFF>
 cudaError_t launch_tiled(const CurvParams& p, cudaStream_t stream) {
   // above 48 KB a block's dynamic shared memory is asked for, once; the
-  // carveout leaves room for two blocks on an SM
+  // carveout leaves room for MINB blocks on an SM
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(stage_tiled_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(stage_tiled_kernel<T, DIFF>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         TileLayout<T>::BYTES);
+                                         TileLayout<T, DIFF>::BYTES);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(stage_tiled_kernel<T>,
+      e = cudaFuncSetAttribute(stage_tiled_kernel<T, DIFF>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                int(cudaSharedmemCarveoutMaxShared));
     return e;
   }();
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(unsigned(tile_count<T>(p.n.nx, p.n.ny, p.n.nz)), unsigned(p.nnodes));
-  stage_tiled_kernel<T><<<grid, TileLayout<T>::NT, TileLayout<T>::BYTES, stream>>>(p);
+  const dim3 grid(unsigned(tile_count<T, DIFF>(p.n.nx, p.n.ny, p.n.nz)), unsigned(p.nnodes));
+  stage_tiled_kernel<T, DIFF>
+      <<<grid, TileLayout<T, DIFF>::NT, TileLayout<T, DIFF>::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_t(const CurvParams& p, int gather, int full, int tiled, cudaStream_t s) {
-  if (tiled) return launch_tiled<T>(p, s);
+  if (tiled) return tiled_diff(p) ? launch_tiled<T, true>(p, s) : launch_tiled<T, false>(p, s);
   if (gather) return full ? launch<T, true, true>(p, s) : launch<T, true, false>(p, s);
   return full ? launch<T, false, true>(p, s) : launch<T, false, false>(p, s);
 }

@@ -24,11 +24,12 @@ and six face strips; every other layout is read from primitives padded by
 one grid shape (a refined tree's nodes, each with its own coefficient rows
 and six strips), the node index on the launch grid's y axis: the TPU's
 node-batched K6 ``stage_curv_gather6_batched``.  The kernel has two bodies:
-a full six-face launch without diffusion (K5b, K6) takes the tiled one,
-which stages each plane of its footprint with the halo in shared memory
-and solves each face once; every other launch takes the per-cell one
-(``CurvStage.tiled``).  Each body writes one dtden entry per block of its
-own (``CurvStage.dtden_blocks``).
+every full launch with a gather halo (K3, K5a, K5b, K6) takes the tiled
+one, which stages each plane of its footprint with the halo in shared
+memory and solves each face, hydro and diffusive, once; the padded halo
+(K4) and partial stages take the per-cell one (``CurvStage.tiled``).  Each
+body writes one dtden entry per block of its own
+(``CurvStage.dtden_blocks``).
 
 The coefficient packing (``_axis_pack`` ... ``CurvCoeffs.pack``,
 ``_dp_tuple``) is numpy only, copied from the JAX module; the rows are
@@ -47,14 +48,16 @@ from .. import bc as bc_mod
 from ..geometry import geometry as geo
 
 BLOCK = 128  # threads per block of the per-cell body (kBlock); one dtden entry per block
-# the tiled body's footprint per dtype (TileDims) and planes per block
-# (kTileZ); one dtden entry per block
-TILE = {torch.float32: (32, 8), torch.float64: (32, 4)}
-TILE_Z = 16
+# the tiled body's footprint and planes per block (TileDims: TX, TY, TZ) by
+# dtype and whether the stage has diffusion; one dtden entry per block
+TILE = {(torch.float32, False): (32, 8, 16), (torch.float64, False): (32, 4, 16),
+        (torch.float32, True): (32, 8, 16), (torch.float64, True): (32, 8, 16)}
 
 # kernel launches since the last reset (the count a run reads to show that
-# the main path went through the kernel)
+# the main path went through the kernel), and of those (one-node and
+# node-batched alike) the launches of the tiled body
 stage_curv_launches = 0
+tiled_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -652,6 +655,8 @@ class CurvStage:
         co = self.coeffs
         visc = diffusion.visc if diffusion is not None else None
         cond = diffusion.cond if diffusion is not None else None
+        # the kernel's diffusive stage (its tiled body's own layout)
+        self.diffusive = visc is not None or cond is not None
         self._ints_head = [nx, ny, nz, g1, g2, g3, CX.shape[1], CY.shape[1], CZ.shape[1]]
         self._ints_tail = [
             int(cfg.rsolver == "hlle"), int(co.x1dep), int(co.x2dep),
@@ -686,14 +691,15 @@ class CurvStage:
         nx, ny, nz = self.grid.nx
         if not tiled:
             return -(-(nx * ny * nz) // BLOCK)
-        tx, ty = TILE[self.hyd.dtype]
-        return -(-nx // tx) * -(-ny // ty) * -(-nz // TILE_Z)
+        tx, ty, tz = TILE[(self.hyd.dtype, self.diffusive)]
+        return -(-nx // tx) * -(-ny // ty) * -(-nz // tz)
 
     def tiled(self, halo) -> bool:
         """Does a launch with halo source ``halo`` take the tiled body?
-        Full six-face stages without diffusion (K5b, K6) do, unless
-        ``_percell_body`` is on."""
-        return halo == "gather6" and self.full and self.diffusion is None and not _percell
+        Full stages with a gather halo do, with or without diffusion (K3,
+        K5a, K5b, K6), unless ``_percell_body`` is on; the padded halo and
+        partial stages take the per-cell body."""
+        return halo in ("gather", "gather6") and self.full and not _percell
 
 
 def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
@@ -773,7 +779,7 @@ def _lib(dtype):
     return fn
 
 
-# Measurement only: while on, six-face launches take the per-cell body, so
+# Measurement only: while on, gather launches take the per-cell body, so
 # that chip_smoke.py and the tests can time and compare the two designs on
 # one state.  Nothing in Simulation, the deck or the CLI reaches it.
 _percell = False
@@ -830,6 +836,7 @@ def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
     scalars): node k reads ``srcs[k]``, its registers and ``strips_list[k]``
     (a STRIP_KEYS dict, or None for the padded halo).  Returns one
     (u, w, dtden) per node; w is None in partial mode."""
+    global tiled_launches
     cs0 = stages[0]
     nx, ny, nz = cs0.grid.nx
     g1, g2, g3 = cs0.grid.ng
@@ -900,6 +907,7 @@ def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
                  cs0.dtden_blocks(tiled) if cs0.full else 0, stream)
     if err != 0:
         raise RuntimeError(f"stage_curv kernel launch failed: CUDA error {err}")
+    tiled_launches += int(tiled)
     return outs
 
 

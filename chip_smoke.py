@@ -35,13 +35,18 @@ line is printed:
    the diffusion, gravity and rotating-frame variants; the disk_sph layout
    (ic strips) through both halo sources (<= 1e-12 / 1e-4: cells at the
    density floor amplify the two versions' operation orders to ~150 ulps),
-   bitwise equal to each other, the dtden maximum included;
+   bitwise equal to each other, and its full stages on the tiled body
+   (K3 with viscosity) bitwise equal to the per-cell body, the dtden
+   maxima included;
 7. disk_sph at bench.py's shape (256x64x64 float32, rk2 + plm + hlle,
    alpha viscosity, point gravity, rotating frame): the main path through
-   ``Simulation.run`` on the gather kernel with the launch count reset
-   before and read after, zone-cycles/s through the kernel (50 cycles after
-   2 warm-up), through the plain path and in float64, the kernel's and the
-   plain stage's time per launch, the cycle's split between the kernel
+   ``Simulation.run`` on the gather kernel with the launch counts reset
+   before and read after (every launch on the tiled body), zone-cycles/s
+   through the kernel (50 cycles after 2 warm-up), through the plain path
+   and in float64, the kernel's time per launch on the tiled and on the
+   per-cell body (bitwise equal at full size, and to the padded halo) with
+   ptxas's registers and spills of both, the plain stage's time per
+   launch, the cycle's split between the kernel
    and the host loop (and the device time by kernel under torch.profiler),
    the density-weighted L2 deviation from the initial condition (<= 6e-3,
    bench.py:100), and the kernel and plain end states compared after the
@@ -51,13 +56,13 @@ line is printed:
 9. the FLD kernels (``csrc/fld.cu``: fld_coeffs, fld_matvec) against their
    plain versions on random states: float64 <= 1e-12 and float32 <= 1e-5
    relative, Dirichlet flags off, on and mixed, an odd nz included;
-10. the six-face strip halo of ``stage_curv.cu`` against the plain version
-   and bitwise equal to the padded halo on small all-ic disks: the
+10. the six-face strip halo of ``stage_curv.cu`` on the tiled body against
+   the plain version and bitwise equal to the padded halo and to the
+   per-cell body (the wrapper's private switch) on small all-ic disks: the
    Cartesian radiation-hydro disk and the spherical disk with x3 ic
-   without viscosity (K5b, on the tiled body, also bitwise equal to the
-   per-cell body through the wrapper's private switch) and with alpha
-   viscosity (K5a), both dtypes, four schemes (the dtden outputs compared
-   by their maxima: the two bodies have different block counts);
+   without viscosity (K5b) and with alpha viscosity (K5a), both dtypes,
+   four schemes (the dtden outputs compared by their maxima: the two bodies
+   have different block counts);
 11. the RHD cell (``inputs/disk_rhd_amr.in`` without refinement at
    bench.py's 512x512x64 root, float32, all faces ic, gray FLD): the main
    path through ``Simulation.run`` with the three kernels' counts reset
@@ -97,8 +102,10 @@ line is printed:
 15. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
    tests/test_radiation.py's test_rad_shock;
 16. the six-face launch with alpha viscosity (K5a) at disk_sph's
-   256x64x64 float32 with x3 ic: its launches through Simulation.run, its
-   time per launch against the plain stage and the bound;
+   256x64x64 float32 with x3 ic: its launches through Simulation.run,
+   every one on the tiled body, its time per launch on the tiled and on the
+   per-cell body (bitwise equal, and to the padded halo) against the plain
+   stage and the bound;
 17. the flux sweep kernel (``csrc/sweep.cu``, K9) against
    ``sweep_reference`` on random padded states: d = 1, 2, 3 x {plm, pcm} x
    {float64 <= 1e-12, float32 <= 1e-5 abs} on a ragged 3-D and a 2-D
@@ -261,10 +268,13 @@ def tensor_bytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
-# the six-face launch's two bodies in stage_curv.cu: a mangled-name piece
-# of each f32 kernel (the per-cell one with the gather halo, full mode)
-KERNEL_ENTRIES = (("tiled", "stage_tiled_kernelIfE"),
+# the gather launch's bodies in stage_curv.cu: a mangled-name piece of each
+# f32 kernel (the tiled one without and with diffusion; the per-cell one
+# with the gather halo, full mode)
+KERNEL_ENTRIES = (("tiled", "stage_tiled_kernelIfLb0EE"),
                   ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
+DIFF_KERNEL_ENTRIES = (("tiled diffusive", "stage_tiled_kernelIfLb1EE"),
+                       ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
 
 
 def ptxas_usage(torch, dtype, entry):
@@ -705,6 +715,13 @@ def compare_curv(torch, cs, w, u, tol, padded=False):
     return worst, out
 
 
+def same_stage(torch, a, b):
+    """Two launches' (u, w, dtden) bitwise equal: u and w, and the dtden
+    maxima (the tiled and per-cell bodies have different block counts)."""
+    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            and torch.equal(a[2].amax(), b[2].amax()))
+
+
 def phase_curv_compare(torch):
     worst = {torch.float64: 0.0, torch.float32: 0.0}
     ncase = 0
@@ -748,15 +765,26 @@ def phase_curv_compare(torch):
                                       diffusion=d.diffusion, full=full, strips=strips,
                                       bc_custom=d.bc_custom)
                     w, u = sim.state["gas"]["w"], sim.state["gas"]["u"]
+                    check(cs.tiled("gather") == full,
+                          f"disk layout full={full}: tiled body {cs.tiled('gather')}")
                     eg, og = compare_curv(torch, cs, w, u, tol)
                     ep, op = compare_curv(torch, cs, w, u, tol, padded=True)
-                    same = all(torch.equal(a, b) for a, b in zip(og, op) if a.numel() > 1)
-                    check(same, f"disk layout {dtype} full={full} {scheme}: gather and "
-                                "padded halo sources differ")
+                    check(same_stage(torch, og, op),
+                          f"disk layout {dtype} full={full} {scheme}: gather and padded halo "
+                          "sources differ")
                     disk_worst[dtype] = max(disk_worst.get(dtype, 0.0), eg, ep)
                     ncase += 4
-    print(f"curv compare: disk_sph layout, gather == padded bitwise; max abs err f64 "
-          f"{disk_worst[torch.float64]:.3e} (tol {F64_TOL:g}), f32 "
+                    if full:
+                        # the tiled viscous body against the per-cell one
+                        with SC._percell_body():
+                            ec, oc = compare_curv(torch, cs, w, u, tol)
+                        check(same_stage(torch, og, oc),
+                              f"disk layout {dtype} {scheme}: tiled and per-cell bodies differ")
+                        disk_worst[dtype] = max(disk_worst[dtype], ec)
+                        ncase += 2
+    print(f"curv compare: disk_sph layout (K3 with alpha viscosity), gather == padded "
+          f"bitwise, and on full stages the tiled body == the per-cell body bitwise; max abs "
+          f"err f64 {disk_worst[torch.float64]:.3e} (tol {F64_TOL:g}), f32 "
           f"{disk_worst[torch.float32]:.3e} (tol {DISK_F32_TOL:g}); {ncase} cases in all")
     return worst[torch.float64], worst[torch.float32], disk_worst[torch.float32]
 
@@ -807,6 +835,28 @@ def profile_cycles(torch, sim, ncycles):
     return {"cycle_ms": wall_ms, "busy_ms": busy, "top": rows[:5]}
 
 
+def tiled_vs_percell(torch, cs, kern, w, u, u1, dt, tnow):
+    """A full gather stage's launch on the tiled body (``kern``, 20 timed)
+    and on the per-cell body (10), the two and the padded halo checked
+    bitwise equal on this state, and ptxas's registers and spills of the
+    diffusive tiled kernel and the per-cell one: ms, percell_ms, regs."""
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    check(cs.tiled(cs.halo), f"the {cs.halo} launch does not take the tiled body")
+    out = {"ms": time_launches(torch, kern, 20)}
+    with SC._percell_body():
+        out["percell_ms"] = time_launches(torch, kern, 10)
+    og = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+    with SC._percell_body():
+        oc = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+    op = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
+    torch.cuda.synchronize()
+    check(same_stage(torch, og, oc), f"{cs.halo} at full size: tiled and per-cell bodies differ")
+    check(same_stage(torch, og, op), f"{cs.halo} at full size: gather and padded halo differ")
+    out["regs"] = {body: ptxas_usage(torch, u.dtype, entry) for body, entry in DIFF_KERNEL_ENTRIES}
+    return out
+
+
 def phase_disk(torch, smi):
     from artemis_tpu_torch.ops import stage_curv as SC
 
@@ -816,12 +866,13 @@ def phase_disk(torch, smi):
         sim = disk_setup(torch, "float32", DISK_BENCH, data)
         check(sim.driver.stage_kernel == "stage_curv (gather)",
               f"disk_sph took {sim.driver.stage_kernel}, not the gather kernel")
-        SC.stage_curv_launches = 0
+        SC.stage_curv_launches = SC.tiled_launches = 0
         warm_up(sim, 2)
         res["kernel_zcps"] = run_cycles(torch, sim, 50)
         launches = SC.stage_curv_launches
-        check(launches == 2 * sim.tm.ncycle,
-              f"disk_sph: {launches} launches for {sim.tm.ncycle} rk2 cycles")
+        check(launches == 2 * sim.tm.ncycle and SC.tiled_launches == launches,
+              f"disk_sph: {launches} launches ({SC.tiled_launches} on the tiled body) for "
+              f"{sim.tm.ncycle} rk2 cycles")
         res["launches"] = launches
         res["l2"] = l2_vs_ic(torch, sim)
         u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
@@ -830,8 +881,8 @@ def phase_disk(torch, smi):
               f"disk_sph f32 after {sim.tm.ncycle} cycles: L2 vs IC {res['l2']:.3e} > 6e-3 "
               "or not finite")
         print(f"disk_sph f32 kernel path: 50 cycles, {res['kernel_zcps']:.6e} zone-cycles/s, "
-              f"{launches} launches for {sim.tm.ncycle} cycles, dt {sim.tm.dt:.6e}, "
-              f"L2 vs IC {res['l2']:.3e} (gate 6e-3) [{smi}]")
+              f"{launches} launches for {sim.tm.ncycle} cycles, every one on the tiled body, "
+              f"dt {sim.tm.dt:.6e}, L2 vs IC {res['l2']:.3e} (gate 6e-3) [{smi}]")
 
         # per-launch kernel and plain stage times on this state
         cs = sim.driver._curv
@@ -848,10 +899,12 @@ def phase_disk(torch, smi):
             g0, g1, b = next(calls)
             return SC.stage_curv_reference(cs, w, u, u1, g0, g1, b, dt, time_now, False)
 
-        res["ms"] = time_launches(torch, kern, 20)
+        res.update(tiled_vs_percell(torch, cs, kern, w, u, u1, dt, time_now))
         res["plain_ms"] = time_launches(torch, plain, 4)
-        print(f"disk_sph f32 per stage launch: kernel {res['ms']:.4f} ms, plain "
-              f"{res['plain_ms']:.4f} ms [{smi}]")
+        print(f"disk_sph f32 per stage launch (K3): kernel on the tiled body {res['ms']:.4f} ms, "
+              f"on the per-cell body {res['percell_ms']:.4f} ms "
+              f"({res['percell_ms'] / res['ms']:.2f}x), plain {res['plain_ms']:.4f} ms; tiled == "
+              f"per-cell == padded bitwise at {DISK_BENCH}; {regs_text(res['regs'])} [{smi}]")
         print("  " + smi_clocks())
         res["profile"] = profile_cycles(torch, sim, 3)
         cycle_ms = 1e3 * DISK_BENCH[0] * DISK_BENCH[1] * DISK_BENCH[2] / res["kernel_zcps"]
@@ -859,7 +912,7 @@ def phase_disk(torch, smi):
         print(f"disk_sph f32 cycle (unprofiled): {cycle_ms:.4f} ms, of which 2 kernel launches "
               f"{2 * res['ms']:.4f} ms; the rest, {100 * res['idle_share']:.1f}%, is the device "
               "waiting on the host loop (dt read-back and the next launches)")
-        nblk = cs.dtden_blocks()
+        nblk = cs.dtden_blocks(True)
         strips = tensor_bytes(*cs.strips.values(), *cs.rows)
         nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * strips
                   + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
@@ -880,7 +933,7 @@ def phase_disk(torch, smi):
         res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
             cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, padded=True), 20)
         res["padded_bound_ms"], res["padded_bound_by"] = bound(
-            tensor_bytes(w_pad, u, u1, u, w, *cs.rows) + nblk * u.element_size(),
+            tensor_bytes(w_pad, u, u1, u, w, *cs.rows) + cs.dtden_blocks() * u.element_size(),
             count_flops(torch, lambda: SC.stage_curv_reference(
                 cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False)))
         print(f"disk_sph f32 padded halo per stage: kernel {res['padded_ms']:.4f} ms, with the "
@@ -1042,19 +1095,12 @@ def allic_sim(torch, dtype, deck, data, rsolver, recon, nx=(20, 12, 6)):
     return Simulation(path, ov, data, device=DEVICE)
 
 
-def same_stage(torch, a, b):
-    """Two launches' (u, w, dtden) bitwise equal: u and w, and the dtden
-    maxima (the tiled and per-cell bodies have different block counts)."""
-    return (torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
-            and torch.equal(a[2].amax(), b[2].amax()))
-
-
 def phase_gather6_compare(torch):
-    """The six-face strip halo against the plain version and bitwise equal
-    to the padded halo, with diffusion off (K5b on the tiled body: the
-    Cartesian disk, and the spherical disk without viscosity; also bitwise
-    equal to the per-cell body through the wrapper's private switch) and on
-    (K5a, the spherical disk with x3 ic), both dtypes, all four schemes."""
+    """The six-face strip halo on the tiled body against the plain version,
+    bitwise equal to the padded halo and to the per-cell body (through the
+    wrapper's private switch), with diffusion off (K5b: the Cartesian disk,
+    and the spherical disk without viscosity) and on (K5a, the spherical
+    disk with x3 ic), both dtypes, all four schemes."""
     from artemis_tpu_torch.ops import stage_curv as SC
 
     worst = {"float64": 0.0, "float32": 0.0}
@@ -1066,9 +1112,9 @@ def phase_gather6_compare(torch):
                 for scheme in ("hllc-plm", "hlle-plm", "hllc-pcm", "hlle-pcm"):
                     sim = allic_sim(torch, dtype, deck, data, *scheme.split("-"))
                     d = sim.driver
-                    tiled = deck != "spherical"
                     check(d.stage_kernel == "stage_curv (gather6)"
-                          and (d.diffusion is None) == tiled and d._curv.tiled("gather6") == tiled,
+                          and (d.diffusion is None) == (deck != "spherical")
+                          and d._curv.tiled("gather6"),
                           f"all-ic {deck} took {d.stage_kernel}")
                     w, u = sim.state["gas"]["w"], sim.state["gas"]["u"]
                     eg, og = compare_curv(torch, d._curv, w, u, tol)
@@ -1076,19 +1122,16 @@ def phase_gather6_compare(torch):
                     check(same_stage(torch, og, op),
                           f"all-ic {deck} {dtype} {scheme}: six-face and padded halo differ")
                     worst[dtype] = max(worst[dtype], eg, ep)
-                    ncase += 4
-                    if tiled:
-                        with SC._percell_body():
-                            ec, oc = compare_curv(torch, d._curv, w, u, tol)
-                        check(same_stage(torch, og, oc),
-                              f"all-ic {deck} {dtype} {scheme}: tiled and per-cell bodies "
-                              "differ")
-                        worst[dtype] = max(worst[dtype], ec)
-                        ncase += 2
-                        ntiled += 1
+                    with SC._percell_body():
+                        ec, oc = compare_curv(torch, d._curv, w, u, tol)
+                    check(same_stage(torch, og, oc),
+                          f"all-ic {deck} {dtype} {scheme}: tiled and per-cell bodies differ")
+                    worst[dtype] = max(worst[dtype], ec)
+                    ncase += 6
+                    ntiled += 1
     print(f"gather6 compare: {ncase} cases, six-face == padded bitwise (K5b Cartesian and "
           f"spherical inviscid, K5a spherical with viscosity), tiled == per-cell bitwise on "
-          f"the {ntiled} K5b states; max abs err vs plain f64 {worst['float64']:.3e} "
+          f"all {ntiled} states; max abs err vs plain f64 {worst['float64']:.3e} "
           f"(tol {F64_TOL:g}), f32 {worst['float32']:.3e} (tol {DISK_F32_TOL:g})")
     return worst
 
@@ -1717,8 +1760,9 @@ def phase_rad_shock(torch):
 def phase_k5a(torch, smi):
     """The six-face launch with viscosity (K5a) at disk_sph's 256x64x64 in
     float32 with x3 ic (the layout of phase 10 at full size): its launches
-    on that path through Simulation.run, its time per launch, the plain
-    stage's and the bound."""
+    on that path through Simulation.run, every one on the tiled body, its
+    time per launch on the tiled and on the per-cell body (bitwise equal,
+    and to the padded halo), the plain stage's and the bound."""
     from artemis_tpu_torch.ops import stage_curv as SC
 
     res = {}
@@ -1727,11 +1771,12 @@ def phase_k5a(torch, smi):
         d = sim.driver
         check(d.stage_kernel == "stage_curv (gather6)" and d.diffusion is not None,
               f"K5a cell took {d.stage_kernel}, diffusion {d.diffusion is not None}")
-        SC.stage_curv_launches = 0
+        SC.stage_curv_launches = SC.tiled_launches = 0
         warm_up(sim, 5)
         res["launches"] = SC.stage_curv_launches
-        check(res["launches"] == 2 * sim.tm.ncycle,
-              f"K5a cell: {res['launches']} launches for {sim.tm.ncycle} rk2 cycles")
+        check(res["launches"] == 2 * sim.tm.ncycle and SC.tiled_launches == res["launches"],
+              f"K5a cell: {res['launches']} launches ({SC.tiled_launches} on the tiled body) "
+              f"for {sim.tm.ncycle} rk2 cycles")
         cs = d._curv
         u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
         check(bool(torch.isfinite(u).all()), "K5a cell state not finite")
@@ -1746,9 +1791,9 @@ def phase_k5a(torch, smi):
         def plain():
             return SC.stage_curv_reference(cs, w, u, u1, *next(calls), dt, tnow, False)
 
-        res["ms"] = time_launches(torch, kern, 20)
+        res.update(tiled_vs_percell(torch, cs, kern, w, u, u1, dt, tnow))
         res["plain_ms"] = time_launches(torch, plain, 4)
-        nblk = cs.dtden_blocks()
+        nblk = cs.dtden_blocks(True)
         nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*cs.strips.values(), *cs.rows)
                   + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
         flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
@@ -1760,10 +1805,12 @@ def phase_k5a(torch, smi):
         check(res["err"] <= DISK_F32_TOL,
               f"K5a stage kernel vs plain: {res['err']:.3e} > {DISK_F32_TOL:g}")
         print(f"K5a (six-face halo, alpha viscosity) disk_sph {DISK_BENCH} f32 x3 ic: "
-              f"{res['launches']} launches in {sim.tm.ncycle} cycles; per launch kernel "
-              f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB "
-              f"and {flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; "
-              f"vs plain {res['err']:.3e} (tol {DISK_F32_TOL:g}) [{smi}]")
+              f"{res['launches']} launches in {sim.tm.ncycle} cycles, every one on the tiled "
+              f"body; per launch kernel on the tiled body {res['ms']:.4f} ms, on the per-cell "
+              f"body {res['percell_ms']:.4f} ms ({res['percell_ms'] / res['ms']:.2f}x), plain "
+              f"{res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} "
+              f"GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; tiled == per-cell "
+              f"== padded bitwise; vs plain {res['err']:.3e} (tol {DISK_F32_TOL:g}) [{smi}]")
         del sim, d, cs, u, w, u1, uk, wk, ur, wr
         torch.cuda.empty_cache()
     return res
@@ -2174,6 +2221,7 @@ def main():
                               "kernel_f64": res["kernel_f64_zcps"]},
     }, {
         "name": "stage_curv",
+        "kernel": "stage_tiled_kernel (the tiled body, diffusive)",
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/stage_curv.cu",
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1405",
@@ -2190,6 +2238,8 @@ def main():
         "bound_ms": disk["bound_ms"],
         "bound_by": disk["bound_by"],
         "library_ms": None,
+        "percell_ms": disk["percell_ms"],
+        "registers_spills": disk["regs"],
         "padded_ms": disk["padded_ms"],
         "padded_stage_ms": disk["padded_stage_ms"],
         "padded_bound_ms": disk["padded_bound_ms"],
@@ -2208,7 +2258,6 @@ def main():
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/stage_curv.cu",
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1867",
-        "also_replaces": "artemis_tpu/ops/pallas_stage_curv.py:1783",
         "launches": rhd["launches"][0],
         "max_abs_err": max(g6["float32"], rhd["stage_err"]),
         "max_abs_err_f64": g6["float64"],
@@ -2231,13 +2280,26 @@ def main():
         "idle_share": rhd["idle_share"],
         "host_reads_per_cycle": rhd["reads_per_cycle"],
         "rad_shock_cycles": shock["ncycle"],
-        "k5a_launches": k5a["launches"],
-        "k5a_ms": k5a["ms"],
-        "k5a_plain_ms": k5a["plain_ms"],
-        "k5a_bound_ms": k5a["bound_ms"],
-        "k5a_bound_by": k5a["bound_by"],
-        "k5a_max_abs_err": k5a["err"],
-        "k5a_shape": list(DISK_BENCH),
+    }, {
+        "name": "stage_curv_gather6_viscous",
+        "kernel": "stage_tiled_kernel (the tiled body, diffusive)",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/stage_curv.cu",
+        "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1783",
+        "launches": k5a["launches"],
+        "max_abs_err": max(g6["float32"], k5a["err"]),
+        "max_abs_err_f64": g6["float64"],
+        "tol_f32": DISK_F32_TOL,
+        "tol_f64": F64_TOL,
+        "ms": k5a["ms"],
+        "plain_ms": k5a["plain_ms"],
+        "bound_ms": k5a["bound_ms"],
+        "bound_by": k5a["bound_by"],
+        "library_ms": None,
+        "percell_ms": k5a["percell_ms"],
+        "registers_spills": k5a["regs"],
+        "shape": list(DISK_BENCH),
+        "dtype": "float32",
     }, {
         "name": "fld_coeffs",
         "route": "cuda",
