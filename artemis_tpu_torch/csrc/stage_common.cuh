@@ -1,15 +1,18 @@
 // Device helpers shared by the fused stage kernels (stage_cart.cu,
-// stage_curv.cu): the uniform PLM slope, the HLLC and HLLE Riemann solvers
-// and the two-register RK blend.  Ports of _plm, _hllc, _hlle
-// (artemis_tpu/ops/pallas_sweeps.py:26,34,100) and rk_blend
-// (artemis_tpu/ops/pallas_stage.py:47).
+// stage_curv.cu; sweep.cu): the uniform PLM slope, the HLLC and HLLE
+// Riemann solvers and the two-register RK blend, ports of _plm, _hllc,
+// _hlle (artemis_tpu/ops/pallas_sweeps.py:26,34,100) and rk_blend
+// (artemis_tpu/ops/pallas_stage.py:47); and the cp.async copies with which
+// the tiled bodies of both stages stage their planes in shared memory.
 //
 // Everything here also compiles as host C++ (the tests build the kernels'
-// device code with g++ behind a few macros), so it includes nothing of CUDA.
+// device code with g++ behind a few macros), so it includes nothing of CUDA
+// (the copies are plain copies there).
 
 #pragma once
 
 #include <stdint.h>
+#include <string.h>
 
 namespace artemis {
 
@@ -181,6 +184,48 @@ __device__ __forceinline__ T rk_blend(double gam0, double gam1,
     have = true;
   }
   return have ? acc + t : t;
+}
+
+// ---- staging copies of the tiled bodies (stage_cart.cu, stage_curv.cu)
+
+// One element copied global -> shared: cp.async on the card (committed and
+// waited for by group), a plain copy in the host build of the tests.
+template <typename T>
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+// 16 bytes copied global -> shared (both 16-byte aligned), past L1.
+template <typename T>
+__device__ __forceinline__ void copy_async16(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+#else
+  memcpy(dst, src, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
 }
 
 }  // namespace artemis

@@ -1125,46 +1125,6 @@ __device__ __forceinline__ TilePos tile_pos(const CurvInts& n, int64_t blk) {
   return t;
 }
 
-// One element copied global -> shared: cp.async on the card (committed and
-// waited for by group), a plain copy in the host build of the tests.
-template <typename T>
-__device__ __forceinline__ void copy_async(T* dst, const T* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (sizeof(T) == 4)
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
-#else
-  *dst = *src;
-#endif
-}
-
-// 16 bytes copied global -> shared (both 16-byte aligned), past L1.
-template <typename T>
-__device__ __forceinline__ void copy_async16(T* dst, const T* src) {
-#ifdef __CUDA_ARCH__
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-#else
-  memcpy(dst, src, 16);
-#endif
-}
-
-__device__ __forceinline__ void copy_commit() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// Waits until at most N of this thread's committed groups are in flight.
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-#ifdef __CUDA_ARCH__
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
 template <typename T, bool DIFF>
 struct TileMem {
   using L = TileLayout<T, DIFF>;

@@ -13,22 +13,57 @@ the dual-energy sync (SetAuxillaryFields), the C2P/P2C floor re-sync
 (which replaces both TPU kernels, ``stage_periodic`` and ``stage``) or
 raises.  Periodic boxes are read with in-kernel index wrap from the
 unpadded interior; other boundaries from primitives padded by ``bc``.
+Every launch takes the kernel's tiled body (a footprint of columns per
+block marching up a chunk of planes, each face solved once), whose dtden
+holds one maximum per block (``dtden_blocks``); the per-cell body is
+reached only through the private switch ``_percell_body``, which
+measurements and tests use.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from .. import bc as bc_mod
 
-BLOCK = 256  # threads per CUDA block; one dtden entry per block
+BLOCK = 256  # threads per block of the per-cell body; one dtden entry per block
 _METHODS = {"pcm": 0, "plm": 1, "ppm": 2}
+# the tiled body's footprint and planes per block (TileDims: TX, TY, TZ) by
+# dtype; one dtden entry per block
+TILE = {torch.float32: (32, 8, 16), torch.float64: (32, 4, 16)}
 
 # kernel launches since the last reset (the count a run reads to show that
-# the main path went through the kernel)
+# the main path went through the kernel), and of those the launches of the
+# tiled body
 stage_launches = 0
+tiled_launches = 0
+
+# Measurement only: while on, launches take the per-cell body, so that
+# chip_smoke.py and the tests can time and compare the two designs on one
+# state.  Nothing in Simulation, the deck or the CLI reaches it.
+_percell = False
+
+
+@contextlib.contextmanager
+def _percell_body():
+    global _percell
+    before, _percell = _percell, True
+    try:
+        yield
+    finally:
+        _percell = before
+
+
+def dtden_blocks(nx, ny, nz, dtype, tiled=True) -> int:
+    """Entries of the kernel's dtden output: one per block of the tiled
+    body, or of the per-cell body when not ``tiled``."""
+    if not tiled:
+        return -(-(nx * ny * nz) // BLOCK)
+    tx, ty, tz = TILE[dtype]
+    return -(-nx // tx) * -(-ny // ty) * -(-nz // tz)
 
 
 def supported(grid, cfg) -> bool:
@@ -70,7 +105,8 @@ def stage_reference(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom=N
 def stage(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom=None):
     """One fused RK stage from interior prims ``w`` [1, 6, nz, ny, nx] and
     the two registers u0, u1; ``dt`` is a one-element tensor on w's device.
-    Returns (u, w, dtden); on the GPU dtden holds one maximum per block."""
+    Returns (u, w, dtden); on the GPU dtden holds one maximum per block of
+    the body that ran (``dtden_blocks``)."""
     if w.device.type == "cpu":
         return stage_reference(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom)
     if w.device.type != "cuda":
@@ -91,12 +127,12 @@ def _lib():
     if fn.argtypes is None:
         p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
         fn.restype = i
-        fn.argtypes = ([i, i, i] + [p] * 7 + [i] * 6 + [d] * 10 + [i, p])
+        fn.argtypes = ([i] * 4 + [p] * 7 + [ctypes.c_int64] + [i] * 6 + [d] * 10 + [i, p])
     return fn
 
 
 def _launch(hyd, src, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic):
-    global stage_launches
+    global stage_launches, tiled_launches
     grid, cfg = hyd.grid, hyd.gas
     nx, ny, nz = grid.nx
     g1, g2, g3 = (0, 0, 0) if periodic else grid.ng
@@ -118,10 +154,12 @@ def _launch(hyd, src, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic):
     if dt.numel() != 1:
         raise ValueError("dt must be a one-element tensor")
     method = "pcm" if force_pcm else cfg.recon
+    tiled = not _percell
     fn = _lib()
     u = torch.empty(shape, dtype=dtype, device=src.device)
     w = torch.empty(shape, dtype=dtype, device=src.device)
-    dmax = torch.empty((-(-(nx * ny * nz) // BLOCK),), dtype=dtype, device=src.device)
+    dmax = torch.empty((dtden_blocks(nx, ny, nz, dtype, tiled),), dtype=dtype,
+                       device=src.device)
     g = grid.geom
     dx = float(g.xf1[1] - g.xf1[0])
     dy = float(g.xf2[1] - g.xf2[0])
@@ -129,14 +167,15 @@ def _launch(hyd, src, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic):
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(0 if dtype == torch.float32 else 1, _METHODS[method],
-                 int(periodic), src.data_ptr(),
+                 int(periodic), int(tiled), src.data_ptr(),
                  u0.data_ptr() if gam0 != 0.0 else None,
                  u1.data_ptr() if gam1 != 0.0 else None,
-                 dt.data_ptr(), u.data_ptr(), w.data_ptr(), dmax.data_ptr(),
+                 dt.data_ptr(), u.data_ptr(), w.data_ptr(), dmax.data_ptr(), dmax.numel(),
                  nx, ny, nz, g1, g2, g3, float(gam0), float(gam1), float(beta),
                  1.0 / dx, 1.0 / dy, 1.0 / dz, cfg.gamma, cfg.dfloor,
                  cfg.siefloor, cfg.de_switch, BLOCK, stream)
     if err != 0:
         raise RuntimeError(f"stage_cart kernel launch failed: CUDA error {err}")
     stage_launches += 1
+    tiled_launches += int(tiled)
     return u, w, dmax

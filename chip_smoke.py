@@ -13,21 +13,29 @@ line is printed:
    whether triton imports;
 2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu``, ``fld.cu``,
    ``sweep.cu`` and ``stage_curv.cu`` (once per dtype) with nvcc, all at
-   once, and prints ptxas's registers and spills;
-3. kernel vs plain version on the card: the fused stage kernel against
-   ``stage_reference`` over {periodic, outflow, reflecting} x {pcm, plm,
-   ppm} x {float64 <= 1e-12, float32 <= 1e-5 abs} x {gam0 = 0, gam0 != 0}
-   on a ragged 3-D and a 2-D shape, the dtden maximum included;
+   once, and prints the stage_cart build flags and ptxas's registers and
+   spills;
+3. kernel vs plain version on the card: the fused stage kernel on its
+   tiled body against ``stage_reference`` and bitwise against its per-cell
+   body (the wrapper's private switch) over {periodic, outflow,
+   reflecting} x {pcm, plm, ppm} x {float64 <= 1e-12, float32 <= 1e-5 abs}
+   x {gam0 = 0, gam0 != 0} on a ragged 3-D, a 2-D and a two-z-chunk shape
+   and a periodic box narrower than the halo, the dtden maximum included;
 4. the linear-wave deck through ``Simulation(..., device="cuda")``
    (rk2 + plm + hllc, float64, nghost 4, N = 16 and 32, L/R sound and
    entropy waves) against the reference's regression thresholds, with one
-   kernel launch per RK stage;
+   kernel launch per RK stage, every one on the tiled body;
 5. the full-size Cartesian box (256x256x128 float32 rk2 + plm + hllc, the
    flagship configuration of bench.py): the main path driven through
-   ``Simulation.run`` with the launch count reset before and read after,
-   zone-cycles/s for the kernel path, the plain path and a float64 kernel
-   run, the kernel's and the plain stage's time per launch, and the
-   kernel and plain end states compared after the same cycles;
+   ``Simulation.run`` with the launch counts reset before and read after
+   (every launch on the tiled body), zone-cycles/s for the kernel path,
+   the plain path and a float64 kernel run, the kernel's time per launch
+   on the tiled and on the per-cell body (bitwise equal at full size) with
+   ptxas's registers and spills of both, the plain stage's time per
+   launch, the cycle's device busy time and idle share under
+   torch.profiler, the padded halo (K2, outflow walls) on both bodies
+   alone and with its ghost fill, and the kernel and plain end states
+   compared after the same cycles;
 6. the curvilinear stage kernel against ``stage_curv_reference`` on the
    card: the padded halo on spherical, cylindrical, axisymmetric and
    Cartesian grids (random states, ragged 20x12x6) over {full, partial} x
@@ -220,6 +228,8 @@ def phase_build(torch):
             f.result()
     secs = time.perf_counter() - t0
     print(f"build: {len(builds)} nvcc runs in parallel, {secs:.1f} s")
+    print("  stage_cart flags: " + " ".join((*_build.NVCC_FLAGS,
+                                             *_build.SOURCE_FLAGS.get("stage_cart", ()))))
     for name, d in builds:
         log = _build.build_log.get(_build.variant(name, d), (0.0, ""))
         print(f"  {_build.variant(name, d)}: nvcc {log[0]:.1f} s")
@@ -277,16 +287,25 @@ DIFF_KERNEL_ENTRIES = (("tiled diffusive", "stage_tiled_kernelIfLb1EE"),
                        ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
 
 
-def ptxas_usage(torch, dtype, entry):
+# the Cartesian stage's two bodies in stage_cart.cu: a mangled-name piece of
+# each f32 PLM kernel, periodic (K1) and padded (K2)
+CART_ENTRIES = {periodic: (("tiled", f"stage_cart_tiled_kernelIfLi1ELb{periodic}EE"),
+                           ("per-cell", f"stage_cart_kernelIfLi1ELb{periodic}EE"))
+                for periodic in (1, 0)}
+
+
+def ptxas_usage(torch, dtype, entry, source="stage_curv"):
     """(registers, spill store bytes, spill load bytes) that ptxas printed
-    for the stage_curv kernel of ``dtype`` whose mangled name holds
-    ``entry``, from this process's build; None when it did not build."""
+    for the kernel of ``source`` (stage_curv: its build for ``dtype``;
+    stage_cart: its one build) whose mangled name holds ``entry``, from
+    this process's build; None when it did not build."""
     import re
 
     from artemis_tpu_torch import _build
     from artemis_tpu_torch.ops import stage_curv as SC
 
-    log = _build.build_log.get(_build.variant("stage_curv", SC.build_defines(dtype)))
+    log = _build.build_log.get(_build.variant("stage_curv", SC.build_defines(dtype))
+                               if source == "stage_curv" else source)
     cur = spill = None
     for line in (log[1] if log else "").splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -338,34 +357,47 @@ def setup_state(torch, nx, ny, nz, recon, bc, nghost, dtype, seed=1):
     return hyd, u, w
 
 
+# phase 3's shapes: ragged 3-D, 2-D, a short footprint with two z chunks
+# (the second partial); and a periodic box narrower than PPM's halo
+COMPARE_SHAPES = ((48, 20, 12), (40, 24, 1), (36, 10, 20))
+NARROW = (24, 4, 4)
+
+
 def phase_compare(torch):
     from artemis_tpu_torch.ops import stage as S
 
     worst = {torch.float64: 0.0, torch.float32: 0.0}
     ncase = 0
-    for shape in ((48, 20, 12), (40, 24, 1)):
-        for bc in ("periodic", "outflow", "reflecting"):
-            for recon in ("pcm", "plm", "ppm"):
-                for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
-                    hyd, u, w = setup_state(torch, *shape, recon, bc,
-                                            3 if recon == "ppm" else 2, dtype)
-                    u1 = u * 1.0
-                    dt = torch.full((), 2e-3, dtype=dtype, device=DEVICE)
-                    for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
-                        uk, wk, dk = S.stage(hyd, w, u, u1, gam0, gam1, beta, dt, False)
-                        torch.cuda.synchronize()
-                        ur, wr, dr = S.stage_reference(hyd, w, u, u1, gam0, gam1, beta, dt, False)
-                        torch.cuda.synchronize()
-                        err = max(float((uk - ur).abs().max()), float((wk - wr).abs().max()))
-                        derr = float((dk.max() - dr.max()).abs() / dr.max())
-                        check(err <= tol and derr <= tol,
-                              f"kernel vs plain {shape} {bc} {recon} {dtype} gam0={gam0}: "
-                              f"max|du|,|dw| = {err:.3e}, dtden rel {derr:.3e} > {tol:g}")
-                        worst[dtype] = max(worst[dtype], err)
-                        ncase += 1
-    print(f"compare: {ncase} kernel-vs-plain cases pass; max abs err "
-          f"f64 {worst[torch.float64]:.3e} (tol {F64_TOL:g}), "
-          f"f32 {worst[torch.float32]:.3e} (tol {F32_TOL:g})")
+    cases = [(shape, bc, recon) for shape in COMPARE_SHAPES
+             for bc in ("periodic", "outflow", "reflecting") for recon in ("pcm", "plm", "ppm")]
+    cases += [(NARROW, "periodic", recon) for recon in ("pcm", "plm", "ppm")]
+    for shape, bc, recon in cases:
+        for dtype, tol in ((torch.float64, F64_TOL), (torch.float32, F32_TOL)):
+            hyd, u, w = setup_state(torch, *shape, recon, bc, 3 if recon == "ppm" else 2, dtype)
+            u1 = u * 1.0
+            dt = torch.full((), 2e-3, dtype=dtype, device=DEVICE)
+            for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+                t0 = S.tiled_launches
+                uk, wk, dk = S.stage(hyd, w, u, u1, gam0, gam1, beta, dt, False)
+                with S._percell_body():
+                    uc, wc, dc = S.stage(hyd, w, u, u1, gam0, gam1, beta, dt, False)
+                torch.cuda.synchronize()
+                check(S.tiled_launches == t0 + 1, "a stage launch did not take the tiled body")
+                check(same_stage(torch, (uk, wk, dk), (uc, wc, dc)),
+                      f"tiled vs per-cell body {shape} {bc} {recon} {dtype} gam0={gam0}: "
+                      "not bitwise equal")
+                ur, wr, dr = S.stage_reference(hyd, w, u, u1, gam0, gam1, beta, dt, False)
+                torch.cuda.synchronize()
+                err = max(float((uk - ur).abs().max()), float((wk - wr).abs().max()))
+                derr = float((dk.max() - dr.max()).abs() / dr.max())
+                check(err <= tol and derr <= tol,
+                      f"kernel vs plain {shape} {bc} {recon} {dtype} gam0={gam0}: "
+                      f"max|du|,|dw| = {err:.3e}, dtden rel {derr:.3e} > {tol:g}")
+                worst[dtype] = max(worst[dtype], err)
+                ncase += 1
+    print(f"compare: {ncase} kernel-vs-plain cases pass, each on the tiled body and bitwise "
+          f"equal to the per-cell body; max abs err f64 {worst[torch.float64]:.3e} "
+          f"(tol {F64_TOL:g}), f32 {worst[torch.float32]:.3e} (tol {F32_TOL:g})")
     return worst[torch.float64], worst[torch.float32]
 
 
@@ -394,12 +426,12 @@ def phase_linwave(torch):
                         "artemis/precision=float64"] + wargs
                 sim = Simulation(DECK, args, data, device=DEVICE)
                 check(sim.driver._fused_stage, "linwave did not select the fused stage kernel")
-                S.stage_launches = 0
+                S.stage_launches = S.tiled_launches = 0
                 sim.run()
                 torch.cuda.synchronize()
-                check(S.stage_launches == 2 * sim.tm.ncycle,
-                      f"linwave N={res} {wave}: {S.stage_launches} launches for "
-                      f"{sim.tm.ncycle} rk2 cycles")
+                check(S.stage_launches == 2 * sim.tm.ncycle == S.tiled_launches,
+                      f"linwave N={res} {wave}: {S.stage_launches} launches "
+                      f"({S.tiled_launches} on the tiled body) for {sim.tm.ncycle} rk2 cycles")
                 print(f"linwave N={res} {wave}: ncycle={sim.tm.ncycle} "
                       f"launches={S.stage_launches}")
         errs = np.loadtxt(os.path.join(data, "linear_wave-errs.dat"), ndmin=2)
@@ -481,12 +513,13 @@ def phase_flagship(torch, smi):
         # the main path: 2 warm-up + 20 timed cycles, counting launches
         sim = flagship_sim("float32", data)
         check(sim.driver._fused_stage, "flagship did not select the fused stage kernel")
-        S.stage_launches = 0
+        S.stage_launches = S.tiled_launches = 0
         warm_up(sim, 2)
         res["kernel_zcps"] = run_cycles(torch, sim, 20)
         launches = S.stage_launches
-        check(launches == 2 * sim.tm.ncycle,
-              f"flagship: {launches} launches for {sim.tm.ncycle} rk2 cycles")
+        check(launches == 2 * sim.tm.ncycle == S.tiled_launches,
+              f"flagship: {launches} launches ({S.tiled_launches} on the tiled body) for "
+              f"{sim.tm.ncycle} rk2 cycles")
         res["launches"] = launches
         print(f"flagship f32 kernel path: 20 cycles, {res['kernel_zcps']:.6e} "
               f"zone-cycles/s [{smi}]")
@@ -510,16 +543,37 @@ def phase_flagship(torch, smi):
             return S.stage_reference(hyd, w, u, u1, g0, g1, b, dt, False)
 
         res["ms"] = time_launches(torch, kern, 20)
+        with S._percell_body():
+            res["percell_ms"] = time_launches(torch, kern, 10)
         res["plain_ms"] = time_launches(torch, plain, 4)
-        print(f"flagship f32 per stage launch: kernel {res['ms']:.4f} ms, "
-              f"plain {res['plain_ms']:.4f} ms [{smi}]")
+        res["regs"] = {body: ptxas_usage(torch, torch.float32, entry, "stage_cart")
+                       for body, entry in CART_ENTRIES[1]}
+        for g in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+            ot = S.stage(hyd, w, u, u1, *g, dt, False)
+            with S._percell_body():
+                oc = S.stage(hyd, w, u, u1, *g, dt, False)
+            torch.cuda.synchronize()
+            check(same_stage(torch, ot, oc),
+                  f"flagship K1 gam0={g[0]}: tiled and per-cell bodies differ")
+        del ot, oc
+        print(f"flagship f32 per stage launch (K1): kernel on the tiled body {res['ms']:.4f} ms, "
+              f"on the per-cell body {res['percell_ms']:.4f} ms "
+              f"({res['percell_ms'] / res['ms']:.2f}x), plain {res['plain_ms']:.4f} ms; tiled == "
+              f"per-cell bitwise at {FLAGSHIP}; {regs_text(res['regs'])} [{smi}]")
         print("  " + smi_clocks())
         cycle_ms = 1e3 * FLAGSHIP[0] * FLAGSHIP[1] * FLAGSHIP[2] / res["kernel_zcps"]
         print(f"flagship f32 cycle (unprofiled): {cycle_ms:.4f} ms, of which 2 kernel launches "
               f"{2 * res['ms']:.4f} ms ({100 * (1 - 2 * res['ms'] / cycle_ms):.1f}% other)")
+        res["profile"] = profile_cycles(torch, sim, 3)
+        res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
+                             if res["profile"] else None)
+        print("flagship f32 device idle "
+              + (f"{100 * res['idle_share']:.1f}% of the unprofiled cycle (busy "
+                 f"{res['profile']['busy_ms']:.4f} ms)" if res["idle_share"] is not None
+                 else "not measured"))
         # the bound of the same two launches: stage 1 reads w and u1,
         # stage 2 w, u0 and u1; both write u, w and the dtden blocks
-        nblk = -(-u[0, 0].numel() // S.BLOCK)
+        nblk = S.dtden_blocks(*FLAGSHIP, torch.float32)
         nbytes = (tensor_bytes(w, u1, w, u, u1)
                   + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
         flops = sum(count_flops(torch, lambda g=g: S.stage_reference(
@@ -545,23 +599,36 @@ def phase_flagship(torch, smi):
         u1 = u.clone()
         w_pad = bc_mod.pad_and_fill(w, hyd.grid, "gas")
         dt = torch.full((), 1e-4, dtype=torch.float32, device=DEVICE)
-        res["padded_ms"] = time_launches(
-            torch, lambda: S._launch(hyd, w_pad, u, u1, 0.5, 0.5, 0.5, dt, False,
-                                     periodic=False), 20)
-        res["padded_stage_ms"] = time_launches(
-            torch, lambda: S.stage(hyd, w, u, u1, 0.5, 0.5, 0.5, dt, False), 20)
+        padded = (lambda: S._launch(hyd, w_pad, u, u1, 0.5, 0.5, 0.5, dt, False,
+                                    periodic=False))
+        filled = lambda: S.stage(hyd, w, u, u1, 0.5, 0.5, 0.5, dt, False)  # noqa: E731
+        res["padded_ms"] = time_launches(torch, padded, 20)
+        res["padded_stage_ms"] = time_launches(torch, filled, 20)
+        with S._percell_body():
+            res["padded_percell_ms"] = time_launches(torch, padded, 10)
+            res["padded_percell_stage_ms"] = time_launches(torch, filled, 10)
         res["padded_plain_ms"] = time_launches(
             torch, lambda: S.stage_reference(hyd, w, u, u1, 0.5, 0.5, 0.5, dt, False), 4)
+        res["padded_regs"] = {body: ptxas_usage(torch, torch.float32, entry, "stage_cart")
+                              for body, entry in CART_ENTRIES[0]}
+        ot = padded()
+        with S._percell_body():
+            oc = padded()
+        torch.cuda.synchronize()
+        check(same_stage(torch, ot, oc), "flagship K2: tiled and per-cell bodies differ")
+        del ot, oc
         uk, wk, _ = S.stage(hyd, w, u, u1, 0.5, 0.5, 0.5, dt, False)
         ur, wr, _ = S.stage_reference(hyd, w, u, u1, 0.5, 0.5, 0.5, dt, False)
         err = max(float((uk - ur).abs().max()), float((wk - wr).abs().max()))
         check(err <= F32_TOL, f"flagship padded stage kernel vs plain: {err:.3e} > {F32_TOL:g}")
         res["flagship_stage_err"] = max(res["flagship_stage_err"], err)
-        print(f"flagship f32 padded halo (outflow) per stage: kernel {res['padded_ms']:.4f} ms, "
-              f"with ghost fill {res['padded_stage_ms']:.4f} ms, plain "
-              f"{res['padded_plain_ms']:.4f} ms [{smi}]")
+        print(f"flagship f32 padded halo (outflow) per stage (K2): kernel on the tiled body "
+              f"{res['padded_ms']:.4f} ms, with ghost fill {res['padded_stage_ms']:.4f} ms; on "
+              f"the per-cell body {res['padded_percell_ms']:.4f} ms, with ghost fill "
+              f"{res['padded_percell_stage_ms']:.4f} ms; plain {res['padded_plain_ms']:.4f} ms; "
+              f"tiled == per-cell bitwise; {regs_text(res['padded_regs'])} [{smi}]")
         # its bound (stage 2: padded prims, u0 and u1 in; u, w, dtden out)
-        nblk = -(-u[0, 0].numel() // S.BLOCK)
+        nblk = S.dtden_blocks(*FLAGSHIP, torch.float32)
         res["padded_bound_ms"], res["padded_bound_by"] = bound(
             tensor_bytes(w_pad, u, u1, u, w) + nblk * u.element_size(),
             count_flops(torch, lambda: S.stage_reference(hyd, w, u, u1, 0.5, 0.5, 0.5, dt,
@@ -597,8 +664,16 @@ def phase_flagship(torch, smi):
         warm_up(sim64, 2)
         res["kernel_f64_zcps"] = run_cycles(torch, sim64, 10)
         check(bool(torch.isfinite(sim64.state["gas"]["u"]).all()), "f64 flagship not finite")
+        u, w = sim64.state["gas"]["u"], sim64.state["gas"]["w"]
+        u1, hyd = u.clone(), sim64.driver.hydro
+        dt = torch.full((), sim64.tm.dt, dtype=u.dtype, device=DEVICE)
+        res["f64_ms"] = time_launches(torch, kern, 10)
+        with S._percell_body():
+            res["f64_percell_ms"] = time_launches(torch, kern, 10)
         print(f"flagship f64 kernel path: 10 cycles, {res['kernel_f64_zcps']:.6e} "
-              f"zone-cycles/s [{smi}]")
+              f"zone-cycles/s; K1 per f64 launch on the tiled body {res['f64_ms']:.4f} ms, on "
+              f"the per-cell body {res['f64_percell_ms']:.4f} ms [{smi}]")
+        del u, w, u1, hyd
         del sim64
         torch.cuda.empty_cache()
     return res
@@ -2193,6 +2268,7 @@ def main():
     adv = phase_advection(torch, smi)
     kernels = {"kernels": [{
         "name": "stage_cart",
+        "kernel": "stage_cart_tiled_kernel (the tiled body)",
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/stage_cart.cu",
         "replaces": "artemis_tpu/ops/pallas_stage.py:337",
@@ -2207,8 +2283,13 @@ def main():
         "bound_ms": res["bound_ms"],
         "bound_by": res["bound_by"],
         "library_ms": None,
+        "percell_ms": res["percell_ms"],
+        "registers_spills": res["regs"],
         "padded_ms": res["padded_ms"],
         "padded_stage_ms": res["padded_stage_ms"],
+        "padded_percell_ms": res["padded_percell_ms"],
+        "padded_percell_stage_ms": res["padded_percell_stage_ms"],
+        "padded_registers_spills": res["padded_regs"],
         "padded_plain_ms": res["padded_plain_ms"],
         "padded_bound_ms": res["padded_bound_ms"],
         "padded_bound_by": res["padded_bound_by"],
@@ -2219,6 +2300,9 @@ def main():
         "zone_cycles_per_s": {"kernel_f32": res["kernel_zcps"],
                               "plain_f32": res["plain_zcps"],
                               "kernel_f64": res["kernel_f64_zcps"]},
+        "f64_ms": res["f64_ms"],
+        "f64_percell_ms": res["f64_percell_ms"],
+        "idle_share": res["idle_share"],
     }, {
         "name": "stage_curv",
         "kernel": "stage_tiled_kernel (the tiled body, diffusive)",

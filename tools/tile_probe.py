@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Where the time of the tiled stage goes (``stage_tiled_kernel`` in
+"""Where the time of the tiled stages goes (``stage_tiled_kernel`` in
 ``artemis_tpu_torch/csrc/stage_curv.cu``: without diffusion K5b and K6,
-with it K3 and K5a), on one CUDA card.
+with it K3 and K5a; ``stage_cart_tiled_kernel`` in ``stage_cart.cu``: K1
+and K2), on one CUDA card.
 
 Run from the repository root:
 
     python tools/tile_probe.py [--build-only] [VARIANT ...]
 
 (all variants when none is named; ``--build-only`` prints ptxas's
-registers and spills of the two tiled kernels and times nothing).
+registers and spills of the variants' tiled kernels and times nothing).
 
 Each variant is a copy of ``artemis_tpu_torch`` in a temporary directory
 with one textual change to the kernel source (and the wrapper's tile
@@ -20,7 +21,10 @@ float32 Cartesian node with a point mass, a random smooth state and
 random six-face strips (seeded).  The ``visc`` variants take disk_sph's
 stage at bench.py's 256x64x64 float32 (alpha viscosity, point gravity,
 rotating frame; x1/x2 ic strips, x3 wrapped: K3) from the deck's initial
-state.  The variants:
+state.  The ``cart`` variants take the Cartesian flagship's K1: the
+periodic 256x256x128 float32 box of ``inputs/linwave.in`` with PLM and
+HLLC on a random smooth state (seeded), the two RK stages in turn.  The
+variants:
 
 * ``tiled``: the source as it is, and the per-cell body on the same state
   through the wrapper's private switch;
@@ -41,7 +45,19 @@ state.  The variants:
   probes ``visc-no-faces`` (no diffusive face is solved: x/y in phase B, z
   in phase C) and ``visc-no-cells`` (no cell quantity of the next plane is
   made: neither the rim's nor the column's own, nor the x3 face's
-  gradients of v^3).
+  gradients of v^3);
+* ``cart``: the Cartesian tiled body as it is on K1, and the per-cell
+  body; ``cart-no-ureg``, ``cart-4-byte``, ``cart-one-block``,
+  ``cart-z8``, ``cart-z32``: as above; ``cart-no-ahead``: the ring
+  without its extra slot, each plane asked for during the update only;
+  ``cart-y-first``: the y face values past one per thread on the first
+  warps too (with the x ones), not on the last; ``cart-fmad``: stage_cart
+  built with multiply-add contraction (without ``-fmad=false``), both
+  bodies timed; and the probes ``cart-no-faces`` (no Riemann
+  solve: neither the x/y faces of phase B nor the z face), ``cart-no-update``
+  (no cell of phase C is updated or stored), ``cart-no-values`` (no face
+  value of the next plane is reconstructed) and ``cart-load-only``
+  (staging and barriers only).
 
 Prints the card's name and power limit, ptxas's registers and spills per
 variant, and each variant's ms per launch; the variants that compute the
@@ -66,6 +82,10 @@ VEC16 = "reinterpret_cast<uintptr_t>(row) % 16 == 0"
 F32 = "struct TileDims<float, false> {\n  static constexpr int TX = 32, TY = 8, TZ = 16, MINB = 2;"
 F32D = "struct TileDims<float, true> {\n  static constexpr int TX = 32, TY = 8, TZ = 16, MINB = 2;"
 PY_TILE = "(torch.float32, {}): (32, 8, 16)"
+CART = "artemis_tpu_torch/csrc/stage_cart.cu"
+CART_SOLVE = ("      tile_solve(p, m, tp, tid);\n      if (az && own(tid)) tile_zface(", "      if (false) tile_zface(")
+CART_UPDATE = ("      if (own(tid)) {\n        const int x = tid % L::TX", "      if (false) {\n        const int x = tid % L::TX")
+CART_VALUES = ("      if (k + 1 < tp.z1) tile_face_values(p, m, tp, slot(k + 1), tid);\n", "")
 
 
 def zchunk(n, diff=False):
@@ -103,7 +123,34 @@ VARIANTS = {
                        "          const ZCell<T> zb{{qb[0], qb[1], qb[2]}, qb[kQmuv], qb[kQmuc], "
                        "qb[kQdiv], T(0), T(0), T(0), T(0)};\n")],
 }
-PROBES = ("load-only", "no-update", "no-solve", "no-values", "visc-no-faces", "visc-no-cells")
+VARIANTS.update({
+    "cart": [],
+    "cart-no-ureg": [(CART, "static constexpr bool UREG = !(F32 && METHOD == kPPM);",
+                      "static constexpr bool UREG = false;")],
+    "cart-no-ahead": [(CART, "static constexpr bool AHEAD = METHOD == kPCM || "
+                             "(F32 ? METHOD == kPLM : METHOD == kPPM);",
+                       "static constexpr bool AHEAD = false;")],
+    "cart-4-byte": [(CART, "reinterpret_cast<uintptr_t>(g) % 16 == 0", "false"),
+                    (CART, "reinterpret_cast<uintptr_t>(row) % 16 == 0", "false")],
+    "cart-one-block": [(CART, "MINB = (!F32 && METHOD == kPPM) ? 1 : 2;", "MINB = 1;")],
+    "cart-z8": [(CART, "TZ = 16;", "TZ = 8;"),
+                ("artemis_tpu_torch/ops/stage.py", "torch.float32: (32, 8, 16)",
+                 "torch.float32: (32, 8, 8)")],
+    "cart-z32": [(CART, "TZ = 16;", "TZ = 32;"),
+                 ("artemis_tpu_torch/ops/stage.py", "torch.float32: (32, 8, 16)",
+                  "torch.float32: (32, 8, 32)")],
+    "cart-fmad": [("artemis_tpu_torch/_build.py",
+                   'SOURCE_FLAGS = {"stage_curv": ("-fmad=false",), "stage_cart": ("-fmad=false",)}',
+                   'SOURCE_FLAGS = {"stage_curv": ("-fmad=false",)}')],
+    "cart-y-first": [(CART, "for (int e = L::NT - 1 - tid; e < (L::TY + 2) * L::TX; e += L::NT)",
+                      "for (int e = tid; e < (L::TY + 2) * L::TX; e += L::NT)")],
+    "cart-no-faces": [(CART, *CART_SOLVE)],
+    "cart-no-update": [(CART, *CART_UPDATE)],
+    "cart-no-values": [(CART, *CART_VALUES)],
+    "cart-load-only": [(CART, *CART_SOLVE), (CART, *CART_UPDATE), (CART, *CART_VALUES)],
+})
+PROBES = ("load-only", "no-update", "no-solve", "no-values", "visc-no-faces", "visc-no-cells",
+          "cart-no-faces", "cart-no-update", "cart-no-values", "cart-load-only")
 
 BUILD = r"""
 import sys
@@ -111,11 +158,18 @@ sys.path.insert(0, sys.argv[1])
 import torch
 from artemis_tpu_torch import _build
 from artemis_tpu_torch.ops import stage_curv as SC
-_build.load("stage_curv", SC.build_defines(torch.float32))
-log = _build.build_log.get(_build.variant("stage_curv", SC.build_defines(torch.float32)))
+if sys.argv[2] == "cart":
+    name = "stage_cart"
+    _build.load(name)
+    entries = (("K1 f32 plm", "stage_cart_tiled_kernelIfLi1ELb1EE"),)
+else:
+    name = _build.variant("stage_curv", SC.build_defines(torch.float32))
+    _build.load("stage_curv", SC.build_defines(torch.float32))
+    entries = (("inviscid", "stage_tiled_kernelIfLb0EE"), ("diffusive", "stage_tiled_kernelIfLb1EE"))
+log = _build.build_log.get(name)
 lines = (log[1] if log else "").splitlines()
 out = []
-for body, entry in (("inviscid", "stage_tiled_kernelIfLb0EE"), ("diffusive", "stage_tiled_kernelIfLb1EE")):
+for body, entry in entries:
     at = [i for i, l in enumerate(lines) if "Compiling entry" in l and entry in l]
     out.append(body + ": " + (", ".join(l.split(":", 1)[-1].strip() for l in lines[at[0]:at[0] + 4]
                                          if "registers" in l or "spill" in l) if at else "not read"))
@@ -152,6 +206,18 @@ def disk_stage():
     return sim.driver._curv, sim.state["gas"]["u"], sim.state["gas"]["w"]
 
 
+def prims(shape):
+    a = np.empty((6,) + shape, dtype=np.float32)
+    a[0] = 1 + 0.2 * rng.random(shape)
+    a[1:4] = 0.3 * (rng.random((3,) + shape) - 0.5)
+    a[5] = 1 + 0.2 * rng.random(shape)
+    a[4] = 0.4 * a[0] * a[5]
+    return a
+
+
+rng = np.random.default_rng(1)
+calls = itertools.cycle([(0.0, 1.0, 1.0), (0.5, 0.5, 0.5)])
+dt = torch.full((1,), 1e-4, dtype=dt_, device=dev)
 pin = ParameterInput.from_string('''
 <artemis>
 problem = constant
@@ -173,37 +239,44 @@ gamma = 1.4
 mass = 1.0
 soft = 0.05
 ''')
-grid = grid_from_input(pin)
 cfg = FluidCfg(fluid="gas", recon="plm", rsolver="hllc", gamma=1.4, cfl=0.3)
-hyd = Hydro(grid, cfg, device=dev, dtype=dt_)
-rng = np.random.default_rng(1)
+switch = SC._percell_body
+if name.startswith("cart"):
+    # the Cartesian flagship's periodic box (K1)
+    from artemis_tpu_torch.ops import stage as S
 
-
-def prims(shape):
-    a = np.empty((6,) + shape, dtype=np.float32)
-    a[0] = 1 + 0.2 * rng.random(shape)
-    a[1:4] = 0.3 * (rng.random((3,) + shape) - 0.5)
-    a[5] = 1 + 0.2 * rng.random(shape)
-    a[4] = 0.4 * a[0] * a[5]
-    return a
-
-
-if name.startswith("visc"):
-    cs, u, w = disk_stage()
-    assert cs.diffusive and cs.halo == "gather"
-else:
+    pin = ParameterInput.from_file(deck)
+    pin.apply_overrides(["parthenon/mesh/nx1=256", "parthenon/mesh/nx2=256",
+                         "parthenon/mesh/nx3=128", "parthenon/mesh/nghost=2"])
+    grid = grid_from_input(pin)
+    hyd = Hydro(grid, cfg, device=dev, dtype=dt_)
     nx, ny, nz = grid.nx
     u, w = hyd.prim_to_cons(torch.as_tensor(prims((nz, ny, nx))[None], device=dev), cfg)
-    strips = {k: prims(s[1:]) for k, s in zip(SC.STRIP_KEYS, SC.strip_shapes(grid))}
-    grav = Gravity(pin, grid, Constants.from_units(Units.from_input(pin))).place(dev, dt_)
-    cs = SC.CurvStage(hyd, gravity=grav, gmode=curv_point_grav(grid, grav), strips=strips)
-u1 = u.clone()
-dt = torch.full((1,), 1e-4, dtype=dt_, device=dev)
-calls = itertools.cycle([(0.0, 1.0, 1.0), (0.5, 0.5, 0.5)])
+    u1 = u.clone()
+    switch = S._percell_body
+
+    def launch(*g):
+        return S.stage(hyd, w, u, u1, *g, dt.reshape(()), False)
+else:
+    grid = grid_from_input(pin)
+    hyd = Hydro(grid, cfg, device=dev, dtype=dt_)
+    if name.startswith("visc"):
+        cs, u, w = disk_stage()
+        assert cs.diffusive and cs.halo == "gather"
+    else:
+        nx, ny, nz = grid.nx
+        u, w = hyd.prim_to_cons(torch.as_tensor(prims((nz, ny, nx))[None], device=dev), cfg)
+        strips = {k: prims(s[1:]) for k, s in zip(SC.STRIP_KEYS, SC.strip_shapes(grid))}
+        grav = Gravity(pin, grid, Constants.from_units(Units.from_input(pin))).place(dev, dt_)
+        cs = SC.CurvStage(hyd, gravity=grav, gmode=curv_point_grav(grid, grav), strips=strips)
+    u1 = u.clone()
+
+    def launch(*g):
+        return SC.stage_curv(cs, w, u, u1, *g, dt, 0.0, False)
 
 
 def stage():
-    return SC.stage_curv(cs, w, u, u1, *next(calls), dt, 0.0, False)
+    return launch(*next(calls))
 
 
 def ms(fn, n=20):
@@ -221,10 +294,10 @@ def ms(fn, n=20):
 t = ms(stage)
 line = f"{name}: {t:.4f} ms per launch"
 if not probe:
-    x = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, 0.0, False)
-    with SC._percell_body():
-        y = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, 0.0, False)
-        pc = ms(stage, 10) if name in ("tiled", "visc") else None
+    x = launch(0.5, 0.5, 0.5)
+    with switch():
+        y = launch(0.5, 0.5, 0.5)
+        pc = ms(stage, 10) if name in ("tiled", "visc", "cart", "cart-fmad") else None
     torch.cuda.synchronize()
     same = (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
             and torch.equal(x[2].amax(), y[2].amax()))
@@ -266,7 +339,9 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as base:
         dirs = {n: variant_tree(base, n, VARIANTS[n]) for n in names}
-        builds = {n: subprocess.Popen([sys.executable, "-c", BUILD, d], stdout=subprocess.PIPE,
+        builds = {n: subprocess.Popen([sys.executable, "-c", BUILD, d,
+                                       "cart" if n.startswith("cart") else "curv"],
+                                      stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
                   for n, d in dirs.items()}
         for n, p in builds.items():
@@ -282,8 +357,9 @@ def main():
             f.write(TIMER)
         for _ in range(2):
             for n, d in dirs.items():
+                deck = "linwave.in" if n.startswith("cart") else "disk_sph.in"
                 r = subprocess.run([sys.executable, timer, d, n, "1" if n in PROBES else "0",
-                                    os.path.join(ROOT, "inputs", "disk_sph.in")],
+                                    os.path.join(ROOT, "inputs", deck)],
                                    capture_output=True, text=True)
                 if r.returncode != 0:
                     raise SystemExit(f"variant {n} failed:\n{r.stderr[-3000:]}")
