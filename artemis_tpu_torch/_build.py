@@ -26,12 +26,13 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # per-source additions: each stage source holds separately compiled
 # kernels of one stage (the curvilinear stage's halo variants; both
-# stages' tiled and per-cell bodies), and with multiply-add contraction
-# each may fuse different products (the fusion depends on what else uses a
-# product), so their results could part in the last bit (the Cartesian
-# bodies did); without it they make the same IEEE operations and agree
-# bitwise
-SOURCE_FLAGS = {"stage_curv": ("-fmad=false",), "stage_cart": ("-fmad=false",)}
+# stages' tiled and per-cell bodies), and fld.cu the two bodies of
+# fld_coeffs; with multiply-add contraction each may fuse different
+# products (the fusion depends on what else uses a product), so their
+# results could part in the last bit (the Cartesian bodies did); without
+# it they make the same IEEE operations and agree bitwise
+SOURCE_FLAGS = {"stage_curv": ("-fmad=false",), "stage_cart": ("-fmad=false",),
+                "fld": ("-fmad=false",)}
 
 _loaded: dict = {}
 # name -> (seconds, nvcc output) of the builds made by this process

@@ -3,7 +3,8 @@
 // Riemann solvers and the two-register RK blend, ports of _plm, _hllc,
 // _hlle (artemis_tpu/ops/pallas_sweeps.py:26,34,100) and rk_blend
 // (artemis_tpu/ops/pallas_stage.py:47); and the cp.async copies with which
-// the tiled bodies of both stages stage their planes in shared memory.
+// the tiled bodies of both stages, and fld.cu's tiled fld_coeffs, stage
+// their planes in shared memory.
 //
 // Everything here also compiles as host C++ (the tests build the kernels'
 // device code with g++ behind a few macros), so it includes nothing of CUDA
@@ -186,7 +187,7 @@ __device__ __forceinline__ T rk_blend(double gam0, double gam1,
   return have ? acc + t : t;
 }
 
-// ---- staging copies of the tiled bodies (stage_cart.cu, stage_curv.cu)
+// ---- staging copies of the tiled bodies (stage_cart.cu, stage_curv.cu, fld.cu)
 
 // One element copied global -> shared: cp.async on the card (committed and
 // waited for by group), a plain copy in the host build of the tests.

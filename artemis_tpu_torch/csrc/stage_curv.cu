@@ -21,8 +21,9 @@
 //                        only its nodes' own compulsory bytes, without the
 //                        TPU path's stacked copies of w, u0 and u1)
 // All compute the body _curv_body (:631-1402), with _plm_g (:518) and the
-// shared _hllc/_hlle/rk_blend (stage_common.cuh); K3, K5a, K5b and K6
-// through the tiled body below, K4 through the per-cell body.  On the TPU the
+// shared _hllc/_hlle/rk_blend (stage_common.cuh); every full stage (K3, K4,
+// K5a, K5b and K6) through the tiled body below, K4's partial mode through
+// the per-cell body.  On the TPU the
 // frontends exist because of how Mosaic's DMAs fetch a halo; here a thread
 // reads its halo by index, so one kernel templated on the halo source
 // covers them (the x3 strips are a runtime switch of the gather variant,
@@ -56,17 +57,17 @@
 // viscosity model at two cells, plus some 60 divisions and square roots.
 //
 // Two bodies.  The tiled body (stage_tiled_kernel) runs every full launch
-// with a gather halo: K3 (x1/x2 strips, x3 wrapped) and K5a (six strips)
-// with the viscous stencil, K5b without it, and K6 as K5b's node axis.
+// on a ghost width of two: K3 (x1/x2 strips, x3 wrapped) and K5a (six
+// strips) with the viscous stencil, K5b without it, K6 as K5b's node
+// axis, and K4 (a padded array: disk_cyl, disk_axi) with or without it.
 // The per-cell body (stage_curv_kernel, one thread per cell in flat
-// 128-thread blocks) runs the padded halo (K4) and partial mode: each
-// thread recomputes every face it touches, so each face (hydro and
-// viscous) is solved twice, identically, by the two threads that share it,
-// the viscous stress re-derives each cell quantity for every face that
-// needs it, and every stencil read of a gather variant makes up to four
-// range tests to pick its strip (gather launches reach it only through the
-// wrapper's measurement switch); stencil and coefficient-row loads go
-// through L1/L2.
+// 128-thread blocks) runs partial mode: each thread recomputes every face
+// it touches, so each face (hydro and viscous) is solved twice,
+// identically, by the two threads that share it, the viscous stress
+// re-derives each cell quantity for every face that needs it, and every
+// stencil read of a gather variant makes up to four range tests to pick
+// its strip (full launches reach it only through the wrapper's measurement
+// switch); stencil and coefficient-row loads go through L1/L2.
 //
 // The tiled body: a block owns a TX x TY footprint of columns (32 x 8; 32
 // x 4 for f64 without diffusion) and marches up a chunk of TZ planes of one
@@ -76,7 +77,11 @@
 // x3 wrapped, a plane past either end is another plane of the interior),
 // by cp.async while the planes below are computed: a footprint row is one
 // contiguous run of its source, copied 16 bytes at a time past L1 where
-// aligned, the halo columns 4 or 8 bytes.  Without diffusion, in f32, the
+// aligned, the halo columns 4 or 8 bytes.  From a padded array (K4) a
+// footprint row with its x halo is one run, placed in shared memory at the
+// array's 16-byte phase and copied 16 bytes at a time too; the halo source
+// is a runtime switch of the staging alone (one instantiation per dtype
+// and body, as before).  Without diffusion, in f32, the
 // registers u0, u1 of the plane are staged the same way, so the update
 // waits on no device-memory load.  Each cell's face values are
 // reconstructed once per axis, each x and y face is solved once into shared
@@ -219,6 +224,7 @@ struct CurvParams {
   CurvReals r;
   const void* dt;           // one element, shared by the nodes
   int nnodes;
+  int halo;                 // the halo source (kPadded, kGather, kGather6)
   NodePtrs node[kMaxNodes];
 };
 
@@ -243,6 +249,7 @@ inline bool make_params(int halo, const int* ints, const double* reals,
   memcpy(&p->r, reals, sizeof(CurvReals));
   p->dt = ptrs[0];
   p->nnodes = nnodes;
+  p->halo = halo;
   for (int k = 0; k < nnodes; ++k) {
     memcpy(&p->node[k], ptrs + 1 + kNodePtrs * k, sizeof(NodePtrs));
     const NodePtrs& nd = p->node[k];
@@ -1030,7 +1037,7 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, 
 }
 
 // ---------------------------------------------------------------------------
-// the tiled body (every full gather launch: K3, K5a, K5b, and K6 as its node
+// the tiled body (every full launch: K3, K4, K5a, K5b, and K6 as its node
 // axis)
 // ---------------------------------------------------------------------------
 
@@ -1125,13 +1132,20 @@ __device__ __forceinline__ TilePos tile_pos(const CurvInts& n, int64_t blk) {
   return t;
 }
 
+// The ring's rows hold halo-relative columns 0 .. TX + 3 at shared-memory
+// columns a - 2 .. a + TX + 1 of an RX-wide row, footprint column 0 at a:
+// a = 4 for a gather halo, whose footprint rows start 16-byte aligned in
+// the interior, and a = 6 for a padded array, where a footprint row with
+// its x halo is one run starting g1 = 2 cells before the footprint, so
+// that halo column 0 lands on a 16-byte chunk (the padded-row placement of
+// stage_cart.cu's tile_col0).
 template <typename T, bool DIFF>
 struct TileMem {
   using L = TileLayout<T, DIFF>;
   T *ring, *xl, *xr, *yl, *yr, *xf, *yf, *ureg, *qs;
-  __device__ __forceinline__ explicit TileMem(T* s)
-      : ring(s), xl(s + kRing * L::PLANE), xr(xl + L::XV), yl(xr + L::XV), yr(yl + L::YV),
-        xf(yr + L::YV), yf(xf + L::XF), ureg(yf + L::YF), qs(ureg + L::UR) {}
+  __device__ __forceinline__ TileMem(T* s, bool padded)
+      : ring(s + (padded ? 2 : 0)), xl(s + kRing * L::PLANE), xr(xl + L::XV), yl(xr + L::XV),
+        yr(yl + L::YV), xf(yr + L::YV), yf(xf + L::XF), ureg(yf + L::YF), qs(ureg + L::UR) {}
   // primitive c in ring slot s at halo-relative row jj and column ii
   __device__ __forceinline__ T& w(int s, int c, int jj, int ii) const {
     return ring[((s * 6 + c) * L::RY + jj) * L::RX + ii + 2];
@@ -1167,6 +1181,38 @@ struct TileThread {
   T vbot[4];
 };
 
+// Stages plane kk of a padded array [6, nz + 2g3, ny + 2g2, nx + 2g1] (K4)
+// into ring slot s: every row jj of the footprint with its halo, columns
+// -2 .. TX + 1, is one run of the array, copied by 16-byte chunks of
+// shared memory (halo column 0 on a chunk, TileMem), 16 bytes at a time
+// where the run is aligned there too, element by element where it is not
+// or where the run crosses the ghost layer's end (columns from nx + 2, rows
+// from ny + 2 are not read).  The corners come with their rows.
+template <typename T, bool DIFF>
+__device__ __forceinline__ void tile_load_padded(const Ctx<T, true>& C, const TileMem<T, DIFF>& m,
+                                                 const TilePos& tp, int s, int kk, int tid) {
+  using L = TileLayout<T, DIFF>;
+  const CurvInts& n = C.n;
+  constexpr int NQ = (L::TX + 4) / L::VEC;
+  static_assert((L::TX + 4) % L::VEC == 0, "a padded row is whole 16-byte chunks");
+  const int64_t xp = n.nx + 2 * n.g1, yp = n.ny + 2 * n.g2, zp = n.nz + 2 * n.g3;
+  const T* w = Ctx<T, true>::at(C.nd.w) + (kk + n.g3) * yp * xp;
+  for (int e = tid; e < 6 * (L::TY + 4) * NQ; e += L::NT) {
+    const int c = e / ((L::TY + 4) * NQ), jj = (e / NQ) % (L::TY + 4), q = e % NQ;
+    const int j = tp.y0 + jj - 2, i = tp.x0 + q * L::VEC - 2;   // the chunk's first cell
+    if (j >= n.ny + 2 || i >= n.nx + 2) continue;
+    const T* g = w + (c * zp * yp + (j + n.g2)) * xp + (i + n.g1);
+    T* dst = &m.w(s, c, jj, q * L::VEC);
+    if (i + L::VEC <= n.nx + 2 && reinterpret_cast<uintptr_t>(g) % 16 == 0) {
+      copy_async16(dst, g);
+    } else {
+#pragma unroll
+      for (int v = 0; v < L::VEC; ++v)
+        if (i + v < n.nx + 2) copy_async(dst + v, g + v);
+    }
+  }
+}
+
 // Stages plane kk into ring slot s: the footprint's rows with the x halo,
 // and the y halo rows over the footprint's columns, each element read once
 // from the interior or from one strip; elements past the ghost layer are
@@ -1175,10 +1221,14 @@ struct TileThread {
 // Over the footprint's columns, where they all lie inside [0, nx), a row
 // is one contiguous run of its source (the interior, an x2 strip, an x3
 // strip or, x3 wrapped, another plane of the interior is chosen by j and k
-// alone), copied 16 bytes at a time where aligned.
+// alone), copied 16 bytes at a time where aligned.  A padded array (K4)
+// goes through tile_load_padded: the halo source is a runtime switch of
+// the staging alone, and everything after it reads shared memory.
 template <typename T, bool DIFF>
 __device__ __forceinline__ void tile_load(const Ctx<T, true>& C, const TileMem<T, DIFF>& m,
-                                          const TilePos& tp, int s, int kk, int tid) {
+                                          const TilePos& tp, int s, int kk, int tid,
+                                          bool padded) {
+  if (padded) return tile_load_padded(C, m, tp, s, kk, tid);
   using L = TileLayout<T, DIFF>;
   const CurvInts& n = C.n;
   constexpr int NV = L::TX / L::VEC;
@@ -1516,7 +1566,8 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
   using St = TileThread<T, DIFF>;
   const Ctx<T, true> C(p, nd);
   const CurvInts& n = p.n;
-  const TileMem<T, DIFF> m(smem);
+  const bool padded = p.halo == kPadded;
+  const TileMem<T, DIFF> m(smem, padded);
   const TilePos tp = tile_pos<T, DIFF>(n, blk);
   const bool az = n.nz > 1;
   auto slot = [&](int kk) { return (kk - tp.z0 + 2) & (kRing - 1); };
@@ -1528,7 +1579,7 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
   ex.each([&](int tid, St& st) {
     st.den = T(0);
     for (int kk = az ? tp.z0 - 2 : 0; kk < (az ? tp.z0 + 2 : 1); ++kk)
-      tile_load(C, m, tp, slot(kk), kk, tid);
+      tile_load(C, m, tp, slot(kk), kk, tid, padded);
     copy_commit();
     copy_wait<0>();
   });
@@ -1559,7 +1610,7 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
       }
     });
   ex.each([&](int tid, St&) {
-    if (az) tile_load(C, m, tp, slot(tp.z0 + 2), tp.z0 + 2, tid);
+    if (az) tile_load(C, m, tp, slot(tp.z0 + 2), tp.z0 + 2, tid, padded);
     copy_commit();
     tile_face_values(C, m, tp, slot(tp.z0), tid);
     if (DIFF)
@@ -1575,7 +1626,7 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
   // QCell rows) of plane k + 1.
   for (int k = tp.z0; k < tp.z1; ++k) {
     ex.each([&](int tid, St& st) {
-      if (az && k + 3 <= tp.z1 + 1) tile_load(C, m, tp, slot(k + 3), k + 3, tid);
+      if (az && k + 3 <= tp.z1 + 1) tile_load(C, m, tp, slot(k + 3), k + 3, tid, padded);
       if (L::UREG) tile_load_u(p, nd, m, tp, k, tid);
       copy_commit();
       tile_solve(C, m, tp, k, slot(k), slot(k + 1), slot(k + 2), tid, st);
@@ -1659,13 +1710,13 @@ struct CellDims {
   static constexpr int MINB = sizeof(T) == 4 ? 4 : 1;
 };
 
-// May a launch take the tiled body?  Full stages with a gather halo (six
-// strips, or the x1/x2 strips with x3 wrapped), with or without diffusion,
-// on a ghost width of two (none along x3 for a 2-D node).
-inline bool tiled_ok(const CurvParams& p, int halo, int full) {
+// May a launch take the tiled body?  Full stages of every halo source (six
+// strips, the x1/x2 strips with x3 wrapped, or a padded array), with or
+// without diffusion, on a ghost width of two (none along x3 for a 2-D
+// node).  Partial stages keep the per-cell body.
+inline bool tiled_ok(const CurvParams& p, int full) {
   const CurvInts& n = p.n;
-  return (halo == kGather || halo == kGather6) && full && n.g1 == 2 && n.g2 == 2 &&
-         n.g3 == (n.nz > 1 ? 2 : 0);
+  return full && n.g1 == 2 && n.g2 == 2 && n.g3 == (n.nz > 1 ? 2 : 0);
 }
 
 // Does a tiled launch take the diffusive body?
@@ -1790,7 +1841,7 @@ extern "C" int artemis_stage_curv(int dtype, int halo, int full, int tiled,
   CurvParams p;
   if (halo < kPadded || halo > kGather6 ||
       !make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p) ||
-      (tiled && !tiled_ok(p, halo, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
+      (tiled && !tiled_ok(p, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
     return int(cudaErrorInvalidValue);
   const int gather = halo != kPadded;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -8,7 +8,10 @@ applies it once per conjugate-gradient iteration.  Both dispatch on the
 tensor's device: a CPU tensor runs the plain version, a CUDA tensor
 launches ``csrc/fld.cu`` (which replaces the TPU kernels K7 ``fld_coeffs``
 and K8 ``fld_matvec``) or raises.  The JAX package keeps its kernels behind
-an opt-in switch; here the kernel is the card's path.
+an opt-in switch; here the kernel is the card's path.  Every
+``fld_coeffs`` launch, at any extent, takes the kernel's tiled body (each
+diffusivity made once per cell in shared memory); its per-cell body is
+reached only through the private switch ``_percell_body``.
 
 Neighbours wrap (``torch.roll``, the reference's ``jnp.roll``); physical
 edges are masked through the coefficients only, so the limiter's gradient
@@ -18,14 +21,32 @@ at an edge cell reads the opposite edge, as the reference's does.  Gate
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 # kernel launches since the last reset (the counts a run reads to show
-# that the main path went through the kernels)
+# that the main path went through the kernels), and of the fld_coeffs
+# launches those of the tiled body
 fld_coeffs_launches = 0
+fld_coeffs_tiled_launches = 0
 fld_matvec_launches = 0
+
+# Measurement only: while on, fld_coeffs launches take the per-cell body,
+# so that chip_smoke.py and the tests can time and compare the two bodies
+# on one state.  Nothing in Simulation, the deck or the CLI reaches it.
+_percell = False
+
+
+@contextlib.contextmanager
+def _percell_body():
+    global _percell
+    before, _percell = _percell, True
+    try:
+        yield
+    finally:
+        _percell = before
 
 
 def shift(a, d, sign):
@@ -111,10 +132,11 @@ def _lib():
     lib = _build.load("fld")
     if lib.artemis_fld_coeffs.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        # (dtype, ints, reals, 6 or 5 tensors, stream)
-        for fn, ntensor in ((lib.artemis_fld_coeffs, 6), (lib.artemis_fld_matvec, 5)):
-            fn.restype = i
-            fn.argtypes = [i, p, p] + [p] * ntensor + [p]
+        # coeffs: (dtype, tiled, ints, reals, 6 tensors, stream); matvec:
+        # (dtype, ints, reals, 5 tensors, stream)
+        lib.artemis_fld_coeffs.argtypes = [i, i, p, p] + [p] * 6 + [p]
+        lib.artemis_fld_matvec.argtypes = [i, p, p] + [p] * 5 + [p]
+        lib.artemis_fld_coeffs.restype = lib.artemis_fld_matvec.restype = i
     return lib
 
 
@@ -170,7 +192,7 @@ def fld_matvec(E, A, diag_geo, sf):
 
 
 def _launch_coeffs(E, chi, dt, dxs, c_code, ext, flags):
-    global fld_coeffs_launches
+    global fld_coeffs_launches, fld_coeffs_tiled_launches
     shape = tuple(E.shape)
     if len(shape) != 3 or dt.numel() != 1:
         raise ValueError("fld_coeffs takes [nz, ny, nx] fields and a one-element dt")
@@ -180,9 +202,12 @@ def _launch_coeffs(E, chi, dt, dxs, c_code, ext, flags):
     Dc = torch.empty_like(E)
     ints, reals = _args(shape, tuple(float(w) for w in dxs), float(c_code), float(ext),
                         flags, torch.finfo(E.dtype).tiny)
-    _run(_lib().artemis_fld_coeffs, E.dtype, E.device, ints, reals, E.data_ptr(),
-         chi.data_ptr(), dt.data_ptr(), A.data_ptr(), diag.data_ptr(), Dc.data_ptr())
+    tiled = not _percell
+    _run(_lib().artemis_fld_coeffs, E.dtype, E.device, int(tiled), ints, reals,
+         E.data_ptr(), chi.data_ptr(), dt.data_ptr(), A.data_ptr(), diag.data_ptr(),
+         Dc.data_ptr())
     fld_coeffs_launches += 1
+    fld_coeffs_tiled_launches += int(tiled)
     return A, diag, Dc
 
 

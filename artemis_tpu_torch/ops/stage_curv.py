@@ -24,12 +24,11 @@ and six face strips; every other layout is read from primitives padded by
 one grid shape (a refined tree's nodes, each with its own coefficient rows
 and six strips), the node index on the launch grid's y axis: the TPU's
 node-batched K6 ``stage_curv_gather6_batched``.  The kernel has two bodies:
-every full launch with a gather halo (K3, K5a, K5b, K6) takes the tiled
-one, which stages each plane of its footprint with the halo in shared
-memory and solves each face, hydro and diffusive, once; the padded halo
-(K4) and partial stages take the per-cell one (``CurvStage.tiled``).  Each
-body writes one dtden entry per block of its own
-(``CurvStage.dtden_blocks``).
+every full launch (K3, K4, K5a, K5b, K6: a gather or a padded halo) takes
+the tiled one, which stages each plane of its footprint with the halo in
+shared memory and solves each face, hydro and diffusive, once; partial
+stages take the per-cell one (``CurvStage.tiled``).  Each body writes one
+dtden entry per block of its own (``CurvStage.dtden_blocks``).
 
 The coefficient packing (``_axis_pack`` ... ``CurvCoeffs.pack``,
 ``_dp_tuple``) is numpy only, copied from the JAX module; the rows are
@@ -696,10 +695,13 @@ class CurvStage:
 
     def tiled(self, halo) -> bool:
         """Does a launch with halo source ``halo`` take the tiled body?
-        Full stages with a gather halo do, with or without diffusion (K3,
-        K5a, K5b, K6), unless ``_percell_body`` is on; the padded halo and
+        Full stages of every halo source do (K3, K5a, K5b, K6 gathered, K4
+        padded), with or without diffusion, on the kernel's ghost width of
+        two (none along x3 for a 2-D grid), unless ``_percell_body`` is on;
         partial stages take the per-cell body."""
-        return halo in ("gather", "gather6") and self.full and not _percell
+        nz = self.grid.nx[2]
+        return (halo in HALO_CODES and self.full and not _percell
+                and tuple(self.grid.ng) == (2, 2, 2 if nz > 1 else 0))
 
 
 def stage_curv_reference(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
@@ -779,7 +781,7 @@ def _lib(dtype):
     return fn
 
 
-# Measurement only: while on, gather launches take the per-cell body, so
+# Measurement only: while on, full launches take the per-cell body, so
 # that chip_smoke.py and the tests can time and compare the two designs on
 # one state.  Nothing in Simulation, the deck or the CLI reaches it.
 _percell = False

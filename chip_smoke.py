@@ -52,18 +52,29 @@ line is printed:
    before and read after (every launch on the tiled body), zone-cycles/s
    through the kernel (50 cycles after 2 warm-up), through the plain path
    and in float64, the kernel's time per launch on the tiled and on the
-   per-cell body (bitwise equal at full size, and to the padded halo) with
-   ptxas's registers and spills of both, the plain stage's time per
-   launch, the cycle's split between the kernel
+   per-cell body (bitwise equal at full size, and to the padded halo on
+   both bodies) with ptxas's registers and spills of both, the plain
+   stage's time per launch, K4 (the padded halo) on the same state on the
+   tiled and on the per-cell body, alone and with the ic fill, against its
+   bound, the cycle's split between the kernel
    and the host loop (and the device time by kernel under torch.profiler),
    the density-weighted L2 deviation from the initial condition (<= 6e-3,
    bench.py:100), and the kernel and plain end states compared after the
    same cycles;
 8. disk_cyl and disk_axi at deck size in float64 for 5 cycles through the
-   padded kernel: L2 <= 6e-3 and two launches per cycle;
+   padded kernel (K4): L2 <= 6e-3 and two launches per cycle, every one on
+   the tiled body; then the timed K4 cell, disk_cyl at 256x128x64 float32
+   (the deck doubled on each axis; rk2 + plm + hllc, alpha viscosity,
+   point gravity, rotating frame) through ``Simulation.run`` with the
+   launch counts reset before and read after: zone-cycles/s, the cycle,
+   the device's idle share, K4 per launch on the tiled and on the per-cell
+   body (bitwise equal) alone and with its fill against the plain stage
+   and the bound, and L2 vs IC <= 6e-3;
 9. the FLD kernels (``csrc/fld.cu``: fld_coeffs, fld_matvec) against their
    plain versions on random states: float64 <= 1e-12 and float32 <= 1e-5
-   relative, Dirichlet flags off, on and mixed, an odd nz included;
+   relative, Dirichlet flags off, on and mixed, an odd nz, the smallest
+   extents and a shape ragged across the tiled footprint and z chunks
+   included, fld_coeffs' tiled body bitwise equal to its per-cell body;
 10. the six-face strip halo of ``stage_curv.cu`` on the tiled body against
    the plain version and bitwise equal to the padded halo and to the
    per-cell body (the wrapper's private switch) on small all-ic disks: the
@@ -80,10 +91,13 @@ line is printed:
    the kernel path (20 cycles after 2 warm-up) and of the plain path, the
    density L2 deviation from the initial condition (<= 3e-4, bench.py:185),
    each kernel's time per launch against its plain version and bound (K5b
-   on the tiled body and on the per-cell body, with ptxas's registers and
-   spills of both), the tiled body bitwise equal to the per-cell body and
-   to the padded halo at full size, and the cycle's split between the
-   device's busy time and its idle share;
+   and K7 on the tiled body and on the per-cell body, with ptxas's
+   registers and spills of both; K8 against one cuSPARSE SpMV of its
+   operator as a CSR matrix, the library yardstick, built outside the
+   timing and checked against K8), the tiled bodies bitwise equal to the
+   per-cell bodies (K5b also to the padded halo) at full size, every
+   fld_coeffs launch of the main path on the tiled body, and the cycle's
+   split between the device's busy time and its idle share;
 12. the node axis of ``stage_curv.cu`` (K6): N = 1, 2, 3 Cartesian nodes
    with their own coefficient rows and random six-face strips in one
    launch, bitwise equal to N one-node six-face launches, to the same
@@ -100,7 +114,8 @@ line is printed:
    deviation from the initial condition (<= 3e-4), K6's time per launch
    on the tiled and on the per-cell body, against two one-node six-face
    launches (K5b) and two padded launches (K4) with and without their
-   ghost fill, all bitwise equal, the tree
+   ghost fill, all bitwise equal, fld_coeffs (K7) on each node on the
+   tiled and the per-cell body against its bound, the tree
    stage's glue and the radiation pass per node, CG iterations per node,
    host read-backs per cycle and the device's idle share;
 14. bench.py's production AMR shape (512x512x64 root over [-4, 4]^2 and a
@@ -285,6 +300,8 @@ KERNEL_ENTRIES = (("tiled", "stage_tiled_kernelIfLb0EE"),
                   ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
 DIFF_KERNEL_ENTRIES = (("tiled diffusive", "stage_tiled_kernelIfLb1EE"),
                        ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
+# the per-cell body's padded full-stage kernel (K4 through the private switch)
+PADDED_PERCELL_ENTRY = (("per-cell padded", "stage_curv_kernelIfLb0ELb1EE"),)
 
 
 # the Cartesian stage's two bodies in stage_cart.cu: a mangled-name piece of
@@ -297,8 +314,8 @@ CART_ENTRIES = {periodic: (("tiled", f"stage_cart_tiled_kernelIfLi1ELb{periodic}
 def ptxas_usage(torch, dtype, entry, source="stage_curv"):
     """(registers, spill store bytes, spill load bytes) that ptxas printed
     for the kernel of ``source`` (stage_curv: its build for ``dtype``;
-    stage_cart: its one build) whose mangled name holds ``entry``, from
-    this process's build; None when it did not build."""
+    any other source: its one build) whose mangled name holds ``entry``,
+    from this process's build; None when it did not build."""
     import re
 
     from artemis_tpu_torch import _build
@@ -868,6 +885,42 @@ def phase_curv_compare(torch):
 DISK_BENCH = (256, 64, 64)
 
 
+def padded_timings(torch, cs, w, u, u1, dt, tnow):
+    """K4 on this state: a full padded launch per RK stage alone
+    (``padded_ms``, 20 timed) and with the stage's ghost fill
+    (``padded_stage_ms``, the main path's call for a padded halo) on the
+    tiled body, the same on the per-cell body (10 each), the fill's share
+    of the tiled padded stage, and the bound of one padded launch averaged
+    over the two RK stages (the padded prims, rows and registers read
+    once, u, w and dtden written once; the plain version's flops)."""
+    from artemis_tpu_torch import bc as bc_mod
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    check(cs.tiled("padded"), "the full padded launch does not take the tiled body")
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    calls = itertools.cycle(RK2)
+
+    def kern():
+        return SC._launch(cs, w_pad, w, u, u1, *next(calls), dt, tnow, False, "padded")
+
+    def stage():
+        return SC.stage_curv(cs, w, u, u1, *next(calls), dt, tnow, False, padded=True)
+
+    out = {"padded_ms": time_launches(torch, kern, 20),
+           "padded_stage_ms": time_launches(torch, stage, 20)}
+    with SC._percell_body():
+        out["padded_percell_ms"] = time_launches(torch, kern, 10)
+        out["padded_percell_stage_ms"] = time_launches(torch, stage, 10)
+    out["padded_fill_share"] = 1.0 - out["padded_ms"] / out["padded_stage_ms"]
+    nblk = cs.dtden_blocks(True)
+    nbytes = (2 * tensor_bytes(w_pad, *cs.rows) + tensor_bytes(u1, u, u1)
+              + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+    flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
+        cs, w, u, u1, *g, dt, tnow, False, w_pad=w_pad)) for g in RK2) / 2
+    out["padded_bound_ms"], out["padded_bound_by"] = bound(nbytes, flops)
+    return out
+
+
 def l2_vs_ic(torch, sim):
     import numpy as np
 
@@ -912,9 +965,10 @@ def profile_cycles(torch, sim, ncycles):
 
 def tiled_vs_percell(torch, cs, kern, w, u, u1, dt, tnow):
     """A full gather stage's launch on the tiled body (``kern``, 20 timed)
-    and on the per-cell body (10), the two and the padded halo checked
-    bitwise equal on this state, and ptxas's registers and spills of the
-    diffusive tiled kernel and the per-cell one: ms, percell_ms, regs."""
+    and on the per-cell body (10), the two and the padded halo (K4, on the
+    tiled and on the per-cell body) checked bitwise equal on this state,
+    and ptxas's registers and spills of the diffusive tiled kernel and the
+    per-cell one: ms, percell_ms, regs."""
     from artemis_tpu_torch.ops import stage_curv as SC
 
     check(cs.tiled(cs.halo), f"the {cs.halo} launch does not take the tiled body")
@@ -925,9 +979,14 @@ def tiled_vs_percell(torch, cs, kern, w, u, u1, dt, tnow):
     with SC._percell_body():
         oc = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
     op = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
+    with SC._percell_body():
+        opc = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
     torch.cuda.synchronize()
     check(same_stage(torch, og, oc), f"{cs.halo} at full size: tiled and per-cell bodies differ")
     check(same_stage(torch, og, op), f"{cs.halo} at full size: gather and padded halo differ")
+    check(same_stage(torch, op, opc),
+          f"{cs.halo} state at full size: the padded halo on the tiled and the per-cell body "
+          "differ")
     out["regs"] = {body: ptxas_usage(torch, u.dtype, entry) for body, entry in DIFF_KERNEL_ENTRIES}
     return out
 
@@ -998,28 +1057,23 @@ def phase_disk(torch, smi):
         print(f"disk_sph f32 stage bound: {nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP "
               f"per launch (plain version's count) -> {res['bound_ms']:.4f} ms, "
               f"{res['bound_by']}-bound")
-        # the padded-halo variant (the K4 path) on the same state: the
-        # kernel alone on the padded prims, and with the disk's ghost fill
-        from artemis_tpu_torch import bc as bc_mod
-
-        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
-        res["padded_ms"] = time_launches(torch, lambda: SC._launch(
-            cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, "padded"), 20)
-        res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
-            cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False, padded=True), 20)
-        res["padded_bound_ms"], res["padded_bound_by"] = bound(
-            tensor_bytes(w_pad, u, u1, u, w, *cs.rows) + cs.dtden_blocks() * u.element_size(),
-            count_flops(torch, lambda: SC.stage_curv_reference(
-                cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False)))
-        print(f"disk_sph f32 padded halo per stage: kernel {res['padded_ms']:.4f} ms, with the "
-              f"ic ghost fill {res['padded_stage_ms']:.4f} ms; bound "
-              f"{res['padded_bound_ms']:.4f} ms, {res['padded_bound_by']}-bound [{smi}]")
+        # the padded-halo variant (K4) on the same state: the kernel alone
+        # on the padded prims, and with the disk's ghost fill, on the tiled
+        # body (every full padded launch's) and on the per-cell body
+        res.update(padded_timings(torch, cs, w, u, u1, dt, time_now))
+        print(f"disk_sph f32 padded halo (K4) per stage: kernel on the tiled body "
+              f"{res['padded_ms']:.4f} ms, with the ic ghost fill {res['padded_stage_ms']:.4f} "
+              f"ms (the fill {100 * res['padded_fill_share']:.1f}% of it); on the per-cell body "
+              f"{res['padded_percell_ms']:.4f} ms, {res['padded_percell_stage_ms']:.4f} ms with "
+              f"the fill; bound {res['padded_bound_ms']:.4f} ms, {res['padded_bound_by']}-bound; "
+              f"the padded launch runs the tiled diffusive instantiation above (the halo source "
+              f"is a runtime switch) [{smi}]")
         uk, wk, _ = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False)
         ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, 0.5, 0.5, 0.5, dt, time_now, False)
         res["stage_err"] = max(float((uk - ur).abs().max()), float((wk - wr).abs().max()))
         check(res["stage_err"] <= DISK_F32_TOL,
               f"disk_sph stage kernel vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
-        del sim, cs, u, w, u1, w_pad, uk, wk, ur, wr
+        del sim, cs, u, w, u1, uk, wk, ur, wr
         torch.cuda.empty_cache()
 
         # the plain path through the same entry point, and the kernel path
@@ -1064,36 +1118,130 @@ def phase_disk(torch, smi):
 
 
 # -- phase 8 -------------------------------------------------------------
-def phase_disk_decks(torch):
+# the timed K4 cell: disk_cyl.in's 128x64x32 doubled on each axis, its
+# domain and cell aspect kept (as disk_sph's 256x64x64 is bench.py's)
+DISK_CYL_CELL = (256, 128, 64)
+DISK_CYL_CYCLES = 20
+DISK_CYL_PRECISION = "float32"
+
+
+def phase_disk_decks(torch, smi):
     """disk_cyl (x1/x3 ic, x2 periodic) and disk_axi (2-D) at deck size,
-    float64, 5 cycles, through the padded kernel."""
+    float64, 5 cycles, through the padded kernel, every launch on the tiled
+    body; then the timed disk_cyl cell."""
     from artemis_tpu_torch import Simulation
     from artemis_tpu_torch.ops import stage_curv as SC
 
-    out = {}
+    out = {"deck_l2": {}}
     with tempfile.TemporaryDirectory() as data:
         for name in ("disk_cyl", "disk_axi"):
             sim = Simulation(DISK[name], ["parthenon/time/nlim=5"], data, device=DEVICE)
             check(sim.driver.stage_kernel == "stage_curv (padded)",
                   f"{name} took {sim.driver.stage_kernel}, not the padded kernel")
-            SC.stage_curv_launches = 0
+            SC.stage_curv_launches = SC.tiled_launches = 0
             sim.run()
             torch.cuda.synchronize()
             l2 = l2_vs_ic(torch, sim)
-            check(SC.stage_curv_launches == 2 * sim.tm.ncycle == 10 and l2 <= 6e-3
+            check(SC.stage_curv_launches == 2 * sim.tm.ncycle == 10
+                  and SC.tiled_launches == 10 and l2 <= 6e-3
                   and bool(torch.isfinite(sim.state["gas"]["u"]).all()),
-                  f"{name}: {SC.stage_curv_launches} launches for {sim.tm.ncycle} cycles, "
-                  f"L2 vs IC {l2:.3e} (gate 6e-3)")
+                  f"{name}: {SC.stage_curv_launches} launches ({SC.tiled_launches} on the tiled "
+                  f"body) for {sim.tm.ncycle} cycles, L2 vs IC {l2:.3e} (gate 6e-3)")
             print(f"{name} f64 {sim.grid.nx}: {sim.tm.ncycle} cycles, "
-                  f"{SC.stage_curv_launches} launches, L2 vs IC {l2:.3e}")
-            out[name] = l2
+                  f"{SC.stage_curv_launches} launches, every one on the tiled body, L2 vs IC "
+                  f"{l2:.3e}")
+            out["deck_l2"][name] = l2
+            del sim
+        out.update(disk_cyl_cell(torch, smi, data))
     return out
+
+
+def disk_cyl_cell(torch, smi, data):
+    """The timed K4 cell: disk_cyl at DISK_CYL_CELL (rk2 + PLM + HLLC, the
+    deck's alpha viscosity, point gravity and rotating frame; x1/x3 ic, x2
+    periodic through the padded ghosts) through Simulation.run with the
+    launch counts reset before and read after, zone-cycles/s over
+    DISK_CYL_CYCLES cycles after 2 warm-up, the cycle's device busy time
+    and idle share, K4's time per launch on the tiled and on the per-cell
+    body (bitwise equal at full size) alone and with the fill, the plain
+    stage's, the bound, and L2 vs IC <= 6e-3."""
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    nx, ny, nz = DISK_CYL_CELL
+    res = {}
+    sim = Simulation(DISK["disk_cyl"], [f"parthenon/mesh/nx1={nx}", f"parthenon/mesh/nx2={ny}",
+                                        f"parthenon/mesh/nx3={nz}",
+                                        f"artemis/precision={DISK_CYL_PRECISION}"],
+                     data, device=DEVICE)
+    check(sim.driver.stage_kernel == "stage_curv (padded)",
+          f"the disk_cyl cell took {sim.driver.stage_kernel}, not the padded kernel")
+    SC.stage_curv_launches = SC.tiled_launches = 0
+    warm_up(sim, 2)
+    res["zcps"] = run_cycles(torch, sim, DISK_CYL_CYCLES)
+    launches = SC.stage_curv_launches
+    check(launches == 2 * sim.tm.ncycle and SC.tiled_launches == launches,
+          f"disk_cyl cell: {launches} launches ({SC.tiled_launches} on the tiled body) for "
+          f"{sim.tm.ncycle} rk2 cycles")
+    res["launches"] = launches
+    res["l2"] = l2_vs_ic(torch, sim)
+    u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
+    check(bool(torch.isfinite(u).all()) and bool(torch.isfinite(w).all()) and res["l2"] <= 6e-3,
+          f"disk_cyl {DISK_CYL_CELL} {DISK_CYL_PRECISION} after {sim.tm.ncycle} cycles: L2 vs "
+          f"IC {res['l2']:.3e} > 6e-3 or not finite")
+    res["cycle_ms"] = 1e3 * nx * ny * nz / res["zcps"]
+    print(f"disk_cyl cell {DISK_CYL_CELL} {DISK_CYL_PRECISION}: {DISK_CYL_CYCLES} cycles, "
+          f"{res['zcps']:.6e} zone-cycles/s, cycle {res['cycle_ms']:.4f} ms, {launches} launches "
+          f"for {sim.tm.ncycle} cycles, every one on the tiled body, dt {sim.tm.dt:.6e}, L2 vs "
+          f"IC {res['l2']:.3e} (gate 6e-3) [{smi}]")
+    cs = sim.driver._curv
+    u1 = u.clone()
+    dt = torch.full((), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+    tnow = sim.tm.time
+    res.update(padded_timings(torch, cs, w, u, u1, dt, tnow))
+    calls = itertools.cycle(RK2)
+    res["plain_ms"] = time_launches(torch, lambda: SC.stage_curv_reference(
+        cs, w, u, u1, *next(calls), dt, tnow, False), 2)
+    ot = SC.stage_curv(cs, w, u, u1, *RK2[1], dt, tnow, False)
+    with SC._percell_body():
+        oc = SC.stage_curv(cs, w, u, u1, *RK2[1], dt, tnow, False)
+    ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, *RK2[1], dt, tnow, False)
+    torch.cuda.synchronize()
+    check(same_stage(torch, ot, oc), "disk_cyl cell: K4 on the tiled and the per-cell body differ")
+    res["stage_err"] = max(float((ot[0] - ur).abs().max()), float((ot[1] - wr).abs().max()))
+    tol = DISK_F32_TOL if u.dtype == torch.float32 else F64_TOL
+    check(res["stage_err"] <= tol, f"disk_cyl K4 vs plain: {res['stage_err']:.3e} > {tol:g}")
+    mangled = "Id" if u.dtype == torch.float64 else "If"
+    res["regs"] = {body: ptxas_usage(torch, u.dtype, entry.replace("If", mangled))
+                   for body, entry in DIFF_KERNEL_ENTRIES[:1] + PADDED_PERCELL_ENTRY}
+    print(f"disk_cyl cell K4 per stage: kernel on the tiled body {res['padded_ms']:.4f} ms "
+          f"({res['padded_stage_ms']:.4f} ms with the ic and periodic ghost fill, the fill "
+          f"{100 * res['padded_fill_share']:.1f}%), on the per-cell body "
+          f"{res['padded_percell_ms']:.4f} ms ({res['padded_percell_stage_ms']:.4f} ms with the "
+          f"fill; {res['padded_percell_ms'] / res['padded_ms']:.2f}x), plain "
+          f"{res['plain_ms']:.4f} ms; bound {res['padded_bound_ms']:.4f} ms, "
+          f"{res['padded_bound_by']}-bound; tiled == per-cell bitwise, vs plain "
+          f"{res['stage_err']:.3e}; {regs_text(res['regs'])} [{smi}]")
+    print("  " + smi_clocks())
+    res["profile"] = profile_cycles(torch, sim, 3)
+    res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / res["cycle_ms"]
+                         if res["profile"] else None)
+    print(f"disk_cyl cell cycle (unprofiled): {res['cycle_ms']:.4f} ms, of which 2 stages "
+          f"with their fill {2 * res['padded_stage_ms']:.4f} ms; device idle "
+          + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
+             else "not measured"))
+    del sim, cs, u, w, u1, ot, oc, ur, wr
+    torch.cuda.empty_cache()
+    return res
 
 
 # -- phase 9 -------------------------------------------------------------
 FLD_FLAGS = {"zero-flux": ((False, False),) * 3, "dirichlet": ((True, True),) * 3,
              "mixed": ((True, False), (False, True), (True, True))}
-FLD_SHAPES = ((32, 16, 32), (5, 7, 9), (63, 48, 40))   # (nz, ny, nx), odd nz included
+# (nz, ny, nx): odd nz included, the smallest extents where a cell's two
+# neighbours coincide, and one ragged across fld_coeffs' tiled footprint
+# (32 x 8) and its z chunks (16 planes)
+FLD_SHAPES = ((32, 16, 32), (5, 7, 9), (63, 48, 40), (2, 2, 3), (17, 9, 33))
 
 
 def errs(pairs):
@@ -1105,13 +1253,22 @@ def errs(pairs):
 
 
 def fld_pairs(torch, E, chi, dt, dxs, c_code, ext, flags, sf):
-    """Both FLD kernels and their plain versions on the same inputs."""
+    """Both FLD kernels and their plain versions on the same inputs;
+    fld_coeffs on its tiled body, checked bitwise equal to its per-cell
+    body."""
     from artemis_tpu_torch.ops import fld as FLD
 
     args = (E, chi, dt, dxs, c_code, ext, flags)
+    n0 = FLD.fld_coeffs_tiled_launches
     kc = FLD.fld_coeffs(*args)
+    with FLD._percell_body():
+        kp = FLD.fld_coeffs(*args)
     km = FLD.fld_matvec(E, kc[0], kc[1], sf)
     torch.cuda.synchronize()
+    check(FLD.fld_coeffs_tiled_launches == n0 + 1
+          and all(torch.equal(a, b) for a, b in zip(kc, kp)),
+          f"fld_coeffs {tuple(E.shape)} {E.dtype} {flags}: the tiled and the per-cell body "
+          "differ")
     pc = FLD.fld_coeffs_reference(*args)
     pm = FLD.fld_matvec_reference(E, pc[0], pc[1], sf)
     return list(zip(kc, pc)) + [(km, pm)]
@@ -1139,7 +1296,8 @@ def phase_fld_compare(torch):
                 w = worst.setdefault(name, [0.0, 0.0])
                 w[0], w[1] = max(w[0], ab), max(w[1], rl)
                 ncase += 1
-    print(f"fld compare: {ncase} cases (coeffs + matvec) pass; max abs / relative err "
+    print(f"fld compare: {ncase} cases (coeffs + matvec; coeffs' tiled body == its per-cell "
+          f"body bitwise in each) pass; max abs / relative err "
           f"f64 {worst['float64'][0]:.3e} / {worst['float64'][1]:.3e} "
           f"(tol {FLD_TOL['float64']:g} rel), f32 {worst['float32'][0]:.3e} / "
           f"{worst['float32'][1]:.3e} (tol {FLD_TOL['float32']:g} rel)")
@@ -1214,6 +1372,74 @@ def phase_gather6_compare(torch):
 # -- phase 11 ------------------------------------------------------------
 RHD_CELL = (512, 512, 64)
 RHD_CYCLES = 20
+# fld.cu's two bodies of fld_coeffs in its build: a mangled-name piece of each f32 kernel
+FLD_ENTRIES = (("tiled", "coeffs_tiled_kernelIfEE"), ("per-cell", "fld_kernelIfLb1EE"))
+
+
+def coeffs_timings(torch, args):
+    """fld_coeffs (K7) on these inputs: on the tiled body (20 timed) and
+    on the per-cell body (10), the two checked bitwise equal, the bound
+    (E and chi read once, A, diag and Dcell written once; the plain
+    version's flops) and ptxas's registers and spills of both bodies."""
+    from artemis_tpu_torch.ops import fld as FLD
+
+    out = {"coeffs_ms": time_launches(torch, lambda: FLD.fld_coeffs(*args), 20)}
+    with FLD._percell_body():
+        out["coeffs_percell_ms"] = time_launches(torch, lambda: FLD.fld_coeffs(*args), 10)
+        kp = FLD.fld_coeffs(*args)
+    kt = FLD.fld_coeffs(*args)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(kt, kp)),
+          f"fld_coeffs {tuple(args[0].shape)}: the tiled and the per-cell body differ")
+    out["coeffs_bound_ms"], out["coeffs_bound_by"] = bound(
+        tensor_bytes(args[0], args[1], *kt),
+        count_flops(torch, lambda: FLD.fld_coeffs_reference(*args)))
+    out["coeffs_regs"] = {body: ptxas_usage(torch, None, entry, source="fld")
+                          for body, entry in FLD_ENTRIES}
+    return out
+
+
+def matvec_csr(torch, A, diag, sf):
+    """K8's operator as one CSR matrix: per row the cell's diag + sf and,
+    at the wrapped neighbours' columns, -AL_d below and -AH_d above along
+    x, y, z; columns sorted, int32 indices."""
+    nz, ny, nx = diag.shape
+    n = diag.numel()
+    idx = torch.arange(n, dtype=torch.int32, device=diag.device).reshape(nz, ny, nx)
+    cols, vals = [idx], [diag + sf]
+    for d in (1, 2, 3):
+        dim = 3 - d
+        cols += [torch.roll(idx, 1, dims=dim), torch.roll(idx, -1, dims=dim)]
+        vals += [-A[2 * d - 2], -A[2 * d - 1]]
+    cols, order = torch.sort(torch.stack(cols, -1).reshape(n, 7), dim=1)
+    vals = torch.gather(torch.stack(vals, -1).reshape(n, 7), 1, order)
+    crow = torch.arange(0, 7 * n + 1, 7, dtype=torch.int32, device=diag.device)
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1).contiguous(),
+                                   vals.reshape(-1).contiguous(), size=(n, n),
+                                   check_invariants=False)
+
+
+def matvec_library(torch, E, A, diag, sf):
+    """K8's library yardstick, used nowhere in the port: its operator as a
+    CSR matrix built outside the timing, ``torch.mv`` of it with E (one
+    cuSPARSE SpMV) timed (20) and checked against K8 within FLD_TOL."""
+    from artemis_tpu_torch.ops import fld as FLD
+
+    csr = matvec_csr(torch, A, diag, sf)
+    v = E.reshape(-1)
+    out = {"matvec_library_ms": time_launches(torch, lambda: torch.mv(csr, v), 20),
+           "library_nnz": int(csr.values().numel())}
+    y = torch.mv(csr, v).reshape(E.shape)
+    k = FLD.fld_matvec(E, A, diag, sf)
+    torch.cuda.synchronize()
+    out["library_rel_err"] = float((y - k).abs().max() / k.abs().max())
+    name = str(E.dtype).removeprefix("torch.")
+    check(out["library_rel_err"] <= FLD_TOL[name],
+          f"the CSR SpMV vs fld_matvec: relative {out['library_rel_err']:.3e} > "
+          f"{FLD_TOL[name]:g}")
+    del csr, v, y, k
+    torch.cuda.empty_cache()
+    return out
 
 
 def rhd_sim(data, fused=True):
@@ -1230,13 +1456,13 @@ def rhd_sim(data, fused=True):
     return Simulation(DISK["disk_rhd_amr"], args, data, device=DEVICE, fused_stage=fused)
 
 
-def rhd_fld_inputs(torch, sim):
-    """The FLD operator's inputs as the radiation step makes them from the
-    cell's state: E, chi, dt (one element) and the first outer's sf."""
-    rad = sim.driver.radiation
+def fld_inputs(torch, rad, state, dt_value):
+    """The FLD operator's inputs as the radiation step ``rad`` makes them
+    from a node's state: E, chi, dt (one element) and the first outer's
+    sf."""
     cfg, gas = rad.cfg, rad.gas
-    u, Er = sim.state["gas"]["u"], sim.state["rad"]["Er"]
-    dt = torch.full((1,), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+    u, Er = state["gas"]["u"], state["rad"]["Er"]
+    dt = torch.full((1,), dt_value, dtype=u.dtype, device=DEVICE)
     rho = torch.clamp_min(u[:1, 0], gas.dfloor)
     T0 = u[:1, 5] / (rho * gas.cv)
     rcv = rho * gas.cv
@@ -1278,6 +1504,7 @@ def phase_rhd(torch, smi):
         # the main path: 2 warm-up + RHD_CYCLES timed cycles, counting launches
         reads0 = rad.host_reads
         SC.stage_curv_launches = FLD.fld_coeffs_launches = FLD.fld_matvec_launches = 0
+        FLD.fld_coeffs_tiled_launches = 0
         sim.tm.nlim = 2
         sim.run(extra_observers=[record])
         check(sim.status == "complete" and sim.tm.ncycle == 2, "RHD warm-up did not complete")
@@ -1285,9 +1512,11 @@ def phase_rhd(torch, smi):
         launches = (SC.stage_curv_launches, FLD.fld_coeffs_launches, FLD.fld_matvec_launches)
         ncyc = sim.tm.ncycle
         matvecs = sum(1 + it for its in iters for it in its)
-        check(len(iters) == ncyc and launches == (2 * ncyc, ncyc, matvecs),
+        check(len(iters) == ncyc and launches == (2 * ncyc, ncyc, matvecs)
+              and FLD.fld_coeffs_tiled_launches == ncyc,
               f"RHD cell: launches (stage_curv, fld_coeffs, fld_matvec) {launches} for "
-              f"{ncyc} cycles, {matvecs} matvecs expected from the CG counts")
+              f"{ncyc} cycles ({FLD.fld_coeffs_tiled_launches} fld_coeffs on the tiled body), "
+              f"{matvecs} matvecs expected from the CG counts")
         res["launches"] = launches
         res["cg_iters"] = iters
         outers = [len(its) for its in iters]
@@ -1301,7 +1530,8 @@ def phase_rhd(torch, smi):
         print(f"RHD f32 kernel path: {RHD_CYCLES} cycles, {res['kernel_zcps']:.6e} "
               f"zone-cycles/s, dt {sim.tm.dt:.6e}, L2 vs IC {res['l2']:.3e} (gate 3e-4) [{smi}]")
         print(f"RHD launches in {ncyc} cycles: stage_curv {launches[0]}, fld_coeffs "
-              f"{launches[1]}, fld_matvec {launches[2]}; Newton outers per cycle "
+              f"{launches[1]} (every one on the tiled body), fld_matvec {launches[2]}; Newton "
+              f"outers per cycle "
               f"{sum(outers) / ncyc:.2f}, CG iterations per outer {res['cg_per_outer']:.2f} "
               f"(per cycle: {iters}); host read-backs per cycle {res['reads_per_cycle']:.2f}")
 
@@ -1362,14 +1592,15 @@ def phase_rhd(torch, smi):
               f"[{smi}]")
         del og, oc, op, ug, wg, ur, wr, w_pad
 
-        args, sf = rhd_fld_inputs(torch, sim)
+        args, sf = fld_inputs(torch, rad, sim.state, sim.tm.dt)
         E = args[0]
-        res["coeffs_ms"] = time_launches(torch, lambda: FLD.fld_coeffs(*args), 20)
+        res.update(coeffs_timings(torch, args))
         res["coeffs_plain_ms"] = time_launches(torch, lambda: FLD.fld_coeffs_reference(*args), 4)
         A, dg3, Dc = FLD.fld_coeffs_reference(*args)
         res["matvec_ms"] = time_launches(torch, lambda: FLD.fld_matvec(E, A, dg3, sf), 20)
         res["matvec_plain_ms"] = time_launches(
             torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf), 4)
+        res.update(matvec_library(torch, E, A, dg3, sf))
         pairs = fld_pairs(torch, *args, sf)
         res["coeffs_err"] = errs(pairs[:3])
         res["matvec_err"] = errs(pairs[3:])
@@ -1377,20 +1608,22 @@ def phase_rhd(torch, smi):
               and res["matvec_err"][1] <= FLD_TOL["float32"],
               f"RHD FLD kernels vs plain: relative {res['coeffs_err'][1]:.3e}, "
               f"{res['matvec_err'][1]:.3e} > {FLD_TOL['float32']:g}")
-        res["coeffs_bound_ms"], res["coeffs_bound_by"] = bound(
-            tensor_bytes(E, args[1], A, dg3, Dc),
-            count_flops(torch, lambda: FLD.fld_coeffs_reference(*args)))
         res["matvec_bound_ms"], res["matvec_bound_by"] = bound(
             tensor_bytes(E, A, dg3, sf, E),
             count_flops(torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf)))
-        print(f"RHD f32 fld_coeffs (K7) per launch: kernel {res['coeffs_ms']:.4f} ms, plain "
+        print(f"RHD f32 fld_coeffs (K7) per launch: kernel on the tiled body "
+              f"{res['coeffs_ms']:.4f} ms, on the per-cell body {res['coeffs_percell_ms']:.4f} ms "
+              f"({res['coeffs_percell_ms'] / res['coeffs_ms']:.2f}x; bitwise equal), plain "
               f"{res['coeffs_plain_ms']:.4f} ms, bound {res['coeffs_bound_ms']:.4f} ms "
               f"({res['coeffs_bound_by']}); vs plain abs {res['coeffs_err'][0]:.3e} rel "
-              f"{res['coeffs_err'][1]:.3e} [{smi}]")
+              f"{res['coeffs_err'][1]:.3e}; {regs_text(res['coeffs_regs'])} [{smi}]")
         print(f"RHD f32 fld_matvec (K8) per launch: kernel {res['matvec_ms']:.4f} ms, plain "
-              f"{res['matvec_plain_ms']:.4f} ms, bound {res['matvec_bound_ms']:.4f} ms "
+              f"{res['matvec_plain_ms']:.4f} ms, one CSR SpMV (torch.mv, cuSPARSE; its matrix "
+              f"built outside the timing, {res['library_nnz']} entries) "
+              f"{res['matvec_library_ms']:.4f} ms, bound {res['matvec_bound_ms']:.4f} ms "
               f"({res['matvec_bound_by']}); vs plain abs {res['matvec_err'][0]:.3e} rel "
-              f"{res['matvec_err'][1]:.3e} [{smi}]")
+              f"{res['matvec_err'][1]:.3e}; the SpMV vs the kernel rel "
+              f"{res['library_rel_err']:.3e} [{smi}]")
         print("  " + smi_clocks())
         del args, sf, E, A, dg3, Dc, pairs, u1, cs, u, w
         torch.cuda.empty_cache()
@@ -1556,7 +1789,7 @@ def amr_main_path(torch, sim, ncycles):
 
     reads0 = sum(nd.radiation.host_reads for nd in smr.nodes)
     SC.stage_curv_launches = SC.stage_curv_batched_launches = 0
-    FLD.fld_coeffs_launches = FLD.fld_matvec_launches = 0
+    FLD.fld_coeffs_launches = FLD.fld_coeffs_tiled_launches = FLD.fld_matvec_launches = 0
     sim.tm.nlim = 2
     sim.run(extra_observers=[record])
     check(sim.status == "complete" and sim.tm.ncycle == 2, "AMR warm-up did not complete")
@@ -1564,12 +1797,14 @@ def amr_main_path(torch, sim, ncycles):
     out = {"launches": {"stage_curv_batched": SC.stage_curv_batched_launches,
                         "stage_curv": SC.stage_curv_launches,
                         "fld_coeffs": FLD.fld_coeffs_launches,
+                        "fld_coeffs_tiled": FLD.fld_coeffs_tiled_launches,
                         "fld_matvec": FLD.fld_matvec_launches}}
     ncyc = sim.tm.ncycle
     nnodes = len(smr.nodes)
     matvecs = sum(1 + it for cyc in iters for its in cyc for it in its)
     launches = out["launches"]
     check(len(iters) == ncyc and launches["fld_coeffs"] == nnodes * ncyc
+          and launches["fld_coeffs_tiled"] == launches["fld_coeffs"]
           and launches["fld_matvec"] == matvecs,
           f"AMR {sim.grid.nx}: launches {launches} for {ncyc} cycles on {nnodes} nodes, "
           f"{matvecs} matvecs expected from the CG counts")
@@ -1705,6 +1940,20 @@ def phase_amr(torch, smi):
               f"{res['bound_by']}-bound; K6 == per-cell K6 == K5b == K4 bitwise, vs plain "
               f"{res['stage_err']:.3e}; {regs_text(res['regs'])} [{smi}]")
         print("  " + smi_clocks())
+
+        # fld_coeffs (K7) on each node's radiation inputs
+        res["coeffs_nodes"] = []
+        for nd, st in zip(nodes, states):
+            args, _ = fld_inputs(torch, nd.radiation, st, sim.tm.dt)
+            res["coeffs_nodes"].append(coeffs_timings(torch, args))
+            del args
+        print("AMR cell f32 fld_coeffs (K7) per launch by node (root, patch): tiled body "
+              + ", ".join(f"{c['coeffs_ms']:.4f}" for c in res["coeffs_nodes"])
+              + " ms; per-cell body "
+              + ", ".join(f"{c['coeffs_percell_ms']:.4f}" for c in res["coeffs_nodes"])
+              + " ms (bitwise equal); bound "
+              + ", ".join(f"{c['coeffs_bound_ms']:.4f}" for c in res["coeffs_nodes"])
+              + f" ms [{smi}]")
 
         # the tree stage around the kernel: the patch's ghost strips, and
         # the whole stage (strips, K6, rim deltas, restriction, re-sync)
@@ -2246,6 +2495,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
+    t0 = time.perf_counter()
     smi = phase_toolchain(torch)
     build_s = phase_build(torch)
     err64, err32 = phase_compare(torch)
@@ -2253,7 +2503,7 @@ def main():
     res = phase_flagship(torch, smi)
     cerr64, cerr32, cdisk32 = phase_curv_compare(torch)
     disk = phase_disk(torch, smi)
-    decks = phase_disk_decks(torch)
+    decks = phase_disk_decks(torch, smi)
     fld = phase_fld_compare(torch)
     g6 = phase_gather6_compare(torch)
     rhd = phase_rhd(torch, smi)
@@ -2266,6 +2516,8 @@ def main():
     strat = phase_strat(torch, smi)
     sheet = phase_ssheet(torch, smi)
     adv = phase_advection(torch, smi)
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.0f} s, the build "
+          "included")
     kernels = {"kernels": [{
         "name": "stage_cart",
         "kernel": "stage_cart_tiled_kernel (the tiled body)",
@@ -2309,7 +2561,6 @@ def main():
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/stage_curv.cu",
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1405",
-        "also_replaces": "artemis_tpu/ops/pallas_stage_curv.py:604",
         "launches": disk["launches"],
         "max_abs_err": max(cerr32, disk["stage_err"]),
         "max_abs_err_f64": cerr64,
@@ -2326,16 +2577,47 @@ def main():
         "registers_spills": disk["regs"],
         "padded_ms": disk["padded_ms"],
         "padded_stage_ms": disk["padded_stage_ms"],
+        "padded_percell_ms": disk["padded_percell_ms"],
+        "padded_percell_stage_ms": disk["padded_percell_stage_ms"],
+        "padded_fill_share": disk["padded_fill_share"],
         "padded_bound_ms": disk["padded_bound_ms"],
         "padded_bound_by": disk["padded_bound_by"],
         "shape": list(DISK_BENCH),
         "dtype": "float32",
         "disk_l2_vs_ic": disk["l2"],
         "disk_4cycle_rel_err": disk["end_rel_err"],
-        "deck_l2_vs_ic_f64": decks,
         "zone_cycles_per_s": {"kernel_f32": disk["kernel_zcps"],
                               "plain_f32": disk["plain_zcps"],
                               "kernel_f64": disk["kernel_f64_zcps"]},
+    }, {
+        "name": "stage_curv_padded",
+        "kernel": "stage_tiled_kernel (the tiled body, diffusive, padded halo)",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/stage_curv.cu",
+        "replaces": "artemis_tpu/ops/pallas_stage_curv.py:604",
+        "launches": decks["launches"],
+        "max_abs_err": max(cerr32, decks["stage_err"]),
+        "max_abs_err_f64": cerr64,
+        "tol_f32": F32_TOL,
+        "tol_disk_f32": DISK_F32_TOL,
+        "tol_f64": F64_TOL,
+        "ms": decks["padded_ms"],
+        "plain_ms": decks["plain_ms"],
+        "bound_ms": decks["padded_bound_ms"],
+        "bound_by": decks["padded_bound_by"],
+        "library_ms": None,
+        "percell_ms": decks["padded_percell_ms"],
+        "stage_ms": decks["padded_stage_ms"],
+        "percell_stage_ms": decks["padded_percell_stage_ms"],
+        "fill_share": decks["padded_fill_share"],
+        "registers_spills": decks["regs"],
+        "shape": list(DISK_CYL_CELL),
+        "dtype": DISK_CYL_PRECISION,
+        "disk_cyl_l2_vs_ic": decks["l2"],
+        "deck_l2_vs_ic_f64": decks["deck_l2"],
+        "cycle_ms": decks["cycle_ms"],
+        "idle_share": decks["idle_share"],
+        "zone_cycles_per_s": {"kernel": decks["zcps"]},
     }, {
         "name": "stage_curv_gather6",
         "kernel": "stage_tiled_kernel (the tiled body)",
@@ -2386,6 +2668,7 @@ def main():
         "dtype": "float32",
     }, {
         "name": "fld_coeffs",
+        "kernel": "coeffs_tiled_kernel (the tiled body)",
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/fld.cu",
         "replaces": "artemis_tpu/ops/pallas_fld.py:88",
@@ -2401,6 +2684,12 @@ def main():
         "bound_ms": rhd["coeffs_bound_ms"],
         "bound_by": rhd["coeffs_bound_by"],
         "library_ms": None,
+        "percell_ms": rhd["coeffs_percell_ms"],
+        "registers_spills": rhd["coeffs_regs"],
+        "amr_nodes_ms": [c["coeffs_ms"] for c in amr["coeffs_nodes"]],
+        "amr_nodes_percell_ms": [c["coeffs_percell_ms"] for c in amr["coeffs_nodes"]],
+        "amr_nodes_bound_ms": [c["coeffs_bound_ms"] for c in amr["coeffs_nodes"]],
+        "amr_launches": amr["launches"]["fld_coeffs"],
         "shape": list(RHD_CELL),
         "dtype": "float32",
     }, {
@@ -2419,7 +2708,9 @@ def main():
         "plain_ms": rhd["matvec_plain_ms"],
         "bound_ms": rhd["matvec_bound_ms"],
         "bound_by": rhd["matvec_bound_by"],
-        "library_ms": None,
+        "library_ms": rhd["matvec_library_ms"],
+        "library": "torch.mv of a CSR matrix (cuSPARSE SpMV)",
+        "library_rel_err": rhd["library_rel_err"],
         "shape": list(RHD_CELL),
         "dtype": "float32",
         "cg_iters_per_outer": rhd["cg_per_outer"],

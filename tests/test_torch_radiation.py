@@ -21,7 +21,12 @@ RHD slice against the JAX package's runs, and the CUDA kernels
   relative;
 * the kernels' device code compiled as host C++ with g++ and driven through
   the real wrappers vs the plain versions (float64 <= 1e-13 relative,
-  float32 <= 1e-6), and ``cuda``-marked twins that run on the card:
+  float32 <= 1e-6), the tiled body of fld_coeffs (which every launch
+  takes: its blocks run phase by phase with shared memory starting as
+  NaN) bitwise equal to the per-cell body (the wrapper's private switch
+  ``_percell_body``) on every shape and flag set and on a shape ragged
+  across the footprint and the z chunks, and ``cuda``-marked twins that run
+  on the card:
 
       python -m pytest tests/test_torch_radiation.py -m cuda --noconftest -q
 
@@ -347,10 +352,15 @@ HOST_SHIM = r"""
 #include <cmath>
 #include <cstdint>
 #include <cstring>
+#include <limits>
+#include <vector>
+#define __host__
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __launch_bounds__(x)
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 using std::sqrt;
 """
 
@@ -363,14 +373,37 @@ void run(const FldParams& p) {
     else matvec_cell<T>(p, cell);
   }
 }
+// The tiled body's block, phase by phase: each phase runs for every thread
+// before the next starts (what __syncthreads gives on the card).
+template <typename T>
+struct HostExec {
+  template <class Fn>
+  void each(Fn&& f) {
+    for (int t = 0; t < FldTile<T>::NT; ++t) f(t);
+  }
+};
+// Shared memory starts as NaN in every block: a read of an element no
+// phase wrote would show in the outputs.
+template <typename T>
+void run_tiled(const FldParams& p) {
+  for (int64_t b = 0; b < fld_tiles<T>(p.n); ++b) {
+    std::vector<T> smem(FldTile<T>::ELEMS, std::numeric_limits<T>::quiet_NaN());
+    HostExec<T> ex;
+    coeffs_block<T>(p, b, smem.data(), ex);
+  }
+}
 }  // namespace
-extern "C" int artemis_fld_coeffs(int dtype, const int* ints, const double* reals,
+extern "C" int artemis_fld_coeffs(int dtype, int tiled, const int* ints, const double* reals,
                                   const void* E, const void* chi, const void* dt,
                                   void* A, void* diag, void* dcell, void*) {
   FldParams p;
   if (!make_params(ints, reals, &p)) return 1;
   p.E = E; p.chi = chi; p.dt = dt; p.out0 = A; p.out1 = diag; p.out2 = dcell;
-  if (dtype == 0) run<float, true>(p); else run<double, true>(p);
+  if (tiled) {
+    if (dtype == 0) run_tiled<float>(p); else run_tiled<double>(p);
+  } else {
+    if (dtype == 0) run<float, true>(p); else run<double, true>(p);
+  }
   return 0;
 }
 extern "C" int artemis_fld_matvec(int dtype, const int* ints, const double* reals,
@@ -399,13 +432,14 @@ def host_fld(tmp_path_factory):
     cpp, so = out / "fld_host.cpp", out / "libfld_host.so"
     cpp.write_text(HOST_SHIM + device_part + HOST_ENTRY)
     res = subprocess.run([cxx, "-O1", "-std=c++17", "-ffp-contract=off", "-w", "-shared",
-                          "-fPIC", "-o", str(so), str(cpp)], capture_output=True, text=True)
+                          "-fPIC", "-I", CSRC, "-o", str(so), str(cpp)],
+                         capture_output=True, text=True)
     assert res.returncode == 0, res.stderr
     lib = ctypes.CDLL(str(so))
     p, i = ctypes.c_void_p, ctypes.c_int
-    for fn, ntensor in ((lib.artemis_fld_coeffs, 6), (lib.artemis_fld_matvec, 5)):
-        fn.restype = i
-        fn.argtypes = [i, p, p] + [p] * ntensor + [p]
+    lib.artemis_fld_coeffs.argtypes = [i, i, p, p] + [p] * 6 + [p]
+    lib.artemis_fld_matvec.argtypes = [i, p, p] + [p] * 5 + [p]
+    lib.artemis_fld_coeffs.restype = lib.artemis_fld_matvec.restype = i
     return lib
 
 
@@ -452,6 +486,37 @@ def test_host_compiled_kernels_match_plain(on_host, dtype, shape, flags):
     assert launches == (1, 1)
 
 
+# a shape ragged across the tiled body's footprint (32 x 8) and its z
+# chunks (16 planes): (nz, ny, nx)
+RAGGED = (17, 9, 33)
+
+
+def check_tiled_coeffs(launch_coeffs, dtype, device, shape, flags, tol):
+    """fld_coeffs on the tiled body (every launch's) bitwise equal to the
+    per-cell body (the private switch) and within ``tol`` of the plain
+    version (each output relative to its max |plain|); one tiled launch."""
+    rad = port_radiation(shape=(NZ, NY, NX))
+    E, chi, dt, _ = operator_inputs(dtype, device, shape)
+    args = (E, chi, dt, rad._wuni, RAD_CFG["c_code"], rad._ext, flags)
+    n0 = (FLD.fld_coeffs_launches, FLD.fld_coeffs_tiled_launches)
+    kt = launch_coeffs(*args)
+    with FLD._percell_body():
+        kc = launch_coeffs(*args)
+    assert (FLD.fld_coeffs_launches - n0[0], FLD.fld_coeffs_tiled_launches - n0[1]) == (2, 1)
+    pc = FLD.fld_coeffs_reference(*args)
+    for t, c, p in zip(kt, kc, pc):
+        assert torch.equal(t, c)
+        assert torch.isfinite(t).all()
+        assert rel(t.double().cpu().numpy(), p.double().cpu().numpy()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", SHAPES + [RAGGED], ids=["32x16x32", "5x7x9", "2x2x3", "17x9x33"])
+@pytest.mark.parametrize("flags", list(FLAGS))
+def test_host_compiled_tiled_coeffs_matches_percell(on_host, dtype, shape, flags):
+    check_tiled_coeffs(on_host[0], dtype, "cpu", shape, FLAGS[flags], TOL_REL[dtype])
+
+
 def test_cpu_tensor_runs_the_plain_version():
     """On the CPU, fld_coeffs and fld_matvec are their plain versions and
     launch nothing."""
@@ -488,6 +553,18 @@ def test_kernels_match_plain(cuda, dtype, shape):
                                     flags, tol)
         torch.cuda.synchronize()
         assert launches == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_tiled_coeffs_matches_percell(cuda, dtype):
+    """On the card: fld_coeffs' tiled body bitwise equal to its per-cell
+    body, within 1e-12 (f64) / 1e-5 (f32) relative of the plain version."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    for shape in SHAPES + [RAGGED]:
+        for flags in FLAGS.values():
+            check_tiled_coeffs(FLD.fld_coeffs, dtype, cuda, shape, flags, tol)
+            torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

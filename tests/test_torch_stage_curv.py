@@ -27,18 +27,22 @@ version.
   own rows and six strips in one launch of the host-compiled device code,
   bitwise equal to N one-node launches and within 1e-13 (f64) / 1e-5 (f32)
   of ``stage_curv_batched_reference``;
-* the tiled body, which every full gather launch takes (K3 and K5a with
-  the viscous stencil, K5b and K6 without): its blocks run on the host
-  phase by phase with shared memory starting as NaN, bitwise equal to the
-  per-cell body on the same halo (the wrapper's private switch
-  ``_percell_body``) and to the padded halo (u, w, and the dtden maxima:
-  the bodies' block counts differ), within the plain version's
-  tolerances, on the all-ic Cartesian disk, the all-ic spherical disk with
+* the tiled body, which every full launch takes (K3 and K5a with the
+  viscous stencil, K5b and K6 without, K4 from a padded array with and
+  without it): its blocks run on the host phase by phase with shared
+  memory starting as NaN, bitwise equal to the per-cell body on the same
+  halo (the wrapper's private switch ``_percell_body``) and to the padded
+  halo (u, w, and the dtden maxima: the bodies' block counts differ),
+  within the plain version's tolerances, on the all-ic Cartesian disk, the all-ic spherical disk with
   and without viscosity and disk_sph (x3 wrapped), PLM/PCM x HLLC/HLLE;
   power-law and alpha viscosity with arithmetic and harmonic averages and
   conduction on the disk_sph layout, random diffusive nodes (conduction,
   thermal diffusion, a 2-D one), N = 1, 2, 3 nodes, ragged shapes with one
-  and two z chunks (x3 wrapping across a chunk edge), and a 2-D node;
+  and two z chunks (x3 wrapping across a chunk edge), and a 2-D node; the
+  padded halo (K4) on every padded case and on the disk_cyl (x2 periodic
+  through its ghosts) and disk_axi (2-D) states, f32 and f64, bitwise
+  equal to the per-cell padded body; partial stages keep the per-cell
+  body;
 * the ``cuda``-marked tests run the same checks on the card.  They skip
   without a GPU; run them there with (``tests/conftest.py`` imports jax,
   which the card's machine lacks; the JAX comparisons import it only
@@ -73,6 +77,7 @@ from artemis_tpu_torch.units import Constants, Units  # noqa: E402
 HERE = os.path.dirname(os.path.abspath(__file__))
 DISK_SPH = os.path.join(HERE, "..", "inputs", "disk_sph.in")
 DISK_RHD = os.path.join(HERE, "..", "inputs", "disk_rhd_amr.in")
+PADDED_DECKS = {d: os.path.join(HERE, "..", "inputs", f"{d}.in") for d in ("disk_cyl", "disk_axi")}
 CSRC = os.path.join(os.path.dirname(SC.__file__), "..", "csrc")
 TOL = {torch.float64: 1e-12, torch.float32: 1e-5}
 # the disk state: cells at the density floor (1e-10) amplify the two
@@ -406,7 +411,7 @@ extern "C" int artemis_stage_curv(int dtype, int halo, int full, int tiled, cons
                                   int nptrs, int nnodes, int ndmax, void*) {
   CurvParams p;
   if (!make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p) ||
-      (tiled && !tiled_ok(p, halo, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
+      (tiled && !tiled_ok(p, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
     return 1;
   const int gather = halo != kPadded;
   if (dtype == 0) run_t<float>(p, gather, full, tiled);
@@ -495,18 +500,26 @@ PADDED_CASES = {
 }
 
 
+def padded_case_stage(case, scheme, full=True, dtype=torch.float64, device="cpu"):
+    """A PADDED_CASES case's CurvStage on its random state: (stage, w, u)."""
+    coords, opt = PADDED_CASES[case]
+    rsolver, recon = scheme.split("-")
+    s = port_setup(coords, rsolver=rsolver, recon=recon, dtype=dtype, device=device,
+                   rotating=opt.get("rf", False), pos=opt.get("pos"))
+    cs = curv_stage(s, omf=opt.get("omf", 0.0), visc=VISC.get(opt.get("visc")),
+                    cond=COND.get(opt.get("cond")), grav=opt.get("grav", False),
+                    rf=opt.get("rf", False), full=full)
+    return cs, s.w, s.u
+
+
 @pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
 @pytest.mark.parametrize("scheme", ["hllc-plm", "hlle-pcm", "hlle-plm", "hllc-pcm"])
 @pytest.mark.parametrize("case", list(PADDED_CASES))
 def test_host_compiled_padded_kernel_matches_plain(on_host, case, scheme, full):
-    coords, opt = PADDED_CASES[case]
-    rsolver, recon = scheme.split("-")
-    s = port_setup(coords, rsolver=rsolver, recon=recon, rotating=opt.get("rf", False),
-                   pos=opt.get("pos"))
-    cs = curv_stage(s, omf=opt.get("omf", 0.0), visc=VISC.get(opt.get("visc")),
-                    cond=COND.get(opt.get("cond")), grav=opt.get("grav", False),
-                    rf=opt.get("rf", False), full=full)
-    check_against_plain(cs, s.w, s.u, torch.float64, on_host)
+    """Full stages on the tiled body, partial ones on the per-cell body."""
+    cs, w, u = padded_case_stage(case, scheme, full)
+    assert cs.tiled("padded") == full
+    check_against_plain(cs, w, u, torch.float64, on_host)
 
 
 def disk_stage(dtype, device, rsolver="hlle", recon="plm", full=True, nx=(20, 12, 6),
@@ -966,36 +979,114 @@ def test_host_compiled_tiled_viscous_ragged(on_host, tmp_path):
     check_tiled(cs, w, u, torch.float64, TOL_DISK[torch.float64])
 
 
+# ---- the padded halo (K4) on the tiled body
+
+def check_tiled_padded(cs, w, u, dtype, tol):
+    """A full padded launch of ``cs`` takes the tiled body: bitwise equal
+    (u, w, the dtden maximum) to the per-cell padded body (the wrapper's
+    private switch) and within ``tol`` of the plain version (u, w
+    absolute, the dtden maximum relative), both RK register patterns;
+    dtden has one entry per block of each body."""
+    from artemis_tpu_torch import bc as bc_mod
+
+    assert cs.tiled("padded")
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    dt = torch.full((1,), 2e-3, dtype=dtype, device=w.device)
+    for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+        args = (u, u.clone(), gam0, gam1, beta, dt, 0.0, False)
+        n0 = SC.tiled_launches
+        ut, wt, dt_ = SC._launch(cs, w_pad, w, *args, "padded")
+        assert SC.tiled_launches == n0 + 1
+        with SC._percell_body():
+            uc, wc, dc = SC._launch(cs, w_pad, w, *args, "padded")
+        ur, wr, dr = SC.stage_curv_reference(cs, w, *args, w_pad=w_pad)
+        assert SC.tiled_launches == n0 + 1
+        assert dt_.numel() == cs.dtden_blocks(True) and dc.numel() == cs.dtden_blocks()
+        assert torch.equal(ut, uc) and torch.equal(wt, wc) and torch.equal(dt_.amax(), dc.amax())
+        assert torch.isfinite(ut).all() and torch.isfinite(wt).all()
+        assert float((ut - ur).abs().max()) <= tol and float((wt - wr).abs().max()) <= tol
+        assert float((dt_.max() - dr.max()).abs() / dr.max()) <= tol
+
+
+@pytest.mark.parametrize("case", list(PADDED_CASES))
+def test_host_compiled_tiled_padded_matches_percell(on_host, case):
+    """K4 on the tiled body on every padded case (random states, 20x12x6
+    and the 2-D 20x12; the diffusive body and, for cyl-hydro-only and
+    cart-grav-xyz, the inviscid one), float64, two schemes."""
+    for scheme in ("hllc-plm", "hlle-pcm"):
+        cs, w, u = padded_case_stage(case, scheme)
+        assert cs.diffusive == any(k in PADDED_CASES[case][1] for k in ("visc", "cond"))
+        check_tiled_padded(cs, w, u, torch.float64, TOL[torch.float64])
+
+
+# the padded decks: disk_cyl (x1/x3 ic, x2 periodic through its ghosts)
+# ragged in x and y with two z chunks, and disk_axi (2-D, x1/x2 ic) with
+# a one-column second x tile
+PADDED_DECK_SHAPES = {"disk_cyl": (40, 12, 18), "disk_axi": (33, 20, 1)}
+
+
+def padded_deck_stage(deck, dtype, device, data_dir):
+    """A PADDED_DECKS deck at its PADDED_DECK_SHAPES size through the user
+    entry point (plain path): the CurvStage its driver makes on the card
+    (full, padded, with the deck's alpha viscosity, point gravity and
+    rotating frame), the initial w and u."""
+    nx = PADDED_DECK_SHAPES[deck]
+    sim = Simulation(PADDED_DECKS[deck], [f"parthenon/mesh/nx1={nx[0]}",
+                                          f"parthenon/mesh/nx2={nx[1]}",
+                                          f"parthenon/mesh/nx3={nx[2]}", "parthenon/time/nlim=0",
+                                          "artemis/precision=" + str(dtype).removeprefix("torch.")],
+                     data_dir, device=device, fused_stage=False)
+    cs = sim.driver._make_curv_stage(sim.grid, sim.gas_cfg)
+    assert cs.halo == "padded" and cs.full and cs.diffusive
+    return cs, sim.state["gas"]["w"], sim.state["gas"]["u"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("deck", list(PADDED_DECK_SHAPES))
+def test_host_compiled_tiled_padded_disk_decks(on_host, tmp_path, deck, dtype):
+    """K4 on the tiled body on the disk_cyl and disk_axi states (TOL_DISK:
+    cells at the density floor)."""
+    cs, w, u = padded_deck_stage(deck, dtype, "cpu", str(tmp_path))
+    check_tiled_padded(cs, w, u, dtype, TOL_DISK[dtype])
+
+
 def test_host_compiled_tiled_refusal_raises(on_host, tmp_path, monkeypatch):
-    """No fallback: a tiled launch that the kernel's tiled_ok refuses (the
-    padded halo; a partial gather stage) returns an error, and the wrapper
-    raises instead of running another body."""
+    """No fallback: a tiled launch that the kernel's tiled_ok refuses (a
+    partial stage, from a padded array or a gather halo) returns an error,
+    and the wrapper raises instead of running another body; the full
+    padded stage is taken."""
     cs, w, u = disk_stage(torch.float64, "cpu", data_dir=str(tmp_path))
     part, _, _ = disk_stage(torch.float64, "cpu", full=False, data_dir=str(tmp_path))
     monkeypatch.setattr(SC.CurvStage, "tiled", lambda self, halo: True)
     dt = torch.full((1,), 2e-3, dtype=torch.float64)
-    for stage, padded in ((cs, True), (part, False)):
+    for padded in (True, False):
         with pytest.raises(RuntimeError, match="launch failed"):
-            on_host(stage, w, u, u, 0.5, 0.5, 0.5, dt, 0.0, False, padded=padded)
+            on_host(part, w, u, u, 0.5, 0.5, 0.5, dt, 0.0, False, padded=padded)
+    uk, wk, dk = on_host(cs, w, u, u, 0.5, 0.5, 0.5, dt, 0.0, False, padded=True)
+    assert dk.numel() == cs.dtden_blocks(True) and torch.isfinite(uk).all()
 
 
 def test_tiled_body_choice():
-    """Which launches take the tiled body: full stages with a gather halo
-    (six strips, or the x1/x2 strips with x3 wrapped), with or without
-    diffusion, unless the private switch is on; partial stages and the
-    padded halo keep the per-cell body.  The dtden length follows the body
-    (the diffusive one has a 32 x 8 footprint in both dtypes)."""
+    """Which launches take the tiled body: full stages of every halo source
+    (six strips, the x1/x2 strips with x3 wrapped, a padded array), with
+    or without diffusion, 3-D and 2-D, unless the private switch is on;
+    partial stages keep the per-cell body.  The dtden length follows the
+    body (the diffusive one has a 32 x 8 footprint in both dtypes)."""
     s = port_setup("cartesian")
     cs = SC.CurvStage(s.hyd)
-    assert cs.tiled("gather6") and cs.tiled("gather") and not cs.tiled("padded")
-    assert not SC.CurvStage(s.hyd, full=False).tiled("gather6")
+    assert cs.tiled("gather6") and cs.tiled("gather") and cs.tiled("padded")
+    part = SC.CurvStage(s.hyd, full=False)
+    assert not part.tiled("gather6") and not part.tiled("padded")
     with SC._percell_body():
-        assert not cs.tiled("gather6") and not cs.tiled("gather")
+        assert not cs.tiled("gather6") and not cs.tiled("gather") and not cs.tiled("padded")
     assert cs.tiled("gather6")
     sp = port_setup("spherical")
     cv = curv_stage(sp, visc=VISC["alpha"])
-    assert cv.tiled("gather6") and cv.tiled("gather") and not cv.tiled("padded")
+    assert cv.tiled("gather6") and cv.tiled("gather") and cv.tiled("padded")
     assert not curv_stage(sp, visc=VISC["alpha"], full=False).tiled("gather")
+    axi = curv_stage(port_setup("axisymmetric"), visc=VISC["alpha"])
+    assert axi.grid.ng[2] == 0 and axi.tiled("padded")
+    assert not curv_stage(port_setup("axisymmetric"), full=False).tiled("padded")
     assert cs.dtden_blocks() == -(-20 * 12 * 6 // 128) and cs.dtden_blocks(True) == 1 * 3 * 1
     c32 = SC.CurvStage(port_setup("cartesian", dtype=torch.float32).hyd)
     assert c32.dtden_blocks(True) == 1 * 2 * 1
@@ -1019,16 +1110,26 @@ def cuda():
 @pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
 @pytest.mark.parametrize("case", list(PADDED_CASES))
 def test_kernel_matches_plain(cuda, case, full, dtype):
-    coords, opt = PADDED_CASES[case]
     for scheme in ("hllc-plm", "hlle-pcm"):
-        rsolver, recon = scheme.split("-")
-        s = port_setup(coords, rsolver=rsolver, recon=recon, dtype=dtype, device=cuda,
-                       rotating=opt.get("rf", False), pos=opt.get("pos"))
-        cs = curv_stage(s, omf=opt.get("omf", 0.0), visc=VISC.get(opt.get("visc")),
-                        cond=COND.get(opt.get("cond")), grav=opt.get("grav", False),
-                        rf=opt.get("rf", False), full=full)
-        check_against_plain(cs, s.w, s.u, dtype, SC.stage_curv)
+        cs, w, u = padded_case_stage(case, scheme, full, dtype, cuda)
+        check_against_plain(cs, w, u, dtype, SC.stage_curv)
         torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_tiled_padded_matches_percell(cuda, tmp_path, dtype):
+    """On the card: K4 on the tiled body bitwise equal to the per-cell
+    padded body on every padded case and on the disk_cyl and disk_axi
+    states."""
+    for case in PADDED_CASES:
+        for scheme in ("hllc-plm", "hlle-pcm"):
+            check_tiled_padded(*padded_case_stage(case, scheme, True, dtype, cuda), dtype,
+                               TOL[dtype])
+    for deck in PADDED_DECK_SHAPES:
+        check_tiled_padded(*padded_deck_stage(deck, dtype, cuda, str(tmp_path)), dtype,
+                           TOL_DISK[dtype])
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the tiled stages goes (``stage_tiled_kernel`` in
 ``artemis_tpu_torch/csrc/stage_curv.cu``: without diffusion K5b and K6,
-with it K3 and K5a; ``stage_cart_tiled_kernel`` in ``stage_cart.cu``: K1
-and K2), on one CUDA card.
+with it K3, K5a and K4; ``stage_cart_tiled_kernel`` in ``stage_cart.cu``:
+K1 and K2; ``coeffs_tiled_kernel`` in ``fld.cu``: K7), on one CUDA card.
 
 Run from the repository root:
 
@@ -39,6 +39,9 @@ variants:
   update, sources and C2P of phase C), ``no-solve`` (the Riemann solves of
   phase B), ``no-values`` (the reconstruction of the next plane's face
   values in phase C);
+* ``padded``: K4, the diffusive body reading a padded array (disk_sph's
+  stage from the same state, its ic ghost fill made once outside the
+  timing), and the per-cell body on the same padded array;
 * ``visc``: the diffusive body as it is on K3, and the per-cell body;
   ``visc-z8``: its z chunks of 8 planes (512 blocks, two waves);
   ``visc-one-block``: its launch bound of one block per SM; and the
@@ -57,7 +60,20 @@ variants:
   solve: neither the x/y faces of phase B nor the z face), ``cart-no-update``
   (no cell of phase C is updated or stored), ``cart-no-values`` (no face
   value of the next plane is reconstructed) and ``cart-load-only``
-  (staging and barriers only).
+  (staging and barriers only);
+* ``fld``: fld_coeffs (K7) on its tiled body as it is, and on the per-cell
+  body, with fld_matvec (K8), on the RHD cell's 512x512x64 float32 shape
+  (random E, chi and sf, seeded; Dirichlet edges on every face);
+  ``fld-fmad``: fld.cu built with multiply-add contraction (without
+  ``-fmad=false``), both bodies and K8 timed; ``fld-ahead1``: the tiled
+  body's copies one plane ahead instead of two; ``fld-z32``: z chunks of
+  32 planes (16 as built); ``fld-ty16``: a 32 x 16 footprint of 512
+  threads (32 x 8 as built); ``fld-no-minb``: no launch bound of blocks
+  per SM (six in f32 as built; without it, 58 registers hold four);
+  ``fld-two-pass``: the
+  simpler alternative, Dcell of every cell in one pass, then each cell's
+  faces from Dcell through L1/L2 in a second (11 fields moved instead of
+  10).
 
 Prints the card's name and power limit, ptxas's registers and spills per
 variant, and each variant's ms per launch; the variants that compute the
@@ -123,6 +139,67 @@ VARIANTS = {
                        "          const ZCell<T> zb{{qb[0], qb[1], qb[2]}, qb[kQmuv], qb[kQmuc], "
                        "qb[kQdiv], T(0), T(0), T(0), T(0)};\n")],
 }
+FLD = "artemis_tpu_torch/csrc/fld.cu"
+FLD_TWO_PASS = r"""
+// two passes: Dcell of every cell, then each cell's faces from Dcell
+template <typename T>
+__global__ void __launch_bounds__(kBlock) dcell_pass(const __grid_constant__ FldParams p) {
+  const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
+  const int64_t cell = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= n) return;
+  static_cast<T*>(p.out2)[cell] = dcell(p, static_cast<const T*>(p.E),
+                                        static_cast<const T*>(p.chi), cell_of(p.n, cell));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlock) faces_pass(const __grid_constant__ FldParams p) {
+  const FldInts& n = p.n;
+  const int64_t ncell = int64_t(n.nx) * n.ny * n.nz;
+  const int64_t cell = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (cell >= ncell) return;
+  const T* D = static_cast<const T*>(p.out2);
+  const Cell c = cell_of(n, cell);
+  const int pos[3] = {c.i, c.j, c.k};
+  T Dp[3], Dm[3];
+  for (int d = 0; d < 3; ++d) {
+    const Cell a = step(n, c, d, 1), b = step(n, c, d, -1);
+    Dp[d] = D[at(n, a.k, a.j, a.i)];
+    Dm[d] = D[at(n, b.k, b.j, b.i)];
+  }
+  coeffs_store(p, static_cast<const T*>(p.dt)[0], cell, pos, D[cell], Dp, Dm);
+}
+
+int launch_two_pass(int dtype, const FldParams& p, void* stream) {
+  const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
+  const unsigned nblk = unsigned((n + kBlock - 1) / kBlock);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    dcell_pass<float><<<nblk, kBlock, 0, s>>>(p);
+    faces_pass<float><<<nblk, kBlock, 0, s>>>(p);
+  } else {
+    dcell_pass<double><<<nblk, kBlock, 0, s>>>(p);
+    faces_pass<double><<<nblk, kBlock, 0, s>>>(p);
+  }
+  return int(cudaGetLastError());
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 float64.  tiled:"""
+VARIANTS.update({
+    "padded": [],
+    "fld": [],
+    "fld-fmad": [("artemis_tpu_torch/_build.py", '"stage_cart": ("-fmad=false",),\n                "fld": ("-fmad=false",)}',
+                  '"stage_cart": ("-fmad=false",)}')],
+    "fld-ahead1": [(FLD, "TZ = 16, NT = TX * TY, AHEAD = 2;", "TZ = 16, NT = TX * TY, AHEAD = 1;")],
+    "fld-z32": [(FLD, "TX = 32, TY = 8, TZ = 16,", "TX = 32, TY = 8, TZ = 32,")],
+    "fld-ty16": [(FLD, "TX = 32, TY = 8, TZ = 16,", "TX = 32, TY = 16, TZ = 16,")],
+    "fld-no-minb": [(FLD, "__launch_bounds__(FldTile<T>::NT, FldTile<T>::MINB)",
+                     "__launch_bounds__(FldTile<T>::NT)")],
+    "fld-two-pass": [(FLD, "}  // namespace\n\n// dtype: 0 float32, 1 float64.  tiled:", FLD_TWO_PASS),
+                     (FLD, "return tiled ? launch_tiled(dtype, p, stream)",
+                      "return tiled ? launch_two_pass(dtype, p, stream)")],
+})
 VARIANTS.update({
     "cart": [],
     "cart-no-ureg": [(CART, "static constexpr bool UREG = !(F32 && METHOD == kPPM);",
@@ -140,8 +217,8 @@ VARIANTS.update({
                  ("artemis_tpu_torch/ops/stage.py", "torch.float32: (32, 8, 16)",
                   "torch.float32: (32, 8, 32)")],
     "cart-fmad": [("artemis_tpu_torch/_build.py",
-                   'SOURCE_FLAGS = {"stage_curv": ("-fmad=false",), "stage_cart": ("-fmad=false",)}',
-                   'SOURCE_FLAGS = {"stage_curv": ("-fmad=false",)}')],
+                   'SOURCE_FLAGS = {"stage_curv": ("-fmad=false",), "stage_cart": ("-fmad=false",),',
+                   'SOURCE_FLAGS = {"stage_curv": ("-fmad=false",),')],
     "cart-y-first": [(CART, "for (int e = L::NT - 1 - tid; e < (L::TY + 2) * L::TX; e += L::NT)",
                       "for (int e = tid; e < (L::TY + 2) * L::TX; e += L::NT)")],
     "cart-no-faces": [(CART, *CART_SOLVE)],
@@ -162,6 +239,11 @@ if sys.argv[2] == "cart":
     name = "stage_cart"
     _build.load(name)
     entries = (("K1 f32 plm", "stage_cart_tiled_kernelIfLi1ELb1EE"),)
+elif sys.argv[2] == "fld":
+    name = "fld"
+    _build.load(name)
+    entries = (("K7 tiled", "coeffs_tiled_kernelIfEE"), ("K7 per-cell", "fld_kernelIfLb1EE"),
+               ("K8", "fld_kernelIfLb0EE"))
 else:
     name = _build.variant("stage_curv", SC.build_defines(torch.float32))
     _build.load("stage_curv", SC.build_defines(torch.float32))
@@ -192,6 +274,41 @@ from artemis_tpu_torch.units import Constants, Units
 assert SC.__file__.startswith(sys.argv[1]), SC.__file__
 name, probe, deck = sys.argv[2], sys.argv[3] == "1", sys.argv[4]
 dev, dt_ = "cuda", torch.float32
+
+
+def ms(fn, n=20):
+    fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+if name.startswith("fld"):
+    # K7 and K8 at the RHD cell's shape
+    from artemis_tpu_torch.ops import fld as FLD
+
+    rng = np.random.default_rng(1)
+    shape = (64, 512, 512)
+    E, chi, sf = (torch.as_tensor(a, dtype=dt_, device=dev) for a in (
+        0.5 + rng.random(shape), 3.0 * (1.0 + rng.random(shape)), rng.random(shape)))
+    args = (E, chi, torch.full((1,), 1e-3, dtype=dt_, device=dev), (1 / 64, 1 / 64, 1 / 64),
+            10.0, 2.0, ((True, True),) * 3)
+    t = ms(lambda: FLD.fld_coeffs(*args))
+    kt = FLD.fld_coeffs(*args)
+    with FLD._percell_body():
+        pc = ms(lambda: FLD.fld_coeffs(*args), 10)
+        kp = FLD.fld_coeffs(*args)
+    mv = ms(lambda: FLD.fld_matvec(E, kt[0], kt[1], sf))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(kt, kp))
+    print(f"{name}: {t:.4f} ms per launch, bitwise equal to the per-cell body: {same}; the "
+          f"per-cell body {pc:.4f} ms; fld_matvec {mv:.4f} ms", flush=True)
+    sys.exit(0)
 
 
 def disk_stage():
@@ -260,7 +377,7 @@ if name.startswith("cart"):
 else:
     grid = grid_from_input(pin)
     hyd = Hydro(grid, cfg, device=dev, dtype=dt_)
-    if name.startswith("visc"):
+    if name.startswith("visc") or name == "padded":
         cs, u, w = disk_stage()
         assert cs.diffusive and cs.halo == "gather"
     else:
@@ -274,21 +391,17 @@ else:
     def launch(*g):
         return SC.stage_curv(cs, w, u, u1, *g, dt, 0.0, False)
 
+    if name == "padded":
+        from artemis_tpu_torch import bc as bc_mod
+
+        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+
+        def launch(*g):
+            return SC._launch(cs, w_pad, w, u, u1, *g, dt, 0.0, False, "padded")
+
 
 def stage():
     return launch(*next(calls))
-
-
-def ms(fn, n=20):
-    fn()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(n):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / n
 
 
 t = ms(stage)
@@ -297,7 +410,7 @@ if not probe:
     x = launch(0.5, 0.5, 0.5)
     with switch():
         y = launch(0.5, 0.5, 0.5)
-        pc = ms(stage, 10) if name in ("tiled", "visc", "cart", "cart-fmad") else None
+        pc = ms(stage, 10) if name in ("tiled", "visc", "padded", "cart", "cart-fmad") else None
     torch.cuda.synchronize()
     same = (torch.equal(x[0], y[0]) and torch.equal(x[1], y[1])
             and torch.equal(x[2].amax(), y[2].amax()))
@@ -339,8 +452,7 @@ def main():
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as base:
         dirs = {n: variant_tree(base, n, VARIANTS[n]) for n in names}
-        builds = {n: subprocess.Popen([sys.executable, "-c", BUILD, d,
-                                       "cart" if n.startswith("cart") else "curv"],
+        builds = {n: subprocess.Popen([sys.executable, "-c", BUILD, d, n.split("-")[0]],
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True)
                   for n, d in dirs.items()}
