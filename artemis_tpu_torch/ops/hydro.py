@@ -254,9 +254,11 @@ class Hydro:
         return u
 
     # -- derived fields --------------------------------------------------
-    def set_auxiliary(self, u, cfg: FluidCfg):
-        """Dual-energy sync of internal with total energy
-        (cf. SetAuxillaryFields, fill_derived.cpp:30-75)."""
+    def sie_from_cons(self, u, cfg: FluidCfg):
+        """Dual-energy specific internal energy from conserved fields, and
+        the floored density it divides by (cf.
+        ArtemisUtils::GetSpecificInternalEnergy, artemis_utils.hpp:41-78;
+        the JAX package's ``sources._sie_from_cons``)."""
         rho = torch.clamp(u[:, 0], min=cfg.dfloor)
         hx = self.hxv_int
         ke = 0.5 * ((u[:, 1] / hx[0]) ** 2 + (u[:, 2] / hx[1]) ** 2
@@ -264,7 +266,12 @@ class Hydro:
         e_tot = u[:, 4]
         ue = e_tot - ke
         sie = torch.where(ue > cfg.de_switch * e_tot, ue / rho, u[:, 5] / rho)
-        sie = torch.clamp(sie, min=cfg.siefloor)
+        return torch.clamp(sie, min=cfg.siefloor), rho
+
+    def set_auxiliary(self, u, cfg: FluidCfg):
+        """Dual-energy sync of internal with total energy
+        (cf. SetAuxillaryFields, fill_derived.cpp:30-75)."""
+        sie, rho = self.sie_from_cons(u, cfg)
         out = u.clone()
         out[:, 5] = torch.maximum(sie * rho, cfg.siefloor * rho)
         return out

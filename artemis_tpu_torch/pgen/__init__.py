@@ -1,20 +1,13 @@
 """Problem generators (reference: src/pgen/pgen.hpp name dispatch; port of
-``artemis_tpu/pgen/__init__.py``).  The linear-wave, advection, disk,
-shearing-box (strat), shock and thermalization problems are ported so far;
-the others raise and name the ROADMAP item that brings them.  ``ssheet``
-has no module in the reference (its deck, inputs/ssheet.in, runs
-``problem = strat``), so it is an unknown problem here."""
+``artemis_tpu/pgen/__init__.py``).  Every problem of the reference is
+ported.  ``ssheet`` has no module in the reference (its deck,
+inputs/ssheet.in, runs ``problem = strat``), so it is an unknown problem
+here."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
-
-# problem name -> ROADMAP Queue 1 item that ports it
-_NOT_PORTED = {
-    "constant": 7, "blast": 7, "gaussian_bump": 7, "conduction": 7,
-}
-
 
 @dataclass
 class Problem:
@@ -37,6 +30,18 @@ def build_problem(name: str, pin, grid, gas_cfg=None, dust_cfg=None) -> Problem:
     if name == "advection":
         from . import advection
         return advection.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "constant":
+        from . import constant
+        return constant.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "blast":
+        from . import blast
+        return blast.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "gaussian_bump":
+        from . import gaussian_bump
+        return gaussian_bump.build(pin, grid, gas_cfg, dust_cfg)
+    if name == "conduction":
+        from . import conduction
+        return conduction.build(pin, grid, gas_cfg, dust_cfg)
     if name == "strat":
         from . import strat
         return strat.build(pin, grid, gas_cfg, dust_cfg)
@@ -49,7 +54,4 @@ def build_problem(name: str, pin, grid, gas_cfg=None, dust_cfg=None) -> Problem:
     if name == "thermalization":
         from . import thermalization
         return thermalization.build(pin, grid, gas_cfg, dust_cfg)
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"problem {name!r} is not ported yet "
-                                  f"(ROADMAP Queue 1 item {_NOT_PORTED[name]})")
     raise ValueError(f"unknown problem {name!r}")

@@ -4,8 +4,9 @@ device).
 
 Reads the input deck, builds the gas and dust fluids, the problem
 generator, the source packages
-(gravity, rotating frame, viscosity/conduction, gray FLD radiation) and the
-driver on the requested device, and runs the evolution loop.  Physics the port does not
+(gravity, rotating frame, beta cooling, drag and damping zones,
+viscosity/conduction, gray FLD radiation) and the driver on the requested
+device, and runs the evolution loop.  Physics the port does not
 carry yet raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
@@ -23,13 +24,11 @@ from .eos import eos_from_input
 from .grid import grid_from_input
 from .ops.hydro import FluidCfg
 from .pgen import build_problem
-from .sources import Gravity, sources_from_input
+from .sources import Drag, Gravity, sources_from_input
 from .units import Constants, Units
 
 # <physics> switch -> ROADMAP Queue 1 item that ports it
-_NOT_PORTED = {
-    "cooling": 6, "drag": 6, "nbody": 8,
-}
+_NOT_PORTED = {"nbody": 8}
 
 
 def dtype_from_input(pin) -> torch.dtype:
@@ -40,6 +39,18 @@ def dtype_from_input(pin) -> torch.dtype:
     if prec == "float32":
         return torch.float32
     raise ValueError(f"unknown precision {prec!r}")
+
+
+def _damp_to_visc(srcs, visc):
+    """Damping zones with damp_to_visc relax the gas toward the viscous
+    inflow of the gas viscosity model (drag.cpp:109-121), which they
+    require."""
+    for s in srcs:
+        if isinstance(s, Drag) and s.gasp.damp_to_visc:
+            if visc is None:
+                raise ValueError("damp_to_visc requires gas viscosity "
+                                 "(drag.cpp:109-121)")
+            s.set_viscosity(visc)
 
 
 class Simulation:
@@ -150,6 +161,7 @@ class Simulation:
 
         # diffusion (viscosity / conduction) — gas only (gas.cpp:180-198)
         diffusion_factory = None
+        visc = None
         do_visc = pin.get_or_add_bool("physics", "viscosity", False)
         do_cond = pin.get_or_add_bool("physics", "conduction", False)
         if (do_visc or do_cond) and gas_cfg is not None:
@@ -164,6 +176,7 @@ class Simulation:
             cond = (DiffParams.from_input("gas/conductivity", "conductivity", pin, gm)
                     if do_cond else None)
             diffusion_factory = lambda hyd: Diffusion(hyd.grid, hyd, gas_cfg, visc, cond)
+        _damp_to_visc(srcs, visc)
 
         # radiation (gray FLD, replacing the reference's jaybenne IMC)
         radiation_factory = None
@@ -179,7 +192,7 @@ class Simulation:
         if refinement == "static":
             self.driver = self._smr_driver(pin, problem_name, integrator, gas_cfg, srcs,
                                            diffusion_factory, radiation_factory, omf,
-                                           fused_stage)
+                                           fused_stage, visc)
         else:
             self.driver = Driver(self.grid, integrator, gas_cfg, dust_cfg, sources=srcs,
                                  bc_custom=self.problem.bc_custom, omf=omf,
@@ -211,7 +224,7 @@ class Simulation:
         )
 
     def _smr_driver(self, pin, problem_name, integrator, gas_cfg, srcs, diffusion_factory,
-                    radiation_factory, omf, fused_stage):
+                    radiation_factory, omf, fused_stage, visc):
         """The static refinement tree (artemis_tpu/simulation.py:223-296):
         every node gets the deck's sources and the problem's own, built on
         its grid; each patch's initial state comes from the problem
@@ -236,6 +249,7 @@ class Simulation:
             for s in ss:
                 if isinstance(s, Gravity) and s.gtype == "binary":
                     s.omf = omf
+            _damp_to_visc(ss, visc)
             return ss
 
         drv = SMRDriver(self.grid, integrator, gas_cfg, pin, device=self.device,

@@ -1,16 +1,18 @@
-"""External source terms: gravity and the rotating frame (port of
-``artemis_tpu/sources.py``).
+"""External source terms: gravity, the rotating frame, beta cooling, drag
+and damping zones (port of ``artemis_tpu/sources.py``).
 
-Rebuild of the reference source packages (src/gravity/, src/rotating_frame/;
-SURVEY.md §2.4).  Each source is a small object holding its precomputed
-interior coordinate fields as tensors on the run's device, in the run's
-dtype, and an ``apply(state, fluxes, time, dt, hyd) -> state`` method; the
-driver applies them in the reference task order gravity -> rotating_frame
--> drag -> cooling (artemis_driver.cpp:224-248).  ``time`` is a host float
-(the port's loop keeps it on the host), ``dt`` the stage's beta*dt tensor.
+Rebuild of the reference source packages (src/gravity/, src/rotating_frame/,
+src/gas/cooling/, src/drag/; SURVEY.md §2.4).  Each source is a small object
+holding its precomputed interior coordinate fields as tensors on the run's
+device, in the run's dtype, and an ``apply(state, fluxes, time, dt, hyd) ->
+state`` method; the driver applies them in the reference task order gravity
+-> rotating_frame -> drag -> cooling (artemis_driver.cpp:224-248).  ``time``
+is a host float (the port's loop keeps it on the host), ``dt`` the stage's
+beta*dt tensor.
 
-Beta cooling, drag/damping and N-body gravity are not ported yet: their
-classes raise ``NotImplementedError`` naming the ROADMAP item.
+N-body gravity, and cooling toward the particles' temperature
+(``tref = nbody``), are not ported yet: they raise ``NotImplementedError``
+naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -421,20 +423,332 @@ def _rf_weights(grid):
 
 
 # ----------------------------------------------------------------------------
-# not ported yet
+# Beta cooling (src/gas/cooling/)
 # ----------------------------------------------------------------------------
 class BetaCooling(SourceBase):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("beta cooling is not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+    """Backward-Euler relaxation toward a reference temperature profile
+    (beta_cooling.cpp:33-135): dE = -rho cv om dt/(beta + om dt) (T - T0),
+    beta = beta_min + beta0 exp(-escale z^2 / T0), added to the total and
+    the internal energy.
+
+    tref=powerlaw: static T0 = tfloor + tcyl R^a + tsph r^b.  tref=nbody
+    takes T0 and Omega from the live particles, which the port does not
+    carry yet.
+    """
+
+    def __init__(self, pin, grid, gas_cfg, gm: float, cv: float = None):
+        self.gas_cfg = gas_cfg
+        self._cv = cv if cv is not None else 1.0 / (gas_cfg.gamma - 1.0)
+        ctype = pin.get_str("cooling", "type")
+        if ctype != "beta":
+            raise ValueError("Unknown cooling type")
+        self.beta0 = pin.get_real("cooling", "beta0")
+        self.beta_min = pin.get_or_add_real("cooling", "beta_min", 1e-12)
+        self.escale = pin.get_or_add_real("cooling", "exp_scale", 0.0)
+        tref = pin.get_str("cooling", "tref")
+        if tref not in ("powerlaw", "nbody"):
+            raise ValueError(f"cooling tref {tref!r} not recognized")
+        if tref == "nbody":
+            raise NotImplementedError("cooling tref=nbody is not ported yet "
+                                      "(ROADMAP Queue 1 item 8)")
+        tfloor = pin.get_or_add_real("cooling", "tfloor", 0.0)
+        tcyl = pin.get_or_add_real("cooling", "tcyl", 0.0)
+        cyl_plaw = pin.get_or_add_real("cooling", "cyl_plaw", 0.0)
+        tsph = pin.get_or_add_real("cooling", "tsph", 0.0)
+        sph_plaw = pin.get_or_add_real("cooling", "sph_plaw", 0.0)
+        self.gm = gm
+
+        shape = tuple(reversed(grid.nx))
+        x1v, x2v, x3v = grid.cell_centers()
+        xcyl = geo.convert_to_cyl(grid.coords, x1v, x2v, x3v)
+        Rcyl, zcyl = xcyl[0], xcyl[2]
+        rsph = np.sqrt(Rcyl**2 + zcyl**2)
+        T0 = tfloor + tcyl * Rcyl**cyl_plaw + tsph * rsph**sph_plaw
+        efac = np.where(T0 > 0.0, np.exp(-self.escale * zcyl**2
+                                         / np.where(T0 > 0, T0, 1.0)), 1.0)
+        self.beta = np.broadcast_to(self.beta_min + self.beta0 * efac, shape)
+        self.T0 = np.broadcast_to(T0, shape)
+        self.om = np.broadcast_to(np.sqrt(gm / rsph**3), shape)
+
+    def place(self, device, dtype):
+        super().place(device, dtype)
+        self._T0, self._beta, self._om = self._t(self.T0), self._t(self.beta), self._t(self.om)
+        return self
+
+    def apply(self, state, fluxes, time, dt, hyd):
+        cfg = self.gas_cfg
+        u = state["gas"]["u"]
+        sie, _ = hyd.sie_from_cons(u, cfg)
+        rho = u[:, 0]
+        cv = self._cv  # ideal gas: T = sie/cv
+        Tn = sie / cv
+        omdt = dt * self._om
+        dE = -rho * cv * omdt / (self._beta + omdt) * (Tn - self._T0)
+        u = u.clone()
+        u[:, 4] += dE
+        u[:, 5] += dE
+        new = dict(state)
+        new["gas"] = {"u": u, "w": state["gas"]["w"]}
+        return new
+
+
+# ----------------------------------------------------------------------------
+# Drag: damping zones + implicit gas-dust coupling (src/drag/drag.hpp)
+# ----------------------------------------------------------------------------
+class DampingParams:
+    """Quadratic damping-zone ramps (cf. SelfDragParams, drag.hpp:69-110)."""
+
+    def __init__(self, block, pin):
+        g = lambda k, d: pin.get_or_add_real(block, k, d)
+        self.ix = [g("inner_x1", -BIG), g("inner_x2", -BIG), g("inner_x3", -BIG)]
+        self.irate = [g("inner_x1_rate", 0.0), g("inner_x2_rate", 0.0),
+                      g("inner_x3_rate", 0.0)]
+        self.ox = [g("outer_x1", BIG), g("outer_x2", BIG), g("outer_x3", BIG)]
+        self.orate = [g("outer_x1_rate", 0.0), g("outer_x2_rate", 0.0),
+                      g("outer_x3_rate", 0.0)]
+        self.damp_to_visc = pin.get_or_add_bool(block, "damp_to_visc", False)
+
+    def ramps(self, grid):
+        """Per-direction damping-rate fields (before the dt factor),
+        interior-shaped numpy (drag.hpp:209-226)."""
+        shape = tuple(reversed(grid.nx))
+        xv = grid.cell_centers()
+        xmin, xmax = grid.xmin, grid.xmax
+        out = []
+        for d in range(3):
+            x = xv[d]
+            inner = self.irate[d] * np.where(
+                x < self.ix[d],
+                ((x - self.ix[d]) / (self.ix[d] - xmin[d])) ** 2, 0.0) \
+                if self.irate[d] > 0.0 else 0.0
+            outer = self.orate[d] * np.where(
+                x > self.ox[d],
+                ((x - self.ox[d]) / (self.ox[d] - xmax[d])) ** 2, 0.0) \
+                if self.orate[d] > 0.0 else 0.0
+            active = 1.0 if grid.active(d + 1) else 0.0
+            f = active * (np.asarray(inner) + np.asarray(outer))
+            out.append(np.broadcast_to(f, shape))
+        return out
+
+
+def dust_sizes_from_input(pin, nspecies, length_conv=None):
+    """Per-species grain sizes in code units: <dust> size_input =
+    linspace | logspace | direct | file (dust.cpp:103-173)."""
+    if length_conv is None:
+        from .units import Units
+
+        length_conv = 1.0 / Units.from_input(pin).length  # physical -> code
+    dist = pin.get_or_add_str("dust", "size_input", "direct")
+    if dist == "linspace":
+        lo = length_conv * pin.get_real("dust", "min_size")
+        hi = length_conv * pin.get_real("dust", "max_size")
+        return np.linspace(lo, hi, nspecies)
+    if dist == "logspace":
+        lo = math.log10(length_conv * pin.get_real("dust", "min_size"))
+        hi = math.log10(length_conv * pin.get_real("dust", "max_size"))
+        return np.logspace(lo, hi, nspecies)
+    if dist == "direct":
+        return length_conv * np.array(pin.get_real_list("dust", "sizes")[:nspecies])
+    if dist == "file":
+        rows = []
+        with open(pin.get_str("dust", "size_file")) as f:
+            for line in f:
+                line = line.split("#", 1)[0].strip()
+                if line:
+                    rows.append([float(t) for t in line.split()])
+        vals = rows[0] if len(rows) == 1 else [r[0] for r in rows]
+        return length_conv * np.array(vals[:nspecies])
+    raise ValueError("dust/size_input not recognized!")
 
 
 class Drag(SourceBase):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("drag and damping are not ported yet "
-                                  "(ROADMAP Queue 1 item 6)")
+    """Damping zones (`self`) and/or implicit gas<->dust momentum exchange
+    (`simple_dust`), unconditionally stable backward-Euler two-pass solve
+    (drag.hpp:296-482)."""
+
+    def __init__(self, pin, grid, gas_cfg, dust_cfg):
+        self.grid = grid
+        self.gas_cfg = gas_cfg
+        self.dust_cfg = dust_cfg
+        dtype_s = pin.get_str("drag", "type")
+        if dtype_s not in ("self", "simple_dust"):
+            raise ValueError("Bad choice of drag type")
+        self.coupling = dtype_s
+        self.gasp = DampingParams("gas/damping", pin) if pin.has_block("gas/damping") \
+            else DampingParams("gas/damping_null", pin)
+        self.dustp = DampingParams("dust/damping", pin) if pin.has_block("dust/damping") \
+            else DampingParams("dust/damping_null", pin)
+        self.gas_ramps = self.gasp.ramps(grid) if gas_cfg is not None else None
+        self.dust_ramps = self.dustp.ramps(grid) if dust_cfg is not None else None
+
+        if self.coupling == "simple_dust":
+            blk = "dust/stopping_time"
+            model = pin.get_str(blk, "type")
+            self.stopping_model = model
+            self.tau_scale = pin.get_or_add_real(blk, "scale", 1.0)
+            nd = dust_cfg.nspecies
+            if model == "constant":
+                taus = pin.get_real_list(blk, "tau")
+                self.tau = np.array(taus[:nd]) * self.tau_scale
+            elif model == "stokes":
+                self.sizes = dust_sizes_from_input(pin, nd)
+                self.grain_density = pin.get_or_add_real("dust", "grain_density", 1.0)
+            else:
+                raise ValueError("bad type for stopping time model")
+        # damp_to_visc: gas damping target is the viscous inflow
+        # v_R = -3/2 mu/(R rho) (drag.hpp:240-245); wired to the gas
+        # viscosity model by Simulation via set_viscosity()
+        self.visc_dp = None
+        if self.gasp.damp_to_visc:
+            x1v, x2v, x3v = grid.cell_centers()
+            shape = tuple(reversed(grid.nx))
+            xcyl = geo.convert_to_cyl(grid.coords, x1v, x2v, x3v)
+            xsph = geo.convert_to_sph(grid.coords, x1v, x2v, x3v)
+            self.Rcyl = np.broadcast_to(xcyl[0], shape)
+            self.rsph = np.broadcast_to(xsph[0], shape)
+            ex = geo.vec_to_cyl(grid.coords, x1v, x2v, x3v)
+            self.exR = [np.broadcast_to(ex[d][0], shape) for d in range(3)]
+
+    def place(self, device, dtype):
+        super().place(device, dtype)
+        ramps = lambda r: None if r is None else [self._t(f) for f in r]
+        self._gas_ramps, self._dust_ramps = ramps(self.gas_ramps), ramps(self.dust_ramps)
+        if self.coupling == "simple_dust":
+            if self.stopping_model == "constant":
+                self._tau = self._t(self.tau)[:, None, None, None]
+            else:
+                self._sizes = self._t(self.sizes)[:, None, None, None]
+        if self.gasp.damp_to_visc:
+            self._Rcyl, self._rsph = self._t(self.Rcyl), self._t(self.rsph)
+            self._exR = [self._t(e) for e in self.exR]
+        return self
+
+    def set_viscosity(self, dp):
+        """Attach the gas viscosity coefficient model for damp_to_visc
+        (DragSource dispatch, drag.cpp:109-121)."""
+        if dp is None or dp.kind not in ("viscosity_plaw", "viscosity_alpha"):
+            raise ValueError(
+                "The chosen viscosity model does not work with damping")
+        self.visc_dp = dp
+
+    def _visc_target(self, rho, sie):
+        """Per-direction gas target velocity components: the viscous inflow
+        v_R = -1.5 mu/(Rcyl rho) projected on the problem basis
+        (drag.hpp:240-245)."""
+        dp = self.visc_dp
+        cfg = self.gas_cfg
+        Rc = self._Rcyl
+        if dp.kind == "viscosity_plaw":
+            mu = dp.nu_s * rho * (Rc / dp.R0) ** dp.r_exp
+        else:
+            Omk = dp.Omega0 * (self._rsph / dp.R0) ** -1.5
+            mu = dp.alpha * cfg.gamma * (cfg.gamma - 1.0) * rho * sie / Omk
+        vR = -1.5 * mu / (Rc * rho)
+        return [self._exR[d] * vR for d in range(3)]
+
+    def apply(self, state, fluxes, time, dt, hyd):
+        if self.coupling == "self":
+            return self._self_drag(state, dt, hyd)
+        return self._simple_dust(state, dt, hyd)
+
+    def _self_drag(self, state, dt, hyd):
+        hx = hyd.hxv_int
+        cfg = self.gas_cfg
+        new = dict(state)
+        for name, ramps in (("gas", self._gas_ramps), ("dust", self._dust_ramps)):
+            if name not in state or ramps is None:
+                continue
+            u, w = state[name]["u"], state[name]["w"]
+            rho = torch.clamp(u[:, 0], min=1e-300)
+            vt = [0.0, 0.0, 0.0]  # dust always damps to zero
+            if name == "gas" and self.visc_dp is not None:
+                vt = self._visc_target(rho, hyd.sie_from_cons(u, cfg)[0])
+            u = u.clone()
+            dE = 0.0
+            for d in range(3):
+                fx = dt * ramps[d]
+                v = u[:, 1 + d] / (hx[d] * rho)
+                dm = -fx * rho * (v - vt[d]) / (1.0 + fx)
+                u[:, 1 + d] += hx[d] * dm
+                if name == "gas":
+                    dE = dE + dm * (v + 0.5 * dm / rho)
+            if name == "gas":
+                u[:, 4] += dE
+            new[name] = {"u": u, "w": w}
+        return new
+
+    def _stopping_time(self, dg, sieg):
+        """Per-species stopping time tau [ns_dust, ...] (drag.hpp:112-144,
+        404-422)."""
+        if self.stopping_model == "constant":
+            return self._tau.expand((self._tau.shape[0],) + dg.shape[-3:])
+        # stokes: tau = scale * rho_gr * a / (rho_g * vth), vth^2 = 8/pi gm1 sie
+        gm1 = self.gas_cfg.gamma - 1.0
+        vth = torch.sqrt(8.0 / math.pi * gm1 * sieg)
+        return self.tau_scale * self.grain_density * self._sizes / (dg[0] * vth[0])
+
+    def _simple_dust(self, state, dt, hyd):
+        """Implicit single-gas <-> N-dust coupling + damping
+        (drag.hpp:296-482)."""
+        cfg = self.gas_cfg
+        hx = hyd.hxv_int
+        ug, wg = state["gas"]["u"], state["gas"]["w"]
+        ud, wd = state["dust"]["u"], state["dust"]["w"]
+        dg = torch.clamp(ug[:1, 0], min=cfg.dfloor)  # [1, ...]
+        vg = [ug[:1, 1 + d] / (hx[d] * dg) for d in range(3)]
+        sieg, _ = hyd.sie_from_cons(ug, cfg)
+
+        bg = [dt * self._gas_ramps[d] for d in range(3)]
+        bd = [dt * self._dust_ramps[d] for d in range(3)]
+
+        tau = self._stopping_time(dg, sieg)  # [nd, ...]
+        nonpos = tau <= 0.0
+        alpha = dt * torch.where(nonpos, BIG, 1.0 / torch.where(nonpos, 1.0, tau))
+
+        rho_d = torch.clamp(ud[:, 0], min=self.dust_cfg.dfloor)
+        vd = [ud[:, 1 + d] / (hx[d] * rho_d) for d in range(3)]
+        # gas target velocity: viscous inflow when damp_to_visc
+        vt = (self._visc_target(dg, sieg) if self.visc_dp is not None
+              else [0.0, 0.0, 0.0])
+        vdt = [0.0, 0.0, 0.0]  # dust target velocity
+
+        # first pass: sum rho' and rho' v -> new gas velocity (drag.hpp:409-434)
+        fd, vgp, rhop = [], [], []
+        for d in range(3):
+            rhop.append(rho_d * alpha / (1.0 + alpha + bd[d]))
+            fd_d = torch.sum(rhop[d] * (1.0 + bd[d]), dim=0, keepdim=True)
+            fvd_d = torch.sum(rhop[d] * (vd[d] + bd[d] * vdt[d]), dim=0, keepdim=True)
+            fd.append(fd_d)
+            vgp.append((dg * (vg[d] + bg[d] * vt[d]) + fvd_d)
+                       / (dg * (1.0 + bg[d]) + fd_d))
+
+        # second pass: dust momenta + gas back-reaction (drag.hpp:436-477)
+        new_ud = ud.clone()
+        new_ug = ug.clone()
+        dE = 0.0
+        for d in range(3):
+            delta = rhop[d] * ((vgp[d] - vd[d]) + bd[d] * (vgp[d] - vdt[d]))
+            delta_d = delta - bd[d] * rho_d / (1.0 + alpha + bd[d]) * (
+                vd[d] - vdt[d] + alpha * (vgp[d] - vdt[d]))
+            fvd2 = torch.sum(rhop[d] * (vd[d] - vt[d] + bd[d] * (vdt[d] - vt[d])),
+                             dim=0, keepdim=True)
+            new_ud[:, 1 + d] += hx[d] * delta_d
+            dsum = -torch.sum(delta, dim=0, keepdim=True)
+            prefac = dg * bg[d] / (1.0 + bg[d] + fd[d])
+            dsum = dsum - prefac * (dg * (vg[d] - vt[d]) + fvd2)
+            new_ug[:1, 1 + d] += hx[d] * dsum
+            dE = dE + 0.5 * (vg[d] + vgp[d]) * dsum
+        new_ug[:1, 4] += dE
+
+        new = dict(state)
+        new["gas"] = {"u": new_ug, "w": wg}
+        new["dust"] = {"u": new_ud, "w": wd}
+        return new
 
 
+# ----------------------------------------------------------------------------
+# not ported yet
+# ----------------------------------------------------------------------------
 class NBodyGravity(SourceBase):
     def __init__(self, *args, **kwargs):
         raise NotImplementedError("N-body gravity is not ported yet "
@@ -471,6 +785,5 @@ def sources_from_input(pin, grid, gas_cfg, dust_cfg, constants, nbody_sys=None):
         srcs.append(Drag(pin, grid, gas_cfg, dust_cfg))
     if do_cooling:
         gm = gravity.gm if (gravity is not None and hasattr(gravity, "gm")) else 1.0
-        srcs.append(BetaCooling(pin, grid, gas_cfg, gm, cv=getattr(gas_cfg, "cv", None),
-                                nbody_sys=nbody_sys))
+        srcs.append(BetaCooling(pin, grid, gas_cfg, gm, cv=getattr(gas_cfg, "cv", None)))
     return srcs

@@ -149,13 +149,42 @@ line is printed:
 20. ``inputs/advection.in`` (gas on HLLC through the sweep, two dust
    species on HLLE): test_advection's N = 16 and 32 runs in float64 held to
    BASELINE's advection row, and the deck as written (128x64x64 float32):
-   6 sweep launches per cycle and zone-cycles/s of both paths.
+   6 sweep launches per cycle and zone-cycles/s of both paths;
+21. ``inputs/alpha_disk.in`` as written (512x1024 float64: cylindrical
+   2-D, viscous x1 walls, alpha viscosity, point gravity, beta cooling) on
+   the partial mode of the padded curvilinear stage (K4, the per-cell
+   body; gravity and cooling run in the composable chain after it): the
+   main path through ``Simulation.run`` with the launch counts reset
+   before and read after (2 per cycle, every one partial), zone-cycles/s
+   of the kernel path (20 cycles after 2 warm-up) and of the plain path,
+   partial K4 per launch alone and with its viscous ghost fill against
+   the plain stage and the bound, the cycle's device busy time and idle
+   share under torch.profiler split into K4, the viscous fill and the
+   gravity + cooling chain, one partial launch on the deck's state against
+   the plain version (float64 1e-12, float32 1e-4 abs), and the kernel and
+   plain end states after 5 cycles (1e-10 of each field's maximum);
+22. ``inputs/binary_cyl.in`` at deck size (128x256 float64, 30 cycles,
+   the twin of tests/test_binary.py's test_binary_smoke) on partial K4:
+   launches, finite state, positive density, the wake at the planet's
+   radius, partial K4 against the plain version on the deck's state, and
+   the kernel and plain end states;
+23. ``inputs/simple_drag.in`` to t = 2 (the deck's tlim is 10) with
+   tests/test_drag.py's thresholds (the plain chain: HLLE and dust);
+   ``conduction.in`` and ``gaussian_bump.in`` for 50 cycles through the
+   sweep kernel (K9, one launch per active direction per stage);
+   ``blast.in`` for 50 cycles as
+   written (HLLE: the driver gives a source-free Cartesian stage outside
+   the Cartesian kernel's envelope to the padded curvilinear stage, K4)
+   and with gas/riemann=hllc (the padded Cartesian stage, K2), both on the
+   deck's outflow walls; each kernel path's end state against the plain
+   path's.
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
 floating-point operations of its plain version on the same inputs (aten
 add/sub/mul/div/pow/sqrt/rsqrt/reciprocal/exp/log elements, counted with a
-dispatch mode) over 67 TFLOP/s float32 (the H100 SXM data sheet).  The SM
+dispatch mode) over 67 TFLOP/s float32, or 34 TFLOP/s for the float64
+partial stage of phase 21 (the H100 SXM data sheet).  The SM
 clock is printed beside the timings.  The line before the last is a JSON
 object describing each kernel; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -282,10 +311,10 @@ def count_flops(torch, fn):
     return Count.n
 
 
-def bound(nbytes, flops):
-    """(bound_ms, bound_by): the larger of the HBM time and the float32
-    arithmetic time."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+def bound(nbytes, flops, peak=None):
+    """(bound_ms, bound_by): the larger of the HBM time and the arithmetic
+    time at ``peak`` FLOP/s (default the float32 rate)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / (peak or F32_FLOPS)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -2487,6 +2516,437 @@ def phase_advection(torch, smi):
     return res
 
 
+
+# -- phases 21 to 23 -----------------------------------------------------
+DECKS = {name: os.path.join(HERE, "inputs", f"{name}.in")
+         for name in ("alpha_disk", "binary_cyl", "simple_drag", "conduction",
+                      "gaussian_bump", "blast")}
+ALPHA_CYCLES = 20
+ALPHA_PLAIN_CYCLES = 4
+DECK_CMP_CYCLES = 5
+# the kernel and plain end states of a float64 deck after the same cycles:
+# max |diff| / max |field| per component
+DECK_F64_TOL = 1e-10
+F64_FLOPS = 34e12   # the H100 SXM data sheet's float64 rate outside the tensor cores
+# the per-cell body's padded partial kernel (K4's partial mode), f64
+PARTIAL_ENTRY = (("per-cell padded partial", "stage_curv_kernelIdLb0ELb0EE"),)
+
+
+def rel_err(torch, a, b):
+    """max |a - b| / max |b| over each component (axis 1); a component that
+    is zero throughout (v3 of a 2-D disk) must match exactly."""
+    dims = (0,) + tuple(range(2, a.ndim))
+    scale = b.abs().amax(dim=dims).clamp(min=torch.finfo(b.dtype).tiny)
+    return float(((a - b).abs().amax(dim=dims) / scale).max())
+
+
+def run_timed(torch, sim, ncycles):
+    """Advance ``ncycles`` through Simulation.run, timed by CUDA events;
+    returns zone-cycles/s."""
+    sim.tm.nlim = sim.tm.ncycle + ncycles
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    sim.run()
+    end.record()
+    torch.cuda.synchronize()
+    check(sim.status == "complete" and sim.tm.ncycle == sim.tm.nlim,
+          f"run stopped at cycle {sim.tm.ncycle}, wanted {sim.tm.nlim}")
+    return ncells(sim.grid) * ncycles / (start.elapsed_time(end) / 1e3)
+
+
+def partial_check(torch, cs, w, u, tol):
+    """One partial launch of ``cs`` on this state (the second RK stage's
+    registers) against stage_curv_reference: max |kernel - plain| over u;
+    the launch takes the per-cell body."""
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    check(not cs.full and cs.halo == "padded" and not cs.tiled("padded"),
+          "the deck's stage is not a partial padded stage on the per-cell body")
+    dt = torch.full((1,), 1e-3, dtype=u.dtype, device=u.device)
+    n0 = SC.tiled_launches
+    uk, wk, _ = SC.stage_curv(cs, w, u, u.clone(), *RK2[1], dt, 0.0, False)
+    ur, _, _ = SC.stage_curv_reference(cs, w, u, u.clone(), *RK2[1], dt, 0.0, False)
+    torch.cuda.synchronize()
+    err = float((uk - ur).abs().max())
+    check(SC.tiled_launches == n0 and wk is w and bool(torch.isfinite(uk).all())
+          and err <= tol, f"partial K4 vs plain on the deck's state: {err:.3e} > {tol:g}")
+    return err
+
+
+def partial_timings(torch, cs, w, u, u1, dt, tnow):
+    """K4's partial launch on this state: the kernel alone (``ms``, 20
+    timed, the two RK stages in turn), with its ghost fill (``stage_ms``),
+    the plain stage (``plain_ms``), and the bound of one launch averaged
+    over the two stages (the padded prims and rows read once, u0 on the
+    second stage, u1, u written once; the plain version's flops at the
+    float64 rate)."""
+    from artemis_tpu_torch import bc as bc_mod
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    calls = itertools.cycle(RK2)
+    out = {"ms": time_launches(torch, lambda: SC._launch(
+               cs, w_pad, w, u, u1, *next(calls), dt, tnow, False, "padded"), 20),
+           "stage_ms": time_launches(torch, lambda: SC.stage_curv(
+               cs, w, u, u1, *next(calls), dt, tnow, False), 20),
+           "plain_ms": time_launches(torch, lambda: SC.stage_curv_reference(
+               cs, w, u, u1, *next(calls), dt, tnow, False), 4)}
+    nbytes = (2 * tensor_bytes(w_pad, *cs.rows) + tensor_bytes(u1, u, u1)
+              + 2 * tensor_bytes(u)) / 2
+    flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
+        cs, w, u, u1, *g, dt, tnow, False, w_pad=w_pad)) for g in RK2) / 2
+    out["bound_ms"], out["bound_by"] = bound(
+        nbytes, flops, F64_FLOPS if u.dtype == torch.float64 else F32_FLOPS)
+    out["mb"], out["gflop"] = nbytes / 1e6, flops / 1e9
+    return out
+
+
+def profile_split(torch, sim, ncycles, parts, kernels):
+    """Device busy time per cycle over ``ncycles`` of Simulation.run under
+    torch.profiler, and the device time of each part: ``parts`` maps a
+    label to (object, attribute) pairs whose calls are wrapped in a
+    record_function range of that label for the window (the kernels each
+    range launches through torch, its children's included); ``kernels``
+    maps a label to a piece of the names of the kernels it counts (a
+    kernel launched through ctypes is tied to no torch operator).  None
+    when the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for label, targets in parts.items():
+        for obj, attr in targets:
+            fn = getattr(obj, attr)
+
+            def wrapped(*a, _fn=fn, _label=label, **k):
+                with record_function(_label):
+                    return _fn(*a, **k)
+
+            saved.append((obj, attr, attr in vars(obj), vars(obj).get(attr)))
+            setattr(obj, attr, wrapped)
+    sim.tm.nlim = sim.tm.ncycle + ncycles
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            sim.run()
+            torch.cuda.synchronize()
+    finally:
+        for obj, attr, own, fn in reversed(saved):
+            if own:
+                setattr(obj, attr, fn)
+            else:
+                delattr(obj, attr)
+    rows = [(e.key, e.self_device_time_total / 1e3 / ncycles) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU and e.key not in parts]
+    busy = sum(t for _, t in rows)
+    if busy <= 0.0:
+        print("profile: no device time recorded (not measured)")
+        return None
+    split = {label: sum(e.device_time_total for e in prof.events()
+                        if e.name == label and e.device_type == DeviceType.CPU)
+             / 1e3 / ncycles for label in parts}
+    split.update({label: sum(t for key, t in rows if piece in key)
+                  for label, piece in kernels.items()})
+    return {"busy_ms": busy, "split": split}
+
+
+def phase_alpha_disk(torch, smi):
+    """inputs/alpha_disk.in as written (512x1024 float64, cylindrical 2-D,
+    viscous x1 walls, alpha viscosity, point gravity, beta cooling) on K4's
+    partial mode: the main path through Simulation.run with the launch
+    counts reset before and read after (2 per cycle, every one partial and
+    on the per-cell body), zone-cycles/s of the kernel path
+    (ALPHA_CYCLES after 2 warm-up) and of the plain path, partial K4 per
+    launch against its plain stage and its bound, the cycle's device busy
+    time and idle share under torch.profiler split into K4, the viscous
+    fill and the gravity + cooling chain, one partial launch on the deck's
+    state against the plain version (float64 1e-12, float32 1e-4), and the
+    kernel and plain end states after DECK_CMP_CYCLES."""
+    from artemis_tpu_torch import Simulation, bc as bc_mod
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    res = {}
+    deck = DECKS["alpha_disk"]
+    with tempfile.TemporaryDirectory() as data:
+        sim = Simulation(deck, [], data, device=DEVICE)
+        d = sim.driver
+        check(d.stage_kernel == "stage_curv (padded, partial)" and sim.dtype == torch.float64
+              and [type(s).__name__ for s in d._curv_srcs] == ["Gravity", "BetaCooling"],
+              f"alpha_disk took {d.stage_kernel} with the chain {d._curv_srcs}")
+        n = ncells(sim.grid)
+        SC.stage_curv_launches = SC.tiled_launches = 0
+        warm_up(sim, 2)
+        res["zcps"] = run_timed(torch, sim, ALPHA_CYCLES)
+        res["launches"] = SC.stage_curv_launches
+        check(res["launches"] == 2 * sim.tm.ncycle and SC.tiled_launches == 0,
+              f"alpha_disk: {res['launches']} launches ({SC.tiled_launches} tiled) for "
+              f"{sim.tm.ncycle} rk2 cycles")
+        u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
+        check(bool(torch.isfinite(u).all()) and bool((w[:, 0] > 0).all()),
+              "alpha_disk state not finite or density not positive")
+        res["cycle_ms"] = 1e3 * n / res["zcps"]
+        print(f"alpha_disk {tuple(sim.grid.nx)} f64 on partial K4: {ALPHA_CYCLES} cycles "
+              f"through Simulation.run, {res['zcps']:.6e} zone-cycles/s, cycle "
+              f"{res['cycle_ms']:.4f} ms, {res['launches']} launches in {sim.tm.ncycle} cycles, "
+              f"every one partial on the per-cell body, dt {sim.tm.dt:.6e} [{smi}]")
+        cs = d._curv
+        u1 = u.clone()
+        dt = torch.full((1,), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+        res.update(partial_timings(torch, cs, w, u, u1, dt, sim.tm.time))
+        res["err_f64"] = partial_check(torch, cs, w, u, F64_TOL)
+        res["regs"] = {body: ptxas_usage(torch, torch.float64, entry)
+                       for body, entry in PARTIAL_ENTRY}
+        print(f"alpha_disk partial K4 per launch (f64): kernel {res['ms']:.4f} ms, with the "
+              f"viscous ghost fill {res['stage_ms']:.4f} ms, plain stage {res['plain_ms']:.4f} "
+              f"ms; bound {res['bound_ms']:.4f} ms ({res['mb']:.1f} MB, {res['gflop']:.3f} "
+              f"GFLOP, {res['bound_by']}-bound); vs plain on the deck's state "
+              f"{res['err_f64']:.3e} (tol {F64_TOL:g}); {regs_text(res['regs'])} [{smi}]")
+        print("  " + smi_clocks())
+        chain = [(s_, "apply") for s_ in d._curv_srcs]
+        prof = profile_split(torch, sim, 3, {"viscous fill": [(bc_mod, "pad_and_fill")],
+                                             "gravity + cooling": chain},
+                             {"K4 partial": "stage_curv_kernel"})
+        res["profile"] = prof
+        res["idle_share"] = 1.0 - prof["busy_ms"] / res["cycle_ms"] if prof else None
+        if prof:
+            sp = prof["split"]
+            rest = prof["busy_ms"] - sum(sp.values())
+            print(f"alpha_disk cycle {res['cycle_ms']:.4f} ms (unprofiled): device busy "
+                  f"{prof['busy_ms']:.4f} ms, idle {100 * res['idle_share']:.1f}%; busy by "
+                  f"part: K4 {sp['K4 partial']:.4f} ms, viscous fill {sp['viscous fill']:.4f} "
+                  f"ms, gravity + cooling {sp['gravity + cooling']:.4f} ms, the rest (dual "
+                  f"energy sync, C2P/P2C, dt) {rest:.4f} ms [{smi}]")
+        del sim, cs, u, w, u1
+        torch.cuda.empty_cache()
+
+        s32 = Simulation(deck, ["artemis/precision=float32", "parthenon/time/nlim=0"], data,
+                         device=DEVICE)
+        res["err_f32"] = partial_check(torch, s32.driver._curv, s32.state["gas"]["w"],
+                                       s32.state["gas"]["u"], DISK_F32_TOL)
+        print(f"alpha_disk partial K4 (f32) vs plain on the deck's state: {res['err_f32']:.3e} "
+              f"(tol {DISK_F32_TOL:g})")
+        del s32
+
+        psim = Simulation(deck, [], data, device=DEVICE, fused_stage=False)
+        check(psim.driver.stage_kernel == "none", "the plain alpha_disk run took a kernel")
+        warm_up(psim, 1)
+        n0 = SC.stage_curv_launches
+        res["plain_zcps"] = run_timed(torch, psim, ALPHA_PLAIN_CYCLES)
+        check(SC.stage_curv_launches == n0, "the plain alpha_disk run launched K4")
+        ksim = Simulation(deck, [], data, device=DEVICE)
+        warm_up(ksim, DECK_CMP_CYCLES)
+        res["end_err"] = max(rel_err(torch, ksim.state["gas"][k], psim.state["gas"][k])
+                             for k in ("u", "w"))
+        check(abs(ksim.tm.time - psim.tm.time) <= 1e-12 * psim.tm.time
+              and res["end_err"] <= DECK_F64_TOL,
+              f"alpha_disk kernel vs plain after {DECK_CMP_CYCLES} cycles: t {ksim.tm.time} vs "
+              f"{psim.tm.time}, {res['end_err']:.3e} > {DECK_F64_TOL:g}")
+        print(f"alpha_disk plain path: {ALPHA_PLAIN_CYCLES} cycles, {res['plain_zcps']:.6e} "
+              f"zone-cycles/s (kernel path {res['zcps'] / res['plain_zcps']:.2f}x); kernel vs "
+              f"plain after {DECK_CMP_CYCLES} cycles: max |diff| / max |field| "
+              f"{res['end_err']:.3e} (tol {DECK_F64_TOL:g}) [{smi}]")
+        del psim, ksim
+        torch.cuda.empty_cache()
+    return res
+
+
+BINARY_CYCLES = 30
+
+
+def binary_wake(sim):
+    """test_binary_smoke's check: finite, positive density, and the wake
+    forming (> 1e-6) at the planet's radius; returns the wake amplitude."""
+    import numpy as np
+
+    w = sim.state["gas"]["w"][0].cpu().numpy()
+    d = w[0][0]
+    rc = sim.grid.cell_centers()[0][0, 0]
+    sig = np.abs(d - d.mean(axis=0))
+    amp = float(sig[:, np.argwhere(rc >= 1.0)[0][0]].max())
+    check(np.isfinite(w).all() and (d > 0).all() and amp > 1e-6,
+          f"binary_cyl after {sim.tm.ncycle} cycles: finite {np.isfinite(w).all()}, "
+          f"density > 0 {(d > 0).all()}, wake {amp:.3e} (> 1e-6)")
+    return amp
+
+
+def phase_binary(torch, smi):
+    """inputs/binary_cyl.in at deck size (128x256 float64: binary gravity,
+    rotating frame folded into partial K4, alpha viscosity, damping zones)
+    for BINARY_CYCLES cycles, the twin of tests/test_binary.py's
+    test_binary_smoke: launches counted (2 per cycle, partial, per-cell
+    body), its thresholds, one partial launch on the deck's end state
+    against the plain version, and the kernel and plain end states."""
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        sims = {}
+        for fused in (True, False):
+            sim = Simulation(DECKS["binary_cyl"], [f"parthenon/time/nlim={BINARY_CYCLES}"],
+                             data, device=DEVICE, fused_stage=fused)
+            check(sim.driver.stage_kernel == ("stage_curv (padded, partial)" if fused
+                                              else "none"),
+                  f"binary_cyl (fused_stage={fused}) took {sim.driver.stage_kernel}")
+            SC.stage_curv_launches = SC.tiled_launches = 0
+            t0 = time.perf_counter()
+            sim.run()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            check(sim.tm.ncycle == BINARY_CYCLES and SC.tiled_launches == 0
+                  and SC.stage_curv_launches == (2 * BINARY_CYCLES if fused else 0),
+                  f"binary_cyl (fused_stage={fused}): {SC.stage_curv_launches} launches "
+                  f"({SC.tiled_launches} tiled) in {sim.tm.ncycle} cycles")
+            amp = binary_wake(sim)
+            if fused:
+                res.update(launches=SC.stage_curv_launches, wake=amp)
+            res["kernel_s" if fused else "plain_s"] = secs
+            sims[fused] = sim
+        k, p = sims[True], sims[False]
+        res["end_err"] = max(rel_err(torch, k.state["gas"][x], p.state["gas"][x])
+                             for x in ("u", "w"))
+        check(abs(k.tm.time - p.tm.time) <= 1e-12 * p.tm.time
+              and res["end_err"] <= DECK_F64_TOL,
+              f"binary_cyl kernel vs plain after {BINARY_CYCLES} cycles: t {k.tm.time} vs "
+              f"{p.tm.time}, {res['end_err']:.3e} > {DECK_F64_TOL:g}")
+        res["err_f64"] = partial_check(torch, k.driver._curv, k.state["gas"]["w"],
+                                       k.state["gas"]["u"], F64_TOL)
+        s32 = Simulation(DECKS["binary_cyl"], ["artemis/precision=float32",
+                                               "parthenon/time/nlim=0"], data, device=DEVICE)
+        res["err_f32"] = partial_check(torch, s32.driver._curv, s32.state["gas"]["w"],
+                                       s32.state["gas"]["u"], DISK_F32_TOL)
+        print(f"binary_cyl {tuple(k.grid.nx)} f64: {res['launches']} partial K4 launches in "
+              f"{BINARY_CYCLES} cycles ({res['kernel_s']:.1f} s; plain path "
+              f"{res['plain_s']:.1f} s), wake {res['wake']:.3e} at r = 1 (> 1e-6); kernel vs "
+              f"plain max |diff| / max |field| {res['end_err']:.3e} (tol {DECK_F64_TOL:g}); "
+              f"partial K4 vs plain on the deck's state {res['err_f64']:.3e} (f64, tol "
+              f"{F64_TOL:g}), {res['err_f32']:.3e} (f32, tol {DISK_F32_TOL:g}) [{smi}]")
+        del sims, k, p, s32
+        torch.cuda.empty_cache()
+    return res
+
+
+# the deck's tlim is 10: ~9,300 cycles of the launch-bound plain chain,
+# 137 s on the H100; to t = 2 every species with tau <= 1 relaxes.
+# tests/test_drag.py samples every 0.05 (over 100 samples to t = 10)
+DRAG_TLIM = 2.0
+DRAG_SAMPLE_DT = 0.05
+DRAG_TAU = (1e-2, 0.1, 1.0, 10.0)
+OTHER_CYCLES = 50
+
+
+def phase_drag(torch, smi):
+    """inputs/simple_drag.in to DRAG_TLIM (gas + 4 dust species, HLLE, the
+    implicit coupling; the plain chain) with tests/test_drag.py's
+    thresholds, sampled every DRAG_SAMPLE_DT as it samples: the velocity
+    separations within 3e-3 of the analytic damped solution, the total x1
+    momentum conserved to 1e-13, and a sample at every step of the run."""
+    import math
+
+    import numpy as np
+
+    from artemis_tpu_torch import Simulation
+
+    rows = []
+
+    def sample(state, tm, every=DRAG_SAMPLE_DT):
+        if tm.time >= every * (len(rows) + 1):
+            vg = state["gas"]["w"][0, 1].mean()
+            vsep = (state["dust"]["w"][:, 1].mean(dim=(1, 2, 3)) - vg).tolist()
+            mom = float(state["gas"]["u"][0, 1].sum() + state["dust"]["u"][:, 1].sum())
+            rows.append((tm.time, vsep, mom))
+
+    with tempfile.TemporaryDirectory() as data:
+        sim = Simulation(DECKS["simple_drag"], [f"parthenon/time/tlim={DRAG_TLIM:.8f}"], data,
+                         device=DEVICE)
+        check(sim.driver.stage_kernel == "none", f"simple_drag took {sim.driver.stage_kernel}")
+        t0 = time.perf_counter()
+        sim.run(extra_observers=[sample])
+        secs = time.perf_counter() - t0
+    eps = 0.01 / 10.0
+    errs = [abs(v[d] - math.exp(-(1.0 + eps) * t / DRAG_TAU[d]) * -1.0)
+            for t, v, _ in rows for d in range(4)]
+    moms = np.array([m for _, _, m in rows])
+    err, drift = max(errs), float(np.abs(moms / moms[0] - 1.0).max())
+    nsamples = int(round(DRAG_TLIM / DRAG_SAMPLE_DT))
+    check(len(rows) >= nsamples - 1 and err <= 3e-3 and drift <= 1e-13,
+          f"simple_drag to t={DRAG_TLIM}: {len(rows)} samples (>= {nsamples - 1}), max err "
+          f"{err:.3e} (<= 3e-3), "
+          f"momentum drift {drift:.3e} (<= 1e-13)")
+    print(f"simple_drag f64 to t={DRAG_TLIM}: {sim.tm.ncycle} cycles in {secs:.1f} s "
+          f"({ncells(sim.grid) * sim.tm.ncycle / secs:.6e} zone-cycles/s), max drag error "
+          f"{err:.3e} (<= 3e-3), momentum drift {drift:.3e} (<= 1e-13) [{smi}]")
+    return {"err": err, "drift": drift, "ncycle": sim.tm.ncycle, "secs": secs}
+
+
+def deck_pair(torch, name, overrides, kernel, counter, per_cycle):
+    """The deck through the kernel path and the plain path for
+    OTHER_CYCLES each, the launches of ``counter`` (a module and its count's
+    name) reset before and read after each: per_cycle per cycle on the
+    kernel path, none on the plain one.  Returns (launches, max |diff| /
+    max(1, |field|) per component of the end states, the two runs'
+    seconds)."""
+    from artemis_tpu_torch import Simulation
+
+    mod, attr = counter
+    out, sims = {}, {}
+    with tempfile.TemporaryDirectory() as data:
+        for fused in (True, False):
+            sim = Simulation(DECKS[name], overrides + [f"parthenon/time/nlim={OTHER_CYCLES}"],
+                             data, device=DEVICE, fused_stage=fused)
+            check(sim.driver.stage_kernel == (kernel if fused else "none"),
+                  f"{name} (fused_stage={fused}) took {sim.driver.stage_kernel}")
+            setattr(mod, attr, 0)
+            t0 = time.perf_counter()
+            sim.run()
+            torch.cuda.synchronize()
+            out["kernel_s" if fused else "plain_s"] = time.perf_counter() - t0
+            got = getattr(mod, attr)
+            check(sim.tm.ncycle == OTHER_CYCLES
+                  and got == (per_cycle * OTHER_CYCLES if fused else 0)
+                  and bool(torch.isfinite(sim.state["gas"]["u"]).all()),
+                  f"{name} (fused_stage={fused}): {got} launches in {sim.tm.ncycle} cycles")
+            if fused:
+                out["launches"] = got
+            sims[fused] = sim
+        k, p = sims[True], sims[False]
+        out["shape"] = tuple(k.grid.nx)
+        out["end_err"] = max(scaled_err(torch, k.state["gas"][x], p.state["gas"][x])
+                             for x in ("u", "w"))
+        check(abs(k.tm.time - p.tm.time) <= 1e-12 * p.tm.time
+              and out["end_err"] <= DECK_F64_TOL,
+              f"{name} kernel vs plain after {OTHER_CYCLES} cycles: t {k.tm.time} vs "
+              f"{p.tm.time}, {out['end_err']:.3e} > {DECK_F64_TOL:g}")
+    return out
+
+
+def phase_other_decks(torch, smi):
+    """conduction.in and gaussian_bump.in for OTHER_CYCLES cycles through the
+    sweep kernel (K9: one launch per active direction per stage); blast.in
+    as written, whose HLLE source-free Cartesian stage the driver gives the
+    padded curvilinear stage (K4, full, on its outflow walls), as the JAX
+    driver gives it in float32; and blast.in with gas/riemann=hllc through
+    the padded Cartesian stage (K2); one launch per stage of each; each
+    kernel path against the plain path's end state."""
+    from artemis_tpu_torch.ops import stage as S, stage_curv as SC, sweeps as SW
+
+    res = {}
+    for name, over, kernel, counter, per_cycle in (
+            ("conduction", [], "sweep", (SW, "sweep_launches"), 2),
+            ("gaussian_bump", [], "sweep", (SW, "sweep_launches"), 4),
+            ("blast", [], "stage_curv (padded)", (SC, "stage_curv_launches"), 2),
+            ("blast", ["gas/riemann=hllc"], "stage_cart", (S, "stage_launches"), 2)):
+        key = name + ("_hllc" if over else "")
+        r = deck_pair(torch, name, over, kernel, counter, per_cycle)
+        res[key] = r
+        print(f"{key} {r['shape']} f64: {r['launches']} {kernel} launches in {OTHER_CYCLES} "
+              f"cycles ({r['kernel_s']:.1f} s; plain path {r['plain_s']:.1f} s); kernel vs "
+              f"plain max |diff| / max(1, |field|) {r['end_err']:.3e} (tol {DECK_F64_TOL:g}) "
+              f"[{smi}]")
+    return res
+
+
 def main():
     import torch
 
@@ -2516,6 +2976,14 @@ def main():
     strat = phase_strat(torch, smi)
     sheet = phase_ssheet(torch, smi)
     adv = phase_advection(torch, smi)
+    secs = {}
+    for key, fn in (("alpha_disk", phase_alpha_disk), ("binary_cyl", phase_binary),
+                    ("simple_drag", phase_drag), ("other_decks", phase_other_decks)):
+        t1 = time.perf_counter()
+        secs[key] = (fn(torch, smi), time.perf_counter() - t1)
+        print(f"phase {key}: {secs[key][1]:.1f} s")
+    alpha, binary, drag, other = (secs[k][0] for k in ("alpha_disk", "binary_cyl",
+                                                        "simple_drag", "other_decks"))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.0f} s, the build "
           "included")
     kernels = {"kernels": [{
@@ -2555,6 +3023,9 @@ def main():
         "f64_ms": res["f64_ms"],
         "f64_percell_ms": res["f64_percell_ms"],
         "idle_share": res["idle_share"],
+        "blast_hllc_launches": other["blast_hllc"]["launches"],
+        "blast_hllc_shape": list(other["blast_hllc"]["shape"]),
+        "blast_hllc_50cycle_err_f64": other["blast_hllc"]["end_err"],
     }, {
         "name": "stage_curv",
         "kernel": "stage_tiled_kernel (the tiled body, diffusive)",
@@ -2614,10 +3085,41 @@ def main():
         "shape": list(DISK_CYL_CELL),
         "dtype": DISK_CYL_PRECISION,
         "disk_cyl_l2_vs_ic": decks["l2"],
+        "blast_launches": other["blast"]["launches"],
+        "blast_50cycle_err_f64": other["blast"]["end_err"],
         "deck_l2_vs_ic_f64": decks["deck_l2"],
         "cycle_ms": decks["cycle_ms"],
         "idle_share": decks["idle_share"],
         "zone_cycles_per_s": {"kernel": decks["zcps"]},
+    }, {
+        "name": "stage_curv_partial",
+        "kernel": "stage_curv_kernel (the per-cell body, padded halo, partial mode)",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/stage_curv.cu",
+        "replaces": "artemis_tpu/ops/pallas_stage_curv.py:604",
+        "launches": alpha["launches"],
+        "max_abs_err": max(alpha["err_f32"], binary["err_f32"]),
+        "max_abs_err_f64": max(alpha["err_f64"], binary["err_f64"]),
+        "tol_disk_f32": DISK_F32_TOL,
+        "tol_f64": F64_TOL,
+        "ms": alpha["ms"],
+        "plain_ms": alpha["plain_ms"],
+        "bound_ms": alpha["bound_ms"],
+        "bound_by": alpha["bound_by"],
+        "library_ms": None,
+        "stage_ms": alpha["stage_ms"],
+        "registers_spills": alpha["regs"],
+        "shape": [512, 1024, 1],
+        "dtype": "float64",
+        "binary_cyl_launches": binary["launches"],
+        "binary_cyl_wake": binary["wake"],
+        "end_rel_err_f64": {"alpha_disk": alpha["end_err"], "binary_cyl": binary["end_err"]},
+        "cycle_ms": alpha["cycle_ms"],
+        "idle_share": alpha["idle_share"],
+        "busy_split_ms": alpha["profile"]["split"] if alpha["profile"] else None,
+        "zone_cycles_per_s": {"kernel_f64": alpha["zcps"], "plain_f64": alpha["plain_zcps"]},
+        "simple_drag": {"err": drag["err"], "momentum_drift": drag["drift"],
+                        "cycles": drag["ncycle"]},
     }, {
         "name": "stage_curv_gather6",
         "kernel": "stage_tiled_kernel (the tiled body)",
@@ -2778,6 +3280,10 @@ def main():
         "advection_l1_n32": adv["l1"],
         "advection_ratio": adv["ratio"],
         "advection_launches": adv["launches"],
+        "conduction_launches": other["conduction"]["launches"],
+        "gaussian_bump_launches": other["gaussian_bump"]["launches"],
+        "deck_50cycle_err_f64": {"conduction": other["conduction"]["end_err"],
+                                 "gaussian_bump": other["gaussian_bump"]["end_err"]},
         "zone_cycles_per_s": {"kernel_f32": strat["kernel_zcps"],
                               "plain_f32": strat["plain_zcps"],
                               "advection_kernel_f32": adv["kernel_zcps"],

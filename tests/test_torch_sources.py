@@ -2,8 +2,10 @@
 package's (``artemis_tpu.sources``): point gravity (softened, and with a
 sink), uniform and binary gravity, and the curvilinear rotating-frame torque
 on cylindrical, spherical and axisymmetric meshes, applied to the same
-random state and mass fluxes in float64 (<= 1e-12 abs); and
-``sources_from_input`` building the same list from a deck.
+random state and mass fluxes in float64 (<= 1e-12 abs);
+``sources_from_input`` building the same list from a deck; and the two
+sources still to port raising.  Beta cooling and drag have their own files
+(tests/test_torch_cooling.py, tests/test_torch_drag.py).
 """
 
 import numpy as np
@@ -150,15 +152,14 @@ def test_sources_from_input_matches_jax(coords):
 
 
 def test_unported_sources_raise():
-    """Cooling, drag and N-body gravity name the ROADMAP item that ports them."""
+    """N-body gravity, and beta cooling toward the particles' temperature
+    (tref = nbody), name the ROADMAP item that ports them."""
     js, ts = both("spherical")
     pin = ts["pin"]
     pin.apply_overrides(["physics/cooling=true", "cooling/type=beta", "cooling/beta0=1.0",
-                         "cooling/tref=powerlaw"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.sources_from_input(pin, ts["grid"], None, None,
-                             Constants.from_units(Units.from_input(pin)))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.Drag(pin, ts["grid"], None, None)
+                         "cooling/tref=nbody"])
+    with pytest.raises(NotImplementedError, match="item 8"):
+        T.sources_from_input(pin, ts["grid"], FluidCfg(fluid="gas", recon="plm", rsolver="hllc"),
+                             None, Constants.from_units(Units.from_input(pin)))
     with pytest.raises(NotImplementedError, match="item 8"):
         T.NBodyGravity(pin, ts["grid"], None, 0.0)

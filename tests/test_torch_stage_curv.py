@@ -42,7 +42,12 @@ version.
   padded halo (K4) on every padded case and on the disk_cyl (x2 periodic
   through its ghosts) and disk_axi (2-D) states, f32 and f64, bitwise
   equal to the per-cell padded body; partial stages keep the per-cell
-  body;
+  body; power-law viscosity on disk_sph's own float64 state, held relative
+  to each component's maximum (cells at the density floor);
+* the partial stages of the 2-D cylindrical decks on the per-cell body
+  (alpha_disk behind its viscous x1 fill, with gravity and cooling left to
+  the chain; binary_cyl with the rotating frame folded, its binary gravity
+  and damping left to the chain) against the plain version at TOL_DISK;
 * the ``cuda``-marked tests run the same checks on the card.  They skip
   without a GPU; run them there with (``tests/conftest.py`` imports jax,
   which the card's machine lacks; the JAX comparisons import it only
@@ -798,12 +803,13 @@ def test_cpu_batched_stage_runs_the_plain_version():
 # the tiled body (K5b, and K6 as its node axis)
 # ---------------------------------------------------------------------------
 
-def check_tiled(cs, w, u, dtype, tol):
+def check_tiled(cs, w, u, dtype, tol, rel=False):
     """A gather launch of ``cs`` (with its strips: six, or x1/x2 with x3
     wrapped) takes the tiled body: bitwise equal (u, w, the dtden maximum)
     to the per-cell body on the same halo (the wrapper's private switch)
     and to the padded halo made from the same strips, and within ``tol`` of
-    the plain version (u, w absolute, the dtden maximum relative), both RK
+    the plain version (u, w absolute, or with ``rel`` relative to each
+    component's maximum |plain|; the dtden maximum relative), both RK
     register patterns; dtden has one entry per block of each body."""
     halo = cs.halo
     assert halo in ("gather", "gather6") and cs.tiled(halo)
@@ -825,8 +831,15 @@ def check_tiled(cs, w, u, dtype, tol):
         assert torch.equal(ut, uc) and torch.equal(wt, wc) and torch.equal(dt_.amax(), dc.amax())
         assert torch.equal(ut, up) and torch.equal(wt, wp) and torch.equal(dt_.amax(), dp.amax())
         assert torch.isfinite(ut).all() and torch.isfinite(wt).all()
-        assert float((ut - ur).abs().max()) <= tol and float((wt - wr).abs().max()) <= tol
+        err = component_rel_err if rel else (lambda a, b: float((a - b).abs().max()))
+        assert err(ut, ur) <= tol and err(wt, wr) <= tol
         assert float((dt_.max() - dr.max()).abs() / dr.max()) <= tol
+
+
+def component_rel_err(a, b):
+    """max |a - b| / max |b| over each component (axis 1) of a stage output."""
+    dims = (0,) + tuple(range(2, a.ndim))
+    return float(((a - b).abs().amax(dim=dims) / b.abs().amax(dim=dims)).max())
 
 
 SCHEMES = ["hllc-plm", "hlle-plm", "hllc-pcm", "hlle-pcm"]
@@ -945,6 +958,17 @@ def test_host_compiled_tiled_viscosity_models(on_host, tmp_path, model):
     check_tiled(cs, w, u, torch.float64, TOL[torch.float64])
 
 
+def test_host_compiled_tiled_plaw_on_the_deck_state(on_host, tmp_path):
+    """Power-law viscosity on disk_sph's own state (float64): cells at the
+    density floor (rho 1.3e-10, v3 -212) part the kernel and the plain
+    version by ~1e-11 absolute, 6e-14 of the field, so the outputs are held
+    relative to each component's maximum at 1e-12, as the FLD kernels are."""
+    cs, w, u = tiled_stage("disk_sph", torch.float64, "cpu", str(tmp_path),
+                           diff=(VISC["plaw"], None))
+    assert cs.diffusive and cs.diffusion.visc.kind == "viscosity_plaw"
+    check_tiled(cs, w, u, torch.float64, TOL[torch.float64], rel=True)
+
+
 def diffusive_strip_node(coords, visc, cond, dtype, device, seed=6):
     """A node of ``coords`` with random six-face strips, a random state,
     point gravity and the given diffusion: its CurvStage, w and u."""
@@ -1048,6 +1072,42 @@ def test_host_compiled_tiled_padded_disk_decks(on_host, tmp_path, deck, dtype):
     cells at the density floor)."""
     cs, w, u = padded_deck_stage(deck, dtype, "cpu", str(tmp_path))
     check_tiled_padded(cs, w, u, dtype, TOL_DISK[dtype])
+
+
+# the decks that run partial stages: alpha_disk (viscous x1 fills, cooling
+# and point gravity left to the chain) and binary_cyl (ic x1, the rotating
+# frame folded, binary gravity and damping left to the chain), 2-D
+# cylindrical with x2 periodic over the full circle
+PARTIAL_DECKS = {"alpha_disk": ((16, 24, 1), ["Gravity", "BetaCooling"]),
+                 "binary_cyl": ((20, 32, 1), ["Gravity", "Drag"])}
+
+
+def partial_deck_stage(deck, dtype, device, data_dir):
+    """A PARTIAL_DECKS deck through the user entry point (plain path): the
+    partial CurvStage its driver makes on the card (padded, per-cell body,
+    the deck's alpha viscosity folded), the initial w and u."""
+    nx, chain = PARTIAL_DECKS[deck]
+    sim = Simulation(os.path.join(HERE, "..", "inputs", f"{deck}.in"),
+                     [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
+                      "parthenon/time/nlim=0",
+                      "artemis/precision=" + str(dtype).removeprefix("torch.")],
+                     data_dir, device=device, fused_stage=False)
+    cs = sim.driver._make_curv_stage(sim.grid, sim.gas_cfg)
+    assert cs.halo == "padded" and not cs.full and cs.diffusive and not cs.tiled("padded")
+    assert [type(s).__name__ for s in sim.driver._curv_srcs] == chain
+    assert sim.grid.ng[2] == 0
+    return cs, sim.state["gas"]["w"], sim.state["gas"]["u"]
+
+
+@pytest.mark.parametrize("deck", list(PARTIAL_DECKS))
+def test_host_compiled_partial_deck_stages(on_host, tmp_path, deck):
+    """K4's partial mode on the per-cell body on the alpha_disk and
+    binary_cyl states (float64, TOL_DISK), the ghost fill of each deck's
+    walls (alpha_disk's viscous inflow) in front of the kernel."""
+    cs, w, u = partial_deck_stage(deck, torch.float64, "cpu", str(tmp_path))
+    n0 = SC.tiled_launches
+    check_against_plain(cs, w, u, torch.float64, on_host, padded=True, tols=TOL_DISK)
+    assert SC.tiled_launches == n0
 
 
 def test_host_compiled_tiled_refusal_raises(on_host, tmp_path, monkeypatch):
@@ -1240,4 +1300,20 @@ def test_kernel_tiled_viscous_models_and_ragged(cuda, tmp_path, dtype):
 @pytest.mark.parametrize("case", list(RANDOM_DIFF))
 def test_kernel_tiled_random_diffusion(cuda, case, dtype):
     check_tiled(*diffusive_strip_node(*RANDOM_DIFF[case], dtype, cuda), dtype, TOL[dtype])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_plaw_on_the_deck_state_and_partial_decks(cuda, tmp_path, dtype):
+    """On the card: power-law viscosity on disk_sph's float64 state
+    (relative to each component's maximum, as on the host) and the partial
+    stages of the alpha_disk and binary_cyl states."""
+    if dtype == torch.float64:
+        cs, w, u = tiled_stage("disk_sph", dtype, cuda, str(tmp_path),
+                               diff=(VISC["plaw"], None))
+        check_tiled(cs, w, u, dtype, TOL[dtype], rel=True)
+    for deck in PARTIAL_DECKS:
+        check_against_plain(*partial_deck_stage(deck, dtype, cuda, str(tmp_path)), dtype,
+                            SC.stage_curv, padded=True, tols=TOL_DISK)
     torch.cuda.synchronize()
