@@ -29,9 +29,11 @@ the fine fields restrict back.
 
 Ported: static trees on Cartesian grids (``refinement = static``), N
 levels, several disjoint or adjacent patches per level, gas with the
-sources and diffusion of the single-level driver, gray FLD radiation.
-Adaptive retagging, curvilinear trees, dust, N-body tracking patches and
-sharded trees are not ported (ROADMAP Queue 1 items 10, 7, 8 and 11).
+sources and diffusion of the single-level driver, gray FLD radiation, and
+bit-exact restarts (the fine levels as the JAX package's ``amr.*``
+payloads).  Adaptive retagging and its tile-pool restarts, curvilinear
+trees, dust, N-body coupling on trees and sharded trees are not ported
+(ROADMAP Queue 1 items 10 and 11).
 Patch positions are host integers: the tree never moves.
 """
 
@@ -1299,6 +1301,52 @@ class SMRDriver:
                 prims[i + 1] = pr["gas"]
         self._states = self.smr.initialize(prims)
         return {k: dict(v) for k, v in self._states[0].items()}
+
+    def restart_payloads(self):
+        """The fine levels' arrays for a bit-exact restart (name -> fn), as
+        the JAX package writes them: ``n{i}.gas.u|w``, ``n{i}.rad.Er`` and
+        the patch position ``n{i}.lo`` of every node below the root."""
+        def host(i, fl, kind):
+            return lambda: self._states[i][fl][kind].detach().cpu().numpy()
+
+        out = {}
+        for node in self.smr.nodes[1:]:
+            i = node.index
+            out[f"n{i}.gas.u"] = host(i, "gas", "u")
+            out[f"n{i}.gas.w"] = host(i, "gas", "w")
+            if node.radiation is not None:
+                out[f"n{i}.rad.Er"] = host(i, "rad", "Er")
+            out[f"n{i}.lo"] = (lambda lo: lambda: np.array(lo, dtype=np.int32))(node.lo)
+        return out
+
+    def load_restart(self, payloads, root_state):
+        """The fine levels from a checkpoint's payloads, on the run's device.
+        The tree is static: a checkpoint of a tile-pool (adaptive) tree, or
+        one whose patches sit elsewhere, is refused."""
+        if "pool" in payloads:
+            raise NotImplementedError("restarting an adaptive (tile-pool) tree is not "
+                                      f"ported yet ({ITEM})")
+        ml = self.smr
+
+        def dev(key):
+            a = payloads[key]
+            if a.dtype != np.dtype(str(ml.dtype).removeprefix("torch.")):
+                raise ValueError(f"restart payload {key} is {a.dtype}, the tree runs "
+                                 f"{ml.dtype}")
+            return torch.as_tensor(a, device=ml.device)
+
+        self._states = [None] * len(ml.nodes)
+        self._states[0] = {k: dict(v) for k, v in root_state.items()}
+        for node in ml.nodes[1:]:
+            i = node.index
+            lo = payloads.get(f"n{i}.lo")
+            if lo is not None and tuple(int(v) for v in lo) != node.lo:
+                raise ValueError(f"restart: node {i} sits at {tuple(lo)}, the deck's "
+                                 f"static tree puts it at {node.lo}")
+            st = {"gas": {"u": dev(f"n{i}.gas.u"), "w": dev(f"n{i}.gas.w")}}
+            if node.radiation is not None:
+                st["rad"] = {"Er": dev(f"n{i}.rad.Er")}
+            self._states[i] = st
 
     def _ensure_states(self, root_state):
         if self._states is None:

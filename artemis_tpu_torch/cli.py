@@ -2,8 +2,10 @@
 ``artemis_tpu/cli.py``).
 
 Usage:  python -m artemis_tpu_torch.cli -i input.deck [-d data_dir]
-            [--device cuda|cpu] [key=value ...]
-Return codes: 0 complete, 1 failed, 2 walltime timeout.
+            [-r checkpoint.rst.npz] [-t seconds] [--device cuda|cpu] [key=value ...]
+Return codes: 0 complete, 1 failed, 2 walltime timeout (after writing
+``{problem_id}.walltime.final.rst.npz`` in the data directory, which
+``-r`` resumes).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="artemis_tpu_torch")
     ap.add_argument("-i", "--input", required=True, help="input deck file")
     ap.add_argument("-d", "--data", default=".", help="output data directory")
+    ap.add_argument("-r", "--restart", default=None, help="restart checkpoint (.rst.npz)")
     ap.add_argument("-n", "--ncycle-out", type=int, default=0, help="stdout log interval")
     ap.add_argument("-t", "--walltime", type=float, default=None,
                     help="wall-clock limit in seconds (exit code 2 on timeout)")
@@ -46,14 +49,19 @@ def main(argv=None) -> int:
 
     try:
         sim = Simulation(args.input, overrides=args.overrides, data_dir=args.data,
-                         device=args.device)
+                         device=args.device, restart=args.restart)
         sim.print_config()
         zcps = sim.run(log_every=args.ncycle_out, walltime=args.walltime)
         print(f"walltime-rate: {zcps:.3e} zone-cycles/sec "
               f"(ncycle={sim.tm.ncycle}, t={sim.tm.time:.6e}, {sim.status})")
         if sim.status == "timeout":
-            # restart checkpoints are not ported yet (ROADMAP Queue 1 item 7):
-            # stop with the self-resubmit exit code and no checkpoint
+            # write a resume checkpoint and signal the self-resubmit pattern
+            # (DriverStatus::timeout -> exit code 2, src/main.cpp:108-138)
+            import os
+
+            pid = sim.pin.get_or_add_str("parthenon/job", "problem_id", "artemis")
+            path = sim.write_restart(os.path.join(sim.data_dir, f"{pid}.walltime"))
+            print(f"walltime checkpoint: {path}")
             return 2
     except Exception as e:  # noqa: BLE001
         print(f"artemis_tpu_torch failed: {e}", file=sys.stderr)

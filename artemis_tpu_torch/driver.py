@@ -14,7 +14,11 @@ package runs its jnp path; on the GPU its Cartesian gas fluxes come from
 the fused sweep kernel (``ops.sweeps``, one launch per direction), as the
 JAX package's come from its Pallas sweep (the shearing box, and the gas of
 a gas+dust run).  With radiation, the operator-split FLD step
-(``radiation.Radiation``) follows the stages of every cycle.
+(``radiation.Radiation``) follows the stages of every cycle.  With an
+N-body system the step is host-coupled (``_host_step``): after each stage
+the ``[npart, 7]`` back-reaction rows of ``NBodyGravity`` come to the host
+(one read-back per stage) and the native integrator advances the particles
+before the next stage reads them.
 
 The JAX driver marches chunks of up to 256 cycles on the device inside a
 ``lax.while_loop``; this one is a host loop that reads dt back once per
@@ -26,6 +30,7 @@ from __future__ import annotations
 
 import time as _time
 from dataclasses import dataclass
+from types import SimpleNamespace
 from typing import Optional, Tuple
 
 import numpy as np
@@ -80,6 +85,36 @@ class Integrator:
         raise ValueError(f"unknown integrator {name!r}")
 
 
+def nbody_coeffs(integ: Integrator, dt: float):
+    """Derived stage-consistent N-body coupling integrator from the hydro
+    low-storage coefficients (artemis_driver.cpp:71-87): gam0, gam1, beta
+    per stage and the cycle's dt."""
+    n = integ.nstages
+    nbeta = [0.0] * n
+    nbeta[0] = integ.beta[0]
+    for s in range(2, n + 1):
+        nbeta[s - 1] = integ.gam0[s - 1] * nbeta[s - 2] + integ.beta[s - 1]
+    ngam0, ngam1 = [0.0] * n, [0.0] * n
+    for s in range(1, n + 1):
+        nbetam1 = nbeta[(s > 1) * (s - 2)]
+        nfac = integ.beta[s - 1] / (integ.gam0[s - 1] * nbetam1
+                                    + integ.beta[s - 1])
+        ngam0[s - 1] = 0.0 if s == 1 else 1.0 - nfac
+        ngam1[s - 1] = 1.0 if s == 1 else nfac
+    return SimpleNamespace(gam0=ngam0, gam1=ngam1, beta=nbeta, dt=dt)
+
+
+def apply_sources(srcs, state, fluxes, time, bdt, hyd, ctx):
+    """The sources in order; those that read the particles (``needs_ctx``)
+    get ``ctx`` and may leave their outputs in it."""
+    for src in srcs:
+        if getattr(src, "needs_ctx", False):
+            state = src.apply(state, fluxes, time, bdt, hyd, ctx=ctx)
+        else:
+            state = src.apply(state, fluxes, time, bdt, hyd)
+    return state
+
+
 def curv_point_grav(grid, s_):
     """Fold mode of a central point-mass Gravity source in the curvilinear
     stage kernel ("sph", "cart" or "xyz"), or None when the source or
@@ -107,7 +142,8 @@ class Driver:
     with the tensor flux chain (the plain version the kernels, the sweep
     kernel included, are measured against).  ``diffusion``
     and ``radiation`` are factories ``fn(hydro) -> Diffusion`` and
-    ``fn(hydro) -> Radiation``."""
+    ``fn(hydro) -> Radiation``; ``nbody`` is the run's ``NBodySystem``,
+    which makes every step host-coupled."""
 
     def __init__(
         self,
@@ -126,10 +162,8 @@ class Driver:
         dtype,
         fused_stage: bool = True,
     ):
-        if nbody is not None:
-            raise NotImplementedError("N-body coupling is not ported yet "
-                                      "(ROADMAP Queue 1 item 8)")
         self.grid = grid
+        self.nbody = nbody
         self.integrator = integrator
         self.device = torch.device(device)
         self.dtype = dtype
@@ -201,6 +235,11 @@ class Driver:
         return cs
 
     @property
+    def host_coupled(self) -> bool:
+        """True when each step needs host-side work between stages."""
+        return self.nbody is not None
+
+    @property
     def stage_kernel(self) -> str:
         """Which stage kernel the GPU run launches ("none" off the GPU)."""
         if self._fused_stage:
@@ -249,10 +288,13 @@ class Driver:
             new[name] = {"u": u, "w": w}
         return new
 
-    def _stage_body(self, state, u1, dt, time, stage):
+    def _stage_body(self, state, u1, dt, time, stage, particles=None):
         """One RK stage (the reference per-stage task list,
         artemis_driver.cpp:170-268).  ``dt`` is a 0-d tensor on the run's
-        device, ``time`` the cycle's start time on the host."""
+        device, ``time`` the cycle's start time on the host, ``particles``
+        the N-body particles on the device (or None).  Returns (state,
+        pforce): the [npart, 7] back-reaction rows on the device, or None
+        without N-body gravity."""
         hyd = self.hydro
         integ = self.integrator
         gam0 = integ.gam0[stage - 1]
@@ -267,8 +309,9 @@ class Driver:
             # dtden: per-block CFL denominator maxima (estimate_dt takes the
             # max, skipping a full extra pass over w each cycle)
             new_state["gas"] = {"u": u, "w": w, "dtden": dtden}
-            return new_state
+            return new_state, None
         bdt = beta * dt
+        ctx = {"particles": particles}
         if self._curv is not None:
             u, w, dtden = curv_mod.stage_curv(
                 self._curv, state["gas"]["w"], state["gas"]["u"], u1["gas"], gam0,
@@ -276,15 +319,14 @@ class Driver:
             new_state = dict(state)
             if self._curv.full:
                 new_state["gas"] = {"u": u, "w": w, "dtden": dtden}
-                return new_state
+                return new_state, None
             # partial: the folded sources are in u; the composable chain
             # applies the rest
             new_state["gas"] = {"u": u, "w": w}
-            for src in self._curv_srcs:
-                new_state = src.apply(new_state, None, time, bdt, hyd)
+            new_state = apply_sources(self._curv_srcs, new_state, None, time, bdt, hyd, ctx)
             u = hyd.set_auxiliary(new_state["gas"]["u"], self.gas_cfg)
             new_state["gas"] = {"u": u, "w": new_state["gas"]["w"]}
-            return self._sync_prims(new_state)
+            return self._sync_prims(new_state), ctx.get("pforce")
         new_state = dict(state)
         fluxes = {}
         for name, cfg in self._fluids():
@@ -299,13 +341,12 @@ class Driver:
             new_state[name] = {"u": u, "w": w}
         # external sources in reference task order
         # (gravity -> rotating frame -> drag -> cooling)
-        for src in self.sources:
-            new_state = src.apply(new_state, fluxes, time, bdt, hyd)
+        new_state = apply_sources(self.sources, new_state, fluxes, time, bdt, hyd, ctx)
         # dual-energy sync for gas
         if self.gas_cfg is not None:
             u = hyd.set_auxiliary(new_state["gas"]["u"], self.gas_cfg)
             new_state["gas"] = {"u": u, "w": new_state["gas"]["w"]}
-        return self._sync_prims(new_state)
+        return self._sync_prims(new_state), ctx.get("pforce")
 
     def fill_ghosts(self, w_int, fluid: str):
         """Interior prims -> padded prims."""
@@ -349,13 +390,37 @@ class Driver:
         next dt comes from w (the JAX package's fused loop keeps dtden in
         its carry here and cannot run this configuration; its jnp path
         takes dt from w as this does)."""
+        if self.host_coupled:
+            return self._host_step(state, dt, time)
         dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
         u1 = {name: state[name]["u"] for name, _ in self._fluids()}
         for stage in range(1, self.integrator.nstages + 1):
-            state = self._stage_body(state, u1, dt_t, time, stage)
+            state, _ = self._stage_body(state, u1, dt_t, time, stage)
+        return self._radiation_step(state, dt_t)
+
+    def _radiation_step(self, state, dt_t):
         if self.radiation is not None:
             state = self.radiation.sync_gas(self.radiation.step(state, dt_t))
         return state
+
+    def _host_step(self, state, dt: float, time: float):
+        """A step with host-side particle advances between stages
+        (NBody::Advance pattern, nbody_advance.cpp:85-208): each stage's
+        force rows come to the host once, and the next stage reads the
+        advanced particles."""
+        nb = self.nbody
+        nstages = self.integrator.nstages
+        coeffs = nbody_coeffs(self.integrator, float(dt))
+        nb.begin_step()
+        dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
+        u1 = {name: state[name]["u"] for name, _ in self._fluids()}
+        for stage in range(1, nstages + 1):
+            state, pforce = self._stage_body(state, u1, dt_t, time, stage,
+                                             nb.particle_pytree(self.device, self.dtype))
+            pf = (pforce.cpu().numpy().astype(np.float64) if pforce is not None
+                  else np.zeros((nb.npart, 7)))
+            nb.advance(pf, stage, nstages, float(time), coeffs)
+        return self._radiation_step(state, dt_t)
 
     def estimate_dt(self, state) -> float:
         return float(self._estimate_dt(state))

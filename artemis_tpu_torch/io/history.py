@@ -16,6 +16,7 @@ vol * u over the interior on the run's device.
 
 from __future__ import annotations
 
+import os
 from typing import List
 
 import numpy as np
@@ -78,6 +79,12 @@ class HistoryOutput:
     def start(self, state, tm):
         self._write_row(state, tm)
         self.next_time = self.dt_out
+
+    def resume(self, state, tm):
+        """Restart: append to the existing .hst (reference Parthenon behavior)
+        and fire at the first output boundary strictly after tm.time."""
+        self._wrote_header = os.path.exists(self.path) and os.path.getsize(self.path) > 0
+        self.next_time = (np.floor(tm.time / self.dt_out * (1.0 + 1e-12)) + 1) * self.dt_out
 
     def __call__(self, state, tm):
         # one row per trigger even if the step crossed several dt_out

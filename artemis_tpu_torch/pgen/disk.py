@@ -161,9 +161,50 @@ def viscosity_profile(dp: DiskParams, R):
 
 
 def make_rt_fn(pin, grid, gm):
-    """Potential-radius proxy for nbody_temp disks (disk.hpp:146-218)."""
-    raise NotImplementedError("nbody_temp disks need the N-body package, "
-                              "not ported yet (ROADMAP Queue 1 item 8)")
+    """Potential-radius proxy for nbody_temp disks: rt = -gm/Phi_nbody(x)
+    with the softened potential of all particles at t=0 (disk.hpp:146-218,
+    NBodyPotential nbody_gravity.hpp:224-234).  Returns rt(x1,x2,x3)."""
+    from ..nbody import setup_particles
+    from ..units import Constants, Units
+
+    constants = Constants.from_units(Units.from_input(pin))
+    G = constants.G_code
+    parts, _ = setup_particles(pin, G, pin.get_or_add_real("nbody", "mtot", -1.0))
+
+    def idr1(rs, spline, dr2):
+        # numpy replica of Particle::idr1 (particle_base.hpp:115-141)
+        fz = 1e-300
+        rs2 = rs * rs
+        if not spline:
+            return 1.0 / np.sqrt(dr2 + rs2 + fz)
+        dr1 = np.sqrt(dr2)
+        hinv = 1.0 / (rs + fz)
+        # both where-branches evaluate; outside the softening radius the
+        # unused inner branch may overflow (u ~ dr/rs huge when rs ~ 0) —
+        # harmless, silence the numpy warnings
+        with np.errstate(invalid="ignore", over="ignore"):
+            u2 = dr2 / (rs2 + fz)
+            u = np.sqrt(u2)
+            u3, u4 = u * u2, u2 * u2
+            u5 = u4 * u
+            inner = np.where(
+                u < 0.5,
+                hinv * (14.0 / 5.0 - 16.0 / 3.0 * u2 + 48.0 / 5.0 * u4
+                        - 32.0 / 5.0 * u5),
+                hinv * (16.0 / 5.0 - 32.0 / 3.0 * u2 + 16.0 * u3
+                        - 48.0 / 5.0 * u4 + 32.0 / 15.0 * u5
+                        - 1.0 / (15.0 * u + fz)))
+            return np.where(dr2 >= rs2, 1.0 / (dr1 + fz), inner)
+
+    def rt(x1, x2, x3):
+        cx, cy, cz = geo.convert_to_cart(grid.coords, x1, x2, x3)
+        pot = 0.0
+        for p in parts.values():
+            dr2 = (cx - p.x) ** 2 + (cy - p.y) ** 2 + (cz - p.z) ** 2
+            pot = pot - G * p.m * idr1(p.rs, p.spline, dr2)
+        return -gm / pot
+
+    return rt
 
 
 def disk_ic(dp: DiskParams, grid, cv, sl=None, do_dust=False, rt_fn=None):
@@ -467,8 +508,12 @@ def build(pin, grid, gas_cfg, dust_cfg=None) -> Problem:
     elif pin.has_block("gravity/binary"):
         gm = constants.G_code * pin.get_or_add_real("gravity/binary", "total_mass", 1.0)
     elif pin.has_block("gravity/nbody"):
-        raise NotImplementedError("nbody gravity is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+        # gm = G * (total particle mass), as the nbody package computes it
+        from ..nbody import setup_particles
+
+        _, mtot = setup_particles(pin, constants.G_code,
+                                  pin.get_or_add_real("nbody", "mtot", -1.0))
+        gm = constants.G_code * mtot
     else:
         raise ValueError("disk pgen requires point, binary, or nbody gravity")
     omf = 0.0

@@ -5,9 +5,12 @@ device).
 Reads the input deck, builds the gas and dust fluids, the problem
 generator, the source packages
 (gravity, rotating frame, beta cooling, drag and damping zones,
-viscosity/conduction, gray FLD radiation) and the driver on the requested
-device, and runs the evolution loop.  Physics the port does not
-carry yet raises ``NotImplementedError`` naming its ROADMAP item.
+viscosity/conduction, gray FLD radiation, the N-body system) and the
+driver on the requested device, starts from the problem generator or a
+restart checkpoint, and runs the evolution loop with the deck's outputs
+(``.hst`` history, ``hdf5`` field dumps, ``rst`` checkpoints, the N-body
+``.reb``/``.orb`` files).  Physics the port does not carry yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,13 +25,11 @@ from .config import ParameterInput
 from .driver import Driver, Integrator, SimTime, evolve
 from .eos import eos_from_input
 from .grid import grid_from_input
+from .io.dumps import FieldOutput, RestartOutput, _next_boundary, load_restart
 from .ops.hydro import FluidCfg
 from .pgen import build_problem
 from .sources import Drag, Gravity, sources_from_input
 from .units import Constants, Units
-
-# <physics> switch -> ROADMAP Queue 1 item that ports it
-_NOT_PORTED = {"nbody": 8}
 
 
 def dtype_from_input(pin) -> torch.dtype:
@@ -53,6 +54,33 @@ def _damp_to_visc(srcs, visc):
             s.set_viscosity(visc)
 
 
+class _NBodyOutputs:
+    """Writes the N-body .reb/.orb files at the <nbody> dt_output cadence
+    (cf. NBody::Outputs, nbody_outputs.cpp)."""
+
+    def __init__(self, sim):
+        self.sim = sim
+        self.dt_out = sim.pin.get_or_add_real("nbody", "dt_output", 1.0e300)
+        self.pid = sim.pin.get_or_add_str("parthenon/job", "problem_id", "artemis")
+        self.next = 0.0
+
+    def start(self, state, tm):
+        self.sim.nbody.write_outputs(self.sim.data_dir, self.pid, tm.time)
+        self.next = self.dt_out
+
+    def resume(self, state, tm):
+        self.next = _next_boundary(tm.time, self.dt_out)
+
+    def __call__(self, state, tm):
+        if tm.time >= self.next * (1.0 - 1e-12):
+            self.sim.nbody.write_outputs(self.sim.data_dir, self.pid, tm.time)
+            self.next = _next_boundary(tm.time, self.dt_out)
+
+    @property
+    def next_time(self):
+        return self.next
+
+
 class Simulation:
     def __init__(
         self,
@@ -69,9 +97,6 @@ class Simulation:
         if nshards > 1:
             raise NotImplementedError("multi-device runs are not ported yet "
                                       "(ROADMAP Queue 1 item 11)")
-        if restart is not None:
-            raise NotImplementedError("restart is not ported yet "
-                                      "(ROADMAP Queue 1 item 7)")
         if is_path is None:
             is_path = os.path.exists(deck)
         pin = ParameterInput.from_file(deck) if is_path else ParameterInput.from_string(deck)
@@ -87,10 +112,6 @@ class Simulation:
 
         self.do_gas = pin.get_or_add_bool("physics", "gas", True)
         self.do_dust = pin.get_or_add_bool("physics", "dust", False)
-        for key, item in _NOT_PORTED.items():
-            if pin.get_or_add_bool("physics", key, False):
-                raise NotImplementedError(f"<physics> {key} is not ported yet "
-                                          f"(ROADMAP Queue 1 item {item})")
         refinement = pin.get_or_add_str("parthenon/mesh", "refinement", "none")
         if refinement == "adaptive":
             raise NotImplementedError("adaptive mesh refinement is not ported yet "
@@ -152,7 +173,17 @@ class Simulation:
         omf = 0.0
         if pin.get_or_add_bool("physics", "rotating_frame", False):
             omf = pin.get_or_add_real("rotating_frame", "omega", 0.0)
-        srcs = sources_from_input(pin, self.grid, gas_cfg, dust_cfg, self.constants)
+        # N-body package (a deterministic few-body system on the host)
+        self.nbody = None
+        if pin.get_or_add_bool("physics", "nbody", False):
+            if refinement == "static":
+                raise NotImplementedError("N-body coupling on refinement trees is not "
+                                          "ported yet (ROADMAP Queue 1 item 10)")
+            from .nbody import NBodySystem
+
+            self.nbody = NBodySystem(pin, self.constants, omf=omf)
+        srcs = sources_from_input(pin, self.grid, gas_cfg, dust_cfg, self.constants,
+                                  nbody_sys=self.nbody)
         srcs += list(self.problem.sources)
         for s in srcs:
             # binary-orbit gravity solves its orbit in the rotating frame
@@ -196,32 +227,73 @@ class Simulation:
         else:
             self.driver = Driver(self.grid, integrator, gas_cfg, dust_cfg, sources=srcs,
                                  bc_custom=self.problem.bc_custom, omf=omf,
-                                 diffusion=diffusion_factory, radiation=radiation_factory,
+                                 diffusion=diffusion_factory, nbody=self.nbody,
+                                 radiation=radiation_factory,
                                  device=self.device, dtype=self.dtype,
                                  fused_stage=fused_stage)
 
-        state = {name: {"u": None, "w": torch.as_tensor(w, dtype=self.dtype, device=self.device)}
-                 for name, w in self.problem.prims.items()}
-        self.state = self.driver.initialize(state)
-        if self.radiation_cfg is not None:
-            rc = self.radiation_cfg
-            rad_T = getattr(self.problem, "rad_temp", None)
-            if rad_T is not None:
-                Er = torch.as_tensor(rc.arad * np.asarray(rad_T)[None] ** 4,
-                                     dtype=self.dtype, device=self.device)
-            else:
-                from .radiation import initialize_radiation
+        # initial state: fresh from the problem generator, or from a restart
+        # checkpoint (doc/src/running.rst:198-206, `-r name.final.rst`)
+        self.restarted = restart is not None
+        if restart is not None:
+            meta = self._load_restart(restart)
+        else:
+            meta = {}
+            state = {name: {"u": None,
+                            "w": torch.as_tensor(w, dtype=self.dtype, device=self.device)}
+                     for name, w in self.problem.prims.items()}
+            self.state = self.driver.initialize(state)
+            if self.radiation_cfg is not None:
+                rc = self.radiation_cfg
+                rad_T = getattr(self.problem, "rad_temp", None)
+                if rad_T is not None:
+                    Er = torch.as_tensor(rc.arad * np.asarray(rad_T)[None] ** 4,
+                                         dtype=self.dtype, device=self.device)
+                else:
+                    from .radiation import initialize_radiation
 
-                Er = initialize_radiation(self.state, gas_cfg, rc)["Er"]
-            self.state["rad"] = {"Er": Er}
+                    Er = initialize_radiation(self.state, gas_cfg, rc)["Er"]
+                self.state["rad"] = {"Er": Er}
+        if self.radiation_cfg is not None:
             self._set_radiation_ic_edges()
         self.tm = SimTime(
-            time=0.0,
             tlim=pin.get_real("parthenon/time", "tlim"),
             nlim=pin.get_or_add_int("parthenon/time", "nlim", -1),
             dt_min=pin.get_or_add_real("parthenon/time", "dt_min", 0.0),
             dt_max=pin.get_or_add_real("parthenon/time", "dt_max", 1.0e300),
+            **meta,
         )
+        if restart is not None and self.problem.on_restart is not None:
+            self.problem.on_restart(self, self._restart_in_payloads)
+
+    def _load_restart(self, path):
+        """The state, the N-body system and the tree's fine levels from a
+        checkpoint of either package, on the run's device.  A checkpoint
+        whose dtype is not the deck's is refused.  ``gas.dtden`` (written
+        by the fused paths) is kept, so the first resumed dt is the one an
+        uninterrupted run takes; a checkpoint without it is seeded by
+        ``prepare_state``.  Returns SimTime's (time, dt, ncycle,
+        restored)."""
+        arrays, meta, payloads = load_restart(path)
+        want = str(self.dtype).removeprefix("torch.")
+        for name, kinds in arrays.items():
+            for kind, a in kinds.items():
+                if a.dtype != np.dtype(want):
+                    raise ValueError(f"restart {path}: {name}.{kind} is {a.dtype}, the deck "
+                                     f"runs {want} (<artemis> precision)")
+        self.state = {name: {kind: torch.as_tensor(a, device=self.device)
+                             for kind, a in kinds.items()}
+                      for name, kinds in arrays.items()}
+        if hasattr(self.driver, "prepare_state"):
+            self.state = self.driver.prepare_state(self.state)
+        self._restart_in_payloads = payloads
+        if self.nbody is not None and "nbody" in payloads:
+            self.nbody.load_restart(payloads["nbody"])
+        amr_pl = {k.removeprefix("amr."): v for k, v in payloads.items()
+                  if k.startswith("amr.")}
+        if amr_pl and hasattr(self.driver, "load_restart"):
+            self.driver.load_restart(amr_pl, self.state)
+        return dict(time=meta["time"], dt=meta["dt"], ncycle=meta["ncycle"], restored=True)
 
     def _smr_driver(self, pin, problem_name, integrator, gas_cfg, srcs, diffusion_factory,
                     radiation_factory, omf, fused_stage, visc):
@@ -309,7 +381,8 @@ class Simulation:
             lines.append(f"dust: {self.dust_cfg.recon}+{self.dust_cfg.rsolver} "
                          f"nspecies={self.dust_cfg.nspecies}")
         pkgs = [type(s).__name__ for s in self.driver.sources]
-        pkgs += [p for p, on in (("radiation", self.radiation_cfg is not None),
+        pkgs += [p for p, on in (("nbody", self.nbody is not None),
+                                 ("radiation", self.radiation_cfg is not None),
                                  ("diffusion", self.driver.diffusion is not None)) if on]
         if pkgs:
             lines.append("packages: " + ", ".join(pkgs))
@@ -338,14 +411,40 @@ class Simulation:
             base = os.path.join(self.data_dir, f"{pid}.out{n}")
             if ftype == "hst":
                 fname = base + ".hst"
-                # fresh runs start clean
-                if os.path.exists(fname):
+                # restarts append to the existing history (Parthenon
+                # behavior); fresh runs start clean
+                if not self.restarted and os.path.exists(fname):
                     os.remove(fname)
                 obs.append(HistoryOutput(self, dt_out, fname))
-            else:
-                raise NotImplementedError(f"{ftype!r} outputs are not ported yet "
-                                          "(ROADMAP Queue 1 item 7)")
+            elif ftype == "hdf5":
+                variables = (self.pin.get_list(block, "variables")
+                             if self.pin.exists(block, "variables") else None)
+                obs.append(FieldOutput(self, dt_out, base, variables))
+            elif ftype == "rst":
+                obs.append(RestartOutput(self, dt_out, base))
+        if self.nbody is not None and not self.pin.get_or_add_bool(
+                "nbody", "disable_outputs", False):   # nbody_outputs.cpp:35
+            obs.append(_NBodyOutputs(self))
         return obs
+
+    @property
+    def restart_payloads(self):
+        """name -> fn() -> array restart extras: the N-body system and the
+        tree's fine levels."""
+        out = {}
+        if self.nbody is not None:
+            out["nbody"] = self.nbody.restart_payload
+        if hasattr(self.driver, "restart_payloads"):
+            for key, fn in self.driver.restart_payloads().items():
+                out[f"amr.{key}"] = fn
+        return out
+
+    def write_restart(self, basename: str, tag: str = "final", state=None, tm=None) -> str:
+        """A checkpoint as ``{basename}.{tag}.rst.npz`` (the name the CLI's
+        walltime checkpoint and the rst output use): the run's state and
+        time, or an observer's ``state`` and ``tm`` during the run."""
+        return RestartOutput(self, 1.0, basename)._write(
+            self.state if state is None else state, self.tm if tm is None else tm, tag=tag)
 
     def run(self, log_every: int = 0, extra_observers=(), walltime=None):
         import time as _t
@@ -353,7 +452,11 @@ class Simulation:
         deadline = (_t.perf_counter() + walltime) if walltime else None
         observers = self._make_observers() + list(extra_observers)
         for ob in observers:
-            if hasattr(ob, "start"):
+            # restarts resume counters/boundaries instead of re-emitting t=0
+            # outputs (which would duplicate the original run's)
+            if self.restarted and hasattr(ob, "resume"):
+                ob.resume(self.state, self.tm)
+            elif hasattr(ob, "start"):
                 ob.start(self.state, self.tm)
         self.state, self.tm, zcps, self.status = evolve(
             self.driver, self.state, self.tm, observers=observers,

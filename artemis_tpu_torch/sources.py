@@ -10,9 +10,11 @@ state`` method; the driver applies them in the reference task order gravity
 is a host float (the port's loop keeps it on the host), ``dt`` the stage's
 beta*dt tensor.
 
-N-body gravity, and cooling toward the particles' temperature
-(``tref = nbody``), are not ported yet: they raise ``NotImplementedError``
-naming the ROADMAP item.
+Sources that read the N-body particles (``NBodyGravity``, and
+``BetaCooling`` with ``tref = nbody``) set ``needs_ctx``: the driver passes
+them ``ctx={"particles": ...}`` (the particles' gm, pos and vel as tensors
+on the run's device), and ``NBodyGravity`` returns its ``[npart, 7]``
+back-reaction rows in ``ctx["pforce"]``.
 """
 
 from __future__ import annotations
@@ -425,18 +427,43 @@ def _rf_weights(grid):
 # ----------------------------------------------------------------------------
 # Beta cooling (src/gas/cooling/)
 # ----------------------------------------------------------------------------
+def _idr1_soft(rs, spline, dr2):
+    """Softened 1/r kernel (plummer or Gadget spline), literal replica of
+    Particle::idr1 (particle_base.hpp:115-141)."""
+    fz = 1e-300
+    rs2 = rs * rs
+    idr1_p = 1.0 / torch.sqrt(dr2 + rs2 + fz)
+    if not spline:
+        return idr1_p
+    dr1 = torch.sqrt(dr2)
+    hinv = 1.0 / (rs + fz)
+    u2 = dr2 / (rs2 + fz)
+    u = torch.sqrt(u2)
+    u3, u4 = u * u2, u2 * u2
+    u5 = u4 * u
+    inner = torch.where(
+        u < 0.5,
+        hinv * (14.0 / 5.0 - 16.0 / 3.0 * u2 + 48.0 / 5.0 * u4 - 32.0 / 5.0 * u5),
+        hinv * (16.0 / 5.0 - 32.0 / 3.0 * u2 + 16.0 * u3 - 48.0 / 5.0 * u4
+                + 32.0 / 15.0 * u5 - 1.0 / (15.0 * u + fz)))
+    return torch.where(dr2 >= rs2, 1.0 / (dr1 + fz), inner)
+
+
 class BetaCooling(SourceBase):
     """Backward-Euler relaxation toward a reference temperature profile
     (beta_cooling.cpp:33-135): dE = -rho cv om dt/(beta + om dt) (T - T0),
     beta = beta_min + beta0 exp(-escale z^2 / T0), added to the total and
     the internal energy.
 
-    tref=powerlaw: static T0 = tfloor + tcyl R^a + tsph r^b.  tref=nbody
-    takes T0 and Omega from the live particles, which the port does not
-    carry yet.
+    tref=powerlaw: static T0 = tfloor + tcyl R^a + tsph r^b.
+    tref=nbody (beta_cooling.cpp:92-104): 1/r proxy from the softened
+    potential of all live particles, ir1 = -Phi_nbody/gm, then
+    T0 = tfloor + tsph ir1^{-sph_plaw} and Omega = sqrt(gm ir1^3) —
+    recomputed each stage from the particles in ``ctx``.
     """
 
-    def __init__(self, pin, grid, gas_cfg, gm: float, cv: float = None):
+    def __init__(self, pin, grid, gas_cfg, gm: float, cv: float = None,
+                 nbody_sys=None):
         self.gas_cfg = gas_cfg
         self._cv = cv if cv is not None else 1.0 / (gas_cfg.gamma - 1.0)
         ctype = pin.get_str("cooling", "type")
@@ -448,20 +475,28 @@ class BetaCooling(SourceBase):
         tref = pin.get_str("cooling", "tref")
         if tref not in ("powerlaw", "nbody"):
             raise ValueError(f"cooling tref {tref!r} not recognized")
-        if tref == "nbody":
-            raise NotImplementedError("cooling tref=nbody is not ported yet "
-                                      "(ROADMAP Queue 1 item 8)")
         tfloor = pin.get_or_add_real("cooling", "tfloor", 0.0)
         tcyl = pin.get_or_add_real("cooling", "tcyl", 0.0)
         cyl_plaw = pin.get_or_add_real("cooling", "cyl_plaw", 0.0)
         tsph = pin.get_or_add_real("cooling", "tsph", 0.0)
         sph_plaw = pin.get_or_add_real("cooling", "sph_plaw", 0.0)
         self.gm = gm
+        self.tref = tref
 
         shape = tuple(reversed(grid.nx))
         x1v, x2v, x3v = grid.cell_centers()
         xcyl = geo.convert_to_cyl(grid.coords, x1v, x2v, x3v)
         Rcyl, zcyl = xcyl[0], xcyl[2]
+        if tref == "nbody":
+            if nbody_sys is None:
+                raise ValueError("cooling tref=nbody requires <physics> nbody")
+            self.needs_ctx = True
+            self.nb = nbody_sys
+            self.tfloor, self.tsph, self.sph_plaw = tfloor, tsph, sph_plaw
+            self.cart = [np.broadcast_to(c, shape)
+                         for c in geo.convert_to_cart(grid.coords, x1v, x2v, x3v)]
+            self.zcyl = np.broadcast_to(zcyl, shape)
+            return
         rsph = np.sqrt(Rcyl**2 + zcyl**2)
         T0 = tfloor + tcyl * Rcyl**cyl_plaw + tsph * rsph**sph_plaw
         efac = np.where(T0 > 0.0, np.exp(-self.escale * zcyl**2
@@ -472,18 +507,44 @@ class BetaCooling(SourceBase):
 
     def place(self, device, dtype):
         super().place(device, dtype)
-        self._T0, self._beta, self._om = self._t(self.T0), self._t(self.beta), self._t(self.om)
+        if self.tref == "nbody":
+            self._cart = [self._t(c) for c in self.cart]
+            self._z2 = self._t(self.zcyl) ** 2
+        else:
+            self._T0, self._beta, self._om = (self._t(self.T0), self._t(self.beta),
+                                              self._t(self.om))
         return self
 
-    def apply(self, state, fluxes, time, dt, hyd):
+    def _nbody_profile(self, parts, dt):
+        """T0, beta and Omega dt from the particles' softened potential."""
+        nb = self.nb
+        cx, cy, cz = self._cart
+        pot = 0.0
+        for k in range(nb.npart):
+            dx = cx - (parts["pos"][k, 0] - nb.Rf[0])
+            dy = cy - (parts["pos"][k, 1] - nb.Rf[1])
+            dz = cz - (parts["pos"][k, 2] - nb.Rf[2])
+            dr2 = dx * dx + dy * dy + dz * dz
+            pot = pot - parts["gm"][k] * _idr1_soft(nb.rs[k], nb.spline[k], dr2)
+        ir1 = -pot / self.gm
+        T0 = self.tfloor + self.tsph * ir1 ** (-self.sph_plaw)
+        efac = torch.where(T0 > 0.0, torch.exp(-self.escale * self._z2
+                                               / torch.where(T0 > 0, T0, 1.0)), 1.0)
+        beta = self.beta_min + self.beta0 * efac
+        return T0, beta, dt * torch.sqrt(self.gm * ir1**3)
+
+    def apply(self, state, fluxes, time, dt, hyd, ctx=None):
         cfg = self.gas_cfg
         u = state["gas"]["u"]
         sie, _ = hyd.sie_from_cons(u, cfg)
         rho = u[:, 0]
         cv = self._cv  # ideal gas: T = sie/cv
         Tn = sie / cv
-        omdt = dt * self._om
-        dE = -rho * cv * omdt / (self._beta + omdt) * (Tn - self._T0)
+        if self.tref == "nbody":
+            T0, beta, omdt = self._nbody_profile(ctx["particles"], dt)
+        else:
+            T0, beta, omdt = self._T0, self._beta, dt * self._om
+        dE = -rho * cv * omdt / (beta + omdt) * (Tn - T0)
         u = u.clone()
         u[:, 4] += dE
         u[:, 5] += dE
@@ -747,12 +808,188 @@ class Drag(SourceBase):
 
 
 # ----------------------------------------------------------------------------
-# not ported yet
+# N-body particle gravity + sink accretion (src/gravity/nbody_gravity.hpp)
 # ----------------------------------------------------------------------------
 class NBodyGravity(SourceBase):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("N-body gravity is not ported yet "
-                                  "(ROADMAP Queue 1 item 8)")
+    """Softened gravity from all live particles + per-particle sink accretion
+    with back-reaction force reduction (NBodyGravityImpl,
+    nbody_gravity.hpp:26-221).  The particles arrive in ``ctx`` each stage;
+    the reduced [npart, 7] force rows (torch sums over the interior, no
+    atomics, so a rerun on the card reproduces them bit for bit) are
+    returned in ``ctx["pforce"]`` for the host-side coupling kick.
+    """
+
+    needs_ctx = True
+
+    def __init__(self, pin, grid, nbody_sys, omf: float):
+        self.grid = grid
+        self.nb = nbody_sys
+        self.tstart = pin.get_or_add_real("gravity", "tstart", -BIG)
+        self.tstop = pin.get_or_add_real("gravity", "tstop", BIG)
+        shape = tuple(reversed(grid.nx))
+        x1v, x2v, x3v = grid.cell_centers()
+        self.cart = [np.broadcast_to(c, shape)
+                     for c in geo.convert_to_cart(grid.coords, x1v, x2v, x3v)]
+        ex = geo.vec_to_cart(grid.coords, x1v, x2v, x3v)  # rows in cart
+        self.ex = [[np.broadcast_to(ex[i][m], shape) for m in range(3)] for i in range(3)]
+        # cell rotation velocity in cartesian components (for accretion vb)
+        self.vb = None
+        omf = omf if nbody_sys.frame_correction else 0.0
+        if omf != 0.0:
+            from .ops.hydro import _rotation_velocity
+
+            vrot = _rotation_velocity(grid, (x1v, x2v, x3v), omf)
+            if vrot is not None:
+                self.vb = [sum(self.ex[i][m] * np.broadcast_to(vrot[i], shape)
+                               for i in range(3)) for m in range(3)]
+
+    def place(self, device, dtype):
+        super().place(device, dtype)
+        self._cart = [self._t(c) for c in self.cart]
+        self._ex = [[self._t(e) for e in row] for row in self.ex]
+        self._vb = [self._t(v) for v in self.vb] if self.vb is not None else None
+        return self
+
+    def _idr3(self, k, dr2):
+        """Softened 1/r^3 kernel for particle k (particle_base.hpp:144-164)."""
+        nb = self.nb
+        rs = nb.rs[k]
+        rs2 = rs * rs
+        fz = 1e-300
+        idr3_p = 1.0 / (fz + torch.sqrt(dr2 + rs2) * (dr2 + rs2))
+        if not nb.spline[k]:
+            return idr3_p
+        dr3 = dr2 * torch.sqrt(dr2)
+        u2 = dr2 / (rs2 + fz)
+        u = torch.sqrt(u2)
+        u3 = u * u2
+        h3inv = 1.0 / (rs2 * rs + fz)
+        inner = torch.where(
+            u < 0.5,
+            h3inv * (32.0 / 3.0 - 192.0 / 5.0 * u2 + 32.0 * u3),
+            h3inv * (64.0 / 3.0 - 48.0 * u + 192.0 / 5.0 * u2
+                     - 32.0 / 3.0 * u3 - 1.0 / (15.0 * u3 + fz)))
+        return torch.where(dr2 >= rs2, 1.0 / (dr3 + fz), inner)
+
+    def apply(self, state, fluxes, time, dt, hyd, ctx=None):
+        nb = self.nb
+        parts = ctx["particles"]
+        hx = hyd.hxv_int
+        vol = hyd.vol
+        cx, cy, cz = self._cart
+        ex = self._ex
+        dt_eff = dt if self.tstart <= time < self.tstop else torch.zeros_like(dt)
+        zero = torch.zeros((), dtype=self.dtype, device=self.device)
+
+        pforce_rows = []
+        fluids = [f for f in ("gas", "dust") if f in state]
+        us = {f: state[f]["u"].clone() for f in fluids}
+        for k in range(nb.npart):
+            row = [zero] * 7
+            if not nb.couple[k]:
+                pforce_rows.append(torch.stack(row))
+                continue
+            gmk = parts["gm"][k]
+            # relative cell position in cartesian (minus the frame offset)
+            dx = cx - (parts["pos"][k, 0] - nb.Rf[0])
+            dy = cy - (parts["pos"][k, 1] - nb.Rf[1])
+            dz = cz - (parts["pos"][k, 2] - nb.Rf[2])
+            dr2 = dx * dx + dy * dy + dz * dz
+            idr3 = self._idr3(k, dr2)
+            gX = -gmk * idr3 * dx
+            gY = -gmk * idr3 * dy
+            gZ = -gmk * idr3 * dz
+            # to problem basis
+            g1 = gX * ex[0][0] + gY * ex[0][1] + gZ * ex[0][2]
+            g2 = gX * ex[1][0] + gY * ex[1][1] + gZ * ex[1][2]
+            g3 = gX * ex[2][0] + gY * ex[2][1] + gZ * ex[2][2]
+
+            do_sink = nb.racc[k] > 0.0
+            if do_sink:
+                dr1 = torch.sqrt(dr2)
+                # relative particle velocity (minus frame velocity offset)
+                pvx = parts["vel"][k, 0] - nb.Vf[0]
+                pvy = parts["vel"][k, 1] - nb.Vf[1]
+                pvz = parts["vel"][k, 2] - nb.Vf[2]
+                # CartToSph rows (particle_base.hpp:246-261), literal replica
+                fz = 1e-300
+                R = torch.sqrt(dx * dx + dy * dy)
+                ct = dz / (dr1 + fz)
+                st = R / (dr1 + fz)
+                cp = dx / (R + fz)
+                sp = dy / (R + fz)
+                et = (st * sp, ct * sp, cp)
+                ep = (ct, -st, torch.zeros_like(ct))
+                ramp = ((nb.racc[k] - dr1) / (nb.racc[k] + fz)) ** 2
+
+            for fluid in fluids:
+                u = us[fluid]
+                w = state[fluid]["w"]
+                rho = w[:, 0]
+                v1, v2, v3 = w[:, 1], w[:, 2], w[:, 3]
+                # velocity in cartesian
+                vX = ex[0][0] * v1 + ex[1][0] * v2 + ex[2][0] * v3
+                vY = ex[0][1] * v1 + ex[1][1] * v2 + ex[2][1] * v3
+                vZ = ex[0][2] * v1 + ex[1][2] * v2 + ex[2][2] * v3
+                rdt = rho * dt_eff
+                u[:, 1] += hx[0] * rdt * g1
+                u[:, 2] += hx[1] * rdt * g2
+                u[:, 3] += hx[2] * rdt * g3
+                if fluid == "gas":
+                    u[:, 4] += rdt * (v1 * g1 + v2 * g2 + v3 * g3)
+                # back-reaction: gravity rows
+                row[1] = row[1] - torch.sum(gX * rho * vol)
+                row[2] = row[2] - torch.sum(gY * rho * vol)
+                row[3] = row[3] - torch.sum(gZ * rho * vol)
+
+                if do_sink:
+                    vb = self._vb if self._vb is not None else (0.0, 0.0, 0.0)
+                    dvx = vX + vb[0] - pvx
+                    dvy = vY + vb[1] - pvy
+                    dvz = vZ + vb[2] - pvz
+                    dv2 = dvx * dvx + dvy * dvy + dvz * dvz
+                    bound = (-gmk / (dr1 + 1e-300) + 0.5 * dv2) <= 0.0
+                    acc = torch.logical_and(dr1 <= nb.racc[k], bound)
+                    gdt = torch.where(acc, torch.clamp_max(
+                        ramp * nb.sink_gamma[k] * dt_eff, 1.0 / 9.0), 0.0)
+                    bdt = torch.where(acc, torch.clamp_max(
+                        ramp * nb.sink_beta[k] * dt_eff, 1.0 / 9.0), 0.0)
+                    fm = -gdt / (1.0 + gdt)
+                    fp = (gdt - bdt) / ((1.0 + gdt) * (1.0 + bdt))
+                    dvt = dvx * et[0] + dvy * et[1] + dvz * et[2]
+                    dvp = dvx * ep[0] + dvy * ep[1] + dvz * ep[2]
+                    dm = rho * fm
+                    denp = rho * (1.0 + fm)
+                    dek = 0.0
+                    dmom = []
+                    for (vc, etc, epc) in ((vX, et[0], ep[0]), (vY, et[1], ep[1]),
+                                           (vZ, et[2], ep[2])):
+                        dmv = rho * (fm * vc + fp * (dvt * etc + dvp * epc))
+                        dmom.append(dmv)
+                        vxp = (rho * vc + dmv) / (denp + 1e-300)
+                        dek = dek + 0.5 * (vc + vxp) * rho * (vxp - vc) \
+                            + 0.5 * rho * fm * vxp * vxp
+                    dm1 = dmom[0] * ex[0][0] + dmom[1] * ex[0][1] + dmom[2] * ex[0][2]
+                    dm2 = dmom[0] * ex[1][0] + dmom[1] * ex[1][1] + dmom[2] * ex[1][2]
+                    dm3 = dmom[0] * ex[2][0] + dmom[1] * ex[2][1] + dmom[2] * ex[2][2]
+                    u[:, 0] += dm
+                    u[:, 1] += hx[0] * dm1
+                    u[:, 2] += hx[1] * dm2
+                    u[:, 3] += hx[2] * dm3
+                    if fluid == "gas":
+                        u[:, 4] += dek
+                    idt = 1.0 / torch.clamp_min(dt_eff, 1e-300)
+                    row[0] = row[0] - torch.sum(vol * dm) * idt
+                    row[4] = row[4] - torch.sum(dmom[0]) * idt
+                    row[5] = row[5] - torch.sum(dmom[1]) * idt
+                    row[6] = row[6] - torch.sum(dmom[2]) * idt
+            pforce_rows.append(torch.stack(row))
+
+        ctx["pforce"] = torch.stack(pforce_rows)
+        new = dict(state)
+        for f in fluids:
+            new[f] = {"u": us[f], "w": state[f]["w"]}
+        return new
 
 
 # ----------------------------------------------------------------------------
@@ -776,6 +1013,7 @@ def sources_from_input(pin, grid, gas_cfg, dust_cfg, constants, nbody_sys=None):
             if nbody_sys is None:
                 raise ValueError("<gravity/nbody> requires physics/nbody = true")
             gravity = NBodyGravity(pin, grid, nbody_sys, omf)
+            gravity.gm = nbody_sys.gm
         else:
             gravity = Gravity(pin, grid, constants)
         srcs.append(gravity)
@@ -785,5 +1023,8 @@ def sources_from_input(pin, grid, gas_cfg, dust_cfg, constants, nbody_sys=None):
         srcs.append(Drag(pin, grid, gas_cfg, dust_cfg))
     if do_cooling:
         gm = gravity.gm if (gravity is not None and hasattr(gravity, "gm")) else 1.0
-        srcs.append(BetaCooling(pin, grid, gas_cfg, gm, cv=getattr(gas_cfg, "cv", None)))
+        if nbody_sys is not None and not hasattr(gravity, "gm"):
+            gm = nbody_sys.gm
+        srcs.append(BetaCooling(pin, grid, gas_cfg, gm, cv=getattr(gas_cfg, "cv", None),
+                                nbody_sys=nbody_sys))
     return srcs

@@ -12,7 +12,8 @@ line is printed:
    power limit (nvidia-smi), torch's CUDA version, nvcc's version and
    whether triton imports;
 2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu``, ``fld.cu``,
-   ``sweep.cu`` and ``stage_curv.cu`` (once per dtype) with nvcc, all at
+   ``sweep.cu`` and ``stage_curv.cu`` (once per dtype) with nvcc and
+   ``native/nbody.cpp`` with g++ (the N-body package's integrator), all at
    once, and prints the stage_cart build flags and ptxas's registers and
    spills;
 3. kernel vs plain version on the card: the fused stage kernel on its
@@ -177,7 +178,29 @@ line is printed:
    the Cartesian kernel's envelope to the padded curvilinear stage, K4)
    and with gas/riemann=hllc (the padded Cartesian stage, K2), both on the
    deck's outflow walls; each kernel path's end state against the plain
-   path's.
+   path's;
+24. the four N-body decks as written in float64 through
+   ``Simulation.run`` (binary_nbody_cyl 128x256 for 40 cycles,
+   disk_collision 128x256 and disk_nbody_cyl 96x192 on partial K4, cb_disk
+   256x256 on the plain chain, its LLF solver outside every stage kernel;
+   20 cycles each): per deck the stage kernel, its launches (counts set to
+   0 before, read after), cycle ms, zone-cycles/s of the kernel and plain
+   paths, the host time of the particle advance per stage, and the kernel
+   and plain end states after 5 cycles (1e-10 of each field's maximum,
+   particles 1e-12); binary_nbody_cyl: test_nbody_smoke's checks at cycle
+   20, partial K4 against its plain stage on the deck's state (1e-12), its
+   time per launch against the plain stage and the bound; every deck's
+   device busy time and idle share under torch.profiler; disk_collision:
+   its .reb file, the active particles' total mass conserved to 1e-12;
+25. bitwise restarts: disk_sph at 256x64x64 float32 on K3 (10 cycles
+   straight against 6 + checkpoint + 4, the dtden carry), binary_nbody_cyl
+   on partial K4 with the nbody payload (10 against 6 + 4, its hdf5 dump
+   read back by analysis/adump.py) and the equal-shape AMR RHD cell on
+   K6/K7/K8 with the amr.* payloads (6 against 3 + 3): u, w, dtden, Er,
+   every node, time, dt and the particles equal, each checkpoint's size and
+   its write and load ms; then the CLI in a subprocess, ``-t`` with a tiny
+   walltime exiting 2 with the walltime checkpoint and ``-r`` on it running
+   to nlim with exit 0.
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
@@ -260,18 +283,28 @@ def phase_toolchain(torch):
 # -- phase 2 -------------------------------------------------------------
 def phase_build(torch):
     """Build every kernel library, one nvcc per source and dtype variant,
-    all started together."""
-    from artemis_tpu_torch import _build
+    and the N-body package's native integrator (g++), all started
+    together, so no timed run pays a build."""
+    from artemis_tpu_torch import _build, nbody
     from artemis_tpu_torch.ops import stage_curv as SC
 
     builds = [("stage_cart", ()), ("fld", ()), ("sweep", ())] + [("stage_curv", SC.build_defines(dt))
                                                   for dt in (torch.float32, torch.float64)]
+
+    def native():
+        t1 = time.perf_counter()
+        nbody._lib()
+        return time.perf_counter() - t1
+
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(builds) + 1) as pool:
+        native_s = pool.submit(native)
         for f in [pool.submit(_build.load, name, d) for name, d in builds]:
             f.result()
+        native_s = native_s.result()
     secs = time.perf_counter() - t0
-    print(f"build: {len(builds)} nvcc runs in parallel, {secs:.1f} s")
+    print(f"build: {len(builds)} nvcc runs and the N-body library (g++, {native_s:.1f} s) in "
+          f"parallel, {secs:.1f} s")
     print("  stage_cart flags: " + " ".join((*_build.NVCC_FLAGS,
                                              *_build.SOURCE_FLAGS.get("stage_cart", ()))))
     for name, d in builds:
@@ -1781,7 +1814,7 @@ AMR_PROD = (512, 512, 64)      # bench.py's production root; patch 256x256x64
 AMR_PROD_CYCLES = 10
 
 
-def amr_sim(data, shape, dom, fused=True):
+def amr_sim(data, shape, dom, fused=True, extra=(), restart=None):
     """inputs/disk_rhd_amr.in as written (its static refinement patch, gray
     FLD, all faces ic), float32, at root ``shape`` over [-dom, dom]^2 x
     [-0.5, 0.5]."""
@@ -1791,8 +1824,9 @@ def amr_sim(data, shape, dom, fused=True):
     args = ["artemis/precision=float32", f"parthenon/mesh/nx1={nx}",
             f"parthenon/mesh/nx2={ny}", f"parthenon/mesh/nx3={nz}",
             f"parthenon/mesh/x1min={-dom}", f"parthenon/mesh/x1max={dom}",
-            f"parthenon/mesh/x2min={-dom}", f"parthenon/mesh/x2max={dom}"]
-    return Simulation(DISK["disk_rhd_amr"], args, data, device=DEVICE, fused_stage=fused)
+            f"parthenon/mesh/x2min={-dom}", f"parthenon/mesh/x2max={dom}", *extra]
+    return Simulation(DISK["disk_rhd_amr"], args, data, device=DEVICE, fused_stage=fused,
+                      restart=restart)
 
 
 def ncells(grid):
@@ -2946,6 +2980,341 @@ def phase_other_decks(torch, smi):
               f"[{smi}]")
     return res
 
+# the four N-body decks as written (float64, the decks' precision): cycles
+# through Simulation.run, and the stage kernel the driver must pick on the
+# card (cb_disk's LLF solver is outside every stage kernel's envelope: the
+# plain chain, as the JAX driver runs it)
+PARTIAL_K4 = "stage_curv (padded, partial)"
+NBODY_DECKS = (("binary_nbody_cyl", 40, PARTIAL_K4), ("cb_disk", 20, "none"),
+               ("disk_collision", 20, PARTIAL_K4), ("disk_nbody_cyl", 20, PARTIAL_K4))
+NBODY_INPUT_FILES = {"disk_collision": "n20_sys.txt", "disk_nbody_cyl": "n4_sys.txt"}
+NBODY_SMOKE_CYCLES = 20      # tests/test_nbody.py's test_nbody_smoke
+NBODY_CMP_CYCLES = 5
+# the particles of the kernel and plain runs, max |diff| of positions and
+# velocities: tests/test_torch_nbody.py's tolerance against the JAX package
+NBODY_PARTICLE_TOL = 1e-12
+
+
+def nbody_sim(name, overrides, data, **kw):
+    """An N-body deck through the user entry point (its planet file, where
+    it has one, named by its path in the checkout)."""
+    from artemis_tpu_torch import Simulation
+
+    over = list(overrides)
+    if name in NBODY_INPUT_FILES:
+        over.append("nbody/planets/input_file="
+                    + os.path.join(HERE, "inputs", "planet_inputs", NBODY_INPUT_FILES[name]))
+    return Simulation(os.path.join(HERE, "inputs", f"{name}.in"), over, data, device=DEVICE,
+                      **kw)
+
+
+def particle_err(a, b):
+    return max(float(abs(getattr(a, k) - getattr(b, k)).max()) for k in ("pos", "vel"))
+
+
+def nbody_smoke_check(torch, sim):
+    """test_nbody_smoke's checks: every particle alive, the planet's
+    separation within 1e-3 of 1, the gas finite with positive density."""
+    import numpy as np
+
+    w = sim.state["gas"]["w"]
+    sep = float(np.linalg.norm(sim.nbody.pos[1] - sim.nbody.pos[0]))
+    check(bool(sim.nbody.alive.all()) and abs(sep - 1.0) < 1e-3
+          and bool(torch.isfinite(w).all()) and bool((w[:, 0] > 0).all()),
+          f"binary_nbody_cyl at cycle {sim.tm.ncycle}: alive {sim.nbody.alive}, "
+          f"separation {sep:.6f}, gas finite/positive failed")
+    return sep
+
+
+def nbody_deck(torch, smi, name, ncycles, kernel, data):
+    """One N-body deck: the main path through Simulation.run for
+    ``ncycles`` with the kernel counts set to 0 before and read after (2
+    partial K4 launches per cycle, none on the tiled body, no sweep), the
+    host time of the particle advance per stage, zone-cycles/s, the kernel
+    and plain end states after NBODY_CMP_CYCLES and the plain path's
+    zone-cycles/s."""
+    from artemis_tpu_torch.ops import stage_curv as SC, sweeps as SW
+
+    res = {"kernel": kernel}
+    sim = nbody_sim(name, [f"parthenon/time/nlim={ncycles}"], data)
+    d, nb = sim.driver, sim.nbody
+    check(d.stage_kernel == kernel and d.host_coupled and sim.dtype == torch.float64,
+          f"{name} took {d.stage_kernel} (host-coupled {d.host_coupled}, {sim.dtype})")
+    host = []
+    advance = nb.advance
+
+    def timed_advance(*a, **k):
+        t0 = time.perf_counter()
+        advance(*a, **k)
+        host.append(time.perf_counter() - t0)
+
+    smoke = {}
+
+    def at_smoke_cycle(state, tm):
+        if name == "binary_nbody_cyl" and tm.ncycle == NBODY_SMOKE_CYCLES:
+            sim.state = state
+            smoke["sep"] = nbody_smoke_check(torch, sim)
+
+    nb.advance = timed_advance
+    SC.stage_curv_launches = SC.tiled_launches = SW.sweep_launches = 0
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    sim.run(extra_observers=[at_smoke_cycle])
+    end.record()
+    torch.cuda.synchronize()
+    del nb.advance
+    secs = start.elapsed_time(end) / 1e3
+    res.update(launches=SC.stage_curv_launches, cycle_ms=1e3 * secs / ncycles,
+               zcps=ncells(sim.grid) * ncycles / secs,
+               host_ms_per_stage=1e3 * sum(host) / max(len(host), 1), npart=nb.npart,
+               alive=int(nb.alive.sum()), shape=tuple(sim.grid.nx), **smoke)
+    want = 2 * ncycles if kernel == PARTIAL_K4 else 0
+    check(sim.tm.ncycle == ncycles and sim.status == "complete"
+          and res["launches"] == want and SC.tiled_launches == 0 and SW.sweep_launches == 0
+          and len(host) == 2 * ncycles,
+          f"{name}: {res['launches']} partial K4 launches ({SC.tiled_launches} tiled, "
+          f"{SW.sweep_launches} sweeps) and {len(host)} particle advances in "
+          f"{sim.tm.ncycle} cycles, wanted {want} and {2 * ncycles}")
+    w = sim.state["gas"]["w"]
+    check(bool(torch.isfinite(sim.state["gas"]["u"]).all()) and bool((w[:, 0] > 0).all()),
+          f"{name} after {ncycles} cycles: gas not finite or density not positive")
+    if name == "binary_nbody_cyl":
+        check("sep" in smoke, "binary_nbody_cyl: the smoke checks did not run at cycle 20")
+        res["end_sep"] = nbody_smoke_check(torch, sim)
+    res["sim"] = sim
+
+    runs = {}
+    for fused in (True, False):
+        r = nbody_sim(name, [f"parthenon/time/nlim={NBODY_CMP_CYCLES}"], data, fused_stage=fused)
+        check(r.driver.stage_kernel == (kernel if fused else "none"),
+              f"{name} (fused_stage={fused}) took {r.driver.stage_kernel}")
+        n0 = SC.stage_curv_launches
+        res["kernel_cmp_zcps" if fused else "plain_zcps"] = run_timed(torch, r, NBODY_CMP_CYCLES)
+        check(fused or SC.stage_curv_launches == n0, f"the plain {name} run launched K4")
+        runs[fused] = r
+    k, p = runs[True], runs[False]
+    res["end_err"] = max(rel_err(torch, k.state["gas"][x], p.state["gas"][x]) for x in ("u", "w"))
+    res["particle_err"] = particle_err(k.nbody, p.nbody)
+    check(abs(k.tm.time - p.tm.time) <= 1e-12 * p.tm.time and res["end_err"] <= DECK_F64_TOL
+          and res["particle_err"] <= NBODY_PARTICLE_TOL,
+          f"{name} kernel vs plain after {NBODY_CMP_CYCLES} cycles: t {k.tm.time} vs "
+          f"{p.tm.time}, fields {res['end_err']:.3e} (tol {DECK_F64_TOL:g}), particles "
+          f"{res['particle_err']:.3e} (tol {NBODY_PARTICLE_TOL:g})")
+    print(f"{name} {res['shape']} f64, {nb.npart} particles ({res['alive']} alive): stage "
+          f"kernel {kernel!r}, {res['launches']} launches in {ncycles} cycles through "
+          f"Simulation.run; cycle {res['cycle_ms']:.4f} ms, {res['zcps']:.6e} zone-cycles/s "
+          f"(plain path {res['plain_zcps']:.6e}); particle advance on the host "
+          f"{res['host_ms_per_stage']:.4f} ms a stage; kernel vs plain after "
+          f"{NBODY_CMP_CYCLES} cycles: fields {res['end_err']:.3e} (tol {DECK_F64_TOL:g}), "
+          f"particles {res['particle_err']:.3e} (tol {NBODY_PARTICLE_TOL:g}) [{smi}]")
+    del runs, k, p
+    return res
+
+
+def reb_mass_check(sim, data, pid):
+    """The .reb file with a last row written now: the total mass of the
+    active particles against the first row's, relative."""
+    sys.path.insert(0, os.path.join(HERE, "analysis"))
+    from anbody import areb
+
+    sim.nbody.write_outputs(data, pid, sim.tm.time)
+    r = areb(os.path.join(data, f"{pid}.reb"))
+    m0 = float(r.col("mass")[0].sum())
+    m1 = float((r.col("mass")[-1] * r.col("active")[-1]).sum())
+    drift = abs(m1 - m0) / m0
+    check(r.rdata.shape[0] >= 2 and drift <= 1e-12,
+          f"{pid}.reb: {r.rdata.shape[0]} outputs, mass drift {drift:.3e} (<= 1e-12)")
+    return r.rdata.shape[0], int(r.col("active")[-1].sum()), drift
+
+
+def phase_nbody(torch, smi):
+    """The four N-body decks as written in float64 through Simulation.run
+    (NBODY_DECKS): binary_nbody_cyl (40 cycles), disk_collision and
+    disk_nbody_cyl on partial K4, cb_disk on the plain chain; per deck the
+    stage kernel, its launches, cycle ms, zone-cycles/s of the kernel and
+    plain paths, the host time of the particle advance per stage, and the
+    kernel and plain end states after NBODY_CMP_CYCLES. binary_nbody_cyl:
+    test_nbody_smoke's checks at cycle 20, partial K4 against its plain
+    stage on the deck's state (f64 1e-12) and its time per launch against
+    the plain stage and the bound. Every deck: the cycle's device busy time
+    and idle share under torch.profiler (3 cycles), split into K4 and the
+    sources. disk_collision: its .reb file, the total mass of the active
+    particles conserved to 1e-12."""
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        for name, ncycles, kernel in NBODY_DECKS:
+            d = os.path.join(data, name)
+            os.makedirs(d)
+            r = nbody_deck(torch, smi, name, ncycles, kernel, d)
+            sim = r.pop("sim")
+            srcs = sim.driver._curv_srcs if kernel == PARTIAL_K4 else sim.driver.sources
+            prof = profile_split(torch, sim, 3, {"sources": [(s_, "apply") for s_ in srcs]},
+                                 {"K4 partial": "stage_curv_kernel"})
+            r["busy_ms"] = prof["busy_ms"] if prof else None
+            r["split"] = prof["split"] if prof else None
+            r["idle_share"] = 1.0 - prof["busy_ms"] / r["cycle_ms"] if prof else None
+            print(f"{name} cycle {r['cycle_ms']:.4f} ms: " + (
+                f"device busy {r['busy_ms']:.4f} ms (K4 {r['split']['K4 partial']:.4f}, the "
+                f"sources{' after it' if kernel == PARTIAL_K4 else ''} "
+                f"{r['split']['sources']:.4f}), idle {100 * r['idle_share']:.1f}%" if prof
+                else "device busy not measured") + f" [{smi}]")
+            if name == "binary_nbody_cyl":
+                cs = sim.driver._curv
+                u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
+                r["err_f64"] = partial_check(torch, cs, w, u, F64_TOL)
+                dt = torch.full((1,), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+                r.update(partial_timings(torch, cs, w, u, u.clone(), dt, sim.tm.time))
+                print(f"binary_nbody_cyl partial K4 per launch (f64): kernel {r['ms']:.4f} ms, "
+                      f"with its ic fill {r['stage_ms']:.4f} ms, plain stage {r['plain_ms']:.4f}"
+                      f" ms; bound {r['bound_ms']:.4f} ms ({r['mb']:.2f} MB, {r['bound_by']}-"
+                      f"bound); vs plain on the deck's state {r['err_f64']:.3e} (tol "
+                      f"{F64_TOL:g}); planet separation {r['sep']:.6f} at cycle 20 [{smi}]")
+            if name == "disk_collision":
+                r["reb_outputs"], r["reb_active"], r["reb_mass_drift"] = reb_mass_check(
+                    sim, d, "collisions")
+                print(f"disk_collision .reb: {r['reb_outputs']} outputs, {r['reb_active']} "
+                      f"active at the end, mass drift {r['reb_mass_drift']:.3e} (<= 1e-12)")
+            res[name] = r
+            del sim
+            torch.cuda.empty_cache()
+    return res
+
+
+RESTART_DISK = ("parthenon/mesh/nx1=256", "parthenon/mesh/nx2=64", "parthenon/mesh/nx3=64",
+                "artemis/precision=float32")
+
+
+def restart_case(torch, smi, label, make, ncycles, k, kernel, counters, data):
+    """``ncycles`` straight through Simulation.run, a checkpoint written at
+    cycle ``k`` by an observer (the same write as the rst output's), and a
+    second Simulation resumed from it for ``ncycles - k``: every array of
+    the end state (u, w, dtden, Er; on a tree every node's), the time, dt
+    and the particles torch.equal / equal. ``counters`` (module, count)
+    must each count launches in both runs."""
+    import numpy as np
+
+    res = {}
+    a_dir, b_dir = os.path.join(data, "a"), os.path.join(data, "b")
+    a = make([f"parthenon/time/nlim={ncycles}"], a_dir)
+    check(a.driver.stage_kernel == kernel, f"{label} took {a.driver.stage_kernel}")
+    ck = {}
+
+    def checkpoint(state, tm):
+        if tm.ncycle == k:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ck["path"] = a.write_restart(os.path.join(a_dir, "ck"), state=state, tm=tm)
+            ck["write_ms"] = 1e3 * (time.perf_counter() - t0)
+
+    launches = {}
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    a.run(extra_observers=[checkpoint])
+    launches["straight"] = {attr: getattr(mod, attr) for mod, attr in counters}
+    check(a.tm.ncycle == ncycles and "path" in ck, f"{label}: straight run or checkpoint failed")
+    res["mb"] = os.path.getsize(ck["path"]) / 1e6
+    res["write_ms"] = ck["write_ms"]
+    extra = (["parthenon/output2/file_type=hdf5", "parthenon/output2/dt=1.0e9"]
+             if label == "binary_nbody_cyl" else [])
+    b = make([f"parthenon/time/nlim={ncycles}", *extra], b_dir, restart=ck["path"])
+    check(b.tm.ncycle == k and b.tm.restored, f"{label}: resumed at cycle {b.tm.ncycle}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b._load_restart(ck["path"])
+    torch.cuda.synchronize()
+    res["load_ms"] = 1e3 * (time.perf_counter() - t0)
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    b.run()
+    launches["resumed"] = {attr: getattr(mod, attr) for mod, attr in counters}
+    res["launches"] = launches
+    check(all(n > 0 for run in launches.values() for n in run.values()),
+          f"{label}: a kernel of the path was not launched: {launches}")
+    same = [(b.tm.ncycle, b.tm.time, b.tm.dt) == (a.tm.ncycle, a.tm.time, a.tm.dt)]
+    states = ([(b.state, a.state)] if not hasattr(a.driver, "smr")
+              else list(zip(b.driver._states, a.driver._states)))
+    keys = sorted({(f, x) for st, _ in states for f in st for x in st[f]})
+    for sb, sa in states:
+        check(sorted((f, x) for f in sb for x in sb[f])
+              == sorted((f, x) for f in sa for x in sa[f]),
+              f"{label}: the resumed state holds other arrays than the straight one")
+        same += [torch.equal(sb[f][x], sa[f][x]) for f in sa for x in sa[f]]
+    if a.nbody is not None:
+        same += [np.array_equal(getattr(b.nbody, x), getattr(a.nbody, x))
+                 for x in ("m", "pos", "vel", "alive", "pforce_step", "pforce_tot")]
+    res["bitwise"] = all(same)
+    res["arrays"] = [f"{f}.{x}" for f, x in keys]
+    check(res["bitwise"], f"{label}: the resumed run is not bitwise the straight run "
+          f"({same.count(False)} of {len(same)} comparisons differ)")
+    if extra:
+        sys.path.insert(0, os.path.join(HERE, "analysis"))
+        from adump import adump
+
+        pid = b.pin.get_str("parthenon/job", "problem_id")
+        dump = adump(os.path.join(b_dir, f"{pid}.out2.final.npz"))
+        w = b.state["gas"]["w"].cpu().numpy()
+        names = ("density", "velocity_x1", "velocity_x2", "velocity_x3", "pressure", "sie")
+        check(dump.time == b.tm.time and all(
+            np.array_equal(dump.Get(f"gas.prim.{n}")[0], w[0, c]) for c, n in enumerate(names)),
+            f"{label}: the hdf5 dump read by analysis/adump.py differs from the state")
+        res["adump"] = True
+    print(f"restart {label}: {ncycles} cycles straight and {k} + checkpoint + {ncycles - k} "
+          f"resumed on {kernel!r}: bitwise equal ({', '.join(res['arrays'])}, time, dt"
+          f"{', particles' if a.nbody is not None else ''}); checkpoint {res['mb']:.2f} MB, "
+          f"written in {res['write_ms']:.1f} ms, loaded in {res['load_ms']:.1f} ms; launches "
+          f"{launches}{'; hdf5 dump read by adump equals the state' if extra else ''} [{smi}]")
+    del a, b
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_restart(torch, smi):
+    """Bitwise restarts on the card in three cases: disk_sph at 256x64x64
+    float32 on K3 (the dtden carry; N = 10, k = 6), binary_nbody_cyl as
+    written on partial K4 with the nbody payload (N = 10, k = 6; its hdf5
+    dump read back with analysis/adump.py) and the equal-shape AMR RHD cell
+    on K6/K7/K8 with the amr.* payloads (N = 6, k = 3); then the CLI in a
+    subprocess: -t with a tiny walltime exits 2 leaving the walltime
+    checkpoint, and -r on it runs to nlim and exits 0."""
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch.ops import fld as FLD, stage_curv as SC
+
+    res = {}
+    cases = (
+        ("disk_sph", lambda ov, d, **kw: Simulation(DISK["disk_sph"], [*RESTART_DISK, *ov], d,
+                                                   device=DEVICE, **kw),
+         10, 6, "stage_curv (gather)", [(SC, "stage_curv_launches")]),
+        ("binary_nbody_cyl", lambda ov, d, **kw: nbody_sim("binary_nbody_cyl", ov, d, **kw),
+         10, 6, PARTIAL_K4, [(SC, "stage_curv_launches")]),
+        ("amr", lambda ov, d, **kw: amr_sim(d, AMR_CELL, 2.0, extra=ov, **kw),
+         6, 3, "stage_curv_batched (2 nodes, gather6)",
+         [(SC, "stage_curv_batched_launches"), (FLD, "fld_coeffs_launches"),
+          (FLD, "fld_matvec_launches")]))
+    for label, make, n, k, kernel, counters in cases:
+        with tempfile.TemporaryDirectory() as data:
+            res[label] = restart_case(torch, smi, label, make, n, k, kernel, counters, data)
+    with tempfile.TemporaryDirectory() as data:
+        small = ["parthenon/mesh/nx1=16", "parthenon/mesh/nx2=8", "parthenon/mesh/nx3=8",
+                 "parthenon/time/nlim=4"]
+        cmd = [sys.executable, "-m", "artemis_tpu_torch.cli", "-i", DECK, "-d", data]
+        first = subprocess.run(cmd + ["-t", "1e-9", *small], cwd=HERE, capture_output=True,
+                               text=True, timeout=300)
+        ck = os.path.join(data, "linear_wave.walltime.final.rst.npz")
+        check(first.returncode == 2 and os.path.exists(ck),
+              f"CLI -t 1e-9: exit {first.returncode}, checkpoint {os.path.exists(ck)}\n"
+              f"{first.stdout[-2000:]}{first.stderr[-2000:]}")
+        second = subprocess.run(cmd + ["-r", ck, *small], cwd=HERE, capture_output=True,
+                                text=True, timeout=300)
+        check(second.returncode == 0 and "ncycle=4" in second.stdout
+              and "complete" in second.stdout,
+              f"CLI -r: exit {second.returncode}\n{second.stdout[-2000:]}{second.stderr[-2000:]}")
+        res["cli"] = {"timeout_rc": first.returncode, "restart_rc": second.returncode}
+        print("CLI: -t 1e-9 exited 2 with linear_wave.walltime.final.rst.npz; -r on it ran to "
+              "nlim = 4 and exited 0")
+    return res
+
+
 
 def main():
     import torch
@@ -2978,12 +3347,14 @@ def main():
     adv = phase_advection(torch, smi)
     secs = {}
     for key, fn in (("alpha_disk", phase_alpha_disk), ("binary_cyl", phase_binary),
-                    ("simple_drag", phase_drag), ("other_decks", phase_other_decks)):
+                    ("simple_drag", phase_drag), ("other_decks", phase_other_decks),
+                    ("nbody", phase_nbody), ("restart", phase_restart)):
         t1 = time.perf_counter()
         secs[key] = (fn(torch, smi), time.perf_counter() - t1)
         print(f"phase {key}: {secs[key][1]:.1f} s")
-    alpha, binary, drag, other = (secs[k][0] for k in ("alpha_disk", "binary_cyl",
-                                                        "simple_drag", "other_decks"))
+    alpha, binary, drag, other, nbody, restart = (
+        secs[k][0] for k in ("alpha_disk", "binary_cyl", "simple_drag", "other_decks",
+                             "nbody", "restart"))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.0f} s, the build "
           "included")
     kernels = {"kernels": [{
@@ -3060,6 +3431,8 @@ def main():
         "zone_cycles_per_s": {"kernel_f32": disk["kernel_zcps"],
                               "plain_f32": disk["plain_zcps"],
                               "kernel_f64": disk["kernel_f64_zcps"]},
+        "restart_launches": restart["disk_sph"]["launches"],
+        "restart_bitwise": restart["disk_sph"]["bitwise"],
     }, {
         "name": "stage_curv_padded",
         "kernel": "stage_tiled_kernel (the tiled body, diffusive, padded halo)",
@@ -3099,7 +3472,8 @@ def main():
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:604",
         "launches": alpha["launches"],
         "max_abs_err": max(alpha["err_f32"], binary["err_f32"]),
-        "max_abs_err_f64": max(alpha["err_f64"], binary["err_f64"]),
+        "max_abs_err_f64": max(alpha["err_f64"], binary["err_f64"],
+                               nbody["binary_nbody_cyl"]["err_f64"]),
         "tol_disk_f32": DISK_F32_TOL,
         "tol_f64": F64_TOL,
         "ms": alpha["ms"],
@@ -3120,6 +3494,16 @@ def main():
         "zone_cycles_per_s": {"kernel_f64": alpha["zcps"], "plain_f64": alpha["plain_zcps"]},
         "simple_drag": {"err": drag["err"], "momentum_drift": drag["drift"],
                         "cycles": drag["ncycle"]},
+        "binary_nbody_cyl_ms": nbody["binary_nbody_cyl"]["ms"],
+        "binary_nbody_cyl_plain_ms": nbody["binary_nbody_cyl"]["plain_ms"],
+        "binary_nbody_cyl_bound_ms": nbody["binary_nbody_cyl"]["bound_ms"],
+        "binary_nbody_cyl_bound_by": nbody["binary_nbody_cyl"]["bound_by"],
+        "binary_nbody_cyl_idle_share": nbody["binary_nbody_cyl"]["idle_share"],
+        "nbody_decks": {name: {key: r[key] for key in (
+            "kernel", "launches", "cycle_ms", "zcps", "plain_zcps", "host_ms_per_stage",
+            "busy_ms", "idle_share", "end_err", "particle_err")} for name, r in nbody.items()},
+        "restart_launches": restart["binary_nbody_cyl"]["launches"],
+        "restart_bitwise": restart["binary_nbody_cyl"]["bitwise"],
     }, {
         "name": "stage_curv_gather6",
         "kernel": "stage_tiled_kernel (the tiled body)",
@@ -3250,6 +3634,9 @@ def main():
                               "production_kernel_f32_all_levels": prod["zcps"]},
         "idle_share": amr["idle_share"],
         "host_reads_per_cycle": amr["reads_per_cycle"],
+        "restart_launches": restart["amr"]["launches"],
+        "restart_bitwise": restart["amr"]["bitwise"],
+        "restart_checkpoint_mb": restart["amr"]["mb"],
     }, {
         "name": "sweep",
         "route": "cuda",

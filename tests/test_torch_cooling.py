@@ -11,7 +11,8 @@ against the JAX package's, and the alpha_disk deck through both packages.
   1e-12, so an almost instantaneous relaxation) for 5 cycles: both run
   their composable path on the CPU, end states within 1e-11 of each
   component's scale, max |port - JAX| / max(1, max |JAX|);
-* ``tref = nbody`` raises, naming the ROADMAP item that ports it.
+* ``tref = nbody`` without the N-body package raises, as the JAX
+  package's does (with it, tests/test_torch_nbody.py holds it to JAX).
 """
 
 import os
@@ -122,12 +123,16 @@ def test_cooling_matches_jax(coords, exp_scale, de_switch):
 
 
 def test_cooling_tref_nbody_raises():
-    """Cooling toward the particles' temperature waits for the N-body
-    package (item 8)."""
-    pin = ParameterInput.from_string(deck("cylindrical", 0.0, tref="nbody"))
+    """Cooling toward the particles' temperature needs the N-body package:
+    without a particle system both packages refuse it."""
+    text = deck("cylindrical", 0.0, tref="nbody")
+    pin, jpin = ParameterInput.from_string(text), JPin.from_string(text)
     cfg = FluidCfg(fluid="gas", recon="plm", rsolver="hllc", gamma=GAMMA)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    jcfg = JCfg(fluid="gas", recon="plm", rsolver="hllc", gamma=GAMMA)
+    with pytest.raises(ValueError, match="requires <physics> nbody"):
         T.BetaCooling(pin, grid_from_input(pin), cfg, 1.0)
+    with pytest.raises(ValueError, match="requires <physics> nbody"):
+        J.BetaCooling(jpin, jgrid(jpin), jcfg, 1.0)
 
 
 def test_alpha_disk_slice_matches_jax(tmp_path):

@@ -23,7 +23,7 @@ torch.set_num_threads(2)
 from artemis_tpu.simulation import Simulation as JSimulation  # noqa: E402
 
 import artemis_tpu_torch  # noqa: E402
-from artemis_tpu_torch import cli  # noqa: E402
+from artemis_tpu_torch import cli, nbody  # noqa: E402
 from artemis_tpu_torch.state import state_from_numpy, state_to_numpy  # noqa: E402
 
 REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
@@ -93,12 +93,15 @@ def test_linwave_slice_float32(tmp_path, jax_run):
         assert float(np.max(np.abs(end[k] - np.asarray(jsim.state["gas"][k])))) <= 1e-5
 
 
-def test_package_imports_no_jax():
+def test_package_imports_no_jax(tmp_path):
     """artemis_tpu_torch runs where JAX is absent: importing it (its CLI,
     sources, diffusion, curvilinear stage, radiation, FLD operator, flux
     sweep, the disk, radiation, shearing-box, advection, constant, blast,
-    gaussian-bump and conduction problems and mesh refinement included)
-    pulls in neither jax nor artemis_tpu."""
+    gaussian-bump and conduction problems, mesh refinement, the dumps and
+    restart files and the N-body package included) pulls in neither jax
+    nor artemis_tpu; and building the N-body library (here into a fresh
+    build directory, so g++ runs) writes nothing under native/ (whose
+    libnbody.so the JAX package's own make may write meanwhile)."""
     code = ("import sys, artemis_tpu_torch, artemis_tpu_torch.cli, artemis_tpu_torch.state, "
             "artemis_tpu_torch.sources, artemis_tpu_torch.ops.diffusion, "
             "artemis_tpu_torch.ops.stage_curv, artemis_tpu_torch.pgen.disk, "
@@ -107,14 +110,27 @@ def test_package_imports_no_jax():
             "artemis_tpu_torch.amr, artemis_tpu_torch.ops.sweeps, "
             "artemis_tpu_torch.pgen.strat, artemis_tpu_torch.pgen.advection, "
             "artemis_tpu_torch.pgen.constant, artemis_tpu_torch.pgen.blast, "
-            "artemis_tpu_torch.pgen.gaussian_bump, artemis_tpu_torch.pgen.conduction; "
+            "artemis_tpu_torch.pgen.gaussian_bump, artemis_tpu_torch.pgen.conduction, "
+            "artemis_tpu_torch.io.dumps, artemis_tpu_torch.nbody, pathlib; "
+            f"artemis_tpu_torch.nbody.BUILD_DIR = pathlib.Path({str(tmp_path)!r}); "
+            "artemis_tpu_torch.nbody._lib(); "
+            "assert artemis_tpu_torch.nbody.library_path().exists(); "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
             "or m == 'artemis_tpu' or m.startswith('artemis_tpu.')]; "
             "assert not bad, bad; print('clean')")
+    native = os.path.join(REPO, "native")
+
+    def sources():
+        return {f: os.path.getmtime(os.path.join(native, f)) for f in os.listdir(native)
+                if f != "libnbody.so"}
+
+    before = sources()
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "clean"
+    assert sources() == before
+    assert [f.name for f in tmp_path.iterdir()] == [nbody.library_path().name]
 
 
 def test_cli_cuda_without_a_card_raises(tmp_path):
@@ -137,13 +153,21 @@ SMALL = ["parthenon/mesh/nx1=8", "parthenon/mesh/nx2=4", "parthenon/mesh/nx3=4"]
 
 
 @pytest.mark.parametrize("overrides,item", [
-    (["parthenon/output2/file_type=hdf5", "parthenon/output2/dt=0.1"], 7),
-    (["physics/nbody=true"], 8),
+    (["parthenon/output2/file_type=hdf5", "parthenon/output2/dt=0.1"], None),
+    (["physics/nbody=true", "nbody/particle1/mass=1.0",
+      "parthenon/mesh/refinement=static"], 10),
     (["parthenon/mesh/refinement=adaptive"], 10),
     (["physics/dust=true", "parthenon/mesh/refinement=static"], 10),
 ], ids=["hdf5-output", "nbody", "adaptive", "dust-on-a-static-tree"])
 def test_unported_physics_raises(tmp_path, overrides, item):
     """Each switch the port does not carry yet names its ROADMAP item, at
-    construction or, for an output block, when the run starts."""
+    construction or when the run starts: N-body coupling on a refinement
+    tree, adaptive refinement and dust on a static tree wait for item 10.
+    hdf5 outputs are ported: the run writes its numbered and final dumps."""
+    if item is None:
+        artemis_tpu_torch.Simulation(DECK, SMALL + overrides, str(tmp_path), device="cpu").run()
+        assert (tmp_path / "linear_wave.out2.00000.npz").exists()
+        assert (tmp_path / "linear_wave.out2.final.npz").exists()
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         artemis_tpu_torch.Simulation(DECK, SMALL + overrides, str(tmp_path), device="cpu").run()

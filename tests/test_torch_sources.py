@@ -4,7 +4,9 @@ sink), uniform and binary gravity, and the curvilinear rotating-frame torque
 on cylindrical, spherical and axisymmetric meshes, applied to the same
 random state and mass fluxes in float64 (<= 1e-12 abs);
 ``sources_from_input`` building the same list from a deck; and the two
-sources still to port raising.  Beta cooling and drag have their own files
+sources that read the N-body particles refused without a particle system,
+as the JAX package refuses them (with one, tests/test_torch_nbody.py holds
+them to JAX).  Beta cooling and drag have their own files
 (tests/test_torch_cooling.py, tests/test_torch_drag.py).
 """
 
@@ -153,13 +155,22 @@ def test_sources_from_input_matches_jax(coords):
 
 def test_unported_sources_raise():
     """N-body gravity, and beta cooling toward the particles' temperature
-    (tref = nbody), name the ROADMAP item that ports them."""
+    (tref = nbody), need <physics> nbody: without a particle system
+    sources_from_input refuses both, with the JAX package's errors."""
     js, ts = both("spherical")
-    pin = ts["pin"]
-    pin.apply_overrides(["physics/cooling=true", "cooling/type=beta", "cooling/beta0=1.0",
-                         "cooling/tref=nbody"])
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.sources_from_input(pin, ts["grid"], FluidCfg(fluid="gas", recon="plm", rsolver="hllc"),
-                             None, Constants.from_units(Units.from_input(pin)))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        T.NBodyGravity(pin, ts["grid"], None, 0.0)
+    cfg = FluidCfg(fluid="gas", recon="plm", rsolver="hllc")
+    const = Constants.from_units(Units.from_input(ts["pin"]))
+    for extra, msg in ((["physics/cooling=true", "cooling/type=beta", "cooling/beta0=1.0",
+                         "cooling/tref=nbody"], "requires <physics> nbody"),
+                       (["physics/gravity=true", "gravity/nbody/mtot=1.0"],
+                        "requires physics/nbody = true")):
+        pin = ParameterInput.from_string(repr(ts["pin"]))
+        pin.apply_overrides(extra)
+        with pytest.raises(ValueError, match=msg):
+            T.sources_from_input(pin, ts["grid"], cfg, None, const)
+        jpin = JPin.from_string(repr(ts["pin"]))
+        jpin.apply_overrides(extra)
+        with pytest.raises(ValueError, match=msg):
+            J.sources_from_input(jpin, js["grid"], JCfg(fluid="gas", recon="plm",
+                                                         rsolver="hllc"), None,
+                                 JConst.from_units(JUnits.from_input(jpin)))
