@@ -27,19 +27,25 @@ Radiation runs after the stages, level by level: parents first, patches
 with Dirichlet ghost planes prolonged from their parent's new field, then
 the fine fields restrict back.
 
-Ported: static trees on Cartesian grids (``refinement = static``), N
-levels, several disjoint or adjacent patches per level, gas with the
-sources and diffusion of the single-level driver, gray FLD radiation, and
-bit-exact restarts (the fine levels as the JAX package's ``amr.*``
-payloads).  Adaptive retagging and its tile-pool restarts, curvilinear
-trees, dust, N-body coupling on trees and sharded trees are not ported
-(ROADMAP Queue 1 items 10 and 11).
-Patch positions are host integers: the tree never moves.
+Ported: static and adaptive trees on Cartesian grids (``refinement =
+static | adaptive``), N levels, several disjoint or adjacent patches per
+level, gas with the sources and diffusion of the single-level driver, gray
+FLD radiation, and bit-exact restarts (the fine levels as the JAX
+package's ``amr.*`` payloads, the tile pool's topology included).
+Adaptive trees either spawn and destroy tiles of a fixed lattice where the
+refinement tags land (``style = tiled``, ``regrid_tiles``) or move one
+patch per level onto the tagged cells (``style = move``, ``_retag``); the
+tags are computed on the device and only their bool masks reach the host.
+Curvilinear trees, N-body tracking patches, dust, N-body coupling on trees
+and sharded trees are not ported (ROADMAP Queue 1 items 10 and 11).
+Patch positions are host integers on the nodes; every topology or
+position change re-runs the tree's set-up (``_compile``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -50,11 +56,13 @@ from .driver import curv_point_grav
 from .geometry import geometry as geo
 from .grid import Grid
 from .ops import recon as recon_mod
+from .ops import refinement as ref_mod
 from .ops import riemann as riemann_mod
 from .ops import stage_curv as curv_mod
 from .ops import sweeps
 from .ops.hydro import FluidCfg, Hydro
 from .sources import RotatingFrame
+from .state import tree_rows, tree_topology_from_rows
 
 ITEM = "ROADMAP Queue 1 item 10"
 
@@ -130,23 +138,11 @@ def restrict_average(wf, active):
     return out
 
 
-def _window_face_flux(slab, d, cfg, force_pcm):
-    """Flux at the face between rows 1 and 2 of a 4-row window along ``d``
-    (uniform-limiter PLM or PCM; the fused tree is Cartesian)."""
-    if force_pcm or cfg.recon == "pcm":
-        wl, wr = recon_mod.pcm(slab, d)
-    else:
-        wl, wr = recon_mod.plm_uniform(slab, d)
-    ax = slab.ndim - d
-    F, _, _ = riemann_mod.solve(wl.narrow(ax, 2, 1), wr.narrow(ax, 2, 1), d, cfg.fluid,
-                                cfg.rsolver, cfg.gamma)
-    return F
-
-
-def _slab_face_flux(wp, grid, d, fi, tlo, tn, cfg, force_pcm):
-    """Hydro flux at interior face plane ``fi`` along ``d`` over the
-    transverse window [tlo, tlo+tn), recomputed on a 4-row slab of the
-    padded primitives ``wp`` (the kernel does not expose its fluxes)."""
+def _slab_window(wp, grid, d, fi, tlo, tn):
+    """The 4-row window of the padded primitives ``wp`` around interior
+    face plane ``fi`` along ``d``, over the transverse window [tlo,
+    tlo+tn): what the face's flux is recomputed from (the kernel does not
+    expose its fluxes)."""
     ng = grid.ng
     starts, sizes = [], []
     for dd in (3, 2, 1):
@@ -159,7 +155,7 @@ def _slab_face_flux(wp, grid, d, fi, tlo, tn, cfg, force_pcm):
         else:
             starts.append(0)
             sizes.append(1)
-    return _window_face_flux(wp[_zyx(starts, sizes)], d, cfg, force_pcm)
+    return wp[_zyx(starts, sizes)]
 
 
 _COMP = 1  # the variable axis of a [1, 6, z, y, x] array
@@ -171,9 +167,17 @@ def _vel_perm(d):
     return [0, d, d % 3 + 1, ((d + 1) % 3) + 1, 4, 5]
 
 
+_PERM_INDEX = {}
+
+
 def _perm_components(arr, perm):
-    """Reorder the variable axis."""
-    return torch.cat([arr.narrow(_COMP, i, 1) for i in perm], dim=_COMP)
+    """Reorder the variable axis (one gather; the index is made once per
+    permutation and device)."""
+    key = (tuple(perm), arr.device)
+    idx = _PERM_INDEX.get(key)
+    if idx is None:
+        idx = _PERM_INDEX[key] = torch.tensor(perm, dtype=torch.long, device=arr.device)
+    return arr.index_select(_COMP, idx)
 
 
 def _rim_canon(win, d):
@@ -202,8 +206,8 @@ def _rim_uncanon(F, d):
 def _rim_batched_flux(wins, cfg, force_pcm):
     """Face fluxes of canonical windows ``wins`` [(d, window)], one
     reconstruction + Riemann chain per distinct window shape, each flux
-    returned in its own direction's layout (bitwise the per-window
-    _window_face_flux)."""
+    returned in its own direction's layout (bitwise the flux each window
+    gives alone in its own direction)."""
     groups = {}
     for k, (_, w) in enumerate(wins):
         assert w.shape[0] == 1, "one species per window"
@@ -251,6 +255,13 @@ def _edge_pad(a, ng):
     return a
 
 
+def _host_mask(tags):
+    """A bool mask (a tensor on any device, or array-like) as numpy."""
+    if torch.is_tensor(tags):
+        tags = tags.detach().cpu().numpy()
+    return np.asarray(tags, dtype=bool)
+
+
 class _Node:
     """One mesh region: the root domain (level 0) or a refinement patch."""
 
@@ -270,6 +281,11 @@ class _Node:
         ml.nodes.append(self)
         if parent is not None:
             parent.children.append(self)
+        # a tile of an adaptive pool (regrid_tiles spawns and destroys it)
+        self.pool = False
+        # this node's fused stage, made once (a regrid rebuilds only the
+        # spawned nodes')
+        self.curv_stage = None
         self.hydro = Hydro(grid, ml.cfg, None, device=ml.device, dtype=ml.dtype)
         self.sources = ([s.place(ml.device, ml.dtype) for s in ml.sources_factory(grid)]
                         if ml.sources_factory else [])
@@ -303,8 +319,9 @@ class _Node:
         for d in range(3):
             if not self.active[d] or self.wrap[d]:
                 continue
+            pair = self._prolong_ghost_slab_pair(wc, d, lo)
             for side in (0, 1):
-                slab = self._prolong_ghost_slab(wc, d, side, lo)
+                slab = pair[side]
                 sl = [slice(None)] * reg.ndim
                 sl[reg.ndim - 1 - d] = (slice(0, ngf[d]) if side == 0
                                         else slice(ngf[d] + fg.nx[d], None))
@@ -407,8 +424,13 @@ class _Node:
         """Both side slabs of face axis ``d`` in one prolongation (the two
         sides share every transverse window, stacked on the leading axis);
         bitwise _prolong_ghost_slab per side."""
-        fg = self.grid
-        ngf, rim, n = fg.ng, self.rim, self.n
+        fine = prolong_minmod(self._ghost_windows(wc, d, lo), self.active)
+        return [self._ghost_cut(fine, side, d, side) for side in (0, 1)]
+
+    def _ghost_windows(self, wc, d, lo):
+        """The parent windows that both side slabs of face axis ``d``
+        prolong from, stacked on the leading axis (side 0, side 1)."""
+        rim, n = self.rim, self.n
         nd = wc.ndim
         m = [r - 1 for r in rim]
         slab = wc
@@ -421,23 +443,26 @@ class _Node:
         off = rim[d] if self.wrap[d] else 0
         s0 = self._axis_window(slab, ax_d, lo[d] - m[d] + off, m[d] + 1)
         s1 = self._axis_window(slab, ax_d, lo[d] + n[d] - 1 + off, m[d] + 1)
-        fine = prolong_minmod(torch.cat([s0, s1], dim=0), self.active)
-        out = []
-        for side in (0, 1):
-            sl = [slice(None)] * nd
-            sl[0] = slice(side, side + 1)
-            for t in range(3):
-                if not self.active[t]:
-                    continue
-                if t == d:
-                    o = 2 * (m[t] + 1)
-                    sl[nd - 1 - t] = (slice(o - ngf[t], o) if side == 0
-                                      else slice(4, 4 + ngf[t]))
-                else:
-                    o = 2 * (m[t] + 1) - ngf[t]
-                    sl[nd - 1 - t] = slice(o, o + fg.nx[t] + 2 * ngf[t])
-            out.append(fine[tuple(sl)])
-        return out
+        return torch.cat([s0, s1], dim=0)
+
+    def _ghost_cut(self, fine, j, d, side):
+        """Side ``side``'s ghost slab of face axis ``d`` from entry ``j`` of
+        the prolonged windows ``fine``."""
+        fg = self.grid
+        ngf, nd = fg.ng, fine.ndim
+        m = [r - 1 for r in self.rim]
+        sl = [slice(None)] * nd
+        sl[0] = slice(j, j + 1)
+        for t in range(3):
+            if not self.active[t]:
+                continue
+            if t == d:
+                o = 2 * (m[t] + 1)
+                sl[nd - 1 - t] = slice(o - ngf[t], o) if side == 0 else slice(4, 4 + ngf[t])
+            else:
+                o = 2 * (m[t] + 1) - ngf[t]
+                sl[nd - 1 - t] = slice(o, o + fg.nx[t] + 2 * ngf[t])
+        return fine[tuple(sl)]
 
     @staticmethod
     def _wrap_pad(a, d, width):
@@ -496,15 +521,18 @@ class _Node:
 
 
 class MultiLevelSMR:
-    """N-level static refinement tree on one device.  ``fused``: run each
-    node's stage through the curvilinear stage kernel (its plain version on
-    the CPU) with the rim-delta glue, as the card's main path does; else the
-    composable tensor path.  ``gather6=False`` keeps a fused tree on padded
-    halos."""
+    """N-level static or adaptive refinement tree on one device.
+    ``fused``: run each node's stage through the curvilinear stage kernel
+    (its plain version on the CPU) with the rim-delta glue, as the card's
+    main path does; else the composable tensor path.  ``gather6=False``
+    keeps a fused tree on padded halos.  ``moving_patches``: patches may be
+    moved by retagging (move style); such a tree keeps padded halos and
+    links only its pool tiles to their siblings."""
 
     def __init__(self, root_grid: Grid, integrator, gas_cfg: FluidCfg, *, device, dtype,
                  sources_factory=None, diffusion_factory=None, bc_custom=None,
-                 omf: float = 0.0, patches=None, radiation_factory=None, fused=False):
+                 omf: float = 0.0, patches=None, radiation_factory=None, fused=False,
+                 moving_patches: bool = False):
         self.device = torch.device(device)
         self.dtype = dtype
         self.integ = integrator
@@ -514,6 +542,8 @@ class MultiLevelSMR:
         self.radiation_factory = radiation_factory
         self.bc_custom = bc_custom or {}
         self.omf = omf
+        self.moving_patches = moving_patches
+        self._g6_root_strips = None
         self.nodes: List[_Node] = []
         self.root = _Node(self, root_grid, None, None, None, 0)
         for spec in sorted(patches or [], key=lambda s: s["level"]):
@@ -527,10 +557,13 @@ class MultiLevelSMR:
             return node.grid.bc[d] == ("periodic", "periodic")
         return bool(node.wrap[d])
 
-    def add_patch(self, level: int, lo, n):
+    def add_patch(self, level: int, lo, n, parent=None):
         """Register a patch; ``lo``/``n`` are in the interior cells of its
-        level-1 parent, the first of that level that holds it."""
-        parents = [nd for nd in self.nodes if nd.level == level - 1]
+        level-1 parent: ``parent`` where given (a pool's tile windows can
+        fall inside several same-level parents), else the first of that
+        level that holds it."""
+        parents = ([parent] if parent is not None
+                   else [nd for nd in self.nodes if nd.level == level - 1])
         if not parents:
             raise ValueError(f"no level-{level - 1} parent for a level-{level} patch")
         parent = None
@@ -559,16 +592,25 @@ class MultiLevelSMR:
         return _Node(self, _refine_grid(parent.grid, lo, n), parent, lo, n, level)
 
     # -- same-level links (Parthenon's same-level boundary buffers) -------
+    def _links_static(self, node: _Node) -> bool:
+        """Does this node stay put between set-ups?  Always on a tree whose
+        patches do not move; on a moving tree only its pool tiles (a
+        retagged patch keeps prolonged ghosts, as the JAX tree's traced
+        positions do)."""
+        return not self.moving_patches or node.pool
+
     def _sibling_links(self):
         """{node.index: [(sib_index, dst_slices, src_slices), ...]}: the
-        overlap of each patch's padded box with each same-parent sibling's
-        interior, as [z, y, x] slices into the padded patch (dst) and the
-        sibling's interior (src)."""
+        overlap of each static patch's padded box with each static
+        same-parent sibling's interior, as [z, y, x] slices into the padded
+        patch (dst) and the sibling's interior (src)."""
         links = {node.index: [] for node in self.nodes}
         for node in self.nodes[1:]:
+            if not self._links_static(node):
+                continue
             ng = node.grid.ng
             for sib in node.parent.children:
-                if sib is node:
+                if sib is node or not self._links_static(sib):
                     continue
                 dst, src = [], []
                 for d in (2, 1, 0):
@@ -589,6 +631,42 @@ class MultiLevelSMR:
                     links[node.index].append((sib.index, tuple(dst), tuple(src)))
         return links
 
+    def _padded_prims(self, ws):
+        """Every node's padded prims from the interior prims ``ws``: the
+        root's ghosts from the deck's boundaries, a patch's prolonged from
+        its parent's (one prolongation per face axis and patch shape for
+        the patches without wrap axes: bitwise each patch's own
+        fill_fine_ghosts) with the siblings' fine data written over."""
+        wpads = [None] * len(self.nodes)
+        groups = {}
+        for node in self.nodes:
+            i = node.index
+            if node.parent is None:
+                wpads[i] = bc_mod.pad_and_fill(ws[i], node.grid, "gas", self.bc_custom)
+            elif any(node.wrap):
+                wpads[i] = node.fill_fine_ghosts(ws[i], ws[node.parent.index], node.lo)
+            else:
+                groups.setdefault(node.n, []).append(node)
+        for nodes in groups.values():
+            for node in nodes:
+                wpads[node.index] = _edge_pad(ws[node.index], node.grid.ng)
+            for d in range(3):
+                if not nodes[0].active[d]:
+                    continue
+                fine = prolong_minmod(torch.cat([nd._ghost_windows(ws[nd.parent.index], d, nd.lo)
+                                                 for nd in nodes], dim=0), nodes[0].active)
+                for k, node in enumerate(nodes):
+                    reg, fg = wpads[node.index], node.grid
+                    for side in (0, 1):
+                        sl = [slice(None)] * reg.ndim
+                        sl[reg.ndim - 1 - d] = (slice(0, fg.ng[d]) if side == 0
+                                                else slice(fg.ng[d] + fg.nx[d], None))
+                        reg[tuple(sl)] = node._ghost_cut(fine, 2 * k + side, d, side)
+        for node in self.nodes[1:]:
+            wpads[node.index] = self._apply_sib_links(wpads[node.index],
+                                                      self._sib_links[node.index], ws)
+        return wpads
+
     @staticmethod
     def _apply_sib_links(wp, links, arrs):
         """Padded ``wp`` with its ghost regions inside siblings overwritten
@@ -600,8 +678,10 @@ class MultiLevelSMR:
     # -- set-up -----------------------------------------------------------
     def _compile(self, fused, gather6=True):
         """Choose the stage path: the fused kernel per node (``fused``), its
-        six-face halo (``gather6``) and the node batch where the gates pass."""
+        six-face halo (``gather6``) and the node batch where the gates pass.
+        Re-run after every topology or position change."""
         self.fused = fused
+        self.gather6 = gather6
         self._fused = self._fused_setup() if fused else None
         self._sib_links = self._sibling_links()
         self._gather6 = self._gather6_setup() if gather6 else None
@@ -616,6 +696,9 @@ class MultiLevelSMR:
         it."""
         stages = []
         for node in self.nodes:
+            if node.curv_stage is not None:
+                stages.append(node.curv_stage)
+                continue
             if not curv_mod.supported_curv(node.grid, self.cfg):
                 return None
             flux_srcs = [s for s in node.sources if getattr(s, "uses_fluxes", False)]
@@ -633,20 +716,22 @@ class MultiLevelSMR:
             if rest:
                 return None
             try:
-                stages.append(curv_mod.CurvStage(
+                node.curv_stage = curv_mod.CurvStage(
                     node.hydro, omf=self.omf, rotating=flux_srcs[0] if flux_srcs else None,
                     gravity=gravity, gmode=gmode, diffusion=node.diffusion,
-                    bc_custom=self.bc_custom if node.parent is None else {}))
+                    bc_custom=self.bc_custom if node.parent is None else {})
             except ValueError:
                 return None
+            stages.append(node.curv_stage)
         return stages
 
     def _gather6_setup(self):
         """The root's six static ic strips when every node fits the six-face
         halo (all-ic root with value caches; 3-D patches without wrap axes,
         two parent rows outside every coarse-fine face so the rim windows
-        never touch the parent's ghosts), else None (padded halos)."""
-        if self._fused is None or not self.root.children:
+        never touch the parent's ghosts), else None (padded halos).  A
+        moving tree keeps padded halos: a move would break the margins."""
+        if self._fused is None or self.moving_patches or not self.root.children:
             return None
         root = self.root
         if not curv_mod.gather6_supported(root.grid) or any(
@@ -662,9 +747,12 @@ class MultiLevelSMR:
             pnx = node.parent.grid.nx
             if any(node.lo[d] < 2 or node.lo[d] + node.n[d] > pnx[d] - 2 for d in range(3)):
                 return None
-        strips = curv_mod.prepare_gather6_root_strips(root.grid, caches[0])
-        return {k: torch.as_tensor(np.asarray(v), dtype=self.dtype, device=self.device)
+        if self._g6_root_strips is None:
+            strips = curv_mod.prepare_gather6_root_strips(root.grid, caches[0])
+            self._g6_root_strips = {
+                k: torch.as_tensor(np.asarray(v), dtype=self.dtype, device=self.device)
                 for k, v in strips.items()}
+        return self._g6_root_strips
 
     @property
     def stage_kernel(self) -> str:
@@ -713,31 +801,43 @@ class MultiLevelSMR:
         u_p[sl] = u_p[sl] + du
         return u_p
 
-    def _apply_rim_delta(self, u_p, node, wp_par, wp_fine, bdt, force_pcm):
-        """Conservation fix-up on the parent's fused update from padded
-        prims: at every coarse-fine face plane, the parent's own flux is
-        replaced by the pooled fine flux through the delta on the two
-        adjacent parent rows."""
-        for d in node.parent.hydro.dims:
-            if node.wrap[d - 1]:
-                continue
-            for side in (0, 1):
-                fi_c = node.lo[d - 1] + side * node.n[d - 1]
-                Fc = _slab_face_flux(wp_par, node.parent.grid, d, fi_c, node.lo, node.n,
-                                     self.cfg, force_pcm)
-                Ff = _slab_face_flux(wp_fine, node.grid, d, side * 2 * node.n[d - 1],
-                                     (0, 0, 0), node.grid.nx, self.cfg, force_pcm)
-                dF = _restrict_face_mean(Ff, d, node.active) - Fc
-                u_p = self._rim_apply(u_p, node, d, side, fi_c, dF, bdt)
-        return u_p
+    def _padded_rim_deltas(self, wpads, force_pcm):
+        """The conservation fix-ups of a fused update from padded prims:
+        for every coarse-fine face plane of every patch, the pooled fine
+        flux minus the parent's own, as {parent index: [(node, d, side,
+        face, dF), ...]} in child and face order.  The windows of the whole
+        tree go through one canonical batched flux chain per window shape
+        (they read only the stage-entry prims)."""
+        wins = []
+        for node in self.nodes[1:]:
+            pnode = node.parent
+            for d in pnode.hydro.dims:
+                if node.wrap[d - 1]:
+                    continue
+                for side in (0, 1):
+                    fi_c = node.lo[d - 1] + side * node.n[d - 1]
+                    wins.append((node, d, side, fi_c,
+                                 _slab_window(wpads[pnode.index], pnode.grid, d, fi_c, node.lo,
+                                              node.n),
+                                 _slab_window(wpads[node.index], node.grid, d,
+                                              side * 2 * node.n[d - 1], (0, 0, 0),
+                                              node.grid.nx)))
+        canon = [(d, _rim_canon(w, d)) for (_, d, _, _, wc, wf) in wins for w in (wc, wf)]
+        fluxes = _rim_batched_flux(canon, self.cfg, force_pcm)
+        deltas = {}
+        for k, (node, d, side, fi_c, _, _) in enumerate(wins):
+            dF = _restrict_face_mean(fluxes[2 * k + 1], d, node.active) - fluxes[2 * k]
+            deltas.setdefault(node.parent.index, []).append((node, d, side, fi_c, dF))
+        return deltas
 
     def _apply_rim_delta_g6(self, u_p, node, w_par, w_fine, slabs, bdt, force_pcm,
                             base=None):
-        """_apply_rim_delta without padded arrays: the parent-side 4-row
-        window comes from the parent's interior (two interior rows outside
-        every face, by the six-face gate), the fine side is the patch's edge
-        rows beside its prolonged ghost slab: the values the padded arrays
-        held.  Every window goes through one canonical batched flux chain."""
+        """The rim deltas of one child without padded arrays: the
+        parent-side 4-row window comes from the parent's interior (two
+        interior rows outside every face, by the six-face gate), the fine
+        side is the patch's edge rows beside its prolonged ghost slab: the
+        values the padded arrays held.  Every window goes through one
+        canonical batched flux chain."""
         lo, n = node.lo, node.n
         wins = []
         for d in node.parent.hydro.dims:
@@ -787,21 +887,17 @@ class MultiLevelSMR:
         wpads, strips, slabs = [None] * nn, [None] * nn, [None] * nn
         ws = [st["gas"]["w"] for st in states]
         # ghosts, parents' stage-entry prims feeding the prolongation
-        for node in self.nodes:
-            i = node.index
-            if g6 is not None:
+        if g6 is None:
+            wpads = self._padded_prims(ws)
+        else:
+            for node in self.nodes:
+                i = node.index
                 if node.parent is None:
                     strips[i] = g6
                 else:
                     strips[i], slabs[i] = node.ghost_strips(
                         ws[node.parent.index], node.lo, sib_links=self._sib_links[i],
                         sib_arrs=ws)
-            elif node.parent is None:
-                wpads[i] = bc_mod.pad_and_fill(ws[i], node.grid, "gas", self.bc_custom)
-            else:
-                wpads[i] = self._apply_sib_links(
-                    node.fill_fine_ghosts(ws[i], ws[node.parent.index], node.lo),
-                    self._sib_links[i], ws)
         dt1 = dt.reshape(1)
         u0s = [st["gas"]["u"] for st in states]
         u1l = [u1["gas"] for u1 in u1s]
@@ -856,6 +952,7 @@ class MultiLevelSMR:
         disjoint; restriction covers only the ng-deep band on intermediate
         stages and the whole footprint on the last."""
         g6 = self._gather6
+        deltas = self._padded_rim_deltas(wpads, force_pcm) if g6 is None else None
         blocked = set()
         for pnode in [nd for nd in reversed(self.nodes) if nd.children]:
             if g6 is not None and pnode.parent is None and self._blocks_disjoint(pnode):
@@ -865,15 +962,15 @@ class MultiLevelSMR:
                 continue
             p = pnode.index
             u_p = new_states[p]["gas"]["u"]
-            for child in pnode.children:
-                ci = child.index
-                if g6 is not None:
+            if g6 is None:
+                for (node, d, side, fi_c, dF) in deltas[p]:
+                    u_p = self._rim_apply(u_p, node, d, side, fi_c, dF, bdt)
+            else:
+                for child in pnode.children:
+                    ci = child.index
                     u_p = self._apply_rim_delta_g6(u_p, child, states[p]["gas"]["w"],
                                                    states[ci]["gas"]["w"], slabs[ci], bdt,
                                                    force_pcm)
-                else:
-                    u_p = self._apply_rim_delta(u_p, child, wpads[p], wpads[ci], bdt,
-                                                force_pcm)
             for child in pnode.children:
                 u_p = self._block_set_auxiliary(u_p, child)
             for child in pnode.children:
@@ -1009,15 +1106,7 @@ class MultiLevelSMR:
         force_pcm = integ.name == "vl2" and stage == 1
         ws = [st["gas"]["w"] for st in states]
         # 1. ghosts (parents' stage-entry prims feed the prolongation)
-        wpads = []
-        for node in self.nodes:
-            i = node.index
-            if node.parent is None:
-                wpads.append(bc_mod.pad_and_fill(ws[i], node.grid, "gas", self.bc_custom))
-            else:
-                wpads.append(self._apply_sib_links(
-                    node.fill_fine_ghosts(ws[i], ws[node.parent.index], node.lo),
-                    self._sib_links[i], ws))
+        wpads = self._padded_prims(ws)
         # 2. fluxes (through the sweep kernel on a fused GPU tree, as the
         # single-level composable stage); 3. flux correction, deepest level
         # first
@@ -1180,19 +1269,377 @@ class MultiLevelSMR:
             states.append(st)
         return states
 
+    # -- move-style retagging ---------------------------------------------------
+    def retag_criteria(self, states, criterion):
+        """Re-centre each patch on the refinement-tagged cells of its parent
+        (ScalarFirstDerivative / ScalarMagnitude, amr_criteria.hpp; keys per
+        gas.cpp:304-383)."""
+        def tags_fn(node, wc):
+            refine, _ = self._criterion_tags(wc, node.parent.grid, criterion)
+            return refine.any(dim=0).cpu().numpy()
+
+        return self._retag(states, tags_fn)
+
+    def retag_user(self, states, fn):
+        """Re-centre patches on a problem-defined criterion (<artemis>
+        amr_user): ``fn(w_gas, grid) -> bool refine mask`` over the parent
+        grid's interior cells."""
+        return self._retag(states, lambda node, wc: _host_mask(fn(wc, node.parent.grid)))
+
+    def _retag(self, states, tags_fn):
+        """Move each patch so that its window centres on the bounding box of
+        its parent's tagged cells, clamped inside the nesting rim; a moved
+        patch is prolonged afresh from its parent."""
+        if self._gather6 is not None:
+            raise ValueError("adaptive patch moves on a six-face fused tree: construct "
+                             "MultiLevelSMR with moving_patches=True")
+        states = list(states)
+        moved = False
+        for node in self.nodes:
+            if node.parent is None:
+                continue
+            tags = tags_fn(node, states[node.parent.index]["gas"]["w"])
+            if not tags.any():
+                continue
+            idx = np.nonzero(tags)
+            new_lo = list(node.lo)
+            pg = node.parent.grid
+            for d in (1, 2, 3):
+                if pg.nx[d - 1] <= 1 or node.wrap[d - 1]:
+                    continue
+                ax = 3 - d
+                c0, c1 = int(idx[ax].min()), int(idx[ax].max())
+                want = (c0 + c1 + 1 - node.n[d - 1]) // 2
+                hi = pg.nx[d - 1] - node.n[d - 1] - node.rim[d - 1]
+                new_lo[d - 1] = int(np.clip(want, node.rim[d - 1], hi))
+            if tuple(new_lo) == node.lo:
+                continue
+            states = self._move_patch(states, node, new_lo)
+            moved = True
+        if moved:
+            self._compile(self.fused, self.gather6)
+        return states
+
+    def _fresh_patch_state(self, parent_state, node: _Node, lo):
+        """A node's state prolonged from its parent's current prims at window
+        ``lo`` (a spawn, or a move).  A full-span periodic axis is padded by
+        one wrapped parent cell on each side so the slopes see the seam, and
+        cropped back after."""
+        wp = parent_state["gas"]["w"]
+        starts, sizes, wrap_axes = [], [], []
+        for d in (2, 1, 0):
+            ax = wp.ndim - 1 - d
+            if not node.active[d]:
+                starts.append(0)
+                sizes.append(1)
+            elif node.wrap[d]:
+                starts.append(0)
+                sizes.append(wp.shape[ax])
+                wrap_axes.append(ax)
+            else:
+                starts.append(lo[d])
+                sizes.append(node.n[d])
+        reg = wp[_zyx(starts, sizes)]
+        for ax in wrap_axes:
+            n = reg.shape[ax]
+            reg = torch.cat([reg.narrow(ax, n - 1, 1), reg, reg.narrow(ax, 0, 1)], dim=ax)
+        wf = prolong_minmod(reg, node.active)
+        for ax in wrap_axes:
+            wf = wf.narrow(ax, 2, wf.shape[ax] - 4)
+        u, w = node.hydro.prim_to_cons(wf, self.cfg)
+        st = {"gas": {"u": u, "w": w}}
+        if node.radiation is not None:
+            from .radiation import initialize_radiation
+
+            st["rad"] = {"Er": initialize_radiation(st, self.cfg, node.radiation.cfg)["Er"]}
+        return st
+
+    def _move_patch(self, states, node: _Node, new_lo):
+        """Move a leaf patch: restriction already deposited its data on the
+        parent, so a move is a fresh prolongation at the new window.  A
+        Cartesian patch keeps its grid (translation-invariant); only its
+        ``lo`` moves.  The caller re-runs the set-up once per pass."""
+        if node.children:
+            raise ValueError("cannot move a patch that has children")
+        node.lo = tuple(int(v) for v in new_lo)
+        states[node.index] = self._fresh_patch_state(states[node.parent.index], node, node.lo)
+        return states
+
+    # -- tag-driven spawn/destroy (Parthenon Refinement::Tag ->
+    #    create/destroy MeshBlocks; artemis_driver.cpp:292) -------------------
+    def remove_patch(self, node: _Node):
+        """Drop a leaf patch.  Its fine data needs no deposit: every step
+        already restricts it into the parent.  The caller re-runs the
+        set-up."""
+        if node.children:
+            raise ValueError("cannot remove a patch that has children")
+        node.parent.children.remove(node)
+        self.nodes.remove(node)
+        for i, nd in enumerate(self.nodes):
+            nd.index = i
+
+    @staticmethod
+    def _criterion_tags(w, g, criterion):
+        """(refine, derefine) per-species tags of the <gas> criterion on the
+        interior prims ``w`` of grid ``g``, on w's device."""
+        field = w[:, 0] if criterion.get("field", "density") == "density" else w[:, 4]
+        deref_thr = criterion.get("deref_thr", 0.0)
+        if criterion.get("type", "gradient") == "gradient":
+            dims = [d for d in (1, 2, 3) if g.nx[d - 1] > 1]
+            return ref_mod.scalar_first_derivative(
+                field, ref_mod.grid_stencil_widths(g), dims, criterion["refine_thr"],
+                deref_thr, bc=g.bc)
+        return ref_mod.scalar_magnitude(field, criterion["refine_thr"], deref_thr)
+
+    @staticmethod
+    def _dilate(tags, nbuf):
+        """``nbuf`` passes of a one-cell cross dilation along each active
+        axis, no wrap."""
+        for _ in range(max(0, nbuf)):
+            out = tags
+            for ax in range(3):
+                n = tags.shape[ax]
+                if n <= 1:
+                    continue
+                zero = torch.zeros_like(tags.narrow(ax, 0, 1))
+                out = (out | torch.cat([tags.narrow(ax, 1, n - 1), zero], dim=ax)
+                       | torch.cat([zero, tags.narrow(ax, 0, n - 1)], dim=ax))
+            tags = out
+        return tags
+
+    def tile_masks(self, w, g, criterion, tags_fn=None, nbuf=1):
+        """(refine, derefine) bool masks [z, y, x] of a parent window on
+        the device: the refine tags dilated by ``nbuf`` cells, and where
+        every species may derefine; ``tags_fn`` (amr_user) replaces the
+        criterion, and its untagged cells derefine."""
+        if tags_fn is not None:
+            tags = torch.as_tensor(_host_mask(tags_fn(w, g)), device=w.device)
+            while tags.ndim > 3:            # species axis
+                tags = tags.any(dim=0)
+            tags = self._dilate(tags, nbuf)
+            return tags, ~tags
+        refine, deref = self._criterion_tags(w, g, criterion)
+        return self._dilate(refine.any(dim=0), nbuf), deref.all(dim=0)
+
+    def regrid_tiles(self, states, criterion, tile, nbuf=1, tags_fn=None, numlevel=2,
+                     forced=None):
+        """Tag-driven spawn/destroy over fixed tile lattices, down to
+        ``numlevel - 1`` refinement levels (the JAX package's regrid_tiles).
+
+        Each parent window (the root, then every surviving tile) is tiled by
+        ``tile``-sized windows anchored at its nesting rim.  A window spawns
+        a patch when the ``nbuf``-dilated refine tags touch it, keeps it
+        while they persist, and drops it when every cell satisfies the
+        derefinement criterion (deref_thr; without one coverage only grows).
+        A tile with children is never dropped (they derefine first).
+        Deeper tiles spawn only inside tiles that already carry state, so a
+        feature reaches full depth over ``numlevel - 1`` passes.  Survivors
+        keep their state objects; new patches prolong from their parent.
+        ``tags_fn`` (amr_user) replaces the <gas> criterion; ``forced`` are
+        static_refinement windows (dict(level, c0, c1) in level-(level-1)
+        global cells) whose tiles spawn and are never dropped.  The tags
+        are computed on the device; one bool copy per parent crosses to the
+        host.  Returns the new node states."""
+        states = list(states)
+
+        def masks(g, w):
+            """Host (refine, derefine) masks and the deref threshold."""
+            if tags_fn is None and not criterion:
+                shp = tuple(g.nx[::-1])
+                return np.zeros(shp, bool), np.zeros(shp, bool), 0.0
+            refine, deref = self.tile_masks(w, g, criterion, tags_fn, nbuf)
+            both = torch.stack([refine, deref]).cpu().numpy()
+            self.mask_bytes += both.nbytes
+            return both[0], both[1], (1.0 if tags_fn is not None
+                                      else criterion.get("deref_thr", 0.0))
+
+        def decide(parent, w, strict):
+            """(tile, nodes to drop, windows to spawn) for one parent, or
+            None when the lattice does not fit (skipped unless ``strict``,
+            the root)."""
+            g = parent.grid
+            nx = g.nx
+            rims = [max(1, -(-g.ng[d] // 2)) + 1 if nx[d] > 1 else 0 for d in range(3)]
+            t = tuple(tile[d] if nx[d] > 1 else 1 for d in range(3))
+            lattice = []
+            for d in range(3):
+                if nx[d] <= 1:
+                    lattice.append([0])
+                    continue
+                last = nx[d] - rims[d] - t[d]
+                if last < rims[d]:
+                    if strict:
+                        raise ValueError(f"tile_nx{d + 1}={t[d]} does not fit the root "
+                                         f"interior with the nesting rim ({rims[d]})")
+                    return None
+                lattice.append(list(range(rims[d], last + 1, t[d])))
+            tags, deref_all, deref_thr = masks(g, w)
+
+            def window(lo_):
+                return tuple(slice(lo_[d], lo_[d] + t[d]) if nx[d] > 1 else slice(None)
+                             for d in (2, 1, 0))
+
+            # forced windows at this parent's level, against the parent's
+            # origin in global parent-level cells
+            forced_here = []
+            if forced:
+                og = [0, 0, 0]
+                chain = []
+                nd_ = parent
+                while nd_.parent is not None:
+                    chain.append(nd_.lo)
+                    nd_ = nd_.parent
+                for lo_p in reversed(chain):
+                    og = [2 * (og[d] + lo_p[d]) for d in range(3)]
+                forced_here = [(s["c0"], s["c1"], og) for s in forced
+                               if s["level"] == parent.level + 1]
+
+            def is_forced(lo_):
+                return any(all(nx[d] <= 1 or (og[d] + lo_[d] < c1[d]
+                                              and og[d] + lo_[d] + t[d] > c0[d])
+                               for d in range(3))
+                           for c0, c1, og in forced_here)
+
+            wanted = {lo_ for lo_ in itertools.product(*lattice)
+                      if is_forced(lo_) or bool(tags[window(lo_)].any())}
+            current = {nd.lo: nd for nd in parent.children if nd.pool}
+            final = set(wanted)
+            for lo_, nd in current.items():
+                if lo_ in final:
+                    continue
+                if nd.children:
+                    final.add(lo_)          # its children derefine first
+                    continue
+                if deref_thr > 0.0 and bool(deref_all[window(lo_)].all()):
+                    continue                # derefine: drop this tile
+                final.add(lo_)              # keep until the tags clear
+            drop = [nd for lo_, nd in current.items() if lo_ not in final]
+            return t, drop, sorted(final - set(current))
+
+        # one decision per parent, level by level: tiles spawned in this
+        # pass carry no state yet and get their children at the next one
+        t, drop, add = decide(self.root, states[0]["gas"]["w"], strict=True)
+        to_remove = list(drop)
+        to_add = [(self.root, lo_, t) for lo_ in add]
+        dropped = set(drop)
+        for lev in range(1, max(1, numlevel - 1)):
+            for parent in [nd for nd in self.nodes
+                           if nd.level == lev and nd.pool and nd not in dropped]:
+                dec = decide(parent, states[parent.index]["gas"]["w"], strict=False)
+                if dec is None:
+                    continue
+                t, drop, add = dec
+                to_remove += drop
+                dropped |= set(drop)
+                to_add += [(parent, lo_, t) for lo_ in add]
+        if not to_remove and not to_add:
+            return states
+
+        keep = {nd: states[nd.index] for nd in self.nodes}
+        for nd in sorted(to_remove, key=lambda n: -n.level):    # children first
+            self.remove_patch(nd)
+        spawned = set()
+        for parent, lo_, t in to_add:
+            node = self.add_patch(parent.level + 1, lo_, t, parent=parent)
+            node.pool = True
+            spawned.add(node)
+        self._compile(self.fused, self.gather6)
+        new_states = [states[0]]
+        for nd in self.nodes[1:]:
+            new_states.append(self._fresh_patch_state(new_states[nd.parent.index], nd, nd.lo)
+                              if nd in spawned else keep[nd])
+        return new_states
+
+    # bytes of tag masks copied to the host by regrid_tiles (a counter the
+    # chip smoke test reads)
+    mask_bytes = 0
+
+
+class TwoLevelSMR:
+    """The two-level, one-patch interface of the JAX package's adapter on a
+    moving tree: ``run`` advances with the tree's CFL dt and, given a
+    criterion, re-centres the patch every ``retag_interval`` cycles.
+    States are (u, w) pairs per level; positions are host tuples."""
+
+    def __init__(self, coarse_grid: Grid, integrator, gas_cfg: FluidCfg, patch_lo, patch_n, *,
+                 device, dtype):
+        self.ml = MultiLevelSMR(
+            coarse_grid, integrator, gas_cfg, device=device, dtype=dtype,
+            patches=[dict(level=1, lo=tuple(int(v) for v in patch_lo),
+                          n=tuple(int(v) for v in patch_n))],
+            moving_patches=True)
+        self.cg = coarse_grid
+        self.node = self.ml.nodes[1]
+        self.patch_lo = self.node.lo
+
+    @property
+    def fg(self):
+        return self.node.grid
+
+    def initialize(self, wc, wf):
+        states = self.ml.initialize([wc, wf])
+        return ((states[0]["gas"]["u"], states[0]["gas"]["w"]),
+                (states[1]["gas"]["u"], states[1]["gas"]["w"]))
+
+    @staticmethod
+    def _states(sc, sf):
+        return [{"gas": {"u": sc[0], "w": sc[1]}}, {"gas": {"u": sf[0], "w": sf[1]}}]
+
+    def _place(self, lo):
+        """Put the patch at ``lo`` (a host tuple) when it is elsewhere."""
+        lo = tuple(int(v) for v in lo)
+        if lo != self.node.lo:
+            self.node.lo = lo
+            self.ml._compile(self.ml.fused, self.ml.gather6)
+
+    def _step(self, sc, sf, dt, lo):
+        self._place(lo)
+        states = self.ml.step(self._states(sc, sf), dt, 0.0)
+        return ((states[0]["gas"]["u"], states[0]["gas"]["w"]),
+                (states[1]["gas"]["u"], states[1]["gas"]["w"]))
+
+    def _dt(self, sc, sf):
+        return self.ml.estimate_dt(self._states(sc, sf))
+
+    def run(self, sc, sf, tlim, nlim=-1, criterion=None, retag_interval=10):
+        t, dt, nc = 0.0, float(self._dt(sc, sf)), 0
+        lo = self.patch_lo
+        while t < tlim * (1 - 1e-12) and (nlim < 0 or nc < nlim):
+            use = min(dt, tlim - t)
+            sc, sf = self._step(sc, sf, use, lo)
+            t += use
+            nc += 1
+            dt = min(2 * use, float(self._dt(sc, sf)))
+            if criterion is not None and nc % retag_interval == 0:
+                sc, sf, lo = self.retag(sc, sf, lo, criterion)
+        self.patch_lo = lo
+        return sc, sf, t, nc
+
+    def retag(self, sc, sf, lo, criterion):
+        self._place(lo)
+        states = self.ml.retag_criteria(self._states(sc, sf), criterion)
+        return ((states[0]["gas"]["u"], states[0]["gas"]["w"]),
+                (states[1]["gas"]["u"], states[1]["gas"]["w"]), self.node.lo)
+
 
 class SMRDriver:
-    """Deck-driven static refinement behind the Driver surface ``evolve``
-    uses (``step``, ``estimate_dt``, ``grid``; host_coupled).
+    """Deck-driven static or adaptive refinement behind the Driver surface
+    ``evolve`` uses (``step``, ``estimate_dt``, ``grid``; host_coupled).
 
     Deck dialect (reference-compatible): ``<parthenon/mesh> refinement =
-    static``, ``numlevel``; ``<parthenon/static_refinementK>`` blocks with
-    ``level`` and physical bounds x1min..x3max (Parthenon static
+    static | adaptive``, ``numlevel``; ``<parthenon/static_refinementK>``
+    blocks with ``level`` and physical bounds x1min..x3max (Parthenon static
     refinement, running.rst:121-135); without them, ``<parthenon/
     refinement> patch_lo{1,2,3}`` / ``patch_nx{1,2,3}`` (one centred patch
-    per level by default).  The state ``evolve`` sees is the root's, which
-    carries the restricted fine solution under the patches; the fine
-    levels' states live here."""
+    per level by default).  Adaptive: ``<gas> refine_field / refine_type /
+    refine_thr / deref_thr`` (gas.cpp:304-383) or a problem's own criterion
+    (``<artemis> amr_user``), evaluated every ``<parthenon/refinement>
+    check_interval`` cycles; ``style = tiled`` (the default with a
+    criterion) spawns and destroys tiles of ``tile_nx{1,2,3}`` root cells
+    dilated by ``nbuf`` cells, static_refinement blocks becoming forced
+    tile windows; ``style = move`` re-centres the deck's patch per level.
+    The state ``evolve`` sees is the root's, which carries the restricted
+    fine solution under the patches; the fine levels' states live here."""
 
     host_coupled = True
 
@@ -1200,21 +1647,50 @@ class SMRDriver:
                  sources_factory=None, diffusion_factory=None, bc_custom=None,
                  omf=0.0, radiation_factory=None, fused=False):
         mode = pin.get_str("parthenon/mesh", "refinement")
-        if mode == "adaptive":
-            raise NotImplementedError(f"adaptive refinement is not ported yet ({ITEM})")
-        if mode != "static":
+        if mode not in ("adaptive", "static"):
             raise ValueError(f"refinement {mode!r} not recognized")
         self.gas_cfg = gas_cfg
         self.dust_cfg = None
         self.grid = grid
         self.integrator = integrator
+        self.adaptive = mode == "adaptive"
         numlevel = pin.get_or_add_int("parthenon/mesh", "numlevel", 2)
+        self.numlevel = numlevel
+        has_crit = pin.exists("gas", "refine_thr") or pin.get_or_add_bool(
+            "artemis", "amr_user", False)
+        self.tiled = self.adaptive and pin.get_or_add_str(
+            "parthenon/refinement", "style", "tiled" if has_crit else "move") == "tiled"
+        # the default tile: 16 root cells per active axis, clamped (even) to
+        # what fits inside the nesting rim; an explicit tile that does not
+        # fit raises in regrid_tiles
+        tile = []
+        for d in range(3):
+            if grid.nx[d] <= 1:
+                tile.append(1)
+                continue
+            rim = max(1, -(-grid.ng[d] // 2)) + 1
+            fit = max(2, (grid.nx[d] - 2 * rim) // 2 * 2)
+            tile.append(pin.get_or_add_int("parthenon/refinement", f"tile_nx{d + 1}",
+                                           min(16, fit)))
+        self.tile = tuple(tile)
+        self.regrid_nbuf = pin.get_or_add_int("parthenon/refinement", "nbuf", 1)
         patches = []
+        self.forced_windows = []
         for blk in pin.block_names():
-            if blk.startswith("parthenon/static_refinement"):
-                patches += self._bounds_to_patches(pin, blk, grid,
-                                                   pin.get_or_add_int(blk, "level", 1))
-        if not patches and numlevel >= 2:
+            if not blk.startswith("parthenon/static_refinement"):
+                continue
+            level = pin.get_or_add_int(blk, "level", 1)
+            if self.tiled:
+                # a forced tile window (Parthenon keeps static regions
+                # refined under refinement=adaptive)
+                wins = self._bounds_to_windows(pin, blk, grid, level)
+                for win in wins:
+                    self._warn_uncoverable(blk, win, grid)
+                self.forced_windows.extend(wins)
+                self.numlevel = max(self.numlevel, level + 1)
+                continue
+            patches += self._bounds_to_patches(pin, blk, grid, level)
+        if not patches and numlevel >= 2 and not self.tiled:
             for lev in range(1, numlevel):
                 scale = 2 ** (lev - 1)
                 base_nx = [grid.nx[d] * scale for d in range(3)]
@@ -1231,10 +1707,27 @@ class SMRDriver:
             grid, integrator, gas_cfg, device=device, dtype=dtype,
             sources_factory=sources_factory, diffusion_factory=diffusion_factory,
             bc_custom=bc_custom, omf=omf, patches=patches,
-            radiation_factory=radiation_factory, fused=fused)
+            radiation_factory=radiation_factory, fused=fused,
+            # tiled pools stay put between regrids (each regrid re-runs the
+            # set-up), so they keep sibling links and six-face halos
+            moving_patches=self.adaptive and not self.tiled)
         root = self.smr.root
         self.hydro, self.sources = root.hydro, root.sources
         self.diffusion, self.radiation = root.diffusion, root.radiation
+        self.criterion = None
+        if self.adaptive and pin.exists("gas", "refine_thr"):
+            self.criterion = dict(
+                field=pin.get_or_add_str("gas", "refine_field", "density"),
+                type=pin.get_or_add_str("gas", "refine_type", "gradient"),
+                refine_thr=pin.get_real("gas", "refine_thr"),
+                deref_thr=pin.get_or_add_real("gas", "deref_thr", 0.0))
+        # a problem-defined criterion (<artemis> amr_user; Simulation wires
+        # Problem.amr_criterion here) overrides the <gas> keys
+        self.user_criterion = None
+        self.retag_interval = pin.get_or_add_int("parthenon/refinement", "check_interval", 10)
+        # the regrid schedule counts this run's cycles: it restarts at 0 on
+        # a resumed run, as the JAX package's does
+        self._ncycle = 0
         # the patches' initial prims (set by Simulation from the problem
         # generator on each patch grid); None prolongs the parent's
         self._fine_prims = None
@@ -1243,6 +1736,45 @@ class SMRDriver:
     @property
     def stage_kernel(self) -> str:
         return self.smr.stage_kernel
+
+    def _warn_uncoverable(self, blk, win, grid):
+        """Print a warning where the tile lattice cannot cover a forced
+        window: it anchors at the nesting rim with a uniform step, and each
+        deeper level anchors one tile-wide window per parent tile."""
+        for d in range(3):
+            if grid.nx[d] <= 1:
+                continue
+            rim = max(1, -(-grid.nghost // 2)) + 1
+            t = self.tile[d]
+            kmax = (grid.nx[d] - 2 * rim - t) // t
+            anchors = [rim + k * t for k in range(kmax + 1)]
+            for _ in range(win["level"] - 1):
+                anchors = [2 * a + rim for a in anchors]
+            if win["level"] >= 2:
+                ok = any(a <= win["c0"][d] and win["c1"][d] <= a + t for a in anchors)
+            else:
+                ok = (anchors and win["c1"][d] <= anchors[-1] + t
+                      and win["c0"][d] >= anchors[0])
+            if not ok:
+                print(f"# WARNING: {blk} (level {win['level']}) is not fully coverable by "
+                      f"the tile lattice on x{d + 1} (window cells [{win['c0'][d]}, "
+                      f"{win['c1'][d]}) vs anchored {t}-cell tile windows at "
+                      f"{anchors[:4]}...); align the region or adjust tile_nx{d + 1}",
+                      flush=True)
+
+    @property
+    def _regrids(self) -> bool:
+        """Does this tree spawn and destroy tiles?"""
+        return self.tiled and (self.criterion is not None or self.user_criterion is not None
+                               or bool(self.forced_windows))
+
+    def _regrid(self):
+        """One spawn/destroy pass; amr_user's criterion overrides the <gas>
+        keys."""
+        return self.smr.regrid_tiles(
+            self._states, self.criterion if self.user_criterion is None else {}, self.tile,
+            nbuf=self.regrid_nbuf, tags_fn=self.user_criterion, numlevel=self.numlevel,
+            forced=self.forced_windows)
 
     @staticmethod
     def _bounds_to_windows(pin, blk, grid, level):
@@ -1300,12 +1832,20 @@ class SMRDriver:
             if pr is not None and i + 1 < len(prims):
                 prims[i + 1] = pr["gas"]
         self._states = self.smr.initialize(prims)
+        if self._regrids:
+            # refine the initial condition before the first step, once per
+            # level below the root so a feature reaches full depth
+            for _ in range(max(1, self.numlevel - 1)):
+                self._states = self._regrid()
         return {k: dict(v) for k, v in self._states[0].items()}
 
     def restart_payloads(self):
         """The fine levels' arrays for a bit-exact restart (name -> fn), as
         the JAX package writes them: ``n{i}.gas.u|w``, ``n{i}.rad.Er`` and
-        the patch position ``n{i}.lo`` of every node below the root."""
+        the patch position ``n{i}.lo`` of every node below the root, and
+        with a tile pool its topology, ``pool``: one row [level,
+        parent_index, lo, n] per pool node in node order (pool nodes trail
+        the deck's patches)."""
         def host(i, fl, kind):
             return lambda: self._states[i][fl][kind].detach().cpu().numpy()
 
@@ -1317,16 +1857,21 @@ class SMRDriver:
             if node.radiation is not None:
                 out[f"n{i}.rad.Er"] = host(i, "rad", "Er")
             out[f"n{i}.lo"] = (lambda lo: lambda: np.array(lo, dtype=np.int32))(node.lo)
+        rows = tree_rows(self.smr.nodes)
+        rows = rows[rows[:, 8] == 1, :8]
+        if len(rows):
+            out["pool"] = lambda: rows
         return out
 
     def load_restart(self, payloads, root_state):
-        """The fine levels from a checkpoint's payloads, on the run's device.
-        The tree is static: a checkpoint of a tile-pool (adaptive) tree, or
-        one whose patches sit elsewhere, is refused."""
-        if "pool" in payloads:
-            raise NotImplementedError("restarting an adaptive (tile-pool) tree is not "
-                                      f"ported yet ({ITEM})")
+        """The fine levels from a checkpoint's payloads, on the run's device:
+        a tile pool's nodes are rebuilt from its ``pool`` rows first (a
+        6-column row, [lo, n], is a level-1 tile of an older checkpoint),
+        then every node takes its arrays.  A moving patch goes to its
+        checkpointed ``n{i}.lo``; a static patch must already sit there."""
         ml = self.smr
+        if "pool" in payloads:
+            tree_topology_from_rows(ml, payloads["pool"])
 
         def dev(key):
             a = payloads[key]
@@ -1337,16 +1882,23 @@ class SMRDriver:
 
         self._states = [None] * len(ml.nodes)
         self._states[0] = {k: dict(v) for k, v in root_state.items()}
+        moved = False
         for node in ml.nodes[1:]:
             i = node.index
             lo = payloads.get(f"n{i}.lo")
-            if lo is not None and tuple(int(v) for v in lo) != node.lo:
-                raise ValueError(f"restart: node {i} sits at {tuple(lo)}, the deck's "
-                                 f"static tree puts it at {node.lo}")
+            lo = node.lo if lo is None else tuple(int(v) for v in lo)
+            if lo != node.lo:
+                if ml._links_static(node):
+                    raise ValueError(f"restart: node {i} sits at {lo}, the deck's static "
+                                     f"tree puts it at {node.lo}")
+                node.lo = lo
+                moved = True
             st = {"gas": {"u": dev(f"n{i}.gas.u"), "w": dev(f"n{i}.gas.w")}}
             if node.radiation is not None:
                 st["rad"] = {"Er": dev(f"n{i}.rad.Er")}
             self._states[i] = st
+        if moved:
+            ml._compile(ml.fused, ml.gather6)
 
     def _ensure_states(self, root_state):
         if self._states is None:
@@ -1358,6 +1910,14 @@ class SMRDriver:
     def step(self, state, dt: float, time: float):
         self._ensure_states(state)
         self._states = self.smr.step(self._states, dt, time)
+        self._ncycle += 1
+        if self._ncycle % self.retag_interval == 0:
+            if self._regrids:
+                self._states = self._regrid()
+            elif self.user_criterion is not None:
+                self._states = self.smr.retag_user(self._states, self.user_criterion)
+            elif self.criterion is not None:
+                self._states = self.smr.retag_criteria(self._states, self.criterion)
         return {k: dict(v) for k, v in self._states[0].items()}
 
     def estimate_dt(self, state) -> float:

@@ -113,10 +113,7 @@ class Simulation:
         self.do_gas = pin.get_or_add_bool("physics", "gas", True)
         self.do_dust = pin.get_or_add_bool("physics", "dust", False)
         refinement = pin.get_or_add_str("parthenon/mesh", "refinement", "none")
-        if refinement == "adaptive":
-            raise NotImplementedError("adaptive mesh refinement is not ported yet "
-                                      "(ROADMAP Queue 1 item 10)")
-        if refinement not in ("none", "static"):
+        if refinement not in ("none", "static", "adaptive"):
             raise ValueError(f"refinement {refinement!r} not recognized")
 
         self.grid = grid_from_input(pin)
@@ -147,7 +144,7 @@ class Simulation:
             self.eos = eos
         dust_cfg = None
         if self.do_dust:
-            if refinement == "static":
+            if refinement != "none":
                 raise NotImplementedError("dust on refinement trees is not ported yet "
                                           "(ROADMAP Queue 1 item 10)")
             drecon = pin.get_or_add_str("dust", "reconstruct", "plm")
@@ -176,7 +173,7 @@ class Simulation:
         # N-body package (a deterministic few-body system on the host)
         self.nbody = None
         if pin.get_or_add_bool("physics", "nbody", False):
-            if refinement == "static":
+            if refinement != "none":
                 raise NotImplementedError("N-body coupling on refinement trees is not "
                                           "ported yet (ROADMAP Queue 1 item 10)")
             from .nbody import NBodySystem
@@ -220,7 +217,7 @@ class Simulation:
                                                       fused=fused_stage)
 
         integrator = Integrator.make(pin.get_or_add_str("parthenon/time", "integrator", "rk2"))
-        if refinement == "static":
+        if refinement != "none":
             self.driver = self._smr_driver(pin, problem_name, integrator, gas_cfg, srcs,
                                            diffusion_factory, radiation_factory, omf,
                                            fused_stage, visc)
@@ -297,27 +294,39 @@ class Simulation:
 
     def _smr_driver(self, pin, problem_name, integrator, gas_cfg, srcs, diffusion_factory,
                     radiation_factory, omf, fused_stage, visc):
-        """The static refinement tree (artemis_tpu/simulation.py:223-296):
-        every node gets the deck's sources and the problem's own, built on
-        its grid; each patch's initial state comes from the problem
-        generator on the patch grid (built once per patch, for its sources
-        and its prims).  The tree's stage kernels run on the card
+        """The static or adaptive refinement tree
+        (artemis_tpu/simulation.py:223-296): every node gets the deck's
+        sources and the problem's own, built on its grid; each deck patch's
+        initial state comes from the problem generator on the patch grid
+        (built once per patch, for its prims and, where the problem has
+        sources, for those; an adaptive tree's spawned tiles prolong their
+        prims).  ``<artemis> amr_user`` hands the problem's own criterion
+        to the tree.  The tree's stage kernels run on the card
         (``fused_stage``)."""
+        import weakref
+
         from .amr import SMRDriver
 
+        # one problem per live grid: an entry goes with its grid, so a grid
+        # made after a regrid freed another cannot take the freed one's
+        # problem through a reused id
         problems = {}
 
         def problem_on(g):
             if id(g) not in problems:
                 problems[id(g)] = build_problem(
                     problem_name, ParameterInput.from_string(repr(pin)), g, gas_cfg, None)
+                weakref.finalize(g, problems.pop, id(g), None)
             return problems[id(g)]
 
         def src_factory(g):
             if g is self.grid:
                 return srcs
             ss = sources_from_input(pin, g, gas_cfg, None, self.constants)
-            ss += list(problem_on(g).sources)
+            # the problem's own sources on the patch grid, where the root's
+            # problem has any (a spawned tile needs no prims of its own)
+            if self.problem.sources:
+                ss += list(problem_on(g).sources)
             for s in ss:
                 if isinstance(s, Gravity) and s.gtype == "binary":
                     s.omf = omf
@@ -330,6 +339,13 @@ class Simulation:
                         bc_custom=self.problem.bc_custom, omf=omf,
                         radiation_factory=radiation_factory,
                         fused=fused_stage and self.device.type == "cuda")
+        # a problem-defined refinement criterion (artemis.cpp:149-150)
+        if pin.get_or_add_bool("artemis", "amr_user", False):
+            if self.problem.amr_criterion is None:
+                raise ValueError(f"{problem_name}: user-defined AMR criterion not implemented "
+                                 "(amr_user = true needs the problem generator to provide "
+                                 "Problem.amr_criterion)")
+            drv.user_criterion = self.problem.amr_criterion
         drv._fine_prims = [dict(problem_on(nd.grid).prims) for nd in drv.smr.nodes[1:]]
         return drv
 

@@ -11,7 +11,11 @@ linear-wave and radiation slice tests hand the JAX run's initial state to
 the port this way.  A refinement tree holds one such state per node, in
 the tree's node order (the JAX package's ``SMRDriver._states``, the port's
 ``amr.SMRDriver._states``): ``tree_from_numpy`` and ``tree_to_numpy``
-carry the whole list.
+carry the whole list.  An adaptive tree's node list changes as it runs:
+``tree_rows`` reads the topology of either package's tree as rows, and
+``tree_topology_from_rows`` builds it into a port tree before its states
+are carried (the port's restart rebuilds a tile pool from its checkpoint
+rows through it too).
 """
 
 from __future__ import annotations
@@ -44,3 +48,28 @@ def tree_to_numpy(states):
     return [{name: {k: np.asarray(v.detach().cpu() if torch.is_tensor(v) else v)
                     for k, v in kinds.items()}
              for name, kinds in st.items()} for st in states]
+
+
+def tree_rows(nodes):
+    """Rows [level, parent_index, lo1, lo2, lo3, n1, n2, n3, pool] of the
+    nodes below the root (either package's tree; the ``pool`` payload's
+    layout and a pool flag), as int64 numpy."""
+    return np.array([[nd.level, nd.parent.index, *nd.lo, *nd.n, int(getattr(nd, "pool", False))]
+                     for nd in nodes[1:]], dtype=np.int64).reshape(-1, 9)
+
+
+def tree_topology_from_rows(smr, rows):
+    """Append the nodes of ``rows`` to a port tree, in row order, and re-run
+    its set-up.  A row is ``tree_rows``' [level, parent_index, lo, n,
+    pool], or a ``pool`` payload's [level, parent_index, lo, n] (a pool
+    node), or an older checkpoint's pool row [lo, n] (a level-1 tile of
+    the root)."""
+    for row in np.asarray(rows, dtype=np.int64):
+        if len(row) == 6:
+            row = np.concatenate([[1, 0], row])
+        level, parent, lo, n = int(row[0]), int(row[1]), row[2:5], row[5:8]
+        node = smr.add_patch(level, tuple(int(v) for v in lo), tuple(int(v) for v in n),
+                             parent=smr.nodes[parent])
+        node.pool = bool(row[8]) if len(row) == 9 else True
+    smr._compile(smr.fused, smr.gather6)
+    return smr

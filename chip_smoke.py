@@ -122,7 +122,9 @@ line is printed:
 14. bench.py's production AMR shape (512x512x64 root over [-4, 4]^2 and a
    256x256x64 patch; the shapes differ, so one K5b launch per node):
    zone-cycles/s over every level, launch counts and the density L2 gate
-   of bench.py:185;
+   of bench.py:185 (run after phase 15: its tree, and phase 26's tiled
+   one, are set up on a second thread while rad_shock's host-bound loop
+   runs, the disk IC being numpy that releases the interpreter lock);
 15. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
    tests/test_radiation.py's test_rad_shock;
 16. the six-face launch with alpha viscosity (K5a) at disk_sph's
@@ -200,7 +202,28 @@ line is printed:
    every node, time, dt and the particles equal, each checkpoint's size and
    its write and load ms; then the CLI in a subprocess, ``-t`` with a tiny
    walltime exiting 2 with the walltime checkpoint and ``-r`` on it running
-   to nlim with exit 0.
+   to nlim with exit 0;
+26. adaptive refinement: ``inputs/blast_amr.in`` as written (64x64 f64,
+   tiled spawn/destroy, numlevel 2) to t = 0.1 through ``Simulation.run``
+   with the stage count set to 0 before and read after: the padded
+   curvilinear stage per node (K4) after every regrid, 2 launches per node
+   a cycle, coverage growing, the pressure L2 against
+   ``tests/data/sedov2d.dat`` < 1; the plain path over the first 50
+   cycles (node rows equal to the kernel run's after every cycle, every
+   node within 1e-10 of each array's max at cycle 50); the main run's
+   checkpoint at cycle 20 resumed for 10 cycles, ``torch.equal`` to the
+   main run at load and after; numlevel 3 to t = 0.05 (mass drift
+   < 1e-8); then
+   bench.py's tiled AMR disk RHD (512x512x64 f32 root over [-4, 4]^2,
+   density magnitude criterion at 0.3, 64x64x32 tiles, a regrid every 25
+   cycles): tiles, node shapes, the six-face stage per node (K5b),
+   K5b/K7/K8 launches, zone-cycles/s over every node's zones (25 cycles
+   after 2 warm-up, one regrid) and its ratio to the static production
+   tree of phase 14, the device's idle share, one regrid's ms split into
+   tags on the device, the mask copy, the set-up and a tile's
+   prolongation, the mask bytes, peak device memory; and the same
+   composition at 128x128x32 with 32x32x16 tiles, kernel against plain
+   for 4 cycles with 2 regrids (rows equal, 1e-4 of each array's max).
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
@@ -238,6 +261,7 @@ DISK_F32_TOL = 1e-4
 FLD_TOL = {"float64": 1e-12, "float32": 1e-5}
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+SMOKE_LIMIT_S = 1200              # the whole script's time limit, the build included
 
 
 def check(cond, msg):
@@ -1518,10 +1542,11 @@ def rhd_sim(data, fused=True):
     return Simulation(DISK["disk_rhd_amr"], args, data, device=DEVICE, fused_stage=fused)
 
 
-def fld_inputs(torch, rad, state, dt_value):
+def fld_inputs(torch, rad, state, dt_value, ghosts=None):
     """The FLD operator's inputs as the radiation step ``rad`` makes them
     from a node's state: E, chi, dt (one element) and the first outer's
-    sf."""
+    sf; ``ghosts``: a patch's Dirichlet planes, which set its flags as
+    ``rad.step`` sets them."""
     cfg, gas = rad.cfg, rad.gas
     u, Er = state["gas"]["u"], state["rad"]["Er"]
     dt = torch.full((1,), dt_value, dtype=u.dtype, device=DEVICE)
@@ -1531,8 +1556,8 @@ def fld_inputs(torch, rad, state, dt_value):
     chi = (rad.kappa(rho, T0) + cfg.kappa_s) * rho
     sig = dt * cfg.c_code * rad.kappa(rho, T0) * rho
     sf = sig * (rcv / (rcv + sig * 4.0 * cfg.arad * T0 * T0 * T0))
-    flags = [tuple(v is not None for v in rad._edge_dirichlet.get(d, (None, None)))
-             for d in (1, 2, 3)]
+    edges = {**rad._edge_dirichlet, **(ghosts or {})}
+    flags = [tuple(v is not None for v in edges.get(d, (None, None))) for d in (1, 2, 3)]
     shp = tuple(Er.shape[-3:])
     return (Er.reshape(shp).contiguous(), chi.reshape(shp).contiguous(), dt, rad._wuni,
             cfg.c_code, rad._ext, flags), sf.reshape(shp).contiguous()
@@ -2073,14 +2098,21 @@ def phase_amr(torch, smi):
     return res
 
 
-def phase_amr_prod(torch, smi):
+def timed_build(make):
+    """(make(), its wall seconds): a Simulation built off the main thread
+    (the disk IC is numpy, which releases the interpreter lock)."""
+    t0 = time.perf_counter()
+    sim = make()
+    return sim, time.perf_counter() - t0
+
+
+def phase_amr_prod(torch, smi, built):
     """bench.py's production shape: a 512x512x64 root over [-4, 4]^2 and
     the deck's window as a 256x256x64 patch; the shapes differ, so each
-    node runs its own six-face launch (K5b) per RK stage."""
+    node runs its own six-face launch (K5b) per RK stage.  ``built``: the
+    tree and its set-up seconds (timed_build)."""
     with tempfile.TemporaryDirectory() as data:
-        t0 = time.perf_counter()
-        sim = amr_sim(data, AMR_PROD, 4.0)
-        setup_s = time.perf_counter() - t0
+        sim, setup_s = built
         smr = sim.driver.smr
         check(len(smr.nodes) == 2 and smr.nodes[1].grid.nx == (256, 256, 64)
               and sim.driver.stage_kernel == "stage_curv per node (gather6)",
@@ -3315,6 +3347,457 @@ def phase_restart(torch, smi):
     return res
 
 
+# -- phase 26 ------------------------------------------------------------
+BLAST_AMR = os.path.join(HERE, "inputs", "blast_amr.in")
+SEDOV2D = os.path.join(HERE, "tests", "data", "sedov2d.dat")
+PADDED_PER_NODE = "stage_curv per node (padded)"
+GATHER6_PER_NODE = "stage_curv per node (gather6)"
+# bench.py:207-231: the tiled AMR disk RHD (its root, the magnitude
+# criterion at 0.3, 64x64x32 tiles, a regrid every 25 cycles)
+ADAPT_RHD = (512, 512, 64)
+ADAPT_TILE = (64, 64, 32)
+ADAPT_CHECK = 25
+ADAPT_CYCLES = 25
+ADAPT_SMALL = (128, 128, 32)      # the kernel-vs-plain check
+ADAPT_SMALL_TILE = (32, 32, 16)
+ADAPT_SMALL_CYCLES = 4
+ADAPT_TOL = 1e-10                 # blast_amr f64: kernel vs plain end states
+ADAPT_RESTART = (20, 10)          # the main run's checkpoint cycle, cycles resumed
+
+
+def adaptive_ov(tile, check):
+    return ["parthenon/mesh/refinement=adaptive", "gas/refine_field=density",
+            "gas/refine_type=magnitude", "gas/refine_thr=0.3",
+            f"parthenon/refinement/check_interval={check}",
+            *(f"parthenon/refinement/tile_nx{d + 1}={t}" for d, t in enumerate(tile))]
+
+
+def blast_amr_sim(data, extra=(), fused=True, restart=None):
+    """inputs/blast_amr.in as written (tiled, numlevel 2, float64) on the card."""
+    from artemis_tpu_torch import Simulation
+
+    return Simulation(BLAST_AMR, list(extra), data, device=DEVICE, fused_stage=fused,
+                      restart=restart)
+
+
+def tree_run(torch, sim, extra_observers=()):
+    """Simulation.run with the stage counts set to 0 before and read after;
+    after every cycle (so after every regrid) the node rows, the node count
+    and the stage path.  Returns those and the wall seconds."""
+    from artemis_tpu_torch.ops import stage_curv as SC
+    from artemis_tpu_torch.state import tree_rows
+
+    smr = sim.driver.smr
+    rec = {"rows": [tree_rows(smr.nodes)], "nodes": [len(smr.nodes)],
+           "kernels": [sim.driver.stage_kernel]}
+
+    def observe(state, tm):
+        rec["rows"].append(tree_rows(smr.nodes))
+        rec["nodes"].append(len(smr.nodes))
+        rec["kernels"].append(sim.driver.stage_kernel)
+
+    SC.stage_curv_launches = SC.stage_curv_batched_launches = SC.tiled_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run(extra_observers=[observe, *extra_observers])
+    torch.cuda.synchronize()
+    rec["secs"] = time.perf_counter() - t0
+    rec["launches"] = SC.stage_curv_launches
+    rec["batched"] = SC.stage_curv_batched_launches
+    rec["tiled"] = SC.tiled_launches
+    check(sim.status == "complete", f"{sim.pin.get_str('parthenon/job', 'problem_id')} did "
+          f"not complete: {sim.status}")
+    return rec
+
+
+def root_mass(sim):
+    smr = sim.driver.smr
+    return float((smr.root.hydro.vol * sim.state["gas"]["u"][0, 0]).sum())
+
+
+def sedov_l2(sim):
+    """Pressure L2 of the root against tests/data/sedov2d.dat about the
+    deck's blast centre (tests/test_amr_adaptive.py's gate, < 1)."""
+    import numpy as np
+
+    dat = np.loadtxt(SEDOV2D, comments="#")
+    pres = sim.state["gas"]["w"][0, 4, 0].double().cpu().numpy()
+    x1v, x2v, _ = sim.grid.cell_centers()
+    rr = np.broadcast_to(np.sqrt((x1v + 0.2) ** 2 + (x2v + 0.2) ** 2)[0], pres.shape)
+    inb = rr <= dat[:, 0].max()
+    pans = np.interp(np.clip(rr, dat[0, 0], dat[:, 0].max()), dat[:, 0], dat[:, 3])
+    return float(np.sqrt(((pres - pans)[inb] ** 2).mean()))
+
+
+def node_field_err(torch, a_states, b_states):
+    """max over nodes and fields (u, w, Er) of max |a - b| / max |b|."""
+    worst = 0.0
+    for a, b in zip(a_states, b_states):
+        for fl, kinds in b.items():
+            for k, t in kinds.items():
+                if k != "dtden":
+                    y = t.double()
+                    worst = max(worst, float((a[fl][k].double() - y).abs().max()
+                                             / y.abs().max().clamp_min(1e-300)))
+    return worst
+
+
+def clone_states(states):
+    return [{fl: {kk: t.clone() for kk, t in kinds.items()} for fl, kinds in st.items()}
+            for st in states]
+
+
+def rows_same(a, b):
+    return len(a) == len(b) and all(x.shape == y.shape and (x == y).all() for x, y in zip(a, b))
+
+
+def tile_vs_plain(torch, sim):
+    """One tile of a tiled RHD tree whose strips carry sibling data, on its
+    own state, kernel against plain on the same inputs: its six-face stage
+    (K5b) from the strips the tree builds for it, both RK register
+    patterns, at DISK_F32_TOL; its FLD set-up (K7) and one matvec (K8)
+    from the flags its Dirichlet ghost planes set, at FLD_TOL."""
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    smr = sim.driver.smr
+    states = sim.driver._states
+    node = next((nd for nd in smr.nodes[1:] if smr._sib_links[nd.index]), None)
+    check(node is not None, "tiled RHD: no tile with sibling links")
+    i, par = node.index, node.parent.index
+    ws = [st["gas"]["w"] for st in states]
+    strips, _ = node.ghost_strips(ws[par], node.lo, sib_links=smr._sib_links[i], sib_arrs=ws)
+    cs, w, u = smr._fused[i], ws[i], states[i]["gas"]["u"]
+    dt1 = torch.full((1,), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+    stage_err = 0.0
+    for g in RK2:
+        kern = SC.stage_curv(cs, w, u, u.clone(), *g, dt1, sim.tm.time, False, strips=strips)
+        ref = SC.stage_curv_batched_reference([cs], [w], [u], [u.clone()], [strips], *g, dt1,
+                                              sim.tm.time, False)[0]
+        torch.cuda.synchronize()
+        check(all(bool(torch.isfinite(t).all()) for t in kern[:2]),
+              f"tiled RHD tile {i}: K5b gave non-finite values")
+        stage_err = max(stage_err, *(float((a - b).abs().max())
+                                     for a, b in zip(kern[:2], ref[:2])))
+    check(stage_err <= DISK_F32_TOL,
+          f"tiled RHD tile {i} {node.grid.nx}: K5b vs plain {stage_err:.3e} > {DISK_F32_TOL:g}")
+    gh = smr._rad_ghost_planes(node, states[par]["rad"]["Er"],
+                               [st["rad"]["Er"] for st in states])
+    args, sf = fld_inputs(torch, node.radiation, states[i], sim.tm.dt, ghosts=gh)
+    pairs = fld_pairs(torch, *args, sf)
+    coeffs_err, matvec_err = errs(pairs[:3]), errs(pairs[3:])
+    check(max(coeffs_err[1], matvec_err[1]) <= FLD_TOL["float32"],
+          f"tiled RHD tile {i}: K7 / K8 vs plain relative {coeffs_err[1]:.3e} / "
+          f"{matvec_err[1]:.3e} > {FLD_TOL['float32']:g}")
+    return {"node": i, "shape": list(node.grid.nx), "links": len(smr._sib_links[i]),
+            "flags": [list(f) for f in args[-1]], "stage_err": stage_err,
+            "coeffs_err": coeffs_err, "matvec_err": matvec_err}
+
+
+def phase_adaptive(torch, smi, prod, built):
+    """Adaptive refinement on the card: blast_amr.in as written on K4 per
+    node (and its plain path, numlevel 3, a pool restart), and bench.py's
+    tiled AMR disk RHD at full size on K5b, K7 and K8 per node (``built``:
+    that tree and its set-up seconds, timed_build)."""
+    import numpy as np
+
+    from artemis_tpu_torch.ops import fld as FLD
+    from artemis_tpu_torch.ops import stage_curv as SC
+    from artemis_tpu_torch.state import tree_rows
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        # (1) blast_amr as written to tlim 0.1: K4 per node after every
+        # regrid, 2 launches per node a cycle, coverage growing
+        t_part = time.perf_counter()
+        sim = blast_amr_sim(os.path.join(data, "k"))
+        check(sim.driver.tiled and sim.dtype == torch.float64, "blast_amr is not tiled f64")
+        at, more = ADAPT_RESTART
+        ckpt = os.path.join(data, "k", "pool")
+        snap = {}
+        every = sim.driver.retag_interval
+
+        def snapshot(state, tm):
+            # the tree after every regrid (the plain comparison's cycles)
+            # and after the cycles the pool restart resumes from and to
+            if tm.ncycle % every == 0 or tm.ncycle == at + more:
+                snap[tm.ncycle] = clone_states(sim.driver._states)
+            if tm.ncycle == at:
+                snap["path"] = sim.write_restart(ckpt, state=state, tm=tm)
+
+        k = tree_run(torch, sim, [snapshot])
+        ncyc = sim.tm.ncycle
+        want = 2 * sum(k["nodes"][:-1])
+        check(all(s == PADDED_PER_NODE for s in k["kernels"]),
+              f"blast_amr stage paths {sorted(set(k['kernels']))}, want {PADDED_PER_NODE}")
+        check(k["launches"] == want and k["batched"] == 0,
+              f"blast_amr: {k['launches']} K4 launches in {ncyc} cycles, {want} expected "
+              "(2 per node a cycle)")
+        check(k["nodes"][-1] > k["nodes"][0], f"blast_amr coverage did not grow: {k['nodes'][0]}"
+              f" -> {k['nodes'][-1]} nodes")
+        l2 = sedov_l2(sim)
+        check(np.isfinite(l2) and l2 < 1.0, f"blast_amr pressure L2 {l2:g} >= 1")
+        res["blast"] = {"ncycle": ncyc, "launches": k["launches"], "tiled": k["tiled"],
+                        "nodes": [k["nodes"][0], max(k["nodes"]), k["nodes"][-1]],
+                        "secs": k["secs"], "l2": l2,
+                        "cycle_ms": 1e3 * k["secs"] / ncyc}
+        regrids = ncyc // sim.driver.retag_interval
+        print(f"blast_amr as written (64x64 f64, tiled, numlevel 2) on the card: {ncyc} cycles "
+              f"to t = {sim.tm.time:.6f}, {regrids} regrids, nodes {k['nodes'][0]} -> "
+              f"{max(k['nodes'])} (last {k['nodes'][-1]}), stage path {PADDED_PER_NODE} after "
+              f"every regrid, {k['launches']} K4 launches = 2 x nodes per cycle ({k['tiled']} "
+              f"on the tiled body), {res['blast']['cycle_ms']:.3f} ms a cycle, pressure L2 vs "
+              f"sedov2d {l2:.4f} (gate 1) [{smi}]")
+
+        # (2) the same deck on the plain path up to one regrid past the
+        # kernel run's first change of topology (spawns and drops, the
+        # set-up re-run over renumbered nodes): rows equal after every
+        # cycle, every node's u and w after every regrid
+        grown = next((c for c, r in enumerate(k["rows"]) if not rows_same([r], [k["rows"][0]])),
+                     None)
+        check(grown is not None and grown + every <= ncyc,
+              f"blast_amr: no change of topology a regrid before its last cycle ({grown})")
+        nc = grown + every
+        psim = blast_amr_sim(os.path.join(data, "p"), [f"parthenon/time/nlim={nc}"],
+                             fused=False)
+        psnap = {}
+
+        def psnapshot(state, tm):
+            if tm.ncycle % every == 0:
+                psnap[tm.ncycle] = clone_states(psim.driver._states)
+
+        p = tree_run(torch, psim, [psnapshot])
+        check(psim.driver.stage_kernel == "none" and p["launches"] == 0,
+              "plain blast_amr took a kernel")
+        check(psim.tm.ncycle == nc and rows_same(k["rows"][:nc + 1], p["rows"]),
+              f"blast_amr kernel and plain pools part within {nc} cycles")
+        errs_at = {c: node_field_err(torch, snap[c], psnap[c]) for c in sorted(psnap)}
+        err = max(errs_at.values())
+        check(err <= ADAPT_TOL, f"blast_amr kernel vs plain after the regrids of cycles "
+              f"{sorted(psnap)}: {err:.3e} > {ADAPT_TOL}")
+        changes = [c for c in range(1, nc + 1) if not rows_same([k["rows"][c]],
+                                                                [k["rows"][c - 1]])]
+        res["blast"].update(end_err=err, plain_cycle_ms=1e3 * p["secs"] / nc,
+                            cmp_cycles=nc, cmp_nodes=[p["nodes"][0], p["nodes"][-1]],
+                            cmp_changes=changes)
+        print(f"blast_amr plain path: the first {nc} cycles, {len(psnap)} regrids, the "
+              f"topology changing at cycles {changes} (nodes {p['nodes'][0]} -> "
+              f"{p['nodes'][-1]}), node rows equal to the kernel run's after every cycle, "
+              f"every node's u and w after every regrid within {err:.3e} of each array's max "
+              f"(gate {ADAPT_TOL:g}), {res['blast']['plain_cycle_ms']:.3f} ms a cycle")
+        del psim, psnap
+
+        # (5) a pool restart: the main run's checkpoint at a multiple of
+        # check_interval resumed for 10 cycles, against the main run
+        check(at % sim.driver.retag_interval == 0, "checkpoint not at a regrid")
+        resumed = blast_amr_sim(os.path.join(data, "r"), [f"parthenon/time/nlim={at + more}"],
+                                restart=snap["path"])
+
+        def equal(a_states, b_states, b_rows):
+            return (rows_same([tree_rows(resumed.driver.smr.nodes)], [b_rows])
+                    and all(torch.equal(x["gas"][kk], y["gas"][kk])
+                            for x, y in zip(a_states, b_states) for kk in ("u", "w")))
+
+        at_load = equal(resumed.driver._states, snap[at], k["rows"][at])
+        resumed.run()
+        after = (resumed.tm.ncycle == at + more
+                 and equal(resumed.driver._states, snap[at + more], k["rows"][at + more]))
+        check(at_load and after, f"pool restart: equal at load {at_load}, after {more} more "
+              f"cycles {after}")
+        res["restart"] = {"nodes": len(resumed.driver.smr.nodes), "bitwise": True}
+        print(f"blast_amr pool restart from the main run's checkpoint at cycle {at} "
+              f"({len(k['rows'][at])} pool tiles): rows and every node's u and w torch.equal to "
+              f"the main run's at load and after {more} more cycles")
+        del sim, resumed, snap
+        res["blast"]["part_s"] = time.perf_counter() - t_part
+
+        # numlevel 3 to tlim 0.05: mass drift
+        t_part = time.perf_counter()
+        sim = blast_amr_sim(os.path.join(data, "n3"), ["parthenon/mesh/numlevel=3",
+                                                       "parthenon/time/tlim=0.05"])
+        m0 = root_mass(sim)
+        k3 = tree_run(torch, sim)
+        drift = abs(root_mass(sim) - m0) / m0
+        levels = sorted({int(r[0]) for r in tree_rows(sim.driver.smr.nodes)})
+        check(drift < 1e-8 and levels == [1, 2]
+              and all(s == PADDED_PER_NODE for s in k3["kernels"])
+              and k3["launches"] == 2 * sum(k3["nodes"][:-1]),
+              f"blast_amr numlevel 3: drift {drift:.3e}, levels {levels}, launches "
+              f"{k3['launches']}")
+        res["blast3"] = {"ncycle": sim.tm.ncycle, "launches": k3["launches"], "drift": drift,
+                         "part_s": time.perf_counter() - t_part,
+                         "nodes": [k3["nodes"][0], max(k3["nodes"])],
+                         "cycle_ms": 1e3 * k3["secs"] / sim.tm.ncycle}
+        print(f"blast_amr numlevel 3 to t = 0.05: {sim.tm.ncycle} cycles, nodes "
+              f"{k3['nodes'][0]} -> {max(k3['nodes'])}, {k3['launches']} K4 launches, "
+              f"{res['blast3']['cycle_ms']:.3f} ms a cycle, mass drift {drift:.3e} (gate 1e-8)")
+        del sim
+
+        # (3) bench.py's tiled AMR disk RHD at full size
+        t_part = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        sim, setup_s = built
+        del built
+        drv, smr = sim.driver, sim.driver.smr
+        shapes = sorted({nd.grid.nx for nd in smr.nodes[1:]})
+        ntiles = len(smr.nodes) - 1
+        check(drv.tiled and ntiles > 0 and drv.stage_kernel == GATHER6_PER_NODE
+              and all(nd.radiation.use_kernels for nd in smr.nodes),
+              f"tiled RHD: {ntiles} tiles {shapes}, stage path {drv.stage_kernel}")
+        print(f"tiled AMR RHD {ADAPT_RHD} root over [-4, 4]^2 f32, tiles {ADAPT_TILE} root "
+              f"cells: {ntiles} tiles of {shapes} after the pre-evolution pass, stage path "
+              f"{drv.stage_kernel}, set-up {setup_s:.1f} s")
+        zones, iters, paths = [], [], []
+
+        def record(state, tm):
+            zones.append(sum(ncells(nd.grid) for nd in smr.nodes))
+            iters.append([list(nd.radiation.cg_iters) for nd in smr.nodes])
+            paths.append(drv.stage_kernel)
+
+        # warm-up: 2 cycles through Simulation.run
+        sim.tm.nlim = 2
+        sim.run()
+        SC.stage_curv_launches = SC.stage_curv_batched_launches = 0
+        FLD.fld_coeffs_launches = FLD.fld_coeffs_tiled_launches = FLD.fld_matvec_launches = 0
+        start_nodes = [len(smr.nodes)]
+
+        def nodes_obs(state, tm):
+            start_nodes.append(len(smr.nodes))
+
+        zone_start = sum(ncells(nd.grid) for nd in smr.nodes)
+        regrids_before = sim.tm.ncycle // drv.retag_interval
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sim.tm.nlim = sim.tm.ncycle + ADAPT_CYCLES
+        from artemis_tpu_torch.driver import evolve
+
+        torch.cuda.synchronize()
+        start.record()
+        sim.state, sim.tm, _, status = evolve(drv, sim.state, sim.tm,
+                                              observers=[record, nodes_obs])
+        end.record()
+        torch.cuda.synchronize()
+        secs = start.elapsed_time(end) / 1e3
+        check(status == "complete", f"tiled RHD run stopped: {status}")
+        ncyc = ADAPT_CYCLES
+        per_cycle_nodes = start_nodes[:-1]
+        zone_cycles = zone_start + sum(zones[:-1])
+        matvecs = sum(1 + it for cyc in iters for its in cyc for it in its)
+        launches = {"stage_curv": SC.stage_curv_launches,
+                    "stage_curv_batched": SC.stage_curv_batched_launches,
+                    "fld_coeffs": FLD.fld_coeffs_launches,
+                    "fld_coeffs_tiled": FLD.fld_coeffs_tiled_launches,
+                    "fld_matvec": FLD.fld_matvec_launches}
+        check(all(pth == GATHER6_PER_NODE for pth in paths)
+              and launches["stage_curv"] == 2 * sum(per_cycle_nodes)
+              and launches["stage_curv_batched"] == 0
+              and launches["fld_coeffs"] == sum(per_cycle_nodes)
+              and launches["fld_coeffs_tiled"] == launches["fld_coeffs"]
+              and launches["fld_matvec"] == matvecs,
+              f"tiled RHD: launches {launches} for {ncyc} cycles on {per_cycle_nodes} nodes, "
+              f"{matvecs} matvecs expected; stage paths {sorted(set(paths))}")
+        cycle_ms = 1e3 * secs / ncyc
+        zcps = zone_cycles / secs
+        l2 = l2_vs_ic(torch, sim)
+        fin = all(bool(torch.isfinite(t).all()) for st in drv._states
+                  for t in (st["gas"]["u"], st["gas"]["w"], st["rad"]["Er"]))
+        check(fin and l2 <= 3e-4, f"tiled RHD: root density L2 vs IC {l2:.3e} or not finite")
+        regrids = sim.tm.ncycle // drv.retag_interval - regrids_before
+        check(regrids >= 1, f"tiled RHD: no regrid in the {ncyc} timed cycles")
+        res["rhd"] = {"tiles": ntiles, "shapes": [list(s) for s in shapes],
+                      "setup_s": setup_s, "launches": launches, "cycle_ms": cycle_ms,
+                      "zcps": zcps, "ratio_to_static": zcps / prod["zcps"], "l2": l2,
+                      "regrids_timed": regrids, "nodes": [min(per_cycle_nodes),
+                                                          max(per_cycle_nodes)],
+                      "cg_iters": sum(it for cyc in iters for its in cyc for it in its)}
+        print(f"tiled AMR RHD: {ncyc} cycles ({regrids} regrids) after 2 warm-up, "
+              f"{per_cycle_nodes[0]}..{per_cycle_nodes[-1]} nodes, {zcps:.6e} zone-cycles/s "
+              f"over every node's zones ({zcps / prod['zcps']:.3f}x the static production "
+              f"tree's {prod['zcps']:.6e}), {cycle_ms:.3f} ms a cycle, root density L2 vs IC "
+              f"{l2:.3e} (gate 3e-4); launches {launches} (K5b 2 per node a cycle, K7 1 per "
+              f"node a cycle, K8 1 + CG iterations per outer per node) [{smi}]")
+
+        # the device's idle share over a few profiled cycles
+        prof = profile_cycles(torch, sim, 2)
+        res["rhd"]["busy_ms"] = prof["busy_ms"] if prof else None
+        res["rhd"]["idle_share"] = 1.0 - prof["busy_ms"] / cycle_ms if prof else None
+        print("tiled AMR RHD device idle: "
+              + (f"{100 * res['rhd']['idle_share']:.1f}% of the unprofiled cycle"
+                 if prof else "not measured"))
+
+        # one sibling-linked tile at the main path's shape, kernels against
+        # their plain versions (these launches come after the counts' read)
+        tv = res["rhd"]["tile_check"] = tile_vs_plain(torch, sim)
+        print(f"tiled AMR RHD tile {tv['node']} {tuple(tv['shape'])} with {tv['links']} "
+              f"sibling links, on its own state: K5b vs plain {tv['stage_err']:.3e} max abs "
+              f"(both RK patterns, tol {DISK_F32_TOL:g}); K7 vs plain {tv['coeffs_err'][0]:.3e}"
+              f" abs / {tv['coeffs_err'][1]:.3e} rel, K8 {tv['matvec_err'][0]:.3e} / "
+              f"{tv['matvec_err'][1]:.3e} (Dirichlet flags {tv['flags']}, tol "
+              f"{FLD_TOL['float32']:g} rel)")
+
+        # one regrid, and its parts: tags on the device, the mask copy,
+        # the set-up, one tile's prolongation
+        st0 = drv._states[0]
+        bytes0 = smr.mask_bytes
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nbefore = len(smr.nodes)
+        drv._states = drv._regrid()
+        torch.cuda.synchronize()
+        regrid_ms = 1e3 * (time.perf_counter() - t0)
+        mask_bytes = smr.mask_bytes - bytes0
+        g = smr.root.grid
+        tags_ms = time_launches(torch, lambda: smr.tile_masks(
+            st0["gas"]["w"], g, drv.criterion, None, drv.regrid_nbuf), 10)
+        masks = smr.tile_masks(st0["gas"]["w"], g, drv.criterion, None, drv.regrid_nbuf)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            torch.stack(list(masks)).cpu()
+        copy_ms = 1e2 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        smr._compile(smr.fused, smr.gather6)
+        torch.cuda.synchronize()
+        setup_ms = 1e3 * (time.perf_counter() - t0)
+        tile = smr.nodes[-1]
+        prolong_ms = time_launches(torch, lambda: smr._fresh_patch_state(st0, tile, tile.lo), 5)
+        res["rhd"].update(regrid_ms=regrid_ms, regrid_changed=len(smr.nodes) != nbefore,
+                          tags_ms=tags_ms, copy_ms=copy_ms, setup_ms=setup_ms,
+                          prolong_ms=prolong_ms, mask_bytes=mask_bytes,
+                          peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+        print(f"tiled AMR RHD regrid: {regrid_ms:.3f} ms a pass (topology "
+              f"{'changed' if res['rhd']['regrid_changed'] else 'kept'}); tags on the device "
+              f"{tags_ms:.4f} ms, the mask copy {copy_ms:.4f} ms ({mask_bytes} bytes cross), "
+              f"the set-up {setup_ms:.3f} ms (stages reused), one tile's prolongation "
+              f"{prolong_ms:.4f} ms; peak device memory {res['rhd']['peak_gb']:.2f} GiB [{smi}]")
+        res["rhd"]["part_s"] = time.perf_counter() - t_part
+        del sim, drv, smr, st0, masks, tile
+        torch.cuda.empty_cache()
+
+        # (4) the same composition at 128x128x32, kernel against plain
+        t_part = time.perf_counter()
+        ov = adaptive_ov(ADAPT_SMALL_TILE, 2) + [f"parthenon/time/nlim={ADAPT_SMALL_CYCLES}"]
+        runs = {}
+        for fused in (True, False):
+            s = amr_sim(os.path.join(data, f"small{int(fused)}"), ADAPT_SMALL, 4.0,
+                        fused=fused, extra=ov)
+            runs[fused] = (s, tree_run(torch, s))
+        (ks, kr), (ps, pr) = runs[True], runs[False]
+        err = node_field_err(torch, ks.driver._states, ps.driver._states)
+        check(rows_same(kr["rows"], pr["rows"]) and len(kr["rows"]) == ADAPT_SMALL_CYCLES + 1
+              and all(s == GATHER6_PER_NODE for s in kr["kernels"]) and err <= DISK_F32_TOL,
+              f"tiled RHD {ADAPT_SMALL}: rows equal {rows_same(kr['rows'], pr['rows'])}, paths "
+              f"{sorted(set(kr['kernels']))}, kernel vs plain {err:.3e} > {DISK_F32_TOL:g}")
+        res["small"] = {"nodes": kr["nodes"], "err": err, "launches": kr["launches"],
+                        "part_s": time.perf_counter() - t_part}
+        print(f"tiled AMR RHD {ADAPT_SMALL}, tiles {ADAPT_SMALL_TILE}: {ADAPT_SMALL_CYCLES} "
+              f"cycles with 2 regrids, nodes {kr['nodes']}, node rows equal on both paths "
+              f"after every cycle, kernel vs plain end states {err:.3e} of each array's max "
+              f"(gate {DISK_F32_TOL:g})")
+        del runs, ks, ps
+        torch.cuda.empty_cache()
+    print("phase adaptive by part: " + ", ".join(
+        f"{key} {res[key]['part_s']:.1f} s" for key in ("blast", "blast3", "rhd", "small")))
+    return res
+
 
 def main():
     import torch
@@ -3338,8 +3821,29 @@ def main():
     rhd = phase_rhd(torch, smi)
     berr64, berr32 = phase_batched_compare(torch)
     amr = phase_amr(torch, smi)
-    prod = phase_amr_prod(torch, smi)
-    shock = phase_rad_shock(torch)
+    # the two 512x512x64 disk RHD trees are set up (their disk IC on the
+    # host) in the background while rad_shock's host-bound loop runs
+    pre_dir = tempfile.TemporaryDirectory()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        pre_prod = pool.submit(timed_build, lambda: amr_sim(
+            os.path.join(pre_dir.name, "prod"), AMR_PROD, 4.0))
+        pre_adaptive = pool.submit(timed_build, lambda: amr_sim(
+            os.path.join(pre_dir.name, "adaptive"), ADAPT_RHD, 4.0,
+            extra=adaptive_ov(ADAPT_TILE, ADAPT_CHECK)))
+        t1 = time.perf_counter()
+        shock = phase_rad_shock(torch)
+        print(f"phase rad_shock: {time.perf_counter() - t1:.1f} s (the 512x512x64 trees of "
+              "phases 14 and 26 set up beside it, sharing the interpreter lock)")
+        # both trees are built before any timed window opens
+        t1 = time.perf_counter()
+        built_prod, built_adaptive = pre_prod.result(), pre_adaptive.result()
+        print(f"the builds of phases 14 and 26 took {built_prod[1]:.1f} + "
+              f"{built_adaptive[1]:.1f} s; "
+              f"the main thread waited {time.perf_counter() - t1:.1f} s for them after "
+              "rad_shock")
+        del pre_prod, pre_adaptive
+    prod = phase_amr_prod(torch, smi, built_prod)
+    del built_prod
     k5a = phase_k5a(torch, smi)
     serr64, serr32 = phase_sweep_compare(torch)
     strat = phase_strat(torch, smi)
@@ -3355,8 +3859,14 @@ def main():
     alpha, binary, drag, other, nbody, restart = (
         secs[k][0] for k in ("alpha_disk", "binary_cyl", "simple_drag", "other_decks",
                              "nbody", "restart"))
-    print(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.0f} s, the build "
-          "included")
+    t1 = time.perf_counter()
+    adaptive = phase_adaptive(torch, smi, prod, built_adaptive)
+    del built_adaptive
+    pre_dir.cleanup()
+    print(f"phase adaptive: {time.perf_counter() - t1:.1f} s")
+    total = time.perf_counter() - t0
+    print(f"chip_smoke: every phase passed in {total:.0f} s, the build included "
+          f"({SMOKE_LIMIT_S - total:.0f} s left of the {SMOKE_LIMIT_S} s limit)")
     kernels = {"kernels": [{
         "name": "stage_cart",
         "kernel": "stage_cart_tiled_kernel (the tiled body)",
@@ -3460,6 +3970,11 @@ def main():
         "disk_cyl_l2_vs_ic": decks["l2"],
         "blast_launches": other["blast"]["launches"],
         "blast_50cycle_err_f64": other["blast"]["end_err"],
+        "adaptive_blast_amr_launches": adaptive["blast"]["launches"],
+        "adaptive_blast_amr_cycles": adaptive["blast"]["ncycle"],
+        "adaptive_blast_amr_nodes": adaptive["blast"]["nodes"],
+        "adaptive_blast_amr_end_err_f64": adaptive["blast"]["end_err"],
+        "adaptive_blast_amr_numlevel3_launches": adaptive["blast3"]["launches"],
         "deck_l2_vs_ic_f64": decks["deck_l2"],
         "cycle_ms": decks["cycle_ms"],
         "idle_share": decks["idle_share"],
@@ -3511,7 +4026,8 @@ def main():
         "source": "artemis_tpu_torch/csrc/stage_curv.cu",
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:1867",
         "launches": rhd["launches"][0],
-        "max_abs_err": max(g6["float32"], rhd["stage_err"]),
+        "max_abs_err": max(g6["float32"], rhd["stage_err"],
+                           adaptive["rhd"]["tile_check"]["stage_err"]),
         "max_abs_err_f64": g6["float64"],
         "tol_f32": DISK_F32_TOL,
         "tol_f64": F64_TOL,
@@ -3532,6 +4048,13 @@ def main():
         "idle_share": rhd["idle_share"],
         "host_reads_per_cycle": rhd["reads_per_cycle"],
         "rad_shock_cycles": shock["ncycle"],
+        "adaptive_rhd_launches": adaptive["rhd"]["launches"]["stage_curv"],
+        "adaptive_rhd_tiles": adaptive["rhd"]["tiles"],
+        "adaptive_rhd_zone_cycles_per_s": adaptive["rhd"]["zcps"],
+        "adaptive_rhd_idle_share": adaptive["rhd"]["idle_share"],
+        "adaptive_small_end_err_f32": adaptive["small"]["err"],
+        "adaptive_tile_shape": adaptive["rhd"]["tile_check"]["shape"],
+        "adaptive_tile_err_f32": adaptive["rhd"]["tile_check"]["stage_err"],
     }, {
         "name": "stage_curv_gather6_viscous",
         "kernel": "stage_tiled_kernel (the tiled body, diffusive)",
@@ -3559,9 +4082,11 @@ def main():
         "source": "artemis_tpu_torch/csrc/fld.cu",
         "replaces": "artemis_tpu/ops/pallas_fld.py:88",
         "launches": rhd["launches"][1],
-        "max_abs_err": max(fld["float32"][0], rhd["coeffs_err"][0]),
+        "max_abs_err": max(fld["float32"][0], rhd["coeffs_err"][0],
+                           adaptive["rhd"]["tile_check"]["coeffs_err"][0]),
         "max_abs_err_f64": fld["float64"][0],
-        "max_rel_err": max(fld["float32"][1], rhd["coeffs_err"][1]),
+        "max_rel_err": max(fld["float32"][1], rhd["coeffs_err"][1],
+                           adaptive["rhd"]["tile_check"]["coeffs_err"][1]),
         "max_rel_err_f64": fld["float64"][1],
         "tol_rel_f32": FLD_TOL["float32"],
         "tol_rel_f64": FLD_TOL["float64"],
@@ -3576,6 +4101,8 @@ def main():
         "amr_nodes_percell_ms": [c["coeffs_percell_ms"] for c in amr["coeffs_nodes"]],
         "amr_nodes_bound_ms": [c["coeffs_bound_ms"] for c in amr["coeffs_nodes"]],
         "amr_launches": amr["launches"]["fld_coeffs"],
+        "adaptive_rhd_launches": adaptive["rhd"]["launches"]["fld_coeffs"],
+        "adaptive_tile_rel_err_f32": adaptive["rhd"]["tile_check"]["coeffs_err"][1],
         "shape": list(RHD_CELL),
         "dtype": "float32",
     }, {
@@ -3584,9 +4111,11 @@ def main():
         "source": "artemis_tpu_torch/csrc/fld.cu",
         "replaces": "artemis_tpu/ops/pallas_fld.py:188",
         "launches": rhd["launches"][2],
-        "max_abs_err": max(fld["float32"][0], rhd["matvec_err"][0]),
+        "max_abs_err": max(fld["float32"][0], rhd["matvec_err"][0],
+                           adaptive["rhd"]["tile_check"]["matvec_err"][0]),
         "max_abs_err_f64": fld["float64"][0],
-        "max_rel_err": max(fld["float32"][1], rhd["matvec_err"][1]),
+        "max_rel_err": max(fld["float32"][1], rhd["matvec_err"][1],
+                           adaptive["rhd"]["tile_check"]["matvec_err"][1]),
         "max_rel_err_f64": fld["float64"][1],
         "tol_rel_f32": FLD_TOL["float32"],
         "tol_rel_f64": FLD_TOL["float64"],
@@ -3600,6 +4129,8 @@ def main():
         "shape": list(RHD_CELL),
         "dtype": "float32",
         "cg_iters_per_outer": rhd["cg_per_outer"],
+        "adaptive_rhd_launches": adaptive["rhd"]["launches"]["fld_matvec"],
+        "adaptive_tile_rel_err_f32": adaptive["rhd"]["tile_check"]["matvec_err"][1],
     }, {
         "name": "stage_curv_batched",
         "kernel": "stage_tiled_kernel (the tiled body)",

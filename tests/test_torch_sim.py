@@ -156,13 +156,14 @@ SMALL = ["parthenon/mesh/nx1=8", "parthenon/mesh/nx2=4", "parthenon/mesh/nx3=4"]
     (["parthenon/output2/file_type=hdf5", "parthenon/output2/dt=0.1"], None),
     (["physics/nbody=true", "nbody/particle1/mass=1.0",
       "parthenon/mesh/refinement=static"], 10),
-    (["parthenon/mesh/refinement=adaptive"], 10),
+    (["physics/dust=true", "parthenon/mesh/refinement=adaptive"], 10),
     (["physics/dust=true", "parthenon/mesh/refinement=static"], 10),
 ], ids=["hdf5-output", "nbody", "adaptive", "dust-on-a-static-tree"])
 def test_unported_physics_raises(tmp_path, overrides, item):
     """Each switch the port does not carry yet names its ROADMAP item, at
     construction or when the run starts: N-body coupling on a refinement
-    tree, adaptive refinement and dust on a static tree wait for item 10.
+    tree, dust on an adaptive tree ("adaptive") and dust on a static tree
+    wait for item 10.
     hdf5 outputs are ported: the run writes its numbered and final dumps."""
     if item is None:
         artemis_tpu_torch.Simulation(DECK, SMALL + overrides, str(tmp_path), device="cpu").run()
