@@ -1,4 +1,4 @@
-"""Static mesh refinement on Cartesian trees (port of ``artemis_tpu/amr.py``,
+"""Static and adaptive mesh refinement (port of ``artemis_tpu/amr.py``,
 single device).
 
 The reference refines with Parthenon's oct-tree of MeshBlocks; the JAX
@@ -14,45 +14,53 @@ package replaced it with a tree of fixed-shape rectangular patches, factor
 4. the child's conserved state restricted onto the parent cells it covers
    (RestrictAverage), then the parent's primitives re-synced.
 
-The composable path (every CPU run, ``fused=False``) runs this with tensor
-operations, the flux correction before the update.  The fused path runs
-each node's whole stage as the curvilinear stage kernel: one node-batched
-launch (``ops.stage_curv.stage_curv_batched``, TPU kernel K6) when every
-node shares the grid shape, else one six-face launch per node (K5b), or a
-padded launch per node (K4) when the tree has no six-face halo; the
-coarse-fine fix-ups then land as rim deltas (the pooled fine face flux
-minus the parent's own, recomputed on thin windows) on the kernel's
-outputs, with restriction and the re-sync on the child's bounding block.
-Radiation runs after the stages, level by level: parents first, patches
-with Dirichlet ghost planes prolonged from their parent's new field, then
-the fine fields restrict back.
+The composable path (every CPU run, ``fused=False``, and on the card every
+curvilinear tree, every tree with dust and every tree coupled to N-body
+particles, as the JAX package gates its own kernel path) runs this with
+tensor operations over every fluid, the flux correction before the update;
+on the card a Cartesian node's gas fluxes go through the flux sweep
+kernel.  The fused path runs each node's whole stage as the curvilinear
+stage kernel: one node-batched launch (``ops.stage_curv.stage_curv_batched``,
+TPU kernel K6) when every node shares the grid shape, else one six-face
+launch per node (K5b), or a padded launch per node (K4) when the tree has
+no six-face halo; the coarse-fine fix-ups then land as rim deltas (the
+pooled fine face flux minus the parent's own, recomputed on thin windows)
+on the kernel's outputs, with restriction and the re-sync on the child's
+bounding block.  Radiation runs after the stages, level by level: parents
+first, patches with Dirichlet ghost planes prolonged from their parent's
+new field, then the fine fields restrict back.
 
-Ported: static and adaptive trees on Cartesian grids (``refinement =
-static | adaptive``), N levels, several disjoint or adjacent patches per
-level, gas with the sources and diffusion of the single-level driver, gray
-FLD radiation, and bit-exact restarts (the fine levels as the JAX
-package's ``amr.*`` payloads, the tile pool's topology included).
-Adaptive trees either spawn and destroy tiles of a fixed lattice where the
-refinement tags land (``style = tiled``, ``regrid_tiles``) or move one
-patch per level onto the tagged cells (``style = move``, ``_retag``); the
-tags are computed on the device and only their bool masks reach the host.
-Curvilinear trees, N-body tracking patches, dust, N-body coupling on trees
-and sharded trees are not ported (ROADMAP Queue 1 items 10 and 11).
-Patch positions are host integers on the nodes; every topology or
-position change re-runs the tree's set-up (``_compile``).
+Ported: static and adaptive trees (``refinement = static | adaptive``) on
+Cartesian and curvilinear grids, N levels, several disjoint or adjacent
+patches per level, gas and dust with the sources and diffusion of the
+single-level driver, gray FLD radiation, N-body coupling with the force
+rows summed over the levels and particle-tracking patches
+(``refine_distance``), and bit-exact restarts (the fine levels as the JAX
+package's ``amr.*`` payloads, the tile pool's topology included).  A
+curvilinear patch restricts by volume, corrects fluxes by area and
+prolongs with centroid spacings; its weights depend on where it sits, so a
+move rebuilds its grid.  Adaptive trees either spawn and destroy tiles of
+a fixed lattice where the refinement tags land (``style = tiled``,
+``regrid_tiles``) or move one patch per level onto the tagged cells
+(``style = move``, ``_retag``); the tags are computed on the device and
+only their bool masks reach the host.  Sharded trees are not ported
+(ROADMAP Queue 1 item 11).  Patch positions are host integers on the
+nodes; every topology or position change re-runs the tree's set-up
+(``_compile``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import bc as bc_mod
-from .driver import curv_point_grav
+from .driver import apply_sources, curv_point_grav, nbody_coeffs
 from .geometry import geometry as geo
 from .grid import Grid
 from .ops import recon as recon_mod
@@ -63,8 +71,6 @@ from .ops import sweeps
 from .ops.hydro import FluidCfg, Hydro
 from .sources import RotatingFrame
 from .state import tree_rows, tree_topology_from_rows
-
-ITEM = "ROADMAP Queue 1 item 10"
 
 
 def _refine_grid(coarse: Grid, lo: Tuple[int, int, int], n: Tuple[int, int, int]) -> Grid:
@@ -98,44 +104,106 @@ def _zyx(starts, sizes):
     return (Ellipsis,) + tuple(slice(s, s + n) for s, n in zip(starts, sizes))
 
 
-def prolong_minmod(wc, active):
+def _rows(a, like, ax):
+    """A spacing row as a tensor broadcast along axis ``ax`` of ``like``:
+    a 1-D row spans ``ax``; a 2-D [L, n] row (one per leading entry, as the
+    paired ghost windows stack their sides) spans axes 0 and ``ax``."""
+    a = torch.as_tensor(a, dtype=like.dtype, device=like.device)
+    shp = [1] * like.ndim
+    if a.ndim == 2:
+        shp[0] = a.shape[0]
+    shp[ax] = a.shape[-1]
+    return a.reshape(shp)
+
+
+def prolong_minmod(wc, active, spacings=None):
     """MinMod-limited prolongation coarse->fine (factor 2 per active axis) of
-    a uniform grid's array [..., z, y, x]: each fine child is the parent
-    -/+ a quarter of its limited slope (ProlongateSharedMinMod,
-    prolongation.hpp:39-66 with constant dx)."""
+    an array [..., z, y, x].  Uniform (``spacings`` None): each fine child is
+    the parent -/+ a quarter of its limited slope (ProlongateSharedMinMod,
+    prolongation.hpp:39-66 with constant dx).  Curvilinear: ``spacings[d-1]
+    = (dxm, dxp, dxfm, dxfp)``, the centroid distances along axis d
+    (GetGridSpacings, prolongation.hpp:36-67), so gradients and child
+    offsets use the volume-averaged centres; an entry None keeps the
+    uniform stencil on that axis."""
     out = wc
     for d in (1, 2, 3):
         if not active[d - 1]:
             continue
+        sp_d = None if spacings is None else spacings[d - 1]
         ax = out.ndim - d
         n = out.shape[ax]
         lo = torch.cat([out.narrow(ax, 0, 1), out.narrow(ax, 0, n - 1)], dim=ax)
         hi = torch.cat([out.narrow(ax, 1, n - 1), out.narrow(ax, n - 1, 1)], dim=ax)
         dl = out - lo
         dr = hi - out
-        slope = torch.where(dl * dr > 0.0,
-                            torch.sign(dl) * torch.minimum(dl.abs(), dr.abs()), 0.0)
-        st = torch.stack([out - 0.25 * slope, out + 0.25 * slope], dim=ax + 1)
+        if sp_d is None:
+            slope = torch.where(dl * dr > 0.0,
+                                torch.sign(dl) * torch.minimum(dl.abs(), dr.abs()), 0.0)
+            minus, plus = out - 0.25 * slope, out + 0.25 * slope
+        else:
+            dxm, dxp, dxfm, dxfp = (_rows(a, out, ax) for a in sp_d)
+            gxm = dl / dxm
+            gxp = dr / dxp
+            g = 0.5 * (torch.sign(gxm) + torch.sign(gxp)) * torch.minimum(gxm.abs(), gxp.abs())
+            minus, plus = out - g * dxfm, out + g * dxfp
+        st = torch.stack([minus, plus], dim=ax + 1)
         shape = list(out.shape)
         shape[ax] *= 2
         out = st.reshape(shape)
     return out
 
 
-def restrict_average(wf, active):
-    """Restriction fine->coarse of a Cartesian array: the mean of each 2^ndim
-    block (RestrictAverage, restriction.hpp:30-80, equal volumes), pairing z,
-    then y, then x, as the JAX package sums them."""
-    out = wf
-    for d in (3, 2, 1):
-        if not active[d - 1]:
-            continue
-        ax = out.ndim - d
-        shape = list(out.shape)
-        shape[ax] //= 2
-        shape.insert(ax + 1, 2)
-        out = out.reshape(shape).mean(dim=ax + 1)
-    return out
+def centroid_spacings(xc, xf):
+    """(dxm, dxp, dxfm, dxfp) per-cell rows (numpy) from coarse centroids
+    ``xc`` and the fine centroids ``xf`` (twice as many) they split into;
+    the edge cells get one-sided spacings (their gradient goes to 0 through
+    the minmod)."""
+    xc = np.asarray(xc)
+    xf = np.asarray(xf)
+    xm = np.concatenate([[xc[0] - 1.0], xc[:-1]])
+    xp = np.concatenate([xc[1:], [xc[-1] + 1.0]])
+    return (xc - xm, xp - xc, xc - xf[0::2], xf[1::2] - xc)
+
+
+def restrict_average(wf, active, volf=None):
+    """Restriction fine->coarse: sum(u_child V_child) / sum(V_child) over
+    each 2^ndim block (RestrictAverage, restriction.hpp:30-80), pairing z,
+    then y, then x, as the JAX package sums them; the plain block mean when
+    ``volf`` (the fine cell volumes [z, y, x]) is None, exact for
+    Cartesian."""
+    def down(a, mean):
+        out = a
+        for d in (3, 2, 1):
+            if not active[d - 1]:
+                continue
+            ax = out.ndim - d
+            shape = list(out.shape)
+            shape[ax] //= 2
+            shape.insert(ax + 1, 2)
+            pair = out.reshape(shape)
+            out = pair.mean(dim=ax + 1) if mean else pair.sum(dim=ax + 1)
+        return out
+
+    if volf is None:
+        return down(wf, True)
+    return down(wf * volf, False) / down(volf, False)
+
+
+def _fine_centroid_row(fg: Grid, d: int, nextra: int):
+    """Volume-averaged fine centroids along axis d (numpy), extended
+    ``nextra`` cells beyond the padded fine extent (a patch's fine faces are
+    uniform by construction, _refine_grid)."""
+    g = fg.geom
+    xf = {1: g.xf1, 2: g.xf2, 3: g.xf3}[d]
+    dxf = xf[1] - xf[0]
+    faces = np.concatenate([xf[0] + dxf * np.arange(-nextra, 0), xf,
+                            xf[-1] + dxf * np.arange(1, nextra + 1)])
+    xm, xp = faces[:-1], faces[1:]
+    if d == 1:
+        return geo._centroid_x1(fg.coords, xm, xp)
+    if d == 2:
+        return geo._centroid_x2(fg.coords, xm, xp)
+    return 0.5 * (xm + xp)
 
 
 def _slab_window(wp, grid, d, fi, tlo, tn):
@@ -267,11 +335,7 @@ class _Node:
 
     def __init__(self, ml: "MultiLevelSMR", grid: Grid, parent: Optional["_Node"], lo, n,
                  level: int):
-        if not geo.is_cartesian(grid.coords):
-            raise NotImplementedError(f"curvilinear refinement trees are not ported yet "
-                                      f"({ITEM})")
         self.ml = ml
-        self.grid = grid
         self.parent = parent
         self.children: List[_Node] = []
         self.level = level
@@ -283,14 +347,6 @@ class _Node:
             parent.children.append(self)
         # a tile of an adaptive pool (regrid_tiles spawns and destroys it)
         self.pool = False
-        # this node's fused stage, made once (a regrid rebuilds only the
-        # spawned nodes')
-        self.curv_stage = None
-        self.hydro = Hydro(grid, ml.cfg, None, device=ml.device, dtype=ml.dtype)
-        self.sources = ([s.place(ml.device, ml.dtype) for s in ml.sources_factory(grid)]
-                        if ml.sources_factory else [])
-        self.diffusion = ml.diffusion_factory(self.hydro) if ml.diffusion_factory else None
-        self.radiation = ml.radiation_factory(self.hydro) if ml.radiation_factory else None
         self.active = tuple(grid.nx[d] > 1 for d in range(3))
         # wrap[d]: the patch spans a (transitively) periodic parent axis;
         # its ghosts there are the periodic image of its own fine data
@@ -306,6 +362,85 @@ class _Node:
         # for its slope
         self.rim = tuple(max(1, -(-ng[d] // 2)) + 1 if self.active[d] else 0
                          for d in range(3))
+        self.curv = not geo.is_cartesian(grid.coords)
+        self._build(grid)
+
+    def _build(self, grid):
+        """The node's grid and what is made from it: the operators, its
+        sources, diffusion and radiation, and a curvilinear patch's weights
+        (once per placement; ``rebuild_at`` repeats it after a move)."""
+        ml = self.ml
+        self.grid = grid
+        # this node's fused stage, made once (a regrid rebuilds only the
+        # spawned nodes')
+        self.curv_stage = None
+        self.hydro = Hydro(grid, ml.cfg, ml.dust_cfg, device=ml.device, dtype=ml.dtype)
+        self.sources = ([s.place(ml.device, ml.dtype) for s in ml.sources_factory(grid)]
+                        if ml.sources_factory else [])
+        self.diffusion = ml.diffusion_factory(self.hydro) if ml.diffusion_factory else None
+        self.radiation = ml.radiation_factory(self.hydro) if ml.radiation_factory else None
+        self.volf = None
+        self.ghost_spacings = None
+        if self.parent is None or not self.curv:
+            return
+        # position-dependent curvilinear weights: the fine volumes of the
+        # volume-weighted restriction, and the centroid spacings of the
+        # ghost prolongation over the whole rim window (past the padded
+        # fine rows: rebuilt from the uniform fine faces)
+        cg = self.parent.grid
+        self.volf = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
+            grid.geom.volume(), grid.shape_entire)[grid.int_slices]),
+            dtype=ml.dtype, device=ml.device)
+        cxv = (cg.geom.xv1, cg.geom.xv2, cg.geom.xv3)
+        sp = []
+        for d in range(3):
+            if not self.active[d]:
+                sp.append(None)
+                continue
+            a = cg.ng[d] + self.lo[d] - self.rim[d]
+            xc = cxv[d][a:a + self.n[d] + 2 * self.rim[d]]
+            xf = _fine_centroid_row(grid, d + 1, 2 * self.rim[d] - grid.ng[d])
+            sp.append(tuple(torch.as_tensor(r, dtype=ml.dtype, device=ml.device)
+                            for r in centroid_spacings(xc, xf)))
+        self.ghost_spacings = tuple(sp)
+
+    def interior_spacings(self):
+        """Centroid spacings of the prolongation over the patch interior
+        (GetGridSpacings over [lo, lo+n)): curvilinear prolongation that
+        keeps the volume-weighted mean, so restricting a freshly prolonged
+        patch gives its parent back (conservative moves).  None per axis on
+        inactive and wrap axes (the uniform stencil), None on a Cartesian
+        node."""
+        if not self.curv or self.parent is None:
+            return None
+        cg, fg = self.parent.grid, self.grid
+        cxv = (cg.geom.xv1, cg.geom.xv2, cg.geom.xv3)
+        fxv = (fg.geom.xv1, fg.geom.xv2, fg.geom.xv3)
+        sp = []
+        for d in range(3):
+            if not self.active[d] or self.wrap[d]:
+                sp.append(None)
+                continue
+            xc = cxv[d][cg.ng[d] + self.lo[d]:cg.ng[d] + self.lo[d] + self.n[d]]
+            xf = fxv[d][fg.ng[d]:fg.ng[d] + 2 * self.n[d]]
+            sp.append(centroid_spacings(xc, xf))
+        return tuple(sp)
+
+    def rebuild_at(self, new_lo):
+        """Move this curvilinear patch to parent cell ``new_lo``: its grid,
+        operators, sources, diffusion and weights are rebuilt at the new
+        window (every weight depends on where the patch sits; a Cartesian
+        patch is translation-invariant and only changes ``lo``).  The
+        caller re-runs the tree's set-up."""
+        self.lo = tuple(int(v) for v in new_lo)
+        self._build(_refine_grid(self.parent.grid, self.lo, self.n))
+
+    def fluids(self):
+        """[(name, cfg)] of the node's fluids: gas, then dust."""
+        out = [("gas", self.hydro.gas)] if self.hydro.gas else []
+        if self.hydro.dust:
+            out.append(("dust", self.hydro.dust))
+        return out
 
     def fill_fine_ghosts(self, wf, wc, lo):
         """Patch prims padded, the ghosts from the parent's prims ``wc``
@@ -388,11 +523,22 @@ class _Node:
         return torch.cat([a.narrow(ax, max(start - 1, 0), 1), a.narrow(ax, start, count),
                           a.narrow(ax, min(start + count, n - 1), 1)], dim=ax)
 
+    def _side_spacings(self, d, side):
+        """The ghost spacing rows of face (d, side)'s prolongation: the rows
+        of its window along d, the whole rim rows across (None on a
+        Cartesian node)."""
+        if self.ghost_spacings is None:
+            return None
+        m, n = self.rim[d] - 1, self.n[d]
+        r = slice(0, m + 3) if side == 0 else slice(n + m - 1, n + 2 * m + 2)
+        return tuple(None if rows is None else rows if t != d
+                     else tuple(a[r] for a in rows)
+                     for t, rows in enumerate(self.ghost_spacings))
+
     def _prolong_ghost_slab(self, wc, d, side, lo):
         """MinMod-prolonged fine ghost slab outside face (d, side): ng deep
         along d, the full padded transverse extents (corners included)."""
-        fg = self.grid
-        ngf, rim, n = fg.ng, self.rim, self.n
+        rim, n = self.rim, self.n
         nd = wc.ndim
         m = [r - 1 for r in rim]
         slab = wc
@@ -407,29 +553,31 @@ class _Node:
                 start = lo[t] - m[t] + off
                 count = n[t] + 2 * m[t]
             slab = self._axis_window(slab, nd - 1 - t, start, count)
-        fine = prolong_minmod(slab, self.active)
-        sl = [slice(None)] * nd
-        for t in range(3):
-            if not self.active[t]:
-                continue
-            if t == d:
-                o = 2 * (m[t] + 1)
-                sl[nd - 1 - t] = slice(o - ngf[t], o) if side == 0 else slice(4, 4 + ngf[t])
-            else:
-                o = 2 * (m[t] + 1) - ngf[t]
-                sl[nd - 1 - t] = slice(o, o + fg.nx[t] + 2 * ngf[t])
-        return fine[tuple(sl)]
+        fine = prolong_minmod(slab, self.active, self._side_spacings(d, side))
+        return self._ghost_cut(fine[None], 0, d, side)
 
     def _prolong_ghost_slab_pair(self, wc, d, lo):
         """Both side slabs of face axis ``d`` in one prolongation (the two
-        sides share every transverse window, stacked on the leading axis);
-        bitwise _prolong_ghost_slab per side."""
-        fine = prolong_minmod(self._ghost_windows(wc, d, lo), self.active)
+        sides share every transverse window, stacked on a new leading
+        axis; a curvilinear node's spacing rows along d stacked beside
+        them); bitwise _prolong_ghost_slab per side."""
+        fine = prolong_minmod(self._ghost_windows(wc, d, lo), self.active,
+                              self._pair_spacings(d))
         return [self._ghost_cut(fine, side, d, side) for side in (0, 1)]
+
+    def _pair_spacings(self, d):
+        """The spacing rows of both sides of face axis ``d``, the rows along
+        d stacked [2, n] in side order (None on a Cartesian node)."""
+        if self.ghost_spacings is None:
+            return None
+        s0, s1 = self._side_spacings(d, 0), self._side_spacings(d, 1)
+        return tuple(s0[t] if t != d or s0[t] is None
+                     else tuple(torch.stack([a, b]) for a, b in zip(s0[t], s1[t]))
+                     for t in range(3))
 
     def _ghost_windows(self, wc, d, lo):
         """The parent windows that both side slabs of face axis ``d``
-        prolong from, stacked on the leading axis (side 0, side 1)."""
+        prolong from, stacked on a new leading axis (side 0, side 1)."""
         rim, n = self.rim, self.n
         nd = wc.ndim
         m = [r - 1 for r in rim]
@@ -443,16 +591,17 @@ class _Node:
         off = rim[d] if self.wrap[d] else 0
         s0 = self._axis_window(slab, ax_d, lo[d] - m[d] + off, m[d] + 1)
         s1 = self._axis_window(slab, ax_d, lo[d] + n[d] - 1 + off, m[d] + 1)
-        return torch.cat([s0, s1], dim=0)
+        return torch.stack([s0, s1])
 
     def _ghost_cut(self, fine, j, d, side):
         """Side ``side``'s ghost slab of face axis ``d`` from entry ``j`` of
-        the prolonged windows ``fine``."""
+        the prolonged windows ``fine`` (stacked on the leading axis)."""
         fg = self.grid
-        ngf, nd = fg.ng, fine.ndim
+        ngf = fg.ng
+        fine = fine[j]
+        nd = fine.ndim
         m = [r - 1 for r in self.rim]
         sl = [slice(None)] * nd
-        sl[0] = slice(j, j + 1)
         for t in range(3):
             if not self.active[t]:
                 continue
@@ -485,7 +634,9 @@ class _Node:
 
     def flux_correct(self, fx_c, fx_f, lo):
         """The parent's fluxes ``fx_c`` with its patch-boundary faces
-        replaced by the mean of the child fluxes ``fx_f`` over each face."""
+        replaced by the child fluxes ``fx_f`` over each face: their mean on
+        a Cartesian patch, their area-weighted sum over the parent face's
+        area on a curvilinear one (SetFluxCorrections)."""
         n = self.n
         out = {}
         for d in self.parent.hydro.dims:
@@ -496,6 +647,9 @@ class _Node:
             Ff = fx_f[d][0]
             for side in (0, 1):
                 f_res = Ff.select(Ff.ndim - d, side * 2 * n[d - 1])
+                if self.curv:
+                    af = self.hydro.area[d]
+                    f_res = f_res * af.select(af.ndim - d, side * 2 * n[d - 1])
                 for j, c in enumerate(c for c in (3, 2, 1) if c != d):
                     if not self.active[c - 1]:
                         continue
@@ -503,7 +657,8 @@ class _Node:
                     shp = list(f_res.shape)
                     shp[ax] //= 2
                     shp.insert(ax + 1, 2)
-                    f_res = f_res.reshape(shp).mean(dim=ax + 1)
+                    pair = f_res.reshape(shp)
+                    f_res = pair.sum(dim=ax + 1) if self.curv else pair.mean(dim=ax + 1)
                 starts, sizes = [], []
                 for c in (3, 2, 1):
                     if c == d:
@@ -515,6 +670,8 @@ class _Node:
                     else:
                         starts.append(0)
                         sizes.append(1)
+                if self.curv:
+                    f_res = f_res / self.parent.hydro.area[d][_zyx(starts, sizes)].squeeze(-d)
                 Fc[_zyx(starts, sizes)] = f_res.unsqueeze(-d)
             out[d] = (Fc,) + tuple(fx_c[d][1:])
         return out
@@ -530,13 +687,16 @@ class MultiLevelSMR:
     links only its pool tiles to their siblings."""
 
     def __init__(self, root_grid: Grid, integrator, gas_cfg: FluidCfg, *, device, dtype,
-                 sources_factory=None, diffusion_factory=None, bc_custom=None,
-                 omf: float = 0.0, patches=None, radiation_factory=None, fused=False,
-                 moving_patches: bool = False):
+                 dust_cfg: Optional[FluidCfg] = None, sources_factory=None,
+                 diffusion_factory=None, bc_custom=None, omf: float = 0.0, patches=None,
+                 radiation_factory=None, fused=False, moving_patches: bool = False,
+                 nbody=None):
         self.device = torch.device(device)
         self.dtype = dtype
         self.integ = integrator
         self.cfg = gas_cfg
+        self.dust_cfg = dust_cfg
+        self.nbody = nbody
         self.sources_factory = sources_factory
         self.diffusion_factory = diffusion_factory
         self.radiation_factory = radiation_factory
@@ -631,19 +791,20 @@ class MultiLevelSMR:
                     links[node.index].append((sib.index, tuple(dst), tuple(src)))
         return links
 
-    def _padded_prims(self, ws):
-        """Every node's padded prims from the interior prims ``ws``: the
-        root's ghosts from the deck's boundaries, a patch's prolonged from
-        its parent's (one prolongation per face axis and patch shape for
-        the patches without wrap axes: bitwise each patch's own
-        fill_fine_ghosts) with the siblings' fine data written over."""
+    def _padded_prims(self, ws, fluid="gas"):
+        """Every node's padded prims of ``fluid`` from the interior prims
+        ``ws``: the root's ghosts from the deck's boundaries, a patch's
+        prolonged from its parent's (one prolongation per face axis and
+        patch shape for the Cartesian patches without wrap axes: bitwise
+        each patch's own fill_fine_ghosts) with the siblings' fine data
+        written over."""
         wpads = [None] * len(self.nodes)
         groups = {}
         for node in self.nodes:
             i = node.index
             if node.parent is None:
-                wpads[i] = bc_mod.pad_and_fill(ws[i], node.grid, "gas", self.bc_custom)
-            elif any(node.wrap):
+                wpads[i] = bc_mod.pad_and_fill(ws[i], node.grid, fluid, self.bc_custom)
+            elif any(node.wrap) or node.curv:
                 wpads[i] = node.fill_fine_ghosts(ws[i], ws[node.parent.index], node.lo)
             else:
                 groups.setdefault(node.n, []).append(node)
@@ -654,7 +815,7 @@ class MultiLevelSMR:
                 if not nodes[0].active[d]:
                     continue
                 fine = prolong_minmod(torch.cat([nd._ghost_windows(ws[nd.parent.index], d, nd.lo)
-                                                 for nd in nodes], dim=0), nodes[0].active)
+                                                 for nd in nodes]), nodes[0].active)
                 for k, node in enumerate(nodes):
                     reg, fg = wpads[node.index], node.grid
                     for side in (0, 1):
@@ -684,16 +845,22 @@ class MultiLevelSMR:
         self.gather6 = gather6
         self._fused = self._fused_setup() if fused else None
         self._sib_links = self._sibling_links()
+        self._masks = [self._cover_mask(node) for node in self.nodes]
         self._gather6 = self._gather6_setup() if gather6 else None
         self._batched = (self._gather6 is not None
                          and curv_mod.gather6_batch_ok(self._fused))
 
     def _fused_setup(self):
         """Per-node CurvStages of the fused stage, or None when a node, a
-        source or the config falls outside the kernel: gas with sources the
-        kernel folds (a non-shearing rotating frame, one central point mass)
-        and diffusion with separable rows, as the single-level driver gates
-        it."""
+        source or the config falls outside the kernel: Cartesian nodes, gas
+        alone without N-body coupling (the rim deltas recompute the
+        coarse-fine fluxes with the uniform stencils, artemis_tpu/amr.py:
+        1097-1105), sources the kernel folds (a non-shearing rotating
+        frame, one central point mass) and diffusion with separable rows,
+        as the single-level driver gates it."""
+        if self.dust_cfg is not None or self.nbody is not None \
+                or any(node.curv for node in self.nodes):
+            return None
         stages = []
         for node in self.nodes:
             if node.curv_stage is not None:
@@ -1096,57 +1263,72 @@ class MultiLevelSMR:
                       [ch.n[d] if node.grid.nx[d] > 1 else 1 for d in (2, 1, 0)])] = 0.0
         return mask
 
-    def _stage(self, states, u1s, dt, time, stage):
-        """One RK stage over the tree (the fused path where set up)."""
+    def _stage(self, states, u1s, dt, time, stage, particles=None):
+        """One RK stage over the tree (the fused path where set up), every
+        fluid of every node.  ``particles``: the N-body particles on the
+        device (or None).  Returns (states, pforce): the back-reaction rows
+        summed over the levels, or None without N-body gravity."""
         if self._fused is not None:
-            return self._stage_fused(states, u1s, dt, time, stage)
+            return self._stage_fused(states, u1s, dt, time, stage), None
         integ = self.integ
         gam0, gam1 = integ.gam0[stage - 1], integ.gam1[stage - 1]
         bdt = integ.beta[stage - 1] * dt
         force_pcm = integ.name == "vl2" and stage == 1
-        ws = [st["gas"]["w"] for st in states]
+        fluids = self.root.fluids()
         # 1. ghosts (parents' stage-entry prims feed the prolongation)
-        wpads = self._padded_prims(ws)
+        wpads = {fl: self._padded_prims([st[fl]["w"] for st in states], fl) for fl, _ in fluids}
         # 2. fluxes (through the sweep kernel on a fused GPU tree, as the
         # single-level composable stage); 3. flux correction, deepest level
         # first
         kernel = self.fused and self.device.type == "cuda"
-        fxs = [node.hydro.compute_fluxes(wpads[node.index], self.cfg, force_pcm, kernel=kernel)
+        fxs = [{fl: node.hydro.compute_fluxes(wpads[fl][node.index], cfg, force_pcm,
+                                              kernel=kernel) for fl, cfg in fluids}
                for node in self.nodes]
         for node in reversed(self.nodes[1:]):
             p = node.parent.index
-            fxs[p] = node.flux_correct(fxs[p], fxs[node.index], node.lo)
-        # 4. update, diffusion and sources per node
+            for fl, _ in fluids:
+                fxs[p][fl] = node.flux_correct(fxs[p][fl], fxs[node.index][fl], node.lo)
+        # 4. update, diffusion and sources per node; the particles'
+        # back-reaction summed over the levels, covered cells masked
         new_states = []
+        pforce = None
         for node in self.nodes:
             i = node.index
             hyd = node.hydro
-            u = hyd.apply_update(states[i]["gas"]["u"], u1s[i]["gas"], fxs[i], gam0, gam1, bdt)
-            u = hyd.flux_source(u, ws[i], fxs[i], bdt, omf=self.omf)
-            if node.diffusion is not None:
-                u = node.diffusion.update(u, ws[i], node.diffusion.fluxes(wpads[i]), bdt)
-            st = {"gas": {"u": u, "w": ws[i]}}
+            st = {}
+            for fl, _ in fluids:
+                w = states[i][fl]["w"]
+                u = hyd.apply_update(states[i][fl]["u"], u1s[i][fl], fxs[i][fl], gam0, gam1,
+                                     bdt)
+                u = hyd.flux_source(u, w, fxs[i][fl], bdt, omf=self.omf)
+                if fl == "gas" and node.diffusion is not None:
+                    u = node.diffusion.update(u, w, node.diffusion.fluxes(wpads[fl][i]), bdt)
+                st[fl] = {"u": u, "w": w}
             if "rad" in states[i]:
                 st["rad"] = states[i]["rad"]
-            for src in node.sources:
-                st = src.apply(st, {"gas": fxs[i]}, time, bdt, hyd)
-            st["gas"]["u"] = hyd.set_auxiliary(st["gas"]["u"], self.cfg)
+            ctx = {"particles": particles, "mask": self._masks[i]}
+            st = apply_sources(node.sources, st, fxs[i], time, bdt, hyd, ctx)
+            if "pforce" in ctx:
+                pforce = ctx["pforce"] if pforce is None else pforce + ctx["pforce"]
+            if "gas" in st:
+                st["gas"]["u"] = hyd.set_auxiliary(st["gas"]["u"], self.cfg)
             new_states.append(st)
         # 5. restriction, deepest level first
         for node in reversed(self.nodes[1:]):
-            u_p = new_states[node.parent.index]["gas"]["u"]
-            self._restrict_into(u_p, restrict_average(
-                new_states[node.index]["gas"]["u"], node.active), node.lo)
+            for fl, _ in fluids:
+                self._restrict_into(new_states[node.parent.index][fl]["u"], restrict_average(
+                    new_states[node.index][fl]["u"], node.active, node.volf), node.lo)
         # 6. prims re-synced per node
         out = []
         for node, st in zip(self.nodes, new_states):
-            u, w = node.hydro.prim_to_cons(node.hydro.cons_to_prim(st["gas"]["u"], self.cfg),
-                                           self.cfg)
-            nst = {"gas": {"u": u, "w": w}}
+            nst = {}
+            for fl, cfg in fluids:
+                u, w = node.hydro.prim_to_cons(node.hydro.cons_to_prim(st[fl]["u"], cfg), cfg)
+                nst[fl] = {"u": u, "w": w}
             if "rad" in st:
                 nst["rad"] = st["rad"]
             out.append(nst)
-        return out
+        return out, pforce
 
     # -- radiation over levels ----------------------------------------------
     def _radiation_pass(self, states, dt):
@@ -1174,12 +1356,12 @@ class MultiLevelSMR:
             pst = dict(states[p])
             fine = states[node.index]
             u_p = pst["gas"]["u"].clone()
-            self._restrict_into(u_p[:, 4:6],
-                                restrict_average(fine["gas"]["u"][:, 4:6], node.active), node.lo)
+            self._restrict_into(u_p[:, 4:6], restrict_average(
+                fine["gas"]["u"][:, 4:6], node.active, node.volf), node.lo)
             pst["gas"] = {"u": u_p, "w": pst["gas"]["w"]}
             pst["rad"] = {"Er": self._restrict_into(
-                pst["rad"]["Er"].clone(), restrict_average(fine["rad"]["Er"], node.active),
-                node.lo)}
+                pst["rad"]["Er"].clone(),
+                restrict_average(fine["rad"]["Er"], node.active, node.volf), node.lo)}
             states[p] = pst
         return [node.radiation.sync_gas(st) if node.children else st
                 for node, st in zip(self.nodes, states)]
@@ -1221,47 +1403,68 @@ class MultiLevelSMR:
     # -- the step -------------------------------------------------------------
     def step(self, states, dt: float, time: float):
         """One cycle of every RK stage over the tree with the host ``dt``
-        from the host ``time``, then the radiation pass."""
+        from the host ``time``, then the radiation pass.  With the run's
+        N-body system the particles advance on the host between the stages
+        from the force rows summed over the levels (NBody::Advance,
+        nbody_advance.cpp:85-208)."""
+        nbody = self.nbody
         dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
-        u1s = [{"gas": st["gas"]["u"]} for st in states]
-        for stage in range(1, self.integ.nstages + 1):
-            states = self._stage(states, u1s, dt_t, time, stage)
+        u1s = [{fl: st[fl]["u"] for fl in st if fl != "rad"} for st in states]
+        nstages = self.integ.nstages
+        if nbody is not None:
+            coeffs = nbody_coeffs(self.integ, float(dt))
+            nbody.begin_step()
+        for stage in range(1, nstages + 1):
+            parts = None if nbody is None else nbody.particle_pytree(self.device, self.dtype)
+            states, pforce = self._stage(states, u1s, dt_t, time, stage, parts)
+            if nbody is not None:
+                pf = (pforce.cpu().numpy().astype(np.float64) if pforce is not None
+                      else np.zeros((nbody.npart, 7)))
+                nbody.advance(pf, stage, nstages, float(time), coeffs)
         if self.radiation_factory is not None:
             states = self._radiation_pass(states, dt_t)
         return states
 
     def estimate_dt(self, states):
-        """The global CFL dt over every node (a 0-d tensor): each node's
-        advective limit, its diffusive one and the radiation dt cap."""
+        """The global CFL dt over every node and fluid (a 0-d tensor): each
+        advective limit, the gas's diffusive one and the radiation dt
+        cap."""
         dts = []
         for node, st in zip(self.nodes, states):
-            w = st["gas"]["w"]
-            dt = node.hydro.estimate_dt(w, self.cfg)
-            if node.diffusion is not None:
-                dt = torch.minimum(dt, self.cfg.cfl * node.diffusion.estimate_dt(w))
-            if node.radiation is not None:
-                dt = torch.clamp_max(dt, node.radiation.cfg.dt_rad)
-            dts.append(dt)
+            for fl, cfg in node.fluids():
+                w = st[fl]["w"]
+                dt = node.hydro.estimate_dt(w, cfg)
+                if fl == "gas" and node.diffusion is not None:
+                    dt = torch.minimum(dt, cfg.cfl * node.diffusion.estimate_dt(w))
+                if fl == "gas" and node.radiation is not None:
+                    dt = torch.clamp_max(dt, node.radiation.cfg.dt_rad)
+                dts.append(dt)
         return torch.min(torch.stack(dts))
 
     def initialize(self, prims_per_node):
-        """Node states from ``prims_per_node`` (topological order; interior
-        prims per node, or None to prolong the parent's), with P2C and, with
-        radiation, Er = a T^4."""
+        """Node states from ``prims_per_node`` (topological order; per node
+        {fluid: interior prims}, a bare array for the gas, or None to
+        prolong the parent's), with P2C and, with radiation, Er = a T^4."""
         states = []
         for node in self.nodes:
             pr = prims_per_node[node.index]
-            if pr is not None:
-                w = torch.as_tensor(pr if torch.is_tensor(pr) else np.asarray(pr)).to(
-                    device=self.device, dtype=self.dtype)
-            else:
-                wp = states[node.parent.index]["gas"]["w"]
-                w = prolong_minmod(wp[_zyx([node.lo[d] if node.active[d] else 0
-                                            for d in (2, 1, 0)],
-                                           [node.n[d] if node.active[d] else 1
-                                            for d in (2, 1, 0)])], node.active)
-            u, w = node.hydro.prim_to_cons(w, self.cfg)
-            st = {"gas": {"u": u, "w": w}}
+            if pr is not None and not isinstance(pr, dict):
+                pr = {"gas": pr}
+            st = {}
+            for fl, cfg in node.fluids():
+                if pr is not None and pr.get(fl) is not None:
+                    w = pr[fl]
+                    w = torch.as_tensor(w if torch.is_tensor(w) else np.asarray(w)).to(
+                        device=self.device, dtype=self.dtype)
+                else:
+                    wp = states[node.parent.index][fl]["w"]
+                    w = prolong_minmod(wp[_zyx([node.lo[d] if node.active[d] else 0
+                                                for d in (2, 1, 0)],
+                                               [node.n[d] if node.active[d] else 1
+                                                for d in (2, 1, 0)])], node.active,
+                                       node.interior_spacings())
+                u, w = node.hydro.prim_to_cons(w, cfg)
+                st[fl] = {"u": u, "w": w}
             if node.radiation is not None:
                 from .radiation import initialize_radiation
 
@@ -1320,34 +1523,90 @@ class MultiLevelSMR:
             self._compile(self.fused, self.gather6)
         return states
 
+    def retag_particles(self, states, particle_nodes, positions):
+        """Re-centre each particle-tracking patch on its particle's parent
+        cell (refine_distance, nbody.cpp:276-312), clamped inside the
+        nesting rim.  ``particle_nodes``: {node index: particle index};
+        ``positions``: [npart, 3] Cartesian, relative to the frame."""
+        states = list(states)
+        moved = False
+        for node in self.nodes:
+            if node.index not in particle_nodes:
+                continue
+            pg = node.parent.grid
+            want = self._cell_of(pg, positions[particle_nodes[node.index]])
+            if want is None:
+                continue
+            new_lo = list(node.lo)
+            for d in range(3):
+                if pg.nx[d] <= 1 or node.wrap[d]:
+                    continue
+                hi = pg.nx[d] - node.n[d] - node.rim[d]
+                new_lo[d] = int(np.clip(want[d] - node.n[d] // 2, node.rim[d], hi))
+            if tuple(new_lo) != node.lo:
+                states = self._move_patch(states, node, new_lo)
+                moved = True
+        if moved:
+            self._compile(self.fused, self.gather6)
+        return states
+
+    @staticmethod
+    def _cell_of(grid, pos_cart):
+        """The interior cell [x1, x2, x3] of ``grid`` holding a Cartesian
+        position, or None in coordinates it cannot invert."""
+        x, y, z = float(pos_cart[0]), float(pos_cart[1]), float(pos_cart[2])
+        c = grid.coords
+        if geo.is_cartesian(c):
+            nat = (x, y, z)
+        elif c == "cylindrical":
+            nat = (math.hypot(x, y), math.atan2(y, x), z)
+        elif c == "axisymmetric":
+            nat = (math.hypot(x, y), z, math.atan2(y, x))
+        elif geo.is_spherical(c):
+            r = math.sqrt(x * x + y * y + z * z)
+            nat = (r, math.acos(z / r) if r > 0 else 0.0, math.atan2(y, x))
+        else:
+            return None
+        out = []
+        for d in range(3):
+            if grid.nx[d] <= 1:
+                out.append(0)
+                continue
+            frac = (nat[d] - grid.xmin[d]) / (grid.xmax[d] - grid.xmin[d])
+            out.append(int(np.clip(frac * grid.nx[d], 0, grid.nx[d] - 1)))
+        return out
+
     def _fresh_patch_state(self, parent_state, node: _Node, lo):
         """A node's state prolonged from its parent's current prims at window
-        ``lo`` (a spawn, or a move).  A full-span periodic axis is padded by
-        one wrapped parent cell on each side so the slopes see the seam, and
+        ``lo`` (a spawn, or a move), every fluid, with the centroid weights
+        of a curvilinear patch.  A full-span periodic axis is padded by one
+        wrapped parent cell on each side so the slopes see the seam, and
         cropped back after."""
-        wp = parent_state["gas"]["w"]
-        starts, sizes, wrap_axes = [], [], []
-        for d in (2, 1, 0):
-            ax = wp.ndim - 1 - d
-            if not node.active[d]:
-                starts.append(0)
-                sizes.append(1)
-            elif node.wrap[d]:
-                starts.append(0)
-                sizes.append(wp.shape[ax])
-                wrap_axes.append(ax)
-            else:
-                starts.append(lo[d])
-                sizes.append(node.n[d])
-        reg = wp[_zyx(starts, sizes)]
-        for ax in wrap_axes:
-            n = reg.shape[ax]
-            reg = torch.cat([reg.narrow(ax, n - 1, 1), reg, reg.narrow(ax, 0, 1)], dim=ax)
-        wf = prolong_minmod(reg, node.active)
-        for ax in wrap_axes:
-            wf = wf.narrow(ax, 2, wf.shape[ax] - 4)
-        u, w = node.hydro.prim_to_cons(wf, self.cfg)
-        st = {"gas": {"u": u, "w": w}}
+        st = {}
+        for fl, cfg in node.fluids():
+            wp = parent_state[fl]["w"]
+            starts, sizes, wrap_axes = [], [], []
+            for d in (2, 1, 0):
+                ax = wp.ndim - 1 - d
+                if not node.active[d]:
+                    starts.append(0)
+                    sizes.append(1)
+                elif node.wrap[d]:
+                    starts.append(0)
+                    sizes.append(wp.shape[ax])
+                    wrap_axes.append(ax)
+                else:
+                    starts.append(lo[d])
+                    sizes.append(node.n[d])
+            reg = wp[_zyx(starts, sizes)]
+            for ax in wrap_axes:
+                n = reg.shape[ax]
+                reg = torch.cat([reg.narrow(ax, n - 1, 1), reg, reg.narrow(ax, 0, 1)], dim=ax)
+            wf = prolong_minmod(reg, node.active, node.interior_spacings())
+            for ax in wrap_axes:
+                wf = wf.narrow(ax, 2, wf.shape[ax] - 4)
+            u, w = node.hydro.prim_to_cons(wf, cfg)
+            st[fl] = {"u": u, "w": w}
         if node.radiation is not None:
             from .radiation import initialize_radiation
 
@@ -1358,10 +1617,14 @@ class MultiLevelSMR:
         """Move a leaf patch: restriction already deposited its data on the
         parent, so a move is a fresh prolongation at the new window.  A
         Cartesian patch keeps its grid (translation-invariant); only its
-        ``lo`` moves.  The caller re-runs the set-up once per pass."""
+        ``lo`` moves; a curvilinear one is rebuilt there.  The caller
+        re-runs the set-up once per pass."""
         if node.children:
             raise ValueError("cannot move a patch that has children")
-        node.lo = tuple(int(v) for v in new_lo)
+        if node.curv:
+            node.rebuild_at(new_lo)
+        else:
+            node.lo = tuple(int(v) for v in new_lo)
         states[node.index] = self._fresh_patch_state(states[node.parent.index], node, node.lo)
         return states
 
@@ -1571,6 +1834,7 @@ class TwoLevelSMR:
         self.cg = coarse_grid
         self.node = self.ml.nodes[1]
         self.patch_lo = self.node.lo
+        self.curv = self.node.curv
 
     @property
     def fg(self):
@@ -1586,10 +1850,14 @@ class TwoLevelSMR:
         return [{"gas": {"u": sc[0], "w": sc[1]}}, {"gas": {"u": sf[0], "w": sf[1]}}]
 
     def _place(self, lo):
-        """Put the patch at ``lo`` (a host tuple) when it is elsewhere."""
+        """Put the patch at ``lo`` (a host tuple) when it is elsewhere (a
+        curvilinear patch is rebuilt there)."""
         lo = tuple(int(v) for v in lo)
         if lo != self.node.lo:
-            self.node.lo = lo
+            if self.curv:
+                self.node.rebuild_at(lo)
+            else:
+                self.node.lo = lo
             self.ml._compile(self.ml.fused, self.ml.gather6)
 
     def _step(self, sc, sf, dt, lo):
@@ -1638,19 +1906,24 @@ class SMRDriver:
     criterion) spawns and destroys tiles of ``tile_nx{1,2,3}`` root cells
     dilated by ``nbuf`` cells, static_refinement blocks becoming forced
     tile windows; ``style = move`` re-centres the deck's patch per level.
-    The state ``evolve`` sees is the root's, which carries the restricted
-    fine solution under the patches; the fine levels' states live here."""
+    With the N-body package, ``<nbody/...> refine_distance > 0`` gives a
+    particle its own level-1 tracking patch, re-centred on it every
+    ``check_interval`` cycles (``<nbody> refine_type = none`` turns them
+    off).  The state ``evolve`` sees is the root's, every fluid of it,
+    which carries the restricted fine solution under the patches; the fine
+    levels' states live here."""
 
     host_coupled = True
 
-    def __init__(self, grid, integrator, gas_cfg, pin, *, device, dtype,
+    def __init__(self, grid, integrator, gas_cfg, pin, *, device, dtype, dust_cfg=None,
                  sources_factory=None, diffusion_factory=None, bc_custom=None,
-                 omf=0.0, radiation_factory=None, fused=False):
+                 omf=0.0, radiation_factory=None, fused=False, nbody=None):
         mode = pin.get_str("parthenon/mesh", "refinement")
         if mode not in ("adaptive", "static"):
             raise ValueError(f"refinement {mode!r} not recognized")
         self.gas_cfg = gas_cfg
-        self.dust_cfg = None
+        self.dust_cfg = dust_cfg
+        self.nbody = nbody
         self.grid = grid
         self.integrator = integrator
         self.adaptive = mode == "adaptive"
@@ -1703,14 +1976,47 @@ class SMRDriver:
                     if lev == 1 and pin.exists("parthenon/refinement", f"patch_lo{d + 1}"):
                         lo[d] = pin.get_int("parthenon/refinement", f"patch_lo{d + 1}")
                 patches.append(dict(level=lev, lo=tuple(lo), n=tuple(n)))
+        # N-body tracking patches (nbody.cpp:276-312): <nbody> refine_type
+        # = distance enables them (nbody.cpp:238-241), none disables them
+        # whatever the particles' refine_distance; without the key,
+        # refine_distance > 0 alone enables.  derefine_factor is read and
+        # unused (a moving patch needs no derefinement band).
+        track = []
+        if nbody is not None:
+            rtype = pin.get_or_add_str("nbody", "refine_type", "")
+            pin.get_or_add_real("nbody", "derefine_factor", 2.0)
+            if rtype in ("", "distance"):
+                track = [(k, float(rd)) for k, rd in enumerate(nbody.target_rad) if rd > 0.0]
         self.smr = MultiLevelSMR(
-            grid, integrator, gas_cfg, device=device, dtype=dtype,
+            grid, integrator, gas_cfg, device=device, dtype=dtype, dust_cfg=dust_cfg,
             sources_factory=sources_factory, diffusion_factory=diffusion_factory,
             bc_custom=bc_custom, omf=omf, patches=patches,
-            radiation_factory=radiation_factory, fused=fused,
+            radiation_factory=radiation_factory, fused=fused, nbody=nbody,
             # tiled pools stay put between regrids (each regrid re-runs the
             # set-up), so they keep sibling links and six-face halos
-            moving_patches=self.adaptive and not self.tiled)
+            moving_patches=(self.adaptive and not self.tiled) or bool(track))
+        # {node index: particle index} of the tracking patches, each wide
+        # enough to cover +/- refine_distance around its particle on the
+        # root grid
+        self._particle_nodes = {}
+        for k, rd in track:
+            cell = MultiLevelSMR._cell_of(grid, nbody.pos[k] - nbody.Rf)
+            rim = max(1, -(-grid.nghost // 2)) + 1
+            lo, n = [], []
+            for d in range(3):
+                if grid.nx[d] <= 1:
+                    lo.append(0)
+                    n.append(1)
+                    continue
+                dx = (grid.xmax[d] - grid.xmin[d]) / grid.nx[d]
+                nn = min(2 * max(2, int(np.ceil(rd / dx))), grid.nx[d] - 2 * rim)
+                nn += nn % 2
+                n.append(nn)
+                lo.append(int(np.clip(cell[d] - nn // 2, rim, grid.nx[d] - nn - rim)))
+            node = self.smr.add_patch(1, tuple(lo), tuple(n))
+            self._particle_nodes[node.index] = k
+        if track:
+            self.smr._compile(self.smr.fused, self.smr.gather6)
         root = self.smr.root
         self.hydro, self.sources = root.hydro, root.sources
         self.diffusion, self.radiation = root.diffusion, root.radiation
@@ -1725,8 +2031,9 @@ class SMRDriver:
         # Problem.amr_criterion here) overrides the <gas> keys
         self.user_criterion = None
         self.retag_interval = pin.get_or_add_int("parthenon/refinement", "check_interval", 10)
-        # the regrid schedule counts this run's cycles: it restarts at 0 on
-        # a resumed run, as the JAX package's does
+        # the retag and regrid schedule counts the global cycle: a resumed
+        # run takes the checkpoint's (Simulation sets it, as the JAX
+        # package's does, artemis_tpu/simulation.py:383-386)
         self._ncycle = 0
         # the patches' initial prims (set by Simulation from the problem
         # generator on each patch grid); None prolongs the parent's
@@ -1827,10 +2134,10 @@ class SMRDriver:
     # -- Driver surface ----------------------------------------------------
     def initialize(self, state):
         prims = [None] * len(self.smr.nodes)
-        prims[0] = state["gas"]["w"]
+        prims[0] = {fl: state[fl]["w"] for fl in state}
         for i, pr in enumerate(self._fine_prims or []):
             if pr is not None and i + 1 < len(prims):
-                prims[i + 1] = pr["gas"]
+                prims[i + 1] = pr
         self._states = self.smr.initialize(prims)
         if self._regrids:
             # refine the initial condition before the first step, once per
@@ -1841,8 +2148,9 @@ class SMRDriver:
 
     def restart_payloads(self):
         """The fine levels' arrays for a bit-exact restart (name -> fn), as
-        the JAX package writes them: ``n{i}.gas.u|w``, ``n{i}.rad.Er`` and
-        the patch position ``n{i}.lo`` of every node below the root, and
+        the JAX package writes them: ``n{i}.{fluid}.u|w`` of each fluid,
+        ``n{i}.rad.Er`` and the patch position ``n{i}.lo`` of every node
+        below the root, and
         with a tile pool its topology, ``pool``: one row [level,
         parent_index, lo, n] per pool node in node order (pool nodes trail
         the deck's patches)."""
@@ -1852,8 +2160,9 @@ class SMRDriver:
         out = {}
         for node in self.smr.nodes[1:]:
             i = node.index
-            out[f"n{i}.gas.u"] = host(i, "gas", "u")
-            out[f"n{i}.gas.w"] = host(i, "gas", "w")
+            for fl, _ in node.fluids():
+                out[f"n{i}.{fl}.u"] = host(i, fl, "u")
+                out[f"n{i}.{fl}.w"] = host(i, fl, "w")
             if node.radiation is not None:
                 out[f"n{i}.rad.Er"] = host(i, "rad", "Er")
             out[f"n{i}.lo"] = (lambda lo: lambda: np.array(lo, dtype=np.int32))(node.lo)
@@ -1868,7 +2177,8 @@ class SMRDriver:
         a tile pool's nodes are rebuilt from its ``pool`` rows first (a
         6-column row, [lo, n], is a level-1 tile of an older checkpoint),
         then every node takes its arrays.  A moving patch goes to its
-        checkpointed ``n{i}.lo``; a static patch must already sit there."""
+        checkpointed ``n{i}.lo`` (a curvilinear one is rebuilt there); a
+        static patch must already sit there."""
         ml = self.smr
         if "pool" in payloads:
             tree_topology_from_rows(ml, payloads["pool"])
@@ -1891,9 +2201,13 @@ class SMRDriver:
                 if ml._links_static(node):
                     raise ValueError(f"restart: node {i} sits at {lo}, the deck's static "
                                      f"tree puts it at {node.lo}")
-                node.lo = lo
+                if node.curv:
+                    node.rebuild_at(lo)
+                else:
+                    node.lo = lo
                 moved = True
-            st = {"gas": {"u": dev(f"n{i}.gas.u"), "w": dev(f"n{i}.gas.w")}}
+            st = {fl: {"u": dev(f"n{i}.{fl}.u"), "w": dev(f"n{i}.{fl}.w")}
+                  for fl, _ in node.fluids()}
             if node.radiation is not None:
                 st["rad"] = {"Er": dev(f"n{i}.rad.Er")}
             self._states[i] = st
@@ -1903,7 +2217,7 @@ class SMRDriver:
     def _ensure_states(self, root_state):
         if self._states is None:
             prims = [None] * len(self.smr.nodes)
-            prims[0] = root_state["gas"]["w"]
+            prims[0] = {fl: root_state[fl]["w"] for fl in root_state if fl != "rad"}
             self._states = self.smr.initialize(prims)
         self._states[0] = {k: dict(v) for k, v in root_state.items()}
 
@@ -1918,6 +2232,9 @@ class SMRDriver:
                 self._states = self.smr.retag_user(self._states, self.user_criterion)
             elif self.criterion is not None:
                 self._states = self.smr.retag_criteria(self._states, self.criterion)
+            if self._particle_nodes:
+                self._states = self.smr.retag_particles(
+                    self._states, self._particle_nodes, self.nbody.pos - self.nbody.Rf)
         return {k: dict(v) for k, v in self._states[0].items()}
 
     def estimate_dt(self, state) -> float:

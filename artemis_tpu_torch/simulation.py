@@ -9,8 +9,8 @@ viscosity/conduction, gray FLD radiation, the N-body system) and the
 driver on the requested device, starts from the problem generator or a
 restart checkpoint, and runs the evolution loop with the deck's outputs
 (``.hst`` history, ``hdf5`` field dumps, ``rst`` checkpoints, the N-body
-``.reb``/``.orb`` files).  Physics the port does not carry yet raises
-``NotImplementedError`` naming its ROADMAP item.
+``.reb``/``.orb`` files).  Multi-device runs are not ported yet: they
+raise ``NotImplementedError`` naming ROADMAP Queue 1 item 11.
 """
 
 from __future__ import annotations
@@ -144,9 +144,6 @@ class Simulation:
             self.eos = eos
         dust_cfg = None
         if self.do_dust:
-            if refinement != "none":
-                raise NotImplementedError("dust on refinement trees is not ported yet "
-                                          "(ROADMAP Queue 1 item 10)")
             drecon = pin.get_or_add_str("dust", "reconstruct", "plm")
             drsolver = pin.get_or_add_str("dust", "riemann", "hlle")
             _check("reconstruction", drecon, ("pcm", "plm", "ppm"))
@@ -173,9 +170,6 @@ class Simulation:
         # N-body package (a deterministic few-body system on the host)
         self.nbody = None
         if pin.get_or_add_bool("physics", "nbody", False):
-            if refinement != "none":
-                raise NotImplementedError("N-body coupling on refinement trees is not "
-                                          "ported yet (ROADMAP Queue 1 item 10)")
             from .nbody import NBodySystem
 
             self.nbody = NBodySystem(pin, self.constants, omf=omf)
@@ -218,8 +212,8 @@ class Simulation:
 
         integrator = Integrator.make(pin.get_or_add_str("parthenon/time", "integrator", "rk2"))
         if refinement != "none":
-            self.driver = self._smr_driver(pin, problem_name, integrator, gas_cfg, srcs,
-                                           diffusion_factory, radiation_factory, omf,
+            self.driver = self._smr_driver(pin, problem_name, integrator, gas_cfg, dust_cfg,
+                                           srcs, diffusion_factory, radiation_factory, omf,
                                            fused_stage, visc)
         else:
             self.driver = Driver(self.grid, integrator, gas_cfg, dust_cfg, sources=srcs,
@@ -290,13 +284,19 @@ class Simulation:
                   if k.startswith("amr.")}
         if amr_pl and hasattr(self.driver, "load_restart"):
             self.driver.load_restart(amr_pl, self.state)
+        if hasattr(self.driver, "_ncycle"):
+            # a tree retags and regrids on the global cycle, as an
+            # uninterrupted run does
+            self.driver._ncycle = meta["ncycle"]
         return dict(time=meta["time"], dt=meta["dt"], ncycle=meta["ncycle"], restored=True)
 
-    def _smr_driver(self, pin, problem_name, integrator, gas_cfg, srcs, diffusion_factory,
-                    radiation_factory, omf, fused_stage, visc):
+    def _smr_driver(self, pin, problem_name, integrator, gas_cfg, dust_cfg, srcs,
+                    diffusion_factory, radiation_factory, omf, fused_stage, visc):
         """The static or adaptive refinement tree
-        (artemis_tpu/simulation.py:223-296): every node gets the deck's
-        sources and the problem's own, built on its grid; each deck patch's
+        (artemis_tpu/simulation.py:223-296), with the run's fluids and its
+        N-body system: every node gets the deck's sources (N-body gravity
+        and cooling on the shared particles) and the problem's own, built on
+        its grid; each deck or tracking patch's
         initial state comes from the problem generator on the patch grid
         (built once per patch, for its prims and, where the problem has
         sources, for those; an adaptive tree's spawned tiles prolong their
@@ -315,14 +315,15 @@ class Simulation:
         def problem_on(g):
             if id(g) not in problems:
                 problems[id(g)] = build_problem(
-                    problem_name, ParameterInput.from_string(repr(pin)), g, gas_cfg, None)
+                    problem_name, ParameterInput.from_string(repr(pin)), g, gas_cfg, dust_cfg)
                 weakref.finalize(g, problems.pop, id(g), None)
             return problems[id(g)]
 
         def src_factory(g):
             if g is self.grid:
                 return srcs
-            ss = sources_from_input(pin, g, gas_cfg, None, self.constants)
+            ss = sources_from_input(pin, g, gas_cfg, dust_cfg, self.constants,
+                                    nbody_sys=self.nbody)
             # the problem's own sources on the patch grid, where the root's
             # problem has any (a spawned tile needs no prims of its own)
             if self.problem.sources:
@@ -334,11 +335,11 @@ class Simulation:
             return ss
 
         drv = SMRDriver(self.grid, integrator, gas_cfg, pin, device=self.device,
-                        dtype=self.dtype, sources_factory=src_factory,
+                        dtype=self.dtype, dust_cfg=dust_cfg, sources_factory=src_factory,
                         diffusion_factory=diffusion_factory,
                         bc_custom=self.problem.bc_custom, omf=omf,
                         radiation_factory=radiation_factory,
-                        fused=fused_stage and self.device.type == "cuda")
+                        fused=fused_stage and self.device.type == "cuda", nbody=self.nbody)
         # a problem-defined refinement criterion (artemis.cpp:149-150)
         if pin.get_or_add_bool("artemis", "amr_user", False):
             if self.problem.amr_criterion is None:

@@ -876,6 +876,11 @@ class NBodyGravity(SourceBase):
         parts = ctx["particles"]
         hx = hyd.hxv_int
         vol = hyd.vol
+        # a refinement tree's level: the cells a finer level covers give
+        # their back-reaction from that level, so they are masked out of
+        # this level's sums (their updates are overwritten by restriction)
+        mask = ctx.get("mask")
+        rvol = vol if mask is None else vol * mask
         cx, cy, cz = self._cart
         ex = self._ex
         dt_eff = dt if self.tstart <= time < self.tstop else torch.zeros_like(dt)
@@ -938,9 +943,9 @@ class NBodyGravity(SourceBase):
                 if fluid == "gas":
                     u[:, 4] += rdt * (v1 * g1 + v2 * g2 + v3 * g3)
                 # back-reaction: gravity rows
-                row[1] = row[1] - torch.sum(gX * rho * vol)
-                row[2] = row[2] - torch.sum(gY * rho * vol)
-                row[3] = row[3] - torch.sum(gZ * rho * vol)
+                row[1] = row[1] - torch.sum(gX * rho * rvol)
+                row[2] = row[2] - torch.sum(gY * rho * rvol)
+                row[3] = row[3] - torch.sum(gZ * rho * rvol)
 
                 if do_sink:
                     vb = self._vb if self._vb is not None else (0.0, 0.0, 0.0)
@@ -979,7 +984,9 @@ class NBodyGravity(SourceBase):
                     if fluid == "gas":
                         u[:, 4] += dek
                     idt = 1.0 / torch.clamp_min(dt_eff, 1e-300)
-                    row[0] = row[0] - torch.sum(vol * dm) * idt
+                    if mask is not None:
+                        dmom = [dmv * mask for dmv in dmom]
+                    row[0] = row[0] - torch.sum(rvol * dm) * idt
                     row[4] = row[4] - torch.sum(dmom[0]) * idt
                     row[5] = row[5] - torch.sum(dmom[1]) * idt
                     row[6] = row[6] - torch.sum(dmom[2]) * idt

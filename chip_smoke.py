@@ -223,7 +223,27 @@ line is printed:
    tags on the device, the mask copy, the set-up and a tile's
    prolongation, the mask bytes, peak device memory; and the same
    composition at 128x128x32 with 32x32x16 tiles, kernel against plain
-   for 4 cycles with 2 regrids (rows equal, 1e-4 of each array's max).
+   for 4 cycles with 2 regrids (rows equal, 1e-4 of each array's max);
+27. the rest of refinement, float64, through ``Simulation(...,
+   device="cuda")``: ``inputs/disk_cyl.in`` as written (128x64x32) with
+   tests/test_amr_multilevel.py:99's static window (a cylindrical patch
+   wrapping the full x2 axis, the composable tree) for 10 cycles, its
+   first 2 against the port's CPU run of the same tree (1e-10 of each
+   array's max), the root density L2 vs IC <= 6e-3, the fine level finite
+   and positive, ms a cycle, zone-cycles/s over every level and the
+   device's idle share; ``inputs/disk_nbody_cyl.in`` as written (96x192,
+   the star and n4_sys.txt's four planets) with the inline planet's
+   tracking patch, a retag every 2 cycles, 20 cycles that cross its first
+   move (cycle 18), the positions, the particles (1e-12) and every node
+   (1e-10) against the port's CPU run, ms a cycle and the idle share;
+   ``inputs/advection.in`` as written (128x64x64, gas + 2 dust species)
+   with a 64x32x32 static patch for 5 cycles: the gas of both nodes
+   through the flux sweep (K9, 3 directions x 2 stages x 2 nodes a cycle,
+   read from the launch count), every mass conserved to 1e-12 over cycles
+   1-5, the end states within 1e-10 of the plain path's, zone-cycles/s;
+   tests/test_amr.py's moving cylindrical blast (TwoLevelSMR) for two
+   chunks of 5 cycles: the patch moves and the composite mass drifts
+   <= 1e-12.
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
@@ -3799,6 +3819,262 @@ def phase_adaptive(torch, smi, prod, built):
     return res
 
 
+# -- phase 27 -----------------------------------------------------------
+# the static_refinement window of tests/test_amr_multilevel.py:99
+REST_WINDOW = ["parthenon/mesh/refinement=static", "parthenon/static_refinement1/level=1",
+               "parthenon/static_refinement1/x1min=1.0", "parthenon/static_refinement1/x1max=2.5",
+               "parthenon/static_refinement1/x3min=-0.4", "parthenon/static_refinement1/x3max=0.4"]
+REST_DISK_CYCLES = 10             # the card's refined disk_cyl run
+REST_CPU_CYCLES = 2               # compared with the port on the CPU (Queue 3 item 4)
+REST_PROFILE_CYCLES = 2           # the last cycles of a run, under torch.profiler
+# the tracking patch of tests/test_amr_multilevel.py:168 at deck size; with
+# a retag every 2 cycles it first moves at cycle 18
+REST_TRACK = ["parthenon/mesh/refinement=static", "parthenon/mesh/numlevel=1",
+              "parthenon/refinement/check_interval=2", "nbody/planet1/mass=1.0e-4",
+              "nbody/planet1/a=2.0", "nbody/planet1/f=0.0", "nbody/planet1/refine_distance=0.3",
+              "nbody/disable_outputs=true"]
+REST_TRACK_CYCLES = 20
+REST_DUST = ["parthenon/mesh/refinement=static", "parthenon/refinement/patch_nx1=64",
+             "parthenon/refinement/patch_nx2=32", "parthenon/refinement/patch_nx3=32"]
+REST_DUST_CYCLES = 5
+REST_TOL = 1e-10                  # card against the CPU, kernel against plain (f64)
+REST_MASS_TOL = 1e-12
+REST_BUDGET_S = 100
+
+
+def tree_cells(smr):
+    """Zones over every node of a tree."""
+    return sum(nd.grid.nx[0] * nd.grid.nx[1] * nd.grid.nx[2] for nd in smr.nodes)
+
+
+def host_states(states):
+    return [{fl: {k: t.detach().cpu() for k, t in kinds.items()} for fl, kinds in st.items()}
+            for st in states]
+
+
+def timed_tree_cycles(torch, sim, ncycles, observers=()):
+    """``ncycles`` more through Simulation.run timed by CUDA events: (ms a
+    cycle, zone-cycles/s over every node)."""
+    sim.tm.nlim = sim.tm.ncycle + ncycles
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    sim.run(extra_observers=list(observers))
+    end.record()
+    torch.cuda.synchronize()
+    check(sim.status == "complete" and sim.tm.ncycle == sim.tm.nlim,
+          f"run stopped at cycle {sim.tm.ncycle}, wanted {sim.tm.nlim}")
+    ms = start.elapsed_time(end) / ncycles
+    return ms, tree_cells(sim.driver.smr) * 1e3 / ms
+
+
+def tree_masses(sim):
+    """Root totals of the gas and of each dust species (the root carries the
+    restricted fine solution)."""
+    st, vol = sim.driver._states[0], sim.driver.smr.root.hydro.vol
+    return [float((st[fl]["u"][s, 0] * vol).sum()) for fl in ("gas", "dust")
+            for s in range(st[fl]["u"].shape[0])]
+
+
+def rest_idle(torch, sim, cycle_ms):
+    """The device's idle share of the unprofiled cycle over
+    REST_PROFILE_CYCLES more cycles under torch.profiler (None where it
+    records no device time)."""
+    prof = profile_cycles(torch, sim, REST_PROFILE_CYCLES)
+    return None if prof is None else 1.0 - prof["busy_ms"] / cycle_ms
+
+
+def idle_text(idle):
+    return "not measured" if idle is None else f"{100 * idle:.1f}%"
+
+
+def phase_refinement_rest(torch, smi):
+    """The rest of refinement on the card, every path through
+    ``Simulation(..., device="cuda")`` in float64 (``rest`` of the
+    TwoLevelSMR blast through its own entry point): (a) the refined
+    curvilinear disk_cyl, (b) the N-body tracking patch, (c) the dust tree
+    through the flux sweep (K9), (d) the moving cylindrical blast."""
+    import math
+
+    import numpy as np
+
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch import amr as A
+    from artemis_tpu_torch.config import ParameterInput
+    from artemis_tpu_torch.driver import Integrator
+    from artemis_tpu_torch.grid import grid_from_input
+    from artemis_tpu_torch.ops import sweeps as SW
+    from artemis_tpu_torch.ops.hydro import FluidCfg
+    from artemis_tpu_torch.pgen import build_problem
+
+    res = {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data:
+        # (a) disk_cyl as written with the static window: the card's first
+        # REST_CPU_CYCLES against the port on the CPU, then timed to
+        # REST_DISK_CYCLES
+        deck = DISK["disk_cyl"]
+        sim = Simulation(deck, REST_WINDOW, os.path.join(data, "a"), device=DEVICE)
+        smr = sim.driver.smr
+        check(sim.dtype == torch.float64 and len(smr.nodes) == 2 and smr.nodes[1].curv
+              and smr._fused is None and sim.driver.stage_kernel == "none",
+              f"refined disk_cyl: {sim.dtype}, {len(smr.nodes)} nodes, stage path "
+              f"{sim.driver.stage_kernel}")
+        SW.sweep_launches = 0
+        warm_up(sim, REST_CPU_CYCLES)
+        card = host_states(sim.driver._states)
+        cpu = Simulation(deck, REST_WINDOW + [f"parthenon/time/nlim={REST_CPU_CYCLES}"],
+                         os.path.join(data, "a_cpu"), device="cpu")
+        cpu.run()
+        err = node_field_err(torch, card, cpu.driver._states)
+        ms, zcps = timed_tree_cycles(torch, sim, REST_DISK_CYCLES - REST_CPU_CYCLES
+                                     - REST_PROFILE_CYCLES)
+        idle = rest_idle(torch, sim, ms)
+        l2 = l2_vs_ic(torch, sim)
+        wf = sim.driver._states[1]["gas"]["w"]
+        check(sim.tm.ncycle == REST_DISK_CYCLES and err <= REST_TOL and l2 <= 6e-3
+              and bool(torch.isfinite(wf).all()) and bool((wf[:, 0] > 0).all())
+              and SW.sweep_launches == 0,
+              f"refined disk_cyl: card vs CPU after {REST_CPU_CYCLES} cycles {err:.3e} (tol "
+              f"{REST_TOL:g}), root L2 vs IC {l2:.3e} after {sim.tm.ncycle} cycles (<= 6e-3), "
+              f"fine level finite/positive, {SW.sweep_launches} sweep launches")
+        res["disk"] = dict(nodes=[list(nd.grid.nx) for nd in smr.nodes], err=err, l2=l2,
+                           cycle_ms=ms, zcps=zcps, idle_share=idle)
+        print(f"refined disk_cyl {tuple(sim.grid.nx)} f64 with a {tuple(smr.nodes[1].grid.nx)} "
+              f"cylindrical patch (composable tree, no kernel): card vs the port on the CPU "
+              f"after {REST_CPU_CYCLES} cycles {err:.3e} of each array's max (tol "
+              f"{REST_TOL:g}); root density L2 vs IC {l2:.3e} after {sim.tm.ncycle} cycles "
+              f"(<= 6e-3); {ms:.3f} ms a cycle, {zcps:.6e} zone-cycles/s over every level, "
+              f"device idle {idle_text(idle)} [{smi}]")
+        del sim, cpu, card, smr, wf
+        torch.cuda.empty_cache()
+
+        # (b) the tracking patch at deck size: card and CPU over the
+        # window of the first move
+        track = REST_TRACK + [f"parthenon/time/nlim={REST_TRACK_CYCLES}"]
+        sim = nbody_sim("disk_nbody_cyl", track, os.path.join(data, "b"))
+        cpu = Simulation(os.path.join(HERE, "inputs", "disk_nbody_cyl.in"), track + [
+            "nbody/planets/input_file=" + os.path.join(HERE, "inputs", "planet_inputs",
+                                                       NBODY_INPUT_FILES["disk_nbody_cyl"])],
+            os.path.join(data, "b_cpu"), device="cpu")
+        los = {}
+        for key, s in (("card", sim), ("cpu", cpu)):
+            drv = s.driver
+            check(drv._particle_nodes == {1: 5} and drv.smr.nodes[1].curv
+                  and drv.smr._fused is None,
+                  f"disk_nbody_cyl tracking ({key}): nodes {drv._particle_nodes}")
+            los[key] = [drv.smr.nodes[1].lo]
+        ms, _ = timed_tree_cycles(torch, sim, REST_TRACK_CYCLES, [
+            lambda state, tm: los["card"].append(sim.driver.smr.nodes[1].lo)])
+        cpu.run(extra_observers=[
+            lambda state, tm: los["cpu"].append(cpu.driver.smr.nodes[1].lo)])
+        moves = [c for c in range(1, len(los["card"])) if los["card"][c] != los["card"][c - 1]]
+        perr = particle_err(sim.nbody, cpu.nbody)
+        err = node_field_err(torch, host_states(sim.driver._states), cpu.driver._states)
+        check(moves and los["card"] == los["cpu"] and perr <= NBODY_PARTICLE_TOL
+              and err <= REST_TOL,
+              f"disk_nbody_cyl tracking: moves at cycles {moves}, positions equal "
+              f"{los['card'] == los['cpu']}, card vs CPU particles {perr:.3e} (tol "
+              f"{NBODY_PARTICLE_TOL:g}), states {err:.3e} (tol {REST_TOL:g})")
+        idle = rest_idle(torch, sim, ms)
+        res["track"] = dict(shape=list(sim.grid.nx), moves=moves, lo=list(los["card"][-1]),
+                            particle_err=perr, err=err, cycle_ms=ms, idle_share=idle)
+        print(f"disk_nbody_cyl {tuple(sim.grid.nx)} f64 tracking patch "
+              f"{tuple(sim.driver.smr.nodes[1].n)}: moved at cycles {moves} to "
+              f"{los['card'][-1]}, the same positions as the CPU run; card vs CPU after "
+              f"{REST_TRACK_CYCLES} cycles: particles {perr:.3e}, every node {err:.3e} of each "
+              f"array's max; {ms:.3f} ms a cycle, device idle {idle_text(idle)} [{smi}]")
+        del sim, cpu
+        torch.cuda.empty_cache()
+
+        # (c) the dust tree: gas through K9 on both nodes, against the plain
+        # path after the same cycles
+        nx, ny, nz = ADV_CELL
+        runs = {}
+        for fused in (True, False):
+            s = Simulation(ADVECTION, REST_DUST + [f"parthenon/time/nlim={REST_DUST_CYCLES}"],
+                           os.path.join(data, f"c{int(fused)}"), device=DEVICE,
+                           fused_stage=fused)
+            check(tuple(s.grid.nx) == (nx, ny, nz) and s.dtype == torch.float64
+                  and s.driver.stage_kernel == ("sweep" if fused else "none")
+                  and len(s.driver.smr.nodes) == 2,
+                  f"dust tree (fused_stage={fused}): {tuple(s.grid.nx)} {s.dtype}, stage path "
+                  f"{s.driver.stage_kernel}")
+            masses = []
+            SW.sweep_launches = 0
+            ms, zcps = timed_tree_cycles(torch, s, REST_DUST_CYCLES, [
+                lambda state, tm, s=s: masses.append(tree_masses(s))])
+            runs[fused] = dict(sim=s, launches=SW.sweep_launches, masses=np.array(masses),
+                               cycle_ms=ms, zcps=zcps)
+        k, p = runs[True], runs[False]
+        m = k["masses"]
+        drift = float((np.abs(m[-1] - m[0]) / np.abs(m[0])).max())
+        err = node_field_err(torch, k["sim"].driver._states, p["sim"].driver._states)
+        want = 3 * 2 * 2 * REST_DUST_CYCLES
+        check(k["launches"] == want and p["launches"] == 0 and drift <= REST_MASS_TOL
+              and err <= REST_TOL and m.shape == (REST_DUST_CYCLES, 3),
+              f"dust tree: {k['launches']} sweep launches (wanted {want}), plain path "
+              f"{p['launches']}, mass drift over cycles 1-{REST_DUST_CYCLES} {drift:.3e} (tol "
+              f"{REST_MASS_TOL:g}), kernel vs plain {err:.3e} (tol {REST_TOL:g})")
+        res["dust"] = dict(launches=k["launches"], drift=drift, err=err, cycle_ms=k["cycle_ms"],
+                           zcps=k["zcps"], plain_zcps=p["zcps"])
+        print(f"dust tree {ADV_CELL} f64 (gas + 2 dust species, a 64x32x32 patch): "
+              f"{k['launches']} sweep launches in {REST_DUST_CYCLES} cycles (3 directions x 2 "
+              f"stages x 2 nodes a cycle); gas and dust mass drift {drift:.3e} over cycles "
+              f"1-{REST_DUST_CYCLES}; kernel vs plain end states {err:.3e} of each array's "
+              f"max; {k['cycle_ms']:.3f} ms a cycle, {k['zcps']:.6e} zone-cycles/s over every "
+              f"level (plain path {p['zcps']:.6e}) [{smi}]")
+        del runs, k, p
+        torch.cuda.empty_cache()
+
+    # (d) tests/test_amr.py's moving cylindrical blast: two chunks of 5
+    # cycles, a pressure-gradient retag after each
+    pin = ParameterInput.from_file(DECKS["blast"])
+    pin.apply_overrides([
+        "artemis/coordinates=cylindrical", "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=64",
+        "parthenon/mesh/x1min=1.0", "parthenon/mesh/x1max=5.0", "parthenon/mesh/x2min=0.0",
+        f"parthenon/mesh/x2max={0.5 * math.pi:.16f}",
+        "parthenon/mesh/ix1_bc=reflecting", "parthenon/mesh/ox1_bc=reflecting",
+        "parthenon/mesh/ix2_bc=reflecting", "parthenon/mesh/ox2_bc=reflecting",
+        "gas/reconstruct=plm", "gas/riemann=hlle", "gas/gamma=1.4", "problem/radius=0.15",
+        "problem/height=1.0", "problem/symmetry=cylindrical", "problem/samples=0",
+        "problem/x1=1.8", f"problem/x2={0.1 * math.pi:.16f}"])
+    cfg = FluidCfg(fluid="gas", recon="plm", rsolver="hlle", gamma=pin.get_real("gas", "gamma"),
+                   cfl=pin.get_real("gas", "cfl"), dfloor=pin.get_real("gas", "dfloor"),
+                   siefloor=pin.get_real("gas", "siefloor"))
+    grid = grid_from_input(pin)
+    lo0 = (42, 42, 0)
+    smr = A.TwoLevelSMR(grid, Integrator.make("rk2"), cfg, lo0, (16, 16, 1), device=DEVICE,
+                        dtype=torch.float64)
+    wc = build_problem("blast", pin, grid, cfg).prims["gas"]
+    wf = build_problem("blast", ParameterInput.from_string(repr(pin)), smr.fg, cfg).prims["gas"]
+    sc, sf = smr.initialize(wc, wf)
+    vol = smr.ml.root.hydro.vol
+    m0 = float((sc[0][:, 0] * vol).sum())
+    crit = dict(field="pressure", type="gradient", refine_thr=0.3)
+    seen = [lo0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        sc, sf, _, _ = smr.run(sc, sf, tlim=1.0, nlim=5, criterion=crit, retag_interval=5)
+        seen.append(smr.patch_lo)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 10
+    drift = abs(float((sc[0][:, 0] * vol).sum()) - m0) / m0
+    check(smr.curv and seen[1] != lo0 and sc[0].is_cuda and drift <= REST_MASS_TOL
+          and bool(torch.isfinite(sf[1]).all()),
+          f"moving cylindrical blast: positions {seen}, mass drift {drift:.3e} (tol "
+          f"{REST_MASS_TOL:g})")
+    res["blast"] = dict(positions=[list(p) for p in seen], drift=drift, cycle_ms=ms)
+    print(f"moving cylindrical blast (TwoLevelSMR, 64x64 + 16x16 patch, f64): positions "
+          f"{seen} after each retag, composite mass drift {drift:.3e} (tol "
+          f"{REST_MASS_TOL:g}); {ms:.3f} ms a cycle, the retags and the patch rebuilds "
+          f"included [{smi}]")
+    res["secs"] = time.perf_counter() - t_phase
+    print(f"phase refinement, the rest: {res['secs']:.1f} s (budget {REST_BUDGET_S} s)")
+    return res
+
+
 def main():
     import torch
 
@@ -3864,6 +4140,7 @@ def main():
     del built_adaptive
     pre_dir.cleanup()
     print(f"phase adaptive: {time.perf_counter() - t1:.1f} s")
+    rest = phase_refinement_rest(torch, smi)
     total = time.perf_counter() - t0
     print(f"chip_smoke: every phase passed in {total:.0f} s, the build included "
           f"({SMOKE_LIMIT_S - total:.0f} s left of the {SMOKE_LIMIT_S} s limit)")
@@ -4198,6 +4475,9 @@ def main():
         "advection_l1_n32": adv["l1"],
         "advection_ratio": adv["ratio"],
         "advection_launches": adv["launches"],
+        "dust_tree_launches": rest["dust"]["launches"],
+        "dust_tree_end_err_f64": rest["dust"]["err"],
+        "dust_tree_mass_drift_f64": rest["dust"]["drift"],
         "conduction_launches": other["conduction"]["launches"],
         "gaussian_bump_launches": other["gaussian_bump"]["launches"],
         "deck_50cycle_err_f64": {"conduction": other["conduction"]["end_err"],
@@ -4205,7 +4485,9 @@ def main():
         "zone_cycles_per_s": {"kernel_f32": strat["kernel_zcps"],
                               "plain_f32": strat["plain_zcps"],
                               "advection_kernel_f32": adv["kernel_zcps"],
-                              "advection_plain_f32": adv["plain_zcps"]},
+                              "advection_plain_f32": adv["plain_zcps"],
+                              "dust_tree_kernel_f64_all_levels": rest["dust"]["zcps"],
+                              "dust_tree_plain_f64_all_levels": rest["dust"]["plain_zcps"]},
         "idle_share": strat["idle_share"],
     }]}
     print(json.dumps(kernels))

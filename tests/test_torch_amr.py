@@ -22,7 +22,9 @@ unless stated; inputs are the deck's own or made from a seed with numpy:
 * a three-level 2-D tree (tests/test_amr_multilevel.py's box, two level-1
   patches and a nested level-2 one) against the JAX tree at 1e-12 after
   3 cycles, then conserving mass and energy to 1e-13 over 18 more;
-* the refined deck through the CLI, and a curvilinear tree's raise.
+* the refined deck through the CLI, a curvilinear tree that runs, and
+  the twin of tests/test_decks.py's refined linear wave (L1 within 1.5x
+  the unrefined run's).
 
 The JAX package's interpret mode runs once, in (c).  The kernel's node
 axis is tested in tests/test_torch_stage_curv.py.
@@ -362,14 +364,37 @@ def test_cli_runs_a_static_tree(tmp_path, capsys):
 
 
 def test_curvilinear_tree_raises(tmp_path):
-    """A refinement tree on a curvilinear root is not ported: it raises
-    naming its ROADMAP item."""
+    """A refinement tree on a curvilinear root (disk_sph, spherical) no
+    longer raises: its patch is curvilinear with its volume weights and
+    centroid spacings, the tree takes the composable path (the fused gate
+    is shut), and two cycles stay finite with positive density on both
+    levels (tests/test_torch_amr_curv.py holds such trees to JAX)."""
     ov = ["parthenon/mesh/refinement=static", "parthenon/mesh/nx1=16",
           "parthenon/mesh/nx2=8", "parthenon/mesh/nx3=8", "parthenon/mesh/x1min=0.4",
-          "parthenon/mesh/x1max=2.4"]
+          "parthenon/mesh/x1max=2.4", "parthenon/time/nlim=2"]
     deck = os.path.join(os.path.dirname(DECK), "disk_sph.in")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Simulation(deck, ov, str(tmp_path), device="cpu")
+    sim = Simulation(deck, ov, str(tmp_path), device="cpu")
+    smr = sim.driver.smr
+    patch = smr.nodes[1]
+    assert patch.curv and patch.volf is not None and patch.ghost_spacings is not None
+    assert smr._fused is None and sim.driver.stage_kernel == "none"
+    sim.run()
+    assert sim.tm.ncycle == 2
+    for st in tree_to_numpy(sim.driver._states):
+        assert np.isfinite(st["gas"]["w"]).all() and (st["gas"]["w"][:, 0] > 0).all()
+
+
+def test_linear_wave_amr(tmp_path):
+    """The twin of tests/test_decks.py's test_linear_wave_amr on the port:
+    inputs/linear_wave_amr.in (a 64x32 root with a 32x16 patch over the
+    wave) to t = 1, and again without refinement; the refined L1 error is
+    within 1.5x the unrefined one (tests/test_decks.py:34-35)."""
+    deck = os.path.join(os.path.dirname(DECK), "linear_wave_amr.in")
+    errs = {}
+    for tag, ov in (("amr", []), ("ref", ["parthenon/mesh/refinement=none"])):
+        Simulation(deck, ov, str(tmp_path / tag), device="cpu").run()
+        errs[tag] = np.loadtxt(str(tmp_path / tag / "linear_wave_amr-errs.dat"), ndmin=2)[0, 4]
+    assert np.isfinite(errs["amr"]) and errs["amr"] <= 1.5 * errs["ref"]
 
 
 # ---------------------------------------------------------------------------
