@@ -44,7 +44,7 @@ a fixed lattice where the refinement tags land (``style = tiled``,
 ``regrid_tiles``) or move one patch per level onto the tagged cells
 (``style = move``, ``_retag``); the tags are computed on the device and
 only their bool masks reach the host.  Sharded trees are not ported
-(ROADMAP Queue 1 item 11).  Patch positions are host integers on the
+(ROADMAP Queue 1 item 11b, ``ShardedSMR``).  Patch positions are host integers on the
 nodes; every topology or position change re-runs the tree's set-up
 (``_compile``).
 """
@@ -750,6 +750,21 @@ class MultiLevelSMR:
                        for d in range(3)):
                 raise ValueError("same-level patches must be disjoint")
         return _Node(self, _refine_grid(parent.grid, lo, n), parent, lo, n, level)
+
+    def topology(self):
+        """The node list and each node's attributes (position, grid,
+        operators, index, children), for ``set_topology`` to put back after
+        cycles that moved, spawned or dropped patches."""
+        return [(node, dict(vars(node)), list(node.children)) for node in self.nodes]
+
+    def set_topology(self, snap):
+        """Put back a ``topology()`` snapshot and re-run the set-up."""
+        self.nodes = [node for node, _, _ in snap]
+        for node, attrs, children in snap:
+            vars(node).clear()
+            vars(node).update(attrs)
+            node.children = list(children)
+        self._compile(self.fused, self.gather6)
 
     # -- same-level links (Parthenon's same-level boundary buffers) -------
     def _links_static(self, node: _Node) -> bool:

@@ -2,7 +2,8 @@
 ``artemis_tpu/cli.py``).
 
 Usage:  python -m artemis_tpu_torch.cli -i input.deck [-d data_dir]
-            [-r checkpoint.rst.npz] [-t seconds] [--device cuda|cpu] [key=value ...]
+            [-r checkpoint.rst.npz] [-t seconds] [--device cuda|cpu]
+            [--profile N] [--profile-kernels N] [key=value ...]
 Return codes: 0 complete, 1 failed, 2 walltime timeout (after writing
 ``{problem_id}.walltime.final.rst.npz`` in the data directory, which
 ``-r`` resumes).
@@ -22,6 +23,14 @@ def main(argv=None) -> int:
     ap.add_argument("-n", "--ncycle-out", type=int, default=0, help="stdout log interval")
     ap.add_argument("-t", "--walltime", type=float, default=None,
                     help="wall-clock limit in seconds (exit code 2 on timeout)")
+    ap.add_argument("--profile", type=int, default=0, metavar="N",
+                    help="time N instrumented cycles per driver phase and "
+                         "print the table before the run (Kokkos-Tools "
+                         "named-kernel profiling analogue)")
+    ap.add_argument("--profile-kernels", type=int, default=0, metavar="N",
+                    help="time every kernel launch over N cycles and print "
+                         "the per-kernel table before the run (below-phase "
+                         "attribution; see profiling.kernel_table)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default cuda; cpu runs the "
                          "plain tensor path on the host)")
@@ -51,6 +60,14 @@ def main(argv=None) -> int:
         sim = Simulation(args.input, overrides=args.overrides, data_dir=args.data,
                          device=args.device, restart=args.restart)
         sim.print_config()
+        if args.profile > 0:
+            from .profiling import phase_table
+
+            phase_table(sim, ncycles=args.profile)
+        if args.profile_kernels > 0:
+            from .profiling import kernel_table
+
+            kernel_table(sim, ncycles=args.profile_kernels)
         zcps = sim.run(log_every=args.ncycle_out, walltime=args.walltime)
         print(f"walltime-rate: {zcps:.3e} zone-cycles/sec "
               f"(ncycle={sim.tm.ncycle}, t={sim.tm.time:.6e}, {sim.status})")

@@ -145,6 +145,10 @@ class Driver:
     ``fn(hydro) -> Radiation``; ``nbody`` is the run's ``NBodySystem``,
     which makes every step host-coupled."""
 
+    # a shard of a sharded run fills its halo from its neighbours' slabs
+    # (``parallel.mesh``): no stage kernel wraps or gathers its own halo
+    _exchanged = False
+
     def __init__(
         self,
         grid,
@@ -215,10 +219,12 @@ class Driver:
                 break
         full = not rest
         strips = None
-        if full and curv_mod.gather_supported(grid, gas_cfg, self.bc_custom):
+        # a shard's halo comes from its neighbours: the padded variant (K4)
+        gather = full and not self._exchanged
+        if gather and curv_mod.gather_supported(grid, gas_cfg, self.bc_custom):
             strips = curv_mod.prepare_gather_strips(
                 grid, self.bc_custom["ic"].shard_caches[0])
-        elif full and curv_mod.gather6_supported(grid) and all(
+        elif gather and curv_mod.gather6_supported(grid) and all(
                 grid.bc[d] == ("ic", "ic") for d in range(3)):
             caches = getattr(self.bc_custom.get("ic"), "shard_caches", None)
             if caches and all((d, s_) in caches[0] for d in (1, 2, 3) for s_ in (0, 1)):
@@ -304,7 +310,7 @@ class Driver:
         if self._fused_stage:
             u, w, dtden = stage_mod.stage(
                 hyd, state["gas"]["w"], state["gas"]["u"], u1["gas"], gam0,
-                gam1, beta, dt, force_pcm, self.bc_custom)
+                gam1, beta, dt, force_pcm, self.bc_custom, w_pad=self._exchanged_fill(state))
             new_state = dict(state)
             # dtden: per-block CFL denominator maxima (estimate_dt takes the
             # max, skipping a full extra pass over w each cycle)
@@ -315,7 +321,7 @@ class Driver:
         if self._curv is not None:
             u, w, dtden = curv_mod.stage_curv(
                 self._curv, state["gas"]["w"], state["gas"]["u"], u1["gas"], gam0,
-                gam1, beta, dt, time, force_pcm)
+                gam1, beta, dt, time, force_pcm, w_pad=self._exchanged_fill(state))
             new_state = dict(state)
             if self._curv.full:
                 new_state["gas"] = {"u": u, "w": w, "dtden": dtden}
@@ -351,6 +357,11 @@ class Driver:
     def fill_ghosts(self, w_int, fluid: str):
         """Interior prims -> padded prims."""
         return bc_mod.pad_and_fill(w_int, self.grid, fluid, self.bc_custom)
+
+    def _exchanged_fill(self, state):
+        """The gas's padded prims for a stage kernel on a shard (its
+        exchanged fill), or None where the kernel makes its own halo."""
+        return self.fill_ghosts(state["gas"]["w"], "gas") if self._exchanged else None
 
     # ------------------------------------------------------------------
     def initialize(self, state):
@@ -392,11 +403,20 @@ class Driver:
         takes dt from w as this does)."""
         if self.host_coupled:
             return self._host_step(state, dt, time)
-        dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
-        u1 = {name: state[name]["u"] for name, _ in self._fluids()}
+        u1, dt_t = self._cycle_inputs(state, dt)
         for stage in range(1, self.integrator.nstages + 1):
             state, _ = self._stage_body(state, u1, dt_t, time, stage)
         return self._radiation_step(state, dt_t)
+
+    def _cycle_inputs(self, state, dt: float):
+        """The cycle's second register (the stage-entry conserved fields)
+        and its dt as a 0-d tensor on the run's device."""
+        return ({name: state[name]["u"] for name, _ in self._fluids()},
+                torch.full((), dt, dtype=self.dtype, device=self.device))
+
+    def _particles(self, nb):
+        """The N-body particles as the stage reads them, on the run's device."""
+        return nb.particle_pytree(self.device, self.dtype)
 
     def _radiation_step(self, state, dt_t):
         if self.radiation is not None:
@@ -412,11 +432,9 @@ class Driver:
         nstages = self.integrator.nstages
         coeffs = nbody_coeffs(self.integrator, float(dt))
         nb.begin_step()
-        dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
-        u1 = {name: state[name]["u"] for name, _ in self._fluids()}
+        u1, dt_t = self._cycle_inputs(state, dt)
         for stage in range(1, nstages + 1):
-            state, pforce = self._stage_body(state, u1, dt_t, time, stage,
-                                             nb.particle_pytree(self.device, self.dtype))
+            state, pforce = self._stage_body(state, u1, dt_t, time, stage, self._particles(nb))
             pf = (pforce.cpu().numpy().astype(np.float64) if pforce is not None
                   else np.zeros((nb.npart, 7)))
             nb.advance(pf, stage, nstages, float(time), coeffs)

@@ -1,15 +1,16 @@
 """Uniform structured grid with ghost zones.
 
-TPU-native replacement for the Parthenon Mesh/MeshBlock machinery (reference
-L1; see SURVEY.md).  Instead of many MeshBlocks distributed over MPI ranks,
-the mesh is a single global array per variable, ghost-padded along active
-dimensions; multi-device runs shard it over a ``jax.sharding.Mesh`` with
-halo exchange by ``ppermute`` (see artemis_tpu/parallel).  AMR (later rounds)
-layers a block list on top of these same kernels.
+Replacement for the Parthenon Mesh/MeshBlock machinery (reference L1; see
+SURVEY.md).  Instead of many MeshBlocks distributed over MPI ranks, the mesh
+is a single global array per variable, ghost-padded along active dimensions;
+multi-device runs split it into slabs along one axis, one per device, each
+shard filling its halo from its neighbours' slabs
+(``artemis_tpu_torch/parallel/mesh.py``).  Refinement (``amr.py``) layers a
+block list on top of these same kernels.
 
 Array layout: ``[..., x3, x2, x1]`` (x1 fastest — maps to TPU lanes).
 
-Copied verbatim from ``artemis_tpu/grid.py`` (it needs only the standard
+The code is copied verbatim from ``artemis_tpu/grid.py`` (it needs only the standard
 library and numpy), so that ``artemis_tpu_torch`` runs where JAX is not
 installed.
 """

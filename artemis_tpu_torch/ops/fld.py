@@ -26,6 +26,8 @@ import ctypes
 
 import torch
 
+from ..profiling import kernel_span
+
 # kernel launches since the last reset (the counts a run reads to show
 # that the main path went through the kernels), and of the fld_coeffs
 # launches those of the tiled body
@@ -163,8 +165,8 @@ def _args(shape, dxs=(1.0, 1.0, 1.0), c_code=0.0, ext=0.0, flags=((0, 0),) * 3, 
     return (ctypes.c_int * len(ints))(*ints), (ctypes.c_double * len(reals))(*reals)
 
 
-def _run(fn, dtype, device, *args):
-    with torch.cuda.device(device):
+def _run(fn, label, body, dtype, device, *args):
+    with torch.cuda.device(device), kernel_span(label, body, device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(0 if dtype == torch.float32 else 1, *args, stream)
     if err != 0:
@@ -175,7 +177,8 @@ def fld_coeffs(E, chi, dt, dxs, c_code, ext, flags):
     """``fld_coeffs_reference``'s function: on the CPU the plain version, on
     a CUDA device the kernel (``dt`` stays on the device: no host read)."""
     if E.device.type == "cpu":
-        return fld_coeffs_reference(E, chi, dt, dxs, c_code, ext, flags)
+        with kernel_span("fld_coeffs", "plain", E.device):
+            return fld_coeffs_reference(E, chi, dt, dxs, c_code, ext, flags)
     if E.device.type != "cuda":
         raise RuntimeError(f"no FLD kernel for device {E.device}")
     return _launch_coeffs(E, chi, dt, dxs, c_code, ext, flags)
@@ -185,7 +188,8 @@ def fld_matvec(E, A, diag_geo, sf):
     """``fld_matvec_reference``'s function: on the CPU the plain version, on
     a CUDA device the kernel."""
     if E.device.type == "cpu":
-        return fld_matvec_reference(E, A, diag_geo, sf)
+        with kernel_span("fld_matvec", "plain", E.device):
+            return fld_matvec_reference(E, A, diag_geo, sf)
     if E.device.type != "cuda":
         raise RuntimeError(f"no FLD kernel for device {E.device}")
     return _launch_matvec(E, A, diag_geo, sf)
@@ -203,7 +207,8 @@ def _launch_coeffs(E, chi, dt, dxs, c_code, ext, flags):
     ints, reals = _args(shape, tuple(float(w) for w in dxs), float(c_code), float(ext),
                         flags, torch.finfo(E.dtype).tiny)
     tiled = not _percell
-    _run(_lib().artemis_fld_coeffs, E.dtype, E.device, int(tiled), ints, reals,
+    _run(_lib().artemis_fld_coeffs, "fld_coeffs", "tiled" if tiled else "per-cell",
+         E.dtype, E.device, int(tiled), ints, reals,
          E.data_ptr(), chi.data_ptr(), dt.data_ptr(), A.data_ptr(), diag.data_ptr(),
          Dc.data_ptr())
     fld_coeffs_launches += 1
@@ -219,7 +224,8 @@ def _launch_matvec(E, A, diag_geo, sf):
     _check((E, A, diag_geo, sf), (shape, (6,) + shape, shape, shape), E.dtype, E.device)
     out = torch.empty_like(E)
     ints, reals = _args(shape)
-    _run(_lib().artemis_fld_matvec, E.dtype, E.device, ints, reals, E.data_ptr(),
+    _run(_lib().artemis_fld_matvec, "fld_matvec", "per-cell", E.dtype, E.device, ints,
+         reals, E.data_ptr(),
          A.data_ptr(), diag_geo.data_ptr(), sf.data_ptr(), out.data_ptr())
     fld_matvec_launches += 1
     return out

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..geometry import geometry as geo
+from ..profiling import kernel_span
 from . import recon as recon_mod
 from . import riemann as riemann_mod
 from . import sweeps
@@ -188,21 +189,23 @@ class Hydro:
             for d in self.dims:
                 out[d] = sweeps.sweep(w_pad, d, self.grid, cfg.gamma, method)
             return out
-        for d in self.dims:
-            rows = self.recon_rows.get(d) if self.recon_rows else None
-            wl, wr = recon_mod.reconstruct(w_pad, d, method, self.grid.geom, rows=rows)
-            wl = self._faces_interior(wl, d)
-            wr = self._faces_interior(wr, d)
-            F, pF, vF = riemann_mod.solve(wl, wr, d, cfg.fluid, cfg.rsolver, cfg.gamma)
-            if not self.cartesian:
-                # scale momentum fluxes by h_c at the face centroid
-                # (ScaleMomentumFlux, fluid_fluxes.hpp:32-70)
-                fh = self.face_h[d]
-                F = F.clone()
-                F[:, 1] *= fh[0]
-                F[:, 2] *= fh[1]
-                F[:, 3] *= fh[2]
-            out[d] = (F, pF, vF)
+        # the tensor chain is a plain version in kernel_table's rows
+        with kernel_span("fluxes", "plain", w_pad.device):
+            for d in self.dims:
+                rows = self.recon_rows.get(d) if self.recon_rows else None
+                wl, wr = recon_mod.reconstruct(w_pad, d, method, self.grid.geom, rows=rows)
+                wl = self._faces_interior(wl, d)
+                wr = self._faces_interior(wr, d)
+                F, pF, vF = riemann_mod.solve(wl, wr, d, cfg.fluid, cfg.rsolver, cfg.gamma)
+                if not self.cartesian:
+                    # scale momentum fluxes by h_c at the face centroid
+                    # (ScaleMomentumFlux, fluid_fluxes.hpp:32-70)
+                    fh = self.face_h[d]
+                    F = F.clone()
+                    F[:, 1] *= fh[0]
+                    F[:, 2] *= fh[1]
+                    F[:, 3] *= fh[2]
+                out[d] = (F, pF, vF)
         return out
 
     def apply_update(self, u0, u1, fluxes, gam0, gam1, beta_dt):

@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from .. import bc as bc_mod
+from ..profiling import kernel_span
 
 BLOCK = 256  # threads per block of the per-cell body; one dtden entry per block
 _METHODS = {"pcm": 0, "plm": 1, "ppm": 2}
@@ -37,9 +38,11 @@ TILE = {torch.float32: (32, 8, 16), torch.float64: (32, 4, 16)}
 
 # kernel launches since the last reset (the count a run reads to show that
 # the main path went through the kernel), and of those the launches of the
-# tiled body
+# tiled body and those from a padded array (K2; the rest wrap their halo,
+# K1)
 stage_launches = 0
 tiled_launches = 0
+padded_launches = 0
 
 # Measurement only: while on, launches take the per-cell body, so that
 # chip_smoke.py and the tests can time and compare the two designs on one
@@ -86,14 +89,17 @@ def all_periodic(grid, bc_custom=None) -> bool:
                                  for d in (1, 2, 3) if grid.active(d))
 
 
-def stage_reference(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom=None):
+def stage_reference(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom=None,
+                    w_pad=None):
     """The plain version: the composable stage sequence
-    pad_and_fill -> compute_fluxes -> apply_update -> flux_source ->
-    set_auxiliary -> cons_to_prim -> prim_to_cons, plus the CFL denominator
-    maximum.  Returns (u, w, dtden) with dtden of shape (1,)."""
+    pad_and_fill (or the given padded prims ``w_pad``) -> compute_fluxes ->
+    apply_update -> flux_source -> set_auxiliary -> cons_to_prim ->
+    prim_to_cons, plus the CFL denominator maximum.  Returns (u, w, dtden)
+    with dtden of shape (1,)."""
     cfg = hyd.gas
     bdt = beta * dt
-    w_pad = bc_mod.pad_and_fill(w, hyd.grid, "gas", bc_custom)
+    if w_pad is None:
+        w_pad = bc_mod.pad_and_fill(w, hyd.grid, "gas", bc_custom)
     fx = hyd.compute_fluxes(w_pad, cfg, force_pcm)
     u = hyd.apply_update(u0, u1, fx, gam0, gam1, bdt)
     u = hyd.flux_source(u, w, fx, bdt)
@@ -102,20 +108,26 @@ def stage_reference(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom=N
     return u, w, torch.amax(hyd.dt_denominator(w, cfg)).reshape(1)
 
 
-def stage(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom=None):
+def stage(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom=None, w_pad=None):
     """One fused RK stage from interior prims ``w`` [1, 6, nz, ny, nx] and
     the two registers u0, u1; ``dt`` is a one-element tensor on w's device.
-    Returns (u, w, dtden); on the GPU dtden holds one maximum per block of
-    the body that ran (``dtden_blocks``)."""
+    The halo is wrapped in the kernel on an all-periodic box, else read from
+    ``w_pad`` (a shard's exchanged fill) or from ``bc.pad_and_fill``'s
+    array.  Returns (u, w, dtden); on the GPU dtden holds one maximum per
+    block of the body that ran (``dtden_blocks``)."""
+    periodic = w_pad is None and all_periodic(hyd.grid, bc_custom)
     if w.device.type == "cpu":
-        return stage_reference(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, bc_custom)
+        with kernel_span("stage_periodic" if periodic else "stage", "plain", w.device):
+            return stage_reference(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm,
+                                   bc_custom, w_pad)
     if w.device.type != "cuda":
         raise RuntimeError(f"no stage kernel for device {w.device}")
     if not supported(hyd.grid, hyd.gas):
         raise ValueError("config outside the fused stage kernel's envelope")
-    if all_periodic(hyd.grid, bc_custom):
+    if periodic:
         return _launch(hyd, w, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic=True)
-    w_pad = bc_mod.pad_and_fill(w, hyd.grid, "gas", bc_custom)
+    if w_pad is None:
+        w_pad = bc_mod.pad_and_fill(w, hyd.grid, "gas", bc_custom)
     return _launch(hyd, w_pad, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic=False)
 
 
@@ -132,7 +144,7 @@ def _lib():
 
 
 def _launch(hyd, src, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic):
-    global stage_launches, tiled_launches
+    global stage_launches, tiled_launches, padded_launches
     grid, cfg = hyd.grid, hyd.gas
     nx, ny, nz = grid.nx
     g1, g2, g3 = (0, 0, 0) if periodic else grid.ng
@@ -164,7 +176,9 @@ def _launch(hyd, src, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic):
     dx = float(g.xf1[1] - g.xf1[0])
     dy = float(g.xf2[1] - g.xf2[0])
     dz = float(g.xf3[1] - g.xf3[0])
-    with torch.cuda.device(src.device):
+    with torch.cuda.device(src.device), kernel_span(
+            "stage_periodic" if periodic else "stage", "tiled" if tiled else "per-cell",
+            src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(0 if dtype == torch.float32 else 1, _METHODS[method],
                  int(periodic), int(tiled), src.data_ptr(),
@@ -178,4 +192,5 @@ def _launch(hyd, src, u0, u1, gam0, gam1, beta, dt, force_pcm, periodic):
         raise RuntimeError(f"stage_cart kernel launch failed: CUDA error {err}")
     stage_launches += 1
     tiled_launches += int(tiled)
+    padded_launches += int(not periodic)
     return u, w, dmax

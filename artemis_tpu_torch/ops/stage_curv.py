@@ -45,6 +45,7 @@ import torch
 
 from .. import bc as bc_mod
 from ..geometry import geometry as geo
+from ..profiling import kernel_span
 
 BLOCK = 128  # threads per block of the per-cell body (kBlock); one dtden entry per block
 # the tiled body's footprint and planes per block (TileDims: TX, TY, TZ) by
@@ -57,6 +58,8 @@ TILE = {(torch.float32, False): (32, 8, 16), (torch.float64, False): (32, 4, 16)
 # node-batched alike) the launches of the tiled body
 stage_curv_launches = 0
 tiled_launches = 0
+# the one-node launches by halo source (the TPU kernels K4, K3, K5a/K5b)
+halo_launches = {"padded": 0, "gather": 0, "gather6": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -747,18 +750,23 @@ def stage_curv(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
     the GPU) from ``cs``'s strips (``cs.halo``) unless ``padded``, else
     from ``bc.pad_and_fill``'s array.  Returns (u, w, dtden); on the GPU
     dtden holds one maximum per block (full mode)."""
+    if strips is not None:
+        halo = "gather6"
+    elif w_pad is None and cs.strips is not None and not padded:
+        halo = cs.halo
+    else:
+        halo = "padded"
     if w.device.type == "cpu":
-        if strips is not None:
-            w_pad = pad_from_strips(w, cs.grid, strips)
-        return stage_curv_reference(cs, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
-                                    w_pad=w_pad)
+        with kernel_span(KERNEL_NAMES[halo], "plain", w.device):
+            if strips is not None:
+                w_pad = pad_from_strips(w, cs.grid, strips)
+            return stage_curv_reference(cs, w, u0, u1, gam0, gam1, beta, dt, time,
+                                        force_pcm, w_pad=w_pad)
     if w.device.type != "cuda":
         raise RuntimeError(f"no curvilinear stage kernel for device {w.device}")
-    if strips is not None:
-        return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, "gather6",
+    if halo != "padded":
+        return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, halo,
                        strips=strips)
-    if w_pad is None and cs.strips is not None and not padded:
-        return _launch(cs, w, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, cs.halo)
     if w_pad is None:
         w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
     return _launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, "padded")
@@ -799,6 +807,12 @@ def _percell_body():
 
 # the kernel's halo source codes (kPadded, kGather, kGather6)
 HALO_CODES = {"padded": 0, "gather": 1, "gather6": 2}
+# the TPU kernel each halo source of a one-node launch replaces (K4, K3,
+# K5a/K5b), and of a node-batched launch (K6): the names kernel_table gives
+# their rows
+KERNEL_NAMES = {"padded": "stage_curv", "gather": "stage_curv_gather",
+                "gather6": "stage_curv_gather6"}
+BATCHED_NAME = "stage_curv_gather6_batched"
 STRIP_KEYS = (("x1", 0), ("x1", 1), ("x2", 0), ("x2", 1), ("x3", 0), ("x3", 1))
 MAX_NODES = 16  # the kernel's kMaxNodes
 
@@ -826,6 +840,7 @@ def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, halo, str
     out = _launch_nodes([cs], [src], [u0], [u1], gam0, gam1, beta, dt, time, force_pcm,
                         halo, [strips if halo != "padded" else None])
     stage_curv_launches += 1
+    halo_launches[halo] += 1
     u, w_out, dmax = out[0]
     if not cs.full:
         return u, w, torch.zeros(1, dtype=u.dtype, device=u.device)
@@ -833,11 +848,13 @@ def _launch(cs, src, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, halo, str
 
 
 def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm, halo,
-                  strips_list):
+                  strips_list, name=None):
     """One launch over the nodes of ``stages`` (one grid shape, the same
     scalars): node k reads ``srcs[k]``, its registers and ``strips_list[k]``
-    (a STRIP_KEYS dict, or None for the padded halo).  Returns one
-    (u, w, dtden) per node; w is None in partial mode."""
+    (a STRIP_KEYS dict, or None for the padded halo).  ``name``: the TPU
+    kernel the launch stands for in ``kernel_table`` (by default the
+    one-node kernel of ``halo``).  Returns one (u, w, dtden) per node; w is
+    None in partial mode."""
     global tiled_launches
     cs0 = stages[0]
     nx, ny, nz = cs0.grid.nx
@@ -902,7 +919,8 @@ def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
     c_ints = (ctypes.c_int * len(ints))(*ints)
     c_reals = (ctypes.c_double * len(reals))(*reals)
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), kernel_span(
+            name or KERNEL_NAMES[halo], "tiled" if tiled else "per-cell", device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(0 if dtype == torch.float32 else 1, HALO_CODES[halo], int(cs0.full),
                  int(tiled), c_ints, c_reals, c_ptrs, len(ptrs), len(stages),
@@ -959,13 +977,14 @@ def stage_curv_batched(stages, ws, u0s, u1s, strips_list, gam0, gam1, beta, dt, 
     K6), or raise.  Returns one (u, w, dtden) per node."""
     global stage_curv_batched_launches
     if ws[0].device.type == "cpu":
-        return stage_curv_batched_reference(stages, ws, u0s, u1s, strips_list, gam0, gam1,
-                                            beta, dt, time, force_pcm)
+        with kernel_span(BATCHED_NAME, "plain", ws[0].device):
+            return stage_curv_batched_reference(stages, ws, u0s, u1s, strips_list, gam0,
+                                                gam1, beta, dt, time, force_pcm)
     if ws[0].device.type != "cuda":
         raise RuntimeError(f"no curvilinear stage kernel for device {ws[0].device}")
     if not all(cs.full for cs in stages):
         raise ValueError("the node-batched stage runs full stages only")
     out = _launch_nodes(stages, ws, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
-                        "gather6", strips_list)
+                        "gather6", strips_list, name=BATCHED_NAME)
     stage_curv_batched_launches += 1
     return out

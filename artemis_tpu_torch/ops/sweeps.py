@@ -23,6 +23,8 @@ import ctypes
 
 import torch
 
+from ..profiling import kernel_span
+
 BLOCK = 256  # threads per CUDA block, one interior face each
 TINY = 1.0e-20
 _METHODS = {"pcm": 0, "plm": 1}
@@ -152,7 +154,8 @@ def sweep(w_pad, d, grid, gamma, recon="plm"):
     """One direction's fluxes: on the CPU the plain version, on a CUDA
     device the kernel (or an exception; there is no fallback)."""
     if w_pad.device.type == "cpu":
-        return sweep_reference(w_pad, d, grid, gamma, recon)
+        with kernel_span("sweep", "plain", w_pad.device):
+            return sweep_reference(w_pad, d, grid, gamma, recon)
     if w_pad.device.type != "cuda":
         raise RuntimeError(f"no sweep kernel for device {w_pad.device}")
     return _launch(w_pad, d, grid, gamma, recon)
@@ -198,7 +201,7 @@ def _launch(w_pad, d, grid, gamma, recon):
     pF = torch.empty((1,) + fshape, dtype=dtype, device=w_pad.device)
     vF = torch.empty((1,) + fshape, dtype=dtype, device=w_pad.device)
     fn = _lib()
-    with torch.cuda.device(w_pad.device):
+    with torch.cuda.device(w_pad.device), kernel_span("sweep", "per-cell", w_pad.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(0 if dtype == torch.float32 else 1, d, _METHODS[recon], w_pad.data_ptr(),
                  F.data_ptr(), pF.data_ptr(), vF.data_ptr(), nx, ny, nz, g1, g2, g3,

@@ -18,10 +18,16 @@ radiation field's actual gain, so total energy is conserved to rounding.
 The operator has two paths, as in the reference.  On a CUDA device a 3-D
 grid of uniform Cartesian widths sets it up with ``ops.fld.fld_coeffs`` and
 applies it with ``ops.fld.fld_matvec`` (the CUDA kernels); every other grid,
-every CPU run and a run with ``fused=False`` builds it from tensor
-operations.  The two loops are host loops over device tensors: the CG loop
-reads its residual test back once per iteration and the Newton loop its
+every CPU run, a run with ``fused=False`` and a sharded run builds it from
+tensor operations.  The two loops are host loops over device tensors: the CG
+loop reads its residual test back once per iteration and the Newton loop its
 convergence test once per outer iteration.
+
+A sharded run (``parallel.mesh``) steps one Radiation whose fields hold one
+tensor per shard (``enable_sharding``): along the sharded axis a stencil
+shift takes the neighbour shard's boundary plane and only the first and last
+shard have physical edges; the CG's dot products and the Newton loop's
+maxima are global, so every shard makes the same number of trips.
 
 Opacity models (src/utils/opacity/opacity.hpp:20-56): none/constant (gray),
 thermalization (c = 1, a_rad = 1), shocktube_a (power law with c = 1732.05,
@@ -36,6 +42,7 @@ import torch
 
 from .ops import fld as fld_mod
 from .ops.fld import edge_masks, grad_norm, shift
+from .profiling import kernel_span
 
 
 @dataclass(frozen=True)
@@ -119,12 +126,10 @@ class Radiation:
         # the IC equilibrium outside the domain instead of reflecting at a
         # zero-flux wall
         self._edge_dirichlet = {}
+        # the sharded axis (enable_sharding), or None
+        self._axis_d = None
         # the FLD cap extent: the largest domain extent over the active dims
-        ext = torch.zeros((), dtype=hyd.dtype, device=hyd.device)
-        for d in self.dims:
-            w = self.widths[d - 1]
-            ext = torch.maximum(ext, torch.amax(torch.sum(w, dim=w.ndim - d)))
-        self._ext_t = ext
+        self._ext_t = self._cap_extent()
         # uniform cell widths (dx, dy, dz) and the kernels' cap extent
         wu = []
         for d in (1, 2, 3):
@@ -143,6 +148,40 @@ class Radiation:
         # construction, and the last step's CG iterations per outer iteration
         self.host_reads = 0
         self.cg_iters = []
+
+    def _cap_extent(self, nshards: int = 1):
+        """The largest domain extent over the active dims; along the sharded
+        axis ``nshards`` windows of this radiation's widths (the JAX
+        package's rule, radiation.py:237-241)."""
+        ext = torch.zeros((), dtype=self.hyd.dtype, device=self.hyd.device)
+        for d in self.dims:
+            w = self.widths[d - 1]
+            s = torch.amax(torch.sum(w, dim=w.ndim - d))
+            if d == self._axis_d:
+                s = s * nshards
+            ext = torch.maximum(ext, s)
+        return ext
+
+    def enable_sharding(self, axis_d: int, nshards: int, widths):
+        """Step a sharded run's state from here on: ``widths`` are the
+        shards' cell widths (``parallel.mesh.Sharded`` fields), the cap
+        extent spans every shard, and the operator runs as tensor
+        operations (the JAX package gates its FLD kernels off under
+        sharding, radiation.py:261-263)."""
+        self._axis_d = axis_d
+        self._ext_t = self._cap_extent(nshards)
+        self.widths = widths
+        self.use_kernels = False
+
+    def _shift(self, E, d, sign):
+        """``ops.fld.shift``; along the sharded axis the wrapped plane is the
+        neighbour shard's boundary plane."""
+        return E.shift(d, sign) if d == self._axis_d else shift(E, d, sign)
+
+    def _edge_masks(self, a, d):
+        """``ops.fld.edge_masks``; along the sharded axis only the first and
+        last shard have a physical edge."""
+        return a.edge_masks(d) if d == self._axis_d else edge_masks(a, d)
 
     def _read(self, test) -> bool:
         """A loop test read back to the host (one device sync)."""
@@ -198,9 +237,21 @@ class Radiation:
             return self._kernel_operator(state, u, Er0, rho, rcv, T0, chi, dt, gh,
                                          with_iters)
 
+        # the tensor operator (the plain versions of fld_coeffs and fld_matvec)
+        with kernel_span("fld_coeffs", "plain", Er0.device):
+            matvec, diag_geo, b_ghost = self._tensor_operator(Er0, chi, dt, gh, ftiny)
+        return self._solve_coupled(state, u, Er0, rho, rcv, T0, dt, matvec, diag_geo,
+                                   b_ghost, with_iters)
+
+    def _tensor_operator(self, Er0, chi, dt, gh, ftiny):
+        """(matvec, diag_geo, b_ghost) of the operator from tensor
+        operations: the limited, capped diffusivity, the masked face
+        coefficients and the Jacobi diagonal."""
+        cfg = self.cfg
+
         def grad_mag(E):
-            return grad_norm([(shift(E, d, 1) - shift(E, d, -1)) / (2 * self.widths[d - 1])
-                              for d in self.dims])
+            return grad_norm([(self._shift(E, d, 1) - self._shift(E, d, -1))
+                              / (2 * self.widths[d - 1]) for d in self.dims])
 
         R = grad_mag(Er0) / (chi * torch.clamp_min(Er0, ftiny) + ftiny)
         lam = (2.0 + R) / (6.0 + 3.0 * R + R * R)  # Levermore-Pomraning
@@ -216,9 +267,9 @@ class Radiation:
         DH, DL, ZH, ZL = {}, {}, {}, {}
         for d in self.dims:
             w = self.widths[d - 1]
-            D_hi = 0.5 * (Dcell + shift(Dcell, d, 1))
-            D_lo = 0.5 * (Dcell + shift(Dcell, d, -1))
-            first, last = edge_masks(Dcell, d)
+            D_hi = 0.5 * (Dcell + self._shift(Dcell, d, 1))
+            D_lo = 0.5 * (Dcell + self._shift(Dcell, d, -1))
+            first, last = self._edge_masks(Dcell, d)
             lo_g, hi_g = gh.get(d, (None, None))
             if hi_g is not None:
                 D_hi = torch.where(last, Dcell, D_hi)
@@ -258,13 +309,13 @@ class Radiation:
             AL[d] = dt * (DL[d] * ZL[d] if ZL[d] is not None else DL[d])
 
         def matvec(E, sf):
-            out = (diag_geo + sf) * E
-            for d in self.dims:
-                out = out - (AH[d] * shift(E, d, 1) + AL[d] * shift(E, d, -1))
-            return out
+            with kernel_span("fld_matvec", "plain", E.device):
+                out = (diag_geo + sf) * E
+                for d in self.dims:
+                    out = out - (AH[d] * self._shift(E, d, 1) + AL[d] * self._shift(E, d, -1))
+                return out
 
-        return self._solve_coupled(state, u, Er0, rho, rcv, T0, dt, matvec, diag_geo,
-                                   b_ghost, with_iters)
+        return matvec, diag_geo, b_ghost
 
     def _kernel_operator(self, state, u, Er0, rho, rcv, T0, chi, dt, gh, with_iters):
         """The operator through the FLD kernels: one fld_coeffs launch per

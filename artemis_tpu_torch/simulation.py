@@ -9,8 +9,12 @@ viscosity/conduction, gray FLD radiation, the N-body system) and the
 driver on the requested device, starts from the problem generator or a
 restart checkpoint, and runs the evolution loop with the deck's outputs
 (``.hst`` history, ``hdf5`` field dumps, ``rst`` checkpoints, the N-body
-``.reb``/``.orb`` files).  Multi-device runs are not ported yet: they
-raise ``NotImplementedError`` naming ROADMAP Queue 1 item 11.
+``.reb``/``.orb`` files).  ``nshards > 1`` decomposes a single-level run
+along one axis (``<parthenon/mesh> shard_axis = auto | x1 | x2 | x3``) over
+``nshards`` devices (``parallel.mesh``): every shard on the CPU, one card
+each, or the shards named by ``shard_devices``.  Sharded refinement trees
+are not ported yet: they raise ``NotImplementedError`` naming ROADMAP Queue
+1 item 11b (``ShardedSMR``).
 """
 
 from __future__ import annotations
@@ -91,12 +95,10 @@ class Simulation:
         *,
         device,
         nshards: int = 1,
+        shard_devices: Optional[Sequence] = None,
         restart: Optional[str] = None,
         fused_stage: bool = True,
     ):
-        if nshards > 1:
-            raise NotImplementedError("multi-device runs are not ported yet "
-                                      "(ROADMAP Queue 1 item 11)")
         if is_path is None:
             is_path = os.path.exists(deck)
         pin = ParameterInput.from_file(deck) if is_path else ParameterInput.from_string(deck)
@@ -211,10 +213,32 @@ class Simulation:
                                                       fused=fused_stage)
 
         integrator = Integrator.make(pin.get_or_add_str("parthenon/time", "integrator", "rk2"))
+        self._problems = {}
+        self._srcs, self._omf, self._visc = srcs, omf, visc
         if refinement != "none":
+            if nshards > 1:
+                self._shard_axis(nshards, tree=True)
+                raise NotImplementedError("sharded refinement trees are not ported yet "
+                                          "(ROADMAP Queue 1 item 11b, ShardedSMR)")
             self.driver = self._smr_driver(pin, problem_name, integrator, gas_cfg, dust_cfg,
-                                           srcs, diffusion_factory, radiation_factory, omf,
-                                           fused_stage, visc)
+                                           diffusion_factory, radiation_factory, omf,
+                                           fused_stage)
+        elif nshards > 1:
+            from .parallel.mesh import ShardedDriver, make_device_mesh
+
+            devices = make_device_mesh(nshards, self.device, shard_devices)
+            # the global arrays (outputs, history, checkpoints) live on the
+            # first shard's device
+            self.device = devices[0]
+            self.driver = ShardedDriver(
+                self.grid, integrator, gas_cfg, dust_cfg, sources_factory=self._sources_on,
+                # each shard's custom fills from the problem on its own grid
+                # (the disk's ic caches then hold its window)
+                bc_factory=((lambda g: self._problem_on(g).bc_custom)
+                            if self.problem.bc_custom else None),
+                omf=omf, diffusion=diffusion_factory, axis=self._shard_axis(nshards),
+                radiation=radiation_factory, nbody=self.nbody, devices=devices,
+                dtype=self.dtype, fused_stage=fused_stage)
         else:
             self.driver = Driver(self.grid, integrator, gas_cfg, dust_cfg, sources=srcs,
                                  bc_custom=self.problem.bc_custom, omf=omf,
@@ -290,8 +314,56 @@ class Simulation:
             self.driver._ncycle = meta["ncycle"]
         return dict(time=meta["time"], dt=meta["dt"], ncycle=meta["ncycle"], restored=True)
 
-    def _smr_driver(self, pin, problem_name, integrator, gas_cfg, dust_cfg, srcs,
-                    diffusion_factory, radiation_factory, omf, fused_stage, visc):
+    def _problem_on(self, g):
+        """The problem generator built on grid ``g`` (a patch's or a shard's),
+        once per live grid: an entry goes with its grid, so a grid made
+        after a regrid freed another cannot take the freed one's problem
+        through a reused id."""
+        import weakref
+
+        if id(g) not in self._problems:
+            self._problems[id(g)] = build_problem(
+                self.pin.get_str("artemis", "problem"),
+                ParameterInput.from_string(repr(self.pin)), g, self.gas_cfg, self.dust_cfg)
+            weakref.finalize(g, self._problems.pop, id(g), None)
+        return self._problems[id(g)]
+
+    def _sources_on(self, g):
+        """The deck's sources built on grid ``g`` (N-body gravity and cooling
+        on the shared particles), with the problem's own where the problem
+        has any (a spawned tile needs no prims of its own)."""
+        if g is self.grid:
+            return self._srcs
+        ss = sources_from_input(self.pin, g, self.gas_cfg, self.dust_cfg, self.constants,
+                                nbody_sys=self.nbody)
+        if self.problem.sources:
+            ss += list(self._problem_on(g).sources)
+        for s in ss:
+            if isinstance(s, Gravity) and s.gtype == "binary":
+                s.omf = self._omf
+        _damp_to_visc(ss, self._visc)
+        return ss
+
+    def _shard_axis(self, nshards, tree=False):
+        """The sharded axis (<parthenon/mesh> shard_axis): ``auto`` takes x3,
+        else x2, else x1, the first whose extent splits into shards of two
+        cells or more, and on a refinement tree is periodic too
+        (artemis_tpu/simulation.py:231-254, :297-345)."""
+        axis_key = self.pin.get_or_add_str("parthenon/mesh", "shard_axis", "auto")
+        if axis_key != "auto":
+            return {"x1": 1, "x2": 2, "x3": 3}[axis_key]
+        for d in (3, 2, 1):
+            nd = self.grid.nx[d - 1]
+            if (nd > 1 and nd % nshards == 0 and nd // nshards >= 2
+                    and (not tree or self.grid.bc[d - 1] == ("periodic", "periodic"))):
+                return d
+        if tree:
+            raise ValueError(f"sharded refinement needs a periodic axis divisible into "
+                             f"{nshards} shards")
+        raise ValueError(f"no grid axis divisible into {nshards} shards")
+
+    def _smr_driver(self, pin, problem_name, integrator, gas_cfg, dust_cfg,
+                    diffusion_factory, radiation_factory, omf, fused_stage):
         """The static or adaptive refinement tree
         (artemis_tpu/simulation.py:223-296), with the run's fluids and its
         N-body system: every node gets the deck's sources (N-body gravity
@@ -303,39 +375,10 @@ class Simulation:
         prims).  ``<artemis> amr_user`` hands the problem's own criterion
         to the tree.  The tree's stage kernels run on the card
         (``fused_stage``)."""
-        import weakref
-
         from .amr import SMRDriver
 
-        # one problem per live grid: an entry goes with its grid, so a grid
-        # made after a regrid freed another cannot take the freed one's
-        # problem through a reused id
-        problems = {}
-
-        def problem_on(g):
-            if id(g) not in problems:
-                problems[id(g)] = build_problem(
-                    problem_name, ParameterInput.from_string(repr(pin)), g, gas_cfg, dust_cfg)
-                weakref.finalize(g, problems.pop, id(g), None)
-            return problems[id(g)]
-
-        def src_factory(g):
-            if g is self.grid:
-                return srcs
-            ss = sources_from_input(pin, g, gas_cfg, dust_cfg, self.constants,
-                                    nbody_sys=self.nbody)
-            # the problem's own sources on the patch grid, where the root's
-            # problem has any (a spawned tile needs no prims of its own)
-            if self.problem.sources:
-                ss += list(problem_on(g).sources)
-            for s in ss:
-                if isinstance(s, Gravity) and s.gtype == "binary":
-                    s.omf = omf
-            _damp_to_visc(ss, visc)
-            return ss
-
         drv = SMRDriver(self.grid, integrator, gas_cfg, pin, device=self.device,
-                        dtype=self.dtype, dust_cfg=dust_cfg, sources_factory=src_factory,
+                        dtype=self.dtype, dust_cfg=dust_cfg, sources_factory=self._sources_on,
                         diffusion_factory=diffusion_factory,
                         bc_custom=self.problem.bc_custom, omf=omf,
                         radiation_factory=radiation_factory,
@@ -347,7 +390,7 @@ class Simulation:
                                  "(amr_user = true needs the problem generator to provide "
                                  "Problem.amr_criterion)")
             drv.user_criterion = self.problem.amr_criterion
-        drv._fine_prims = [dict(problem_on(nd.grid).prims) for nd in drv.smr.nodes[1:]]
+        drv._fine_prims = [dict(self._problem_on(nd.grid).prims) for nd in drv.smr.nodes[1:]]
         return drv
 
     def _set_radiation_ic_edges(self):

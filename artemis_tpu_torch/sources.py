@@ -816,7 +816,11 @@ class NBodyGravity(SourceBase):
     nbody_gravity.hpp:26-221).  The particles arrive in ``ctx`` each stage;
     the reduced [npart, 7] force rows (torch sums over the interior, no
     atomics, so a rerun on the card reproduces them bit for bit) are
-    returned in ``ctx["pforce"]`` for the host-side coupling kick.
+    returned in ``ctx["pforce"]`` for the host-side coupling kick.  On a
+    sharded run each shard's source sums its own cells, and
+    ``parallel.mesh.ShardedDriver`` adds the shards' rows in shard order
+    before the one host read per stage (the JAX package's ``psum`` hook,
+    artemis_tpu/sources.py:800-803).
     """
 
     needs_ctx = True

@@ -122,9 +122,12 @@ line is printed:
 14. bench.py's production AMR shape (512x512x64 root over [-4, 4]^2 and a
    256x256x64 patch; the shapes differ, so one K5b launch per node):
    zone-cycles/s over every level, launch counts and the density L2 gate
-   of bench.py:185 (run after phase 15: its tree, and phase 26's tiled
-   one, are set up on a second thread while rad_shock's host-bound loop
-   runs, the disk IC being numpy that releases the interpreter lock);
+   of bench.py:185 (run after phase 15: its tree, phase 26's tiled one
+   and phase 25's straight AMR restart run are set up on a second thread
+   while rad_shock's host-bound loop runs, the disk IC being numpy that
+   releases the interpreter lock; likewise the kernel and plain sims of
+   phases 11 and 13 are set up on two threads while nvcc builds the
+   kernels in phase 2, and all are built before phase 3 starts);
 15. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
    tests/test_radiation.py's test_rad_shock;
 16. the six-face launch with alpha viscosity (K5a) at disk_sph's
@@ -243,7 +246,29 @@ line is printed:
    1-5, the end states within 1e-10 of the plain path's, zone-cycles/s;
    tests/test_amr.py's moving cylindrical blast (TwoLevelSMR) for two
    chunks of 5 cycles: the patch moves and the composite mass drifts
-   <= 1e-12.
+   <= 1e-12;
+28. sharded single-level runs through ``Simulation(..., nshards=4,
+   shard_devices=["cuda:0"] * 4)`` (four per-shard drivers on the one card,
+   slab exchange): the flagship on x3 slabs of 256x256x32 for 6 cycles,
+   K2 launched 4 times per stage on the tiled body and K1 never, its end
+   state against phase 5's unsharded K1 run after the same cycles (bitwise
+   or within 1e-5 abs, which is printed), then 10 timed cycles; disk_sph at
+   256x64x64 f32 on x3 slabs for 4 cycles, K4 4 times per stage and K3
+   never, against phase 7's unsharded K3 run after the same cycles (1e-4 of
+   each field's scale), then 20 timed cycles and L2 vs IC <= 6e-3;
+   rad_shock on x1 slabs for 30 cycles against phase 15's unsharded run at
+   cycle 30 (1e-9 of each field's maximum); tests/test_parallel.py's 16^3
+   N-body deck to t = 0.5 against its unsharded card run (gas 1e-11,
+   particles 1e-12); the zone-cycles/s of both timed cells beside their
+   unsharded rates and the share of the cycle that the exchanged fills
+   take (recorded, not gated);
+29. profiling (``artemis_tpu_torch.profiling``) on the sims of phases 7 and
+   11 before they are freed: ``phase_table`` and ``kernel_table`` on
+   disk_sph at 256x64x64 (K3) and on the RHD cell at 512x512x64 (K5b, K7,
+   K8), both tables printed; every kernel_table row a kernel (none
+   ``plain``) and each kernel's rows counting exactly the launches its
+   wrapper's counter counted over the same cycles; each kernel's ms per
+   launch printed beside the phase's own CUDA-event time (no gate).
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
@@ -577,7 +602,7 @@ def phase_linwave(torch):
 FLAGSHIP = (256, 256, 128)
 
 
-def flagship_sim(dtype, data, fused=True):
+def flagship_sim(dtype, data, fused=True, **kw):
     from artemis_tpu_torch import Simulation
 
     nx, ny, nz = FLAGSHIP
@@ -585,7 +610,7 @@ def flagship_sim(dtype, data, fused=True):
             f"parthenon/mesh/nx3={nz}", "parthenon/mesh/nghost=2",
             "problem/amp=1.0e-3", "gas/reconstruct=plm", "gas/riemann=hllc",
             "parthenon/time/integrator=rk2", f"artemis/precision={dtype}"]
-    return Simulation(DECK, args, data, device=DEVICE, fused_stage=fused)
+    return Simulation(DECK, args, data, device=DEVICE, fused_stage=fused, **kw)
 
 
 def warm_up(sim, ncycles):
@@ -779,6 +804,8 @@ def phase_flagship(torch, smi):
         print(f"flagship f32 after 6 cycles: kernel vs plain max abs diff {err:.3e} "
               f"(tol {F32_TOL:g})")
         res["flagship_6cycle_err"] = err
+        # phase 28 holds the sharded flagship to this state
+        res["shard_ref"] = shard_ref(ksim)
         del plain_sim, ksim
         torch.cuda.empty_cache()
 
@@ -881,13 +908,13 @@ def curv_case(torch, coords, rsolver, recon, dtype, visc, cond, grav, rf, full, 
     return cs, w, u
 
 
-def disk_setup(torch, dtype, nx, data, fused=True, extra=()):
+def disk_setup(torch, dtype, nx, data, fused=True, extra=(), **kw):
     """disk_sph through the user entry point at ``nx``."""
     from artemis_tpu_torch import Simulation
 
     args = [f"parthenon/mesh/nx1={nx[0]}", f"parthenon/mesh/nx2={nx[1]}",
             f"parthenon/mesh/nx3={nx[2]}", f"artemis/precision={dtype}", *extra]
-    return Simulation(DISK["disk_sph"], args, data, device=DEVICE, fused_stage=fused)
+    return Simulation(DISK["disk_sph"], args, data, device=DEVICE, fused_stage=fused, **kw)
 
 
 def compare_curv(torch, cs, w, u, tol, padded=False):
@@ -1208,7 +1235,12 @@ def phase_disk(torch, smi):
         print(f"disk_sph f32 after 4 cycles: kernel vs plain max |diff| / max(1, field max) "
               f"{res['end_rel_err']:.3e} (bound 1e-4), t {ksim.tm.time:.9e} vs "
               f"{plain_sim.tm.time:.9e}")
-        del plain_sim, ksim
+        # phase 28 holds the sharded disk to this state
+        res["shard_ref"] = shard_ref(ksim)
+        del plain_sim
+        res["tables"] = profile_tables(torch, smi, ksim, "disk_sph",
+                                       {"stage_curv_gather (tiled)": res["ms"]})
+        del ksim
         torch.cuda.empty_cache()
 
         # one float64 kernel run
@@ -1583,186 +1615,190 @@ def fld_inputs(torch, rad, state, dt_value, ghosts=None):
             cfg.c_code, rad._ext, flags), sf.reshape(shp).contiguous()
 
 
-def phase_rhd(torch, smi):
+def phase_rhd(torch, smi, built, built_plain):
+    """``built``, ``built_plain``: the kernel and plain sims and their set-up
+    seconds (``timed_build``, made beside the build)."""
     from artemis_tpu_torch import bc as bc_mod
     from artemis_tpu_torch.ops import fld as FLD
     from artemis_tpu_torch.ops import stage_curv as SC
 
     res = {}
     ncell = RHD_CELL[0] * RHD_CELL[1] * RHD_CELL[2]
-    with tempfile.TemporaryDirectory() as data:
-        t0 = time.perf_counter()
-        sim = rhd_sim(data)
-        res["setup_s"] = time.perf_counter() - t0
-        drv, rad = sim.driver, sim.driver.radiation
-        check(drv.stage_kernel == "stage_curv (gather6)" and rad.use_kernels
-              and all(lo is not None and hi is not None
-                      for lo, hi in rad._edge_dirichlet.values())
-              and len(rad._edge_dirichlet) == 3,
-              f"RHD cell took {drv.stage_kernel}, radiation kernels {rad.use_kernels}, "
-              f"Dirichlet edges {rad._edge_dirichlet}")
-        print(f"RHD cell {RHD_CELL} f32: set-up {res['setup_s']:.1f} s, stage kernel "
-              f"{drv.stage_kernel}, radiation through fld_coeffs + fld_matvec")
-        iters = []
+    sim, res["setup_s"] = built
+    del built
+    drv, rad = sim.driver, sim.driver.radiation
+    check(drv.stage_kernel == "stage_curv (gather6)" and rad.use_kernels
+          and all(lo is not None and hi is not None
+                  for lo, hi in rad._edge_dirichlet.values())
+          and len(rad._edge_dirichlet) == 3,
+          f"RHD cell took {drv.stage_kernel}, radiation kernels {rad.use_kernels}, "
+          f"Dirichlet edges {rad._edge_dirichlet}")
+    print(f"RHD cell {RHD_CELL} f32: set-up {res['setup_s']:.1f} s, stage kernel "
+          f"{drv.stage_kernel}, radiation through fld_coeffs + fld_matvec")
+    iters = []
 
-        def record(state, tm):
-            iters.append(list(rad.cg_iters))
+    def record(state, tm):
+        iters.append(list(rad.cg_iters))
 
-        # the main path: 2 warm-up + RHD_CYCLES timed cycles, counting launches
-        reads0 = rad.host_reads
-        SC.stage_curv_launches = FLD.fld_coeffs_launches = FLD.fld_matvec_launches = 0
-        FLD.fld_coeffs_tiled_launches = 0
-        sim.tm.nlim = 2
-        sim.run(extra_observers=[record])
-        check(sim.status == "complete" and sim.tm.ncycle == 2, "RHD warm-up did not complete")
-        res["kernel_zcps"] = run_cycles(torch, sim, RHD_CYCLES, observers=[record])
-        launches = (SC.stage_curv_launches, FLD.fld_coeffs_launches, FLD.fld_matvec_launches)
-        ncyc = sim.tm.ncycle
-        matvecs = sum(1 + it for its in iters for it in its)
-        check(len(iters) == ncyc and launches == (2 * ncyc, ncyc, matvecs)
-              and FLD.fld_coeffs_tiled_launches == ncyc,
-              f"RHD cell: launches (stage_curv, fld_coeffs, fld_matvec) {launches} for "
-              f"{ncyc} cycles ({FLD.fld_coeffs_tiled_launches} fld_coeffs on the tiled body), "
-              f"{matvecs} matvecs expected from the CG counts")
-        res["launches"] = launches
-        res["cg_iters"] = iters
-        outers = [len(its) for its in iters]
-        res["cg_per_outer"] = sum(sum(its) for its in iters) / sum(outers)
-        res["reads_per_cycle"] = 1 + (rad.host_reads - reads0) / ncyc
-        res["l2"] = l2_vs_ic(torch, sim)
-        fin = all(bool(torch.isfinite(t).all()) for t in
-                  (sim.state["gas"]["u"], sim.state["gas"]["w"], sim.state["rad"]["Er"]))
-        check(fin and res["l2"] <= 3e-4,
-              f"RHD cell after {ncyc} cycles: L2 vs IC {res['l2']:.3e} > 3e-4 or not finite")
-        print(f"RHD f32 kernel path: {RHD_CYCLES} cycles, {res['kernel_zcps']:.6e} "
-              f"zone-cycles/s, dt {sim.tm.dt:.6e}, L2 vs IC {res['l2']:.3e} (gate 3e-4) [{smi}]")
-        print(f"RHD launches in {ncyc} cycles: stage_curv {launches[0]}, fld_coeffs "
-              f"{launches[1]} (every one on the tiled body), fld_matvec {launches[2]}; Newton "
-              f"outers per cycle "
-              f"{sum(outers) / ncyc:.2f}, CG iterations per outer {res['cg_per_outer']:.2f} "
-              f"(per cycle: {iters}); host read-backs per cycle {res['reads_per_cycle']:.2f}")
+    # the main path: 2 warm-up + RHD_CYCLES timed cycles, counting launches
+    reads0 = rad.host_reads
+    SC.stage_curv_launches = FLD.fld_coeffs_launches = FLD.fld_matvec_launches = 0
+    FLD.fld_coeffs_tiled_launches = 0
+    sim.tm.nlim = 2
+    sim.run(extra_observers=[record])
+    check(sim.status == "complete" and sim.tm.ncycle == 2, "RHD warm-up did not complete")
+    res["kernel_zcps"] = run_cycles(torch, sim, RHD_CYCLES, observers=[record])
+    launches = (SC.stage_curv_launches, FLD.fld_coeffs_launches, FLD.fld_matvec_launches)
+    ncyc = sim.tm.ncycle
+    matvecs = sum(1 + it for its in iters for it in its)
+    check(len(iters) == ncyc and launches == (2 * ncyc, ncyc, matvecs)
+          and FLD.fld_coeffs_tiled_launches == ncyc,
+          f"RHD cell: launches (stage_curv, fld_coeffs, fld_matvec) {launches} for "
+          f"{ncyc} cycles ({FLD.fld_coeffs_tiled_launches} fld_coeffs on the tiled body), "
+          f"{matvecs} matvecs expected from the CG counts")
+    res["launches"] = launches
+    res["cg_iters"] = iters
+    outers = [len(its) for its in iters]
+    res["cg_per_outer"] = sum(sum(its) for its in iters) / sum(outers)
+    res["reads_per_cycle"] = 1 + (rad.host_reads - reads0) / ncyc
+    res["l2"] = l2_vs_ic(torch, sim)
+    fin = all(bool(torch.isfinite(t).all()) for t in
+              (sim.state["gas"]["u"], sim.state["gas"]["w"], sim.state["rad"]["Er"]))
+    check(fin and res["l2"] <= 3e-4,
+          f"RHD cell after {ncyc} cycles: L2 vs IC {res['l2']:.3e} > 3e-4 or not finite")
+    print(f"RHD f32 kernel path: {RHD_CYCLES} cycles, {res['kernel_zcps']:.6e} "
+          f"zone-cycles/s, dt {sim.tm.dt:.6e}, L2 vs IC {res['l2']:.3e} (gate 3e-4) [{smi}]")
+    print(f"RHD launches in {ncyc} cycles: stage_curv {launches[0]}, fld_coeffs "
+          f"{launches[1]} (every one on the tiled body), fld_matvec {launches[2]}; Newton "
+          f"outers per cycle "
+          f"{sum(outers) / ncyc:.2f}, CG iterations per outer {res['cg_per_outer']:.2f} "
+          f"(per cycle: {iters}); host read-backs per cycle {res['reads_per_cycle']:.2f}")
 
-        # per-launch times of the three kernels on this state, with their
-        # plain versions, bounds and the halo checks
-        cs = drv._curv
-        u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
-        u1 = u.clone()
-        dt = torch.full((), sim.tm.dt, dtype=u.dtype, device=DEVICE)
-        tnow = sim.tm.time
-        calls = itertools.cycle([(0.0, 1.0, 1.0), (0.5, 0.5, 0.5)])
+    # per-launch times of the three kernels on this state, with their
+    # plain versions, bounds and the halo checks
+    cs = drv._curv
+    u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
+    u1 = u.clone()
+    dt = torch.full((), sim.tm.dt, dtype=u.dtype, device=DEVICE)
+    tnow = sim.tm.time
+    calls = itertools.cycle([(0.0, 1.0, 1.0), (0.5, 0.5, 0.5)])
 
-        def kern():
-            g0, g1, b = next(calls)
-            return SC.stage_curv(cs, w, u, u1, g0, g1, b, dt, tnow, False)
+    def kern():
+        g0, g1, b = next(calls)
+        return SC.stage_curv(cs, w, u, u1, g0, g1, b, dt, tnow, False)
 
-        def plain():
-            g0, g1, b = next(calls)
-            return SC.stage_curv_reference(cs, w, u, u1, g0, g1, b, dt, tnow, False)
+    def plain():
+        g0, g1, b = next(calls)
+        return SC.stage_curv_reference(cs, w, u, u1, g0, g1, b, dt, tnow, False)
 
-        check(cs.tiled("gather6"), "RHD cell: the six-face launch does not take the tiled body")
-        res["ms"] = time_launches(torch, kern, 20)
-        with SC._percell_body():
-            res["percell_ms"] = time_launches(torch, kern, 10)
-        res["plain_ms"] = time_launches(torch, plain, 2)
-        nblk = cs.dtden_blocks(True)
-        nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*cs.strips.values(), *cs.rows)
-                  + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
-        flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
-            cs, w, u, u1, *g, dt, tnow, False)) for g in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))) / 2
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
-        og = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
-        with SC._percell_body():
-            oc = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
-        op = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
-        ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
-        torch.cuda.synchronize()
-        check(same_stage(torch, og, oc), "RHD cell: tiled and per-cell bodies differ")
-        check(same_stage(torch, og, op), "RHD cell: six-face and padded halo differ")
-        ug, wg = og[:2]
-        res["stage_err"] = max(float((ug - ur).abs().max()), float((wg - wr).abs().max()))
-        check(res["stage_err"] <= DISK_F32_TOL,
-              f"RHD stage kernel vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
-        w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
-        res["padded_ms"] = time_launches(torch, lambda: SC._launch(
-            cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, "padded"), 20)
-        res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
-            cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True), 10)
-        res["regs"] = {body: ptxas_usage(torch, torch.float32, entry)
-                       for body, entry in KERNEL_ENTRIES}
-        print(f"RHD f32 stage per launch: six-face kernel (K5b) on the tiled body "
-              f"{res['ms']:.4f} ms, on the per-cell body {res['percell_ms']:.4f} ms "
-              f"({res['percell_ms'] / res['ms']:.2f}x), padded halo {res['padded_ms']:.4f} ms "
-              f"({res['padded_stage_ms']:.4f} ms with the ic fill), plain "
-              f"{res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} "
-              f"GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; tiled == per-cell "
-              f"== padded bitwise, vs plain {res['stage_err']:.3e}; {regs_text(res['regs'])} "
-              f"[{smi}]")
-        del og, oc, op, ug, wg, ur, wr, w_pad
+    check(cs.tiled("gather6"), "RHD cell: the six-face launch does not take the tiled body")
+    res["ms"] = time_launches(torch, kern, 20)
+    with SC._percell_body():
+        res["percell_ms"] = time_launches(torch, kern, 10)
+    res["plain_ms"] = time_launches(torch, plain, 2)
+    nblk = cs.dtden_blocks(True)
+    nbytes = (tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*cs.strips.values(), *cs.rows)
+              + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+    flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
+        cs, w, u, u1, *g, dt, tnow, False)) for g in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5))) / 2
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    og = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+    with SC._percell_body():
+        oc = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+    op = SC.stage_curv(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True)
+    ur, wr, _ = SC.stage_curv_reference(cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False)
+    torch.cuda.synchronize()
+    check(same_stage(torch, og, oc), "RHD cell: tiled and per-cell bodies differ")
+    check(same_stage(torch, og, op), "RHD cell: six-face and padded halo differ")
+    ug, wg = og[:2]
+    res["stage_err"] = max(float((ug - ur).abs().max()), float((wg - wr).abs().max()))
+    check(res["stage_err"] <= DISK_F32_TOL,
+          f"RHD stage kernel vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    res["padded_ms"] = time_launches(torch, lambda: SC._launch(
+        cs, w_pad, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, "padded"), 20)
+    res["padded_stage_ms"] = time_launches(torch, lambda: SC.stage_curv(
+        cs, w, u, u1, 0.5, 0.5, 0.5, dt, tnow, False, padded=True), 10)
+    res["regs"] = {body: ptxas_usage(torch, torch.float32, entry)
+                   for body, entry in KERNEL_ENTRIES}
+    print(f"RHD f32 stage per launch: six-face kernel (K5b) on the tiled body "
+          f"{res['ms']:.4f} ms, on the per-cell body {res['percell_ms']:.4f} ms "
+          f"({res['percell_ms'] / res['ms']:.2f}x), padded halo {res['padded_ms']:.4f} ms "
+          f"({res['padded_stage_ms']:.4f} ms with the ic fill), plain "
+          f"{res['plain_ms']:.4f} ms; bound {nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} "
+          f"GFLOP -> {res['bound_ms']:.4f} ms, {res['bound_by']}-bound; tiled == per-cell "
+          f"== padded bitwise, vs plain {res['stage_err']:.3e}; {regs_text(res['regs'])} "
+          f"[{smi}]")
+    del og, oc, op, ug, wg, ur, wr, w_pad
 
-        args, sf = fld_inputs(torch, rad, sim.state, sim.tm.dt)
-        E = args[0]
-        res.update(coeffs_timings(torch, args))
-        res["coeffs_plain_ms"] = time_launches(torch, lambda: FLD.fld_coeffs_reference(*args), 4)
-        A, dg3, Dc = FLD.fld_coeffs_reference(*args)
-        res["matvec_ms"] = time_launches(torch, lambda: FLD.fld_matvec(E, A, dg3, sf), 20)
-        res["matvec_plain_ms"] = time_launches(
-            torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf), 4)
-        res.update(matvec_library(torch, E, A, dg3, sf))
-        pairs = fld_pairs(torch, *args, sf)
-        res["coeffs_err"] = errs(pairs[:3])
-        res["matvec_err"] = errs(pairs[3:])
-        check(res["coeffs_err"][1] <= FLD_TOL["float32"]
-              and res["matvec_err"][1] <= FLD_TOL["float32"],
-              f"RHD FLD kernels vs plain: relative {res['coeffs_err'][1]:.3e}, "
-              f"{res['matvec_err'][1]:.3e} > {FLD_TOL['float32']:g}")
-        res["matvec_bound_ms"], res["matvec_bound_by"] = bound(
-            tensor_bytes(E, A, dg3, sf, E),
-            count_flops(torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf)))
-        print(f"RHD f32 fld_coeffs (K7) per launch: kernel on the tiled body "
-              f"{res['coeffs_ms']:.4f} ms, on the per-cell body {res['coeffs_percell_ms']:.4f} ms "
-              f"({res['coeffs_percell_ms'] / res['coeffs_ms']:.2f}x; bitwise equal), plain "
-              f"{res['coeffs_plain_ms']:.4f} ms, bound {res['coeffs_bound_ms']:.4f} ms "
-              f"({res['coeffs_bound_by']}); vs plain abs {res['coeffs_err'][0]:.3e} rel "
-              f"{res['coeffs_err'][1]:.3e}; {regs_text(res['coeffs_regs'])} [{smi}]")
-        print(f"RHD f32 fld_matvec (K8) per launch: kernel {res['matvec_ms']:.4f} ms, plain "
-              f"{res['matvec_plain_ms']:.4f} ms, one CSR SpMV (torch.mv, cuSPARSE; its matrix "
-              f"built outside the timing, {res['library_nnz']} entries) "
-              f"{res['matvec_library_ms']:.4f} ms, bound {res['matvec_bound_ms']:.4f} ms "
-              f"({res['matvec_bound_by']}); vs plain abs {res['matvec_err'][0]:.3e} rel "
-              f"{res['matvec_err'][1]:.3e}; the SpMV vs the kernel rel "
-              f"{res['library_rel_err']:.3e} [{smi}]")
-        print("  " + smi_clocks())
-        del args, sf, E, A, dg3, Dc, pairs, u1, cs, u, w
-        torch.cuda.empty_cache()
+    args, sf = fld_inputs(torch, rad, sim.state, sim.tm.dt)
+    E = args[0]
+    res.update(coeffs_timings(torch, args))
+    res["coeffs_plain_ms"] = time_launches(torch, lambda: FLD.fld_coeffs_reference(*args), 4)
+    A, dg3, Dc = FLD.fld_coeffs_reference(*args)
+    res["matvec_ms"] = time_launches(torch, lambda: FLD.fld_matvec(E, A, dg3, sf), 20)
+    res["matvec_plain_ms"] = time_launches(
+        torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf), 4)
+    res.update(matvec_library(torch, E, A, dg3, sf))
+    pairs = fld_pairs(torch, *args, sf)
+    res["coeffs_err"] = errs(pairs[:3])
+    res["matvec_err"] = errs(pairs[3:])
+    check(res["coeffs_err"][1] <= FLD_TOL["float32"]
+          and res["matvec_err"][1] <= FLD_TOL["float32"],
+          f"RHD FLD kernels vs plain: relative {res['coeffs_err'][1]:.3e}, "
+          f"{res['matvec_err'][1]:.3e} > {FLD_TOL['float32']:g}")
+    res["matvec_bound_ms"], res["matvec_bound_by"] = bound(
+        tensor_bytes(E, A, dg3, sf, E),
+        count_flops(torch, lambda: FLD.fld_matvec_reference(E, A, dg3, sf)))
+    print(f"RHD f32 fld_coeffs (K7) per launch: kernel on the tiled body "
+          f"{res['coeffs_ms']:.4f} ms, on the per-cell body {res['coeffs_percell_ms']:.4f} ms "
+          f"({res['coeffs_percell_ms'] / res['coeffs_ms']:.2f}x; bitwise equal), plain "
+          f"{res['coeffs_plain_ms']:.4f} ms, bound {res['coeffs_bound_ms']:.4f} ms "
+          f"({res['coeffs_bound_by']}); vs plain abs {res['coeffs_err'][0]:.3e} rel "
+          f"{res['coeffs_err'][1]:.3e}; {regs_text(res['coeffs_regs'])} [{smi}]")
+    print(f"RHD f32 fld_matvec (K8) per launch: kernel {res['matvec_ms']:.4f} ms, plain "
+          f"{res['matvec_plain_ms']:.4f} ms, one CSR SpMV (torch.mv, cuSPARSE; its matrix "
+          f"built outside the timing, {res['library_nnz']} entries) "
+          f"{res['matvec_library_ms']:.4f} ms, bound {res['matvec_bound_ms']:.4f} ms "
+          f"({res['matvec_bound_by']}); vs plain abs {res['matvec_err'][0]:.3e} rel "
+          f"{res['matvec_err'][1]:.3e}; the SpMV vs the kernel rel "
+          f"{res['library_rel_err']:.3e} [{smi}]")
+    print("  " + smi_clocks())
+    del args, sf, E, A, dg3, Dc, pairs, u1, cs, u, w
+    torch.cuda.empty_cache()
 
-        # the cycle's split: the unprofiled cycle against the device's busy
-        # time under torch.profiler
-        cycle_ms = 1e3 * ncell / res["kernel_zcps"]
-        kern_ms = (2 * res["ms"] + res["coeffs_ms"]
-                   + res["matvec_ms"] * launches[2] / ncyc)
-        res["profile"] = profile_cycles(torch, sim, 3)
-        res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
-                             if res["profile"] else None)
-        print(f"RHD f32 cycle (unprofiled): {cycle_ms:.4f} ms; the three kernels "
-              f"{kern_ms:.4f} ms of it ({100 * kern_ms / cycle_ms:.1f}%); device idle "
-              + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
-                 else "not measured"))
-        del sim, drv, rad
-        torch.cuda.empty_cache()
+    # the cycle's split: the unprofiled cycle against the device's busy
+    # time under torch.profiler
+    cycle_ms = 1e3 * ncell / res["kernel_zcps"]
+    kern_ms = (2 * res["ms"] + res["coeffs_ms"]
+               + res["matvec_ms"] * launches[2] / ncyc)
+    res["profile"] = profile_cycles(torch, sim, 3)
+    res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
+                         if res["profile"] else None)
+    print(f"RHD f32 cycle (unprofiled): {cycle_ms:.4f} ms; the three kernels "
+          f"{kern_ms:.4f} ms of it ({100 * kern_ms / cycle_ms:.1f}%); device idle "
+          + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
+             else "not measured"))
+    res["tables"] = profile_tables(torch, smi, sim, "RHD", {
+        "stage_curv_gather6 (tiled)": res["ms"], "fld_coeffs (tiled)": res["coeffs_ms"],
+        "fld_matvec (per-cell)": res["matvec_ms"]})
+    del sim, drv, rad
+    torch.cuda.empty_cache()
 
-        # the plain path through the same entry point
-        psim = rhd_sim(data, fused=False)
-        check(psim.driver.stage_kernel == "none" and not psim.driver.radiation.use_kernels,
-              "plain RHD run took a kernel")
-        warm_up(psim, 1)
-        res["plain_zcps"] = run_cycles(torch, psim, 2)
-        l2p = l2_vs_ic(torch, psim)
-        check(bool(torch.isfinite(psim.state["rad"]["Er"]).all()) and l2p <= 3e-4,
-              f"plain RHD run: L2 {l2p:.3e} or not finite")
-        print(f"RHD f32 plain path: 2 cycles, {res['plain_zcps']:.6e} zone-cycles/s, "
-              f"L2 vs IC {l2p:.3e} [{smi}]")
-        del psim
-        torch.cuda.empty_cache()
+    # the plain path through the same entry point
+    psim = built_plain[0]
+    del built_plain
+    check(psim.driver.stage_kernel == "none" and not psim.driver.radiation.use_kernels,
+          "plain RHD run took a kernel")
+    warm_up(psim, 1)
+    res["plain_zcps"] = run_cycles(torch, psim, 2)
+    l2p = l2_vs_ic(torch, psim)
+    check(bool(torch.isfinite(psim.state["rad"]["Er"]).all()) and l2p <= 3e-4,
+          f"plain RHD run: L2 {l2p:.3e} or not finite")
+    print(f"RHD f32 plain path: 2 cycles, {res['plain_zcps']:.6e} zone-cycles/s, "
+          f"L2 vs IC {l2p:.3e} [{smi}]")
+    del psim
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1933,188 +1969,189 @@ def amr_main_path(torch, sim, ncycles):
     return out
 
 
-def phase_amr(torch, smi):
+def phase_amr(torch, smi, built, built_plain):
     """The equal-shape AMR RHD cell: the deck as written at a 256x256x64
     root, whose patch is 256x256x64 too, so one K6 launch with N = 2
-    advances both nodes per RK stage."""
+    advances both nodes per RK stage.  ``built``, ``built_plain``: its
+    kernel and plain sims and their set-up seconds (made beside the
+    build)."""
     from artemis_tpu_torch import bc as bc_mod
     from artemis_tpu_torch.ops import stage_curv as SC
 
     res = {}
-    with tempfile.TemporaryDirectory() as data:
-        t0 = time.perf_counter()
-        sim = amr_sim(data, AMR_CELL, 2.0)
-        res["setup_s"] = time.perf_counter() - t0
-        smr = sim.driver.smr
-        nodes = smr.nodes
-        check(len(nodes) == 2 and nodes[1].grid.nx == nodes[0].grid.nx and smr._batched
-              and sim.driver.stage_kernel == "stage_curv_batched (2 nodes, gather6)"
-              and all(nd.radiation.use_kernels for nd in nodes),
-              f"AMR cell: {len(nodes)} nodes {[nd.grid.nx for nd in nodes]}, stage kernel "
-              f"{sim.driver.stage_kernel}")
-        print(f"AMR cell root {AMR_CELL} + patch {nodes[1].grid.nx} at {nodes[1].lo} f32: "
-              f"set-up {res['setup_s']:.1f} s, stage kernel {sim.driver.stage_kernel}, "
-              "radiation through fld_coeffs + fld_matvec on each node")
-        m = amr_main_path(torch, sim, AMR_CYCLES)
-        ncyc, launches = m["ncyc"], m["launches"]
-        check(launches["stage_curv_batched"] == 2 * ncyc and launches["stage_curv"] == 0,
-              f"AMR cell: {launches} for {ncyc} rk2 cycles (K6 twice per cycle expected)")
-        res.update(m)
-        print(f"AMR cell f32 kernel path: {AMR_CYCLES} cycles, {m['zcps']:.6e} zone-cycles/s "
-              f"over all {m['zones']} zones ({m['root_zcps']:.6e} root-only, evolve's count), "
-              f"dt {sim.tm.dt:.6e}, root density L2 vs IC {m['l2']:.3e} (gate 3e-4) [{smi}]")
-        print(f"AMR cell launches in {ncyc} cycles: {launches}; CG iterations per outer by "
-              f"node {[round(c, 2) for c in m['cg_per_outer']]} (per cycle and node: "
-              f"{m['iters']}); host read-backs per cycle {m['reads_per_cycle']:.2f}")
+    sim, res["setup_s"] = built
+    del built
+    smr = sim.driver.smr
+    nodes = smr.nodes
+    check(len(nodes) == 2 and nodes[1].grid.nx == nodes[0].grid.nx and smr._batched
+          and sim.driver.stage_kernel == "stage_curv_batched (2 nodes, gather6)"
+          and all(nd.radiation.use_kernels for nd in nodes),
+          f"AMR cell: {len(nodes)} nodes {[nd.grid.nx for nd in nodes]}, stage kernel "
+          f"{sim.driver.stage_kernel}")
+    print(f"AMR cell root {AMR_CELL} + patch {nodes[1].grid.nx} at {nodes[1].lo} f32: "
+          f"set-up {res['setup_s']:.1f} s, stage kernel {sim.driver.stage_kernel}, "
+          "radiation through fld_coeffs + fld_matvec on each node")
+    m = amr_main_path(torch, sim, AMR_CYCLES)
+    ncyc, launches = m["ncyc"], m["launches"]
+    check(launches["stage_curv_batched"] == 2 * ncyc and launches["stage_curv"] == 0,
+          f"AMR cell: {launches} for {ncyc} rk2 cycles (K6 twice per cycle expected)")
+    res.update(m)
+    print(f"AMR cell f32 kernel path: {AMR_CYCLES} cycles, {m['zcps']:.6e} zone-cycles/s "
+          f"over all {m['zones']} zones ({m['root_zcps']:.6e} root-only, evolve's count), "
+          f"dt {sim.tm.dt:.6e}, root density L2 vs IC {m['l2']:.3e} (gate 3e-4) [{smi}]")
+    print(f"AMR cell launches in {ncyc} cycles: {launches}; CG iterations per outer by "
+          f"node {[round(c, 2) for c in m['cg_per_outer']]} (per cycle and node: "
+          f"{m['iters']}); host read-backs per cycle {m['reads_per_cycle']:.2f}")
 
-        # per-launch times on this state: K6, the same nodes as two one-node
-        # six-face launches (K5b), as two padded launches (K4) alone and
-        # with their ghost fill, and the plain version
-        states = sim.driver._states
-        ws = [st["gas"]["w"] for st in states]
-        us = [st["gas"]["u"] for st in states]
-        u1s = [u.clone() for u in us]
-        patch = nodes[1]
-        strips = [smr._gather6, patch.ghost_strips(ws[0], patch.lo)[0]]
-        stages = smr._fused
-        dt1 = torch.full((1,), sim.tm.dt, dtype=us[0].dtype, device=DEVICE)
-        tnow = sim.tm.time
-        calls = itertools.cycle(RK2)
+    # per-launch times on this state: K6, the same nodes as two one-node
+    # six-face launches (K5b), as two padded launches (K4) alone and
+    # with their ghost fill, and the plain version
+    states = sim.driver._states
+    ws = [st["gas"]["w"] for st in states]
+    us = [st["gas"]["u"] for st in states]
+    u1s = [u.clone() for u in us]
+    patch = nodes[1]
+    strips = [smr._gather6, patch.ghost_strips(ws[0], patch.lo)[0]]
+    stages = smr._fused
+    dt1 = torch.full((1,), sim.tm.dt, dtype=us[0].dtype, device=DEVICE)
+    tnow = sim.tm.time
+    calls = itertools.cycle(RK2)
 
-        def pads():
-            return [bc_mod.pad_and_fill(ws[0], nodes[0].grid, "gas", smr.bc_custom),
-                    patch.fill_fine_ghosts(ws[1], ws[0], patch.lo)]
+    def pads():
+        return [bc_mod.pad_and_fill(ws[0], nodes[0].grid, "gas", smr.bc_custom),
+                patch.fill_fine_ghosts(ws[1], ws[0], patch.lo)]
 
-        wpads = pads()
-        check(all(cs.tiled("gather6") for cs in stages),
-              "AMR cell: the node-batched launch does not take the tiled body")
+    wpads = pads()
+    check(all(cs.tiled("gather6") for cs in stages),
+          "AMR cell: the node-batched launch does not take the tiled body")
 
-        def k6():
-            return SC.stage_curv_batched(stages, ws, us, u1s, strips, *next(calls), dt1, tnow,
-                                         False)
+    def k6():
+        return SC.stage_curv_batched(stages, ws, us, u1s, strips, *next(calls), dt1, tnow,
+                                     False)
 
-        res["ms"] = time_launches(torch, k6, 20)
-        with SC._percell_body():
-            res["percell_ms"] = time_launches(torch, k6, 10)
-        res["k5b_pair_ms"] = time_launches(torch, lambda: [
-            SC.stage_curv(cs, w, u, u1, *g, dt1, tnow, False, strips=st)
-            for g in [next(calls)] for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)], 20)
-        res["padded_pair_ms"] = time_launches(torch, lambda: [
-            SC._launch(cs, wp, w, u, u1, *g, dt1, tnow, False, "padded")
-            for g in [next(calls)] for cs, wp, w, u, u1 in zip(stages, wpads, ws, us, u1s)], 20)
-        res["padded_fill_pair_ms"] = time_launches(torch, lambda: [
-            SC.stage_curv(cs, w, u, u1, *g, dt1, tnow, False, w_pad=wp)
-            for g in [next(calls)] for cs, wp, w, u, u1 in zip(stages, pads(), ws, us, u1s)],
-            10)
-        res["plain_ms"] = time_launches(torch, lambda: SC.stage_curv_batched_reference(
-            stages, ws, us, u1s, strips, *next(calls), dt1, tnow, False), 2)
-        kb = SC.stage_curv_batched(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow, False)
-        with SC._percell_body():
-            kc = SC.stage_curv_batched(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow, False)
-        k1 = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, strips=st)
-              for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)]
-        kp = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, w_pad=wp)
-              for cs, wp, w, u, u1 in zip(stages, wpads, ws, us, u1s)]
-        ref = SC.stage_curv_batched_reference(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow,
-                                              False)
-        torch.cuda.synchronize()
-        check(all(torch.equal(a, b) for x, y in zip(kb, k1) for a, b in zip(x, y)),
-              "AMR cell: K6 and the two one-node six-face launches differ")
-        check(all(same_stage(torch, x, y) for x, y in zip(kb, kc)),
-              "AMR cell: K6 on the tiled and the per-cell bodies differ")
-        check(all(torch.equal(a, b) for x, y in zip(kb, kp) for a, b in zip(x[:2], y[:2])),
-              "AMR cell: K6 and the padded launches differ")
-        res["stage_err"] = max(float((a - b).abs().max()) for x, y in zip(kb, ref)
-                               for a, b in zip(x[:2], y[:2]))
-        check(res["stage_err"] <= DISK_F32_TOL,
-              f"AMR cell K6 vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
-        del kb, kc, k1, kp, ref
-        nblk = stages[0].dtden_blocks(True)
-        nbytes = sum((tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*st.values(), *cs.rows)
-                      + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
-                     for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips))
-        flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_batched_reference(
-            stages, ws, us, u1s, strips, *g, dt1, tnow, False)) for g in RK2) / 2
-        res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
-        res["regs"] = {body: ptxas_usage(torch, torch.float32, entry)
-                       for body, entry in KERNEL_ENTRIES}
-        print(f"AMR cell f32 stage per launch over both nodes: K6 on the tiled body "
-              f"{res['ms']:.4f} ms, on the per-cell body {res['percell_ms']:.4f} ms "
-              f"({res['percell_ms'] / res['ms']:.2f}x); two K5b launches "
-              f"{res['k5b_pair_ms']:.4f} ms; two padded K4 launches "
-              f"{res['padded_pair_ms']:.4f} ms ({res['padded_fill_pair_ms']:.4f} ms with the "
-              f"ic fill and the prolonged ghost fill); plain {res['plain_ms']:.4f} ms; bound "
-              f"{nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, "
-              f"{res['bound_by']}-bound; K6 == per-cell K6 == K5b == K4 bitwise, vs plain "
-              f"{res['stage_err']:.3e}; {regs_text(res['regs'])} [{smi}]")
-        print("  " + smi_clocks())
+    res["ms"] = time_launches(torch, k6, 20)
+    with SC._percell_body():
+        res["percell_ms"] = time_launches(torch, k6, 10)
+    res["k5b_pair_ms"] = time_launches(torch, lambda: [
+        SC.stage_curv(cs, w, u, u1, *g, dt1, tnow, False, strips=st)
+        for g in [next(calls)] for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)], 20)
+    res["padded_pair_ms"] = time_launches(torch, lambda: [
+        SC._launch(cs, wp, w, u, u1, *g, dt1, tnow, False, "padded")
+        for g in [next(calls)] for cs, wp, w, u, u1 in zip(stages, wpads, ws, us, u1s)], 20)
+    res["padded_fill_pair_ms"] = time_launches(torch, lambda: [
+        SC.stage_curv(cs, w, u, u1, *g, dt1, tnow, False, w_pad=wp)
+        for g in [next(calls)] for cs, wp, w, u, u1 in zip(stages, pads(), ws, us, u1s)],
+        10)
+    res["plain_ms"] = time_launches(torch, lambda: SC.stage_curv_batched_reference(
+        stages, ws, us, u1s, strips, *next(calls), dt1, tnow, False), 2)
+    kb = SC.stage_curv_batched(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow, False)
+    with SC._percell_body():
+        kc = SC.stage_curv_batched(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow, False)
+    k1 = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, strips=st)
+          for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips)]
+    kp = [SC.stage_curv(cs, w, u, u1, *RK2[1], dt1, tnow, False, w_pad=wp)
+          for cs, wp, w, u, u1 in zip(stages, wpads, ws, us, u1s)]
+    ref = SC.stage_curv_batched_reference(stages, ws, us, u1s, strips, *RK2[1], dt1, tnow,
+                                          False)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for x, y in zip(kb, k1) for a, b in zip(x, y)),
+          "AMR cell: K6 and the two one-node six-face launches differ")
+    check(all(same_stage(torch, x, y) for x, y in zip(kb, kc)),
+          "AMR cell: K6 on the tiled and the per-cell bodies differ")
+    check(all(torch.equal(a, b) for x, y in zip(kb, kp) for a, b in zip(x[:2], y[:2])),
+          "AMR cell: K6 and the padded launches differ")
+    res["stage_err"] = max(float((a - b).abs().max()) for x, y in zip(kb, ref)
+                           for a, b in zip(x[:2], y[:2]))
+    check(res["stage_err"] <= DISK_F32_TOL,
+          f"AMR cell K6 vs plain: {res['stage_err']:.3e} > {DISK_F32_TOL:g}")
+    del kb, kc, k1, kp, ref
+    nblk = stages[0].dtden_blocks(True)
+    nbytes = sum((tensor_bytes(w, u1, w, u, u1) + 2 * tensor_bytes(*st.values(), *cs.rows)
+                  + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+                 for cs, w, u, u1, st in zip(stages, ws, us, u1s, strips))
+    flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_batched_reference(
+        stages, ws, us, u1s, strips, *g, dt1, tnow, False)) for g in RK2) / 2
+    res["bound_ms"], res["bound_by"] = bound(nbytes, flops)
+    res["regs"] = {body: ptxas_usage(torch, torch.float32, entry)
+                   for body, entry in KERNEL_ENTRIES}
+    print(f"AMR cell f32 stage per launch over both nodes: K6 on the tiled body "
+          f"{res['ms']:.4f} ms, on the per-cell body {res['percell_ms']:.4f} ms "
+          f"({res['percell_ms'] / res['ms']:.2f}x); two K5b launches "
+          f"{res['k5b_pair_ms']:.4f} ms; two padded K4 launches "
+          f"{res['padded_pair_ms']:.4f} ms ({res['padded_fill_pair_ms']:.4f} ms with the "
+          f"ic fill and the prolonged ghost fill); plain {res['plain_ms']:.4f} ms; bound "
+          f"{nbytes / 1e6:.1f} MB and {flops / 1e9:.3f} GFLOP -> {res['bound_ms']:.4f} ms, "
+          f"{res['bound_by']}-bound; K6 == per-cell K6 == K5b == K4 bitwise, vs plain "
+          f"{res['stage_err']:.3e}; {regs_text(res['regs'])} [{smi}]")
+    print("  " + smi_clocks())
 
-        # fld_coeffs (K7) on each node's radiation inputs
-        res["coeffs_nodes"] = []
-        for nd, st in zip(nodes, states):
-            args, _ = fld_inputs(torch, nd.radiation, st, sim.tm.dt)
-            res["coeffs_nodes"].append(coeffs_timings(torch, args))
-            del args
-        print("AMR cell f32 fld_coeffs (K7) per launch by node (root, patch): tiled body "
-              + ", ".join(f"{c['coeffs_ms']:.4f}" for c in res["coeffs_nodes"])
-              + " ms; per-cell body "
-              + ", ".join(f"{c['coeffs_percell_ms']:.4f}" for c in res["coeffs_nodes"])
-              + " ms (bitwise equal); bound "
-              + ", ".join(f"{c['coeffs_bound_ms']:.4f}" for c in res["coeffs_nodes"])
-              + f" ms [{smi}]")
+    # fld_coeffs (K7) on each node's radiation inputs
+    res["coeffs_nodes"] = []
+    for nd, st in zip(nodes, states):
+        args, _ = fld_inputs(torch, nd.radiation, st, sim.tm.dt)
+        res["coeffs_nodes"].append(coeffs_timings(torch, args))
+        del args
+    print("AMR cell f32 fld_coeffs (K7) per launch by node (root, patch): tiled body "
+          + ", ".join(f"{c['coeffs_ms']:.4f}" for c in res["coeffs_nodes"])
+          + " ms; per-cell body "
+          + ", ".join(f"{c['coeffs_percell_ms']:.4f}" for c in res["coeffs_nodes"])
+          + " ms (bitwise equal); bound "
+          + ", ".join(f"{c['coeffs_bound_ms']:.4f}" for c in res["coeffs_nodes"])
+          + f" ms [{smi}]")
 
-        # the tree stage around the kernel: the patch's ghost strips, and
-        # the whole stage (strips, K6, rim deltas, restriction, re-sync)
-        u1d = [{"gas": u} for u in u1s]
-        dt_t = dt1.reshape(())
-        stage_no = itertools.cycle((1, 2))
-        res["strips_ms"] = time_launches(torch, lambda: patch.ghost_strips(ws[0], patch.lo), 20)
-        res["tree_stage_ms"] = time_launches(torch, lambda: smr._stage(
-            states, u1d, dt_t, tnow, next(stage_no)), 20)
-        res["glue_ms"] = res["tree_stage_ms"] - res["ms"] - res["strips_ms"]
-        # the radiation pass, and each node's solve within it
-        sib_Er = [st["rad"]["Er"] for st in states]
-        gh = smr._rad_ghost_planes(patch, states[0]["rad"]["Er"], sib_Er)
-        res["rad_pass_ms"] = time_launches(torch, lambda: smr._radiation_pass(states, dt_t), 3)
-        res["rad_node_ms"] = [
-            time_launches(torch, lambda: nodes[0].radiation.step(dict(states[0]), dt_t), 3),
-            time_launches(torch, lambda: patch.radiation.step(dict(states[1]), dt_t,
-                                                               ghosts=gh), 3)]
-        print(f"AMR cell f32 tree stage: {res['tree_stage_ms']:.4f} ms per RK stage = K6 "
-              f"{res['ms']:.4f} + patch ghost strips {res['strips_ms']:.4f} + glue (rim "
-              f"deltas, dual-energy switch, restriction, re-sync) {res['glue_ms']:.4f} ms; "
-              f"radiation pass {res['rad_pass_ms']:.4f} ms per cycle, of which the solves "
-              f"root {res['rad_node_ms'][0]:.4f} ms and patch {res['rad_node_ms'][1]:.4f} ms "
-              f"[{smi}]")
-        del states, ws, us, u1s, u1d, strips, wpads, sib_Er, gh
+    # the tree stage around the kernel: the patch's ghost strips, and
+    # the whole stage (strips, K6, rim deltas, restriction, re-sync)
+    u1d = [{"gas": u} for u in u1s]
+    dt_t = dt1.reshape(())
+    stage_no = itertools.cycle((1, 2))
+    res["strips_ms"] = time_launches(torch, lambda: patch.ghost_strips(ws[0], patch.lo), 20)
+    res["tree_stage_ms"] = time_launches(torch, lambda: smr._stage(
+        states, u1d, dt_t, tnow, next(stage_no)), 20)
+    res["glue_ms"] = res["tree_stage_ms"] - res["ms"] - res["strips_ms"]
+    # the radiation pass, and each node's solve within it
+    sib_Er = [st["rad"]["Er"] for st in states]
+    gh = smr._rad_ghost_planes(patch, states[0]["rad"]["Er"], sib_Er)
+    res["rad_pass_ms"] = time_launches(torch, lambda: smr._radiation_pass(states, dt_t), 3)
+    res["rad_node_ms"] = [
+        time_launches(torch, lambda: nodes[0].radiation.step(dict(states[0]), dt_t), 3),
+        time_launches(torch, lambda: patch.radiation.step(dict(states[1]), dt_t,
+                                                           ghosts=gh), 3)]
+    print(f"AMR cell f32 tree stage: {res['tree_stage_ms']:.4f} ms per RK stage = K6 "
+          f"{res['ms']:.4f} + patch ghost strips {res['strips_ms']:.4f} + glue (rim "
+          f"deltas, dual-energy switch, restriction, re-sync) {res['glue_ms']:.4f} ms; "
+          f"radiation pass {res['rad_pass_ms']:.4f} ms per cycle, of which the solves "
+          f"root {res['rad_node_ms'][0]:.4f} ms and patch {res['rad_node_ms'][1]:.4f} ms "
+          f"[{smi}]")
+    del states, ws, us, u1s, u1d, strips, wpads, sib_Er, gh
 
-        cycle_ms = 1e3 * ncells(sim.grid) / m["root_zcps"]
-        res["profile"] = profile_cycles(torch, sim, 3)
-        res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
-                             if res["profile"] else None)
-        print(f"AMR cell f32 cycle (unprofiled): {cycle_ms:.4f} ms; 2 K6 launches "
-              f"{2 * res['ms']:.4f} ms ({100 * 2 * res['ms'] / cycle_ms:.1f}%); device idle "
-              + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
-                 else "not measured"))
-        del sim, smr, nodes, patch, stages
-        torch.cuda.empty_cache()
+    cycle_ms = 1e3 * ncells(sim.grid) / m["root_zcps"]
+    res["profile"] = profile_cycles(torch, sim, 3)
+    res["idle_share"] = (1.0 - res["profile"]["busy_ms"] / cycle_ms
+                         if res["profile"] else None)
+    print(f"AMR cell f32 cycle (unprofiled): {cycle_ms:.4f} ms; 2 K6 launches "
+          f"{2 * res['ms']:.4f} ms ({100 * 2 * res['ms'] / cycle_ms:.1f}%); device idle "
+          + (f"{100 * res['idle_share']:.1f}%" if res["idle_share"] is not None
+             else "not measured"))
+    del sim, smr, nodes, patch, stages
+    torch.cuda.empty_cache()
 
-        # the plain path through the same entry point
-        psim = amr_sim(data, AMR_CELL, 2.0, fused=False)
-        pnodes = psim.driver.smr.nodes
-        check(psim.driver.stage_kernel == "none"
-              and not any(nd.radiation.use_kernels for nd in pnodes),
-              "plain AMR run took a kernel")
-        warm_up(psim, 1)
-        zones = sum(ncells(nd.grid) for nd in pnodes)
-        res["plain_zcps"] = run_cycles(torch, psim, 2) * zones / ncells(psim.grid)
-        res["plain_l2"] = l2_vs_ic(torch, psim)
-        check(bool(torch.isfinite(psim.state["rad"]["Er"]).all()) and res["plain_l2"] <= 3e-4,
-              f"plain AMR run: L2 {res['plain_l2']:.3e} or not finite")
-        print(f"AMR cell f32 plain path: 2 cycles, {res['plain_zcps']:.6e} zone-cycles/s over "
-              f"all levels, L2 vs IC {res['plain_l2']:.3e} [{smi}]")
-        del psim, pnodes
-        torch.cuda.empty_cache()
+    # the plain path through the same entry point
+    psim = built_plain[0]
+    del built_plain
+    pnodes = psim.driver.smr.nodes
+    check(psim.driver.stage_kernel == "none"
+          and not any(nd.radiation.use_kernels for nd in pnodes),
+          "plain AMR run took a kernel")
+    warm_up(psim, 1)
+    zones = sum(ncells(nd.grid) for nd in pnodes)
+    res["plain_zcps"] = run_cycles(torch, psim, 2) * zones / ncells(psim.grid)
+    res["plain_l2"] = l2_vs_ic(torch, psim)
+    check(bool(torch.isfinite(psim.state["rad"]["Er"]).all()) and res["plain_l2"] <= 3e-4,
+          f"plain AMR run: L2 {res['plain_l2']:.3e} or not finite")
+    print(f"AMR cell f32 plain path: 2 cycles, {res['plain_zcps']:.6e} zone-cycles/s over "
+          f"all levels, L2 vs IC {res['plain_l2']:.3e} [{smi}]")
+    del psim, pnodes
+    torch.cuda.empty_cache()
     return res
 
 
@@ -2166,8 +2203,16 @@ def phase_rad_shock(torch):
         rad = sim.driver.radiation
         check(not rad.use_kernels, "1-D rad_shock took the FLD kernels")
         cg = []
+        ref = {}
+
+        def observe(state, tm):
+            cg.append(sum(rad.cg_iters))
+            if tm.ncycle == SHARD_SHOCK_CYCLES:
+                # phase 28 holds the sharded rad_shock to this state
+                ref.update(shard_ref(sim, state, tm))
+
         t0 = time.perf_counter()
-        sim.run(extra_observers=[lambda state, tm: cg.append(sum(rad.cg_iters))])
+        sim.run(extra_observers=[observe])
         secs = time.perf_counter() - t0
     w = sim.state["gas"]["w"][0].cpu().numpy()
     Er = sim.state["rad"]["Er"][0].cpu().numpy()
@@ -2192,7 +2237,8 @@ def phase_rad_shock(torch):
           f"{rho[0]:.4f} / {rho[-1]:.4f}, T ends {T[0]:.4f} / {T[-1]:.4f}, Trad in "
           f"[{Trad.min():.4f}, {Trad.max():.4f}], max |d2 Trad| {d2:.3e}, precursor "
           f"Trad {ahead.max():.4f}: tests/test_radiation.py thresholds met")
-    return {"ncycle": sim.tm.ncycle, "d2": d2, "secs": secs, "cg_iters": sum(cg)}
+    return {"ncycle": sim.tm.ncycle, "d2": d2, "secs": secs, "cg_iters": sum(cg),
+            "shard_ref": ref}
 
 
 # -- phase 16 ------------------------------------------------------------
@@ -3233,22 +3279,26 @@ def phase_nbody(torch, smi):
     return res
 
 
+RESTART_AMR = (6, 3)          # the AMR case's cycles straight, and its checkpoint cycle
 RESTART_DISK = ("parthenon/mesh/nx1=256", "parthenon/mesh/nx2=64", "parthenon/mesh/nx3=64",
                 "artemis/precision=float32")
 
 
-def restart_case(torch, smi, label, make, ncycles, k, kernel, counters, data):
+def restart_case(torch, smi, label, make, ncycles, k, kernel, counters, data, built=None):
     """``ncycles`` straight through Simulation.run, a checkpoint written at
     cycle ``k`` by an observer (the same write as the rst output's), and a
     second Simulation resumed from it for ``ncycles - k``: every array of
     the end state (u, w, dtden, Er; on a tree every node's), the time, dt
     and the particles torch.equal / equal. ``counters`` (module, count)
-    must each count launches in both runs."""
+    must each count launches in both runs.  ``built``: the straight run's
+    Simulation, made beforehand off the main thread."""
     import numpy as np
 
     res = {}
-    a_dir, b_dir = os.path.join(data, "a"), os.path.join(data, "b")
-    a = make([f"parthenon/time/nlim={ncycles}"], a_dir)
+    b_dir = os.path.join(data, "b")
+    a = built if built is not None else make([f"parthenon/time/nlim={ncycles}"],
+                                             os.path.join(data, "a"))
+    a_dir = a.data_dir
     check(a.driver.stage_kernel == kernel, f"{label} took {a.driver.stage_kernel}")
     ck = {}
 
@@ -3321,14 +3371,15 @@ def restart_case(torch, smi, label, make, ncycles, k, kernel, counters, data):
     return res
 
 
-def phase_restart(torch, smi):
+def phase_restart(torch, smi, built_amr):
     """Bitwise restarts on the card in three cases: disk_sph at 256x64x64
     float32 on K3 (the dtden carry; N = 10, k = 6), binary_nbody_cyl as
     written on partial K4 with the nbody payload (N = 10, k = 6; its hdf5
     dump read back with analysis/adump.py) and the equal-shape AMR RHD cell
     on K6/K7/K8 with the amr.* payloads (N = 6, k = 3); then the CLI in a
     subprocess: -t with a tiny walltime exits 2 leaving the walltime
-    checkpoint, and -r on it runs to nlim and exits 0."""
+    checkpoint, and -r on it runs to nlim and exits 0.  ``built_amr``: the
+    AMR case's straight run, set up beside phase 15."""
     from artemis_tpu_torch import Simulation
     from artemis_tpu_torch.ops import fld as FLD, stage_curv as SC
 
@@ -3340,12 +3391,13 @@ def phase_restart(torch, smi):
         ("binary_nbody_cyl", lambda ov, d, **kw: nbody_sim("binary_nbody_cyl", ov, d, **kw),
          10, 6, PARTIAL_K4, [(SC, "stage_curv_launches")]),
         ("amr", lambda ov, d, **kw: amr_sim(d, AMR_CELL, 2.0, extra=ov, **kw),
-         6, 3, "stage_curv_batched (2 nodes, gather6)",
+         *RESTART_AMR, "stage_curv_batched (2 nodes, gather6)",
          [(SC, "stage_curv_batched_launches"), (FLD, "fld_coeffs_launches"),
           (FLD, "fld_matvec_launches")]))
     for label, make, n, k, kernel, counters in cases:
         with tempfile.TemporaryDirectory() as data:
-            res[label] = restart_case(torch, smi, label, make, n, k, kernel, counters, data)
+            res[label] = restart_case(torch, smi, label, make, n, k, kernel, counters, data,
+                                      built=built_amr if label == "amr" else None)
     with tempfile.TemporaryDirectory() as data:
         small = ["parthenon/mesh/nx1=16", "parthenon/mesh/nx2=8", "parthenon/mesh/nx3=8",
                  "parthenon/time/nlim=4"]
@@ -4075,6 +4127,318 @@ def phase_refinement_rest(torch, smi):
     return res
 
 
+# -- phase 28 ------------------------------------------------------------
+SHARDS = 4
+SHARD_DEVICES = ["cuda:0"] * SHARDS     # four shards on the one card
+SHARD_FLAG_CYCLES = (6, 10)             # compared with phase 5's run; timed
+SHARD_DISK_CYCLES = (4, 20)             # compared with phase 7's run; timed
+SHARD_DISK_XY_TIMED = 10                # timed cycles of the x1- and x2-sharded disk
+SHARD_SHOCK_CYCLES = 30
+SHARD_SHOCK_TOL = 1e-9                  # tests/test_parallel.py's rad_shock tolerance
+SHARD_NBODY_TOL = (1e-11, 1e-12)        # gas, particles (test_sharded_nbody)
+# tests/test_parallel.py's 16^3 N-body deck (test_sharded_nbody)
+SHARD_NBODY_DECK = """
+<artemis>
+problem = constant
+coordinates = cartesian
+<parthenon/job>
+problem_id = nbshard
+<parthenon/time>
+tlim = 0.5
+integrator = rk2
+<parthenon/mesh>
+nghost = 2
+nx1 = 16
+x1min = -1.0
+x1max = 1.0
+nx2 = 16
+x2min = -1.0
+x2max = 1.0
+nx3 = 16
+x3min = -1.0
+x3max = 1.0
+<physics>
+gravity = true
+nbody = true
+<gas>
+gamma = 1.4
+<gravity/nbody>
+<nbody>
+integrator = ias15
+<nbody/particle1>
+mass = 1.0
+live = 1
+couple = 1
+<nbody/particle1/soft>
+type = plummer
+radius = 0.2
+<nbody/particle2>
+mass = 0.5
+live = 1
+couple = 1
+<nbody/particle2/initialize>
+x = 0.5
+vy = 1.0
+<nbody/particle2/soft>
+type = plummer
+radius = 0.2
+<problem>
+rho = 1.0
+pres = 1.0
+"""
+
+
+def shard_ref(sim, state=None, tm=None):
+    """A copy of an unsharded run's state (its own, or an observer's) and
+    its time, for phase 28's comparison."""
+    state = sim.state if state is None else state
+    tm = sim.tm if tm is None else tm
+    return {"state": {n: {k: v.clone() for k, v in kinds.items() if k != "dtden"}
+                      for n, kinds in state.items()},
+            "time": tm.time, "ncycle": tm.ncycle}
+
+
+def sharded_sim(make, *args, **kw):
+    """A run through ``make`` (one of this script's sim constructors) with SHARDS
+    shards on SHARD_DEVICES; each shard must sit on the card."""
+    sim = make(*args, nshards=SHARDS, shard_devices=SHARD_DEVICES, **kw)
+    check(len(sim.driver.drivers) == SHARDS
+          and all(d.device.type == "cuda" for d in sim.driver.drivers),
+          f"sharded run placed its shards on {[str(d.device) for d in sim.driver.drivers]}")
+    return sim
+
+
+def field_err(torch, sim, ref, rel):
+    """max |sim - ref| over the reference's fields: absolute, or relative
+    to max(1, each component's max) (``rel``)."""
+    errs = []
+    for name, kinds in ref["state"].items():
+        for k, b in kinds.items():
+            a = sim.state[name][k]
+            if rel:
+                scale = b.abs().amax(dim=tuple(i for i in range(b.ndim) if i != 1),
+                                     keepdim=True).clamp(min=1.0)
+                errs.append(float(((a - b).abs() / scale).max()))
+            else:
+                errs.append(float((a - b).abs().max()))
+    return max(errs)
+
+
+def exchange_ms(torch, sim):
+    """ms of one stage's slab exchange and exchanged fills over every shard
+    (the work a sharded stage adds in front of its kernels), timed alone in
+    a loop: its share of a cycle timed in another window is an estimate,
+    not a trace of the sharded cycle."""
+    drv = sim.driver
+    shards = sim.state.shards
+
+    def fills():
+        drv._exchange(shards)
+        for d, st in zip(drv.drivers, shards):
+            d.fill_ghosts(st["gas"]["w"], "gas")
+
+    return time_launches(torch, fills, 10)
+
+
+def sharded_cell(torch, smi, name, sim, ref, counted, ncmp, ntimed, kernel, unsharded_zcps,
+                 rel, tol):
+    """Drive a sharded cell through Simulation.run for ``ncmp`` cycles with
+    the launch counters reset before and read after (``counted()`` -> (its
+    kernel's launches, launches of the kernel it replaces, the tiled
+    body's)), hold it to the unsharded ``ref`` after the same cycles, then
+    time ``ntimed`` cycles and the exchange's share of the cycle."""
+    counted(reset=True)
+    warm_up(sim, ncmp)
+    k, other, tiled = counted()
+    check(k == 2 * SHARDS * ncmp == tiled and other == 0,
+          f"sharded {name}: {k} {kernel} launches ({tiled} tiled) and {other} of the unsharded "
+          f"kernel in {ncmp} cycles, wanted {2 * SHARDS * ncmp}")
+    check(sim.tm.ncycle == ref["ncycle"] and abs(sim.tm.time - ref["time"])
+          <= 1e-6 * ref["time"], f"sharded {name}: cycle {sim.tm.ncycle} t {sim.tm.time} vs "
+          f"unsharded {ref['ncycle']} t {ref['time']}")
+    err = field_err(torch, sim, ref, rel)
+    check(err <= tol, f"sharded {name} vs unsharded after {ncmp} cycles: {err:.3e} > {tol:g}")
+    zcps = run_cycles(torch, sim, ntimed)
+    ncell = sim.grid.nx[0] * sim.grid.nx[1] * sim.grid.nx[2]
+    cycle_ms = 1e3 * ncell / zcps
+    ex = exchange_ms(torch, sim)
+    out = {"launches": k, "err": err, "bitwise": err == 0.0, "zcps": zcps,
+           "unsharded_zcps": unsharded_zcps, "cycle_ms": cycle_ms, "exchange_ms": ex,
+           "exchange_share": 2 * ex / cycle_ms}
+    print(f"sharded {name} ({SHARDS} x {sim.driver.drivers[0].grid.nx} on "
+          f"{SHARD_DEVICES[0]}): {k} {kernel} launches in {ncmp} cycles, all on the tiled body, "
+          f"none of the unsharded kernel; vs unsharded after {ncmp} cycles "
+          + ("bitwise equal" if err == 0.0 else f"{err:.3e} (tol {tol:g})")
+          + f"; {ntimed} cycles {zcps:.6e} zone-cycles/s against unsharded "
+          f"{unsharded_zcps:.6e} ({zcps / unsharded_zcps:.3f}x), cycle {cycle_ms:.4f} ms, "
+          f"exchange and fills timed alone {ex:.4f} ms a stage (an estimated "
+          f"{100 * out['exchange_share']:.1f}% of the cycle) [{smi}]")
+    return out
+
+
+def phase_sharded(torch, smi, flag_ref, flag_zcps, disk_ref, disk_zcps, shock_ref):
+    """Phase 28: single-level runs on SHARDS shards of the one card."""
+    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch.ops import stage as S, stage_curv as SC
+
+    def cart(reset=False):
+        if reset:
+            S.stage_launches = S.tiled_launches = S.padded_launches = 0
+        return S.padded_launches, S.stage_launches - S.padded_launches, S.tiled_launches
+
+    def curv(reset=False):
+        if reset:
+            SC.stage_curv_launches = SC.tiled_launches = 0
+            for h in SC.halo_launches:
+                SC.halo_launches[h] = 0
+        return (SC.halo_launches["padded"],
+                SC.stage_curv_launches - SC.halo_launches["padded"], SC.tiled_launches)
+
+    res = {}
+    with tempfile.TemporaryDirectory() as data:
+        sim = sharded_sim(flagship_sim, "float32", os.path.join(data, "flag"))
+        check(sim.driver.axis_d == 3 and all(d.stage_kernel == "stage_cart" and d._exchanged
+                                             for d in sim.driver.drivers),
+              f"sharded flagship took {sim.driver.stage_kernel} on axis {sim.driver.axis_d}")
+        res["flagship"] = sharded_cell(torch, smi, "flagship f32", sim, flag_ref, cart,
+                                       SHARD_FLAG_CYCLES[0], SHARD_FLAG_CYCLES[1],
+                                       "stage (K2)", flag_zcps, False, F32_TOL)
+        del sim
+        torch.cuda.empty_cache()
+
+        sim = sharded_sim(disk_setup, torch, "float32", DISK_BENCH, os.path.join(data, "disk"))
+        check(sim.driver.axis_d == 3 and all(d.stage_kernel == "stage_curv (padded)"
+                                             for d in sim.driver.drivers),
+              f"sharded disk_sph took {sim.driver.stage_kernel}")
+        r = sharded_cell(torch, smi, "disk_sph f32", sim, disk_ref, curv,
+                         SHARD_DISK_CYCLES[0], SHARD_DISK_CYCLES[1], "stage_curv (K4)",
+                         disk_zcps, True, DISK_F32_TOL)
+        r["l2"] = l2_vs_ic(torch, sim)
+        check(r["l2"] <= 6e-3, f"sharded disk_sph L2 vs IC {r['l2']:.3e} > 6e-3")
+        print(f"sharded disk_sph after {sim.tm.ncycle} cycles: L2 vs IC {r['l2']:.3e} "
+              "(gate 6e-3)")
+        res["disk_sph"] = r
+        del sim
+        torch.cuda.empty_cache()
+
+        # x1 and x2 shards: K4 with each shard's own coefficient rows (the
+        # JAX package falls back to its tensor stage there)
+        for axis in ("x1", "x2"):
+            sim = sharded_sim(disk_setup, torch, "float32", DISK_BENCH,
+                              os.path.join(data, f"disk_{axis}"),
+                              extra=(f"parthenon/mesh/shard_axis={axis}",))
+            check(sim.driver.axis_d == int(axis[1]) and all(
+                d.stage_kernel == "stage_curv (padded)" for d in sim.driver.drivers),
+                f"{axis}-sharded disk_sph took {sim.driver.stage_kernel} on axis "
+                f"{sim.driver.axis_d}")
+            res[f"disk_sph_{axis}"] = sharded_cell(
+                torch, smi, f"disk_sph f32 on {axis}", sim, disk_ref, curv,
+                SHARD_DISK_CYCLES[0], SHARD_DISK_XY_TIMED, "stage_curv (K4)", disk_zcps, True,
+                DISK_F32_TOL)
+            del sim
+            torch.cuda.empty_cache()
+
+        sim = sharded_sim(lambda **kw: Simulation(
+            SHOCK, ["parthenon/time/tlim=0.02", f"parthenon/time/nlim={SHARD_SHOCK_CYCLES}",
+                    "parthenon/mesh/shard_axis=x1"], os.path.join(data, "shock"),
+            device=DEVICE, **kw))
+        check(sim.driver.axis_d == 1 and not sim.driver.radiation.use_kernels,
+              "sharded rad_shock: not on x1 slabs with the tensor operator")
+        t0 = time.perf_counter()
+        sim.run()
+        secs = time.perf_counter() - t0
+        errs = {}
+        for name, kinds in shock_ref["state"].items():
+            for k, b in kinds.items():
+                a = sim.state[name][k]
+                errs[f"{name}.{k}"] = float((a - b).abs().max() / b.abs().max())
+        err = max(errs.values())
+        check(sim.tm.ncycle == shock_ref["ncycle"] and err <= SHARD_SHOCK_TOL,
+              f"sharded rad_shock after {sim.tm.ncycle} cycles vs unsharded: {errs}")
+        res["rad_shock"] = {"err": err, "secs": secs}
+        print(f"sharded rad_shock f64 (x1, {SHARDS} x 128): {SHARD_SHOCK_CYCLES} cycles in "
+              f"{secs:.1f} s, vs the unsharded run of phase 15 at cycle {shock_ref['ncycle']}: "
+              f"max |diff| / max |field| {err:.3e} (tol {SHARD_SHOCK_TOL:g})")
+        del sim
+
+        one = Simulation(SHARD_NBODY_DECK, [], os.path.join(data, "nb1"), is_path=False,
+                         device=DEVICE)
+        one.run()
+        sim = sharded_sim(lambda **kw: Simulation(
+            SHARD_NBODY_DECK, [], os.path.join(data, "nb4"), is_path=False, device=DEVICE,
+            **kw))
+        sim.run()
+        gas = float((sim.state["gas"]["w"] - one.state["gas"]["w"]).abs().max())
+        part = float(max(abs(sim.nbody.pos - one.nbody.pos).max(),
+                         abs(sim.nbody.vel - one.nbody.vel).max()))
+        check(sim.tm.ncycle == one.tm.ncycle and gas <= SHARD_NBODY_TOL[0]
+              and part <= SHARD_NBODY_TOL[1],
+              f"sharded N-body deck: gas {gas:.3e}, particles {part:.3e} after "
+              f"{sim.tm.ncycle} / {one.tm.ncycle} cycles")
+        res["nbody"] = {"gas": gas, "particles": part, "ncycle": sim.tm.ncycle}
+        print(f"sharded 16^3 N-body deck (x3, {SHARDS} x 4 planes) to t = 0.5: "
+              f"{sim.tm.ncycle} cycles, vs unsharded on the card: gas {gas:.3e} (tol "
+              f"{SHARD_NBODY_TOL[0]:g}), particles {part:.3e} (tol {SHARD_NBODY_TOL[1]:g})")
+        del sim, one
+        torch.cuda.empty_cache()
+    return res
+
+
+# -- phase 29 ------------------------------------------------------------
+PROFILE_CYCLES = 3            # phase_table's timed cycles
+PROFILE_KERNEL_CYCLES = 2     # kernel_table's
+
+
+def profile_tables(torch, smi, sim, label, phase_ms):
+    """Phase 29 on a sim of another phase: ``phase_table``, then
+    ``kernel_table`` with every wrapper's launch counter reset before and
+    read after (no warm-up: the sim's kernels are built).  Every row must
+    be a kernel, and each kernel's rows must count its wrapper's launches.
+    ``phase_ms``: {row: ms a launch} the phase measured itself, printed
+    beside the table's (no gate)."""
+    import io
+
+    from artemis_tpu_torch import profiling
+    from artemis_tpu_torch.ops import fld as F, stage as S, stage_curv as SC, sweeps as SW
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    phases = profiling.phase_table(sim, ncycles=PROFILE_CYCLES, out=buf)
+    S.stage_launches = S.tiled_launches = S.padded_launches = 0
+    SC.stage_curv_launches = SC.tiled_launches = SC.stage_curv_batched_launches = 0
+    for h in SC.halo_launches:
+        SC.halo_launches[h] = 0
+    F.fld_coeffs_launches = F.fld_coeffs_tiled_launches = F.fld_matvec_launches = 0
+    SW.sweep_launches = 0
+    calls = {}
+    secs = profiling.kernel_table(sim, ncycles=PROFILE_KERNEL_CYCLES, out=buf, calls=calls,
+                                  warmup=0)
+    counted = {"stage_periodic": S.stage_launches - S.padded_launches,
+               "stage": S.padded_launches, "stage_curv": SC.halo_launches["padded"],
+               "stage_curv_gather": SC.halo_launches["gather"],
+               "stage_curv_gather6": SC.halo_launches["gather6"],
+               "stage_curv_gather6_batched": SC.stage_curv_batched_launches,
+               "fld_coeffs": F.fld_coeffs_launches, "fld_matvec": F.fld_matvec_launches,
+               "sweep": SW.sweep_launches}
+    print(f"phase 29 (profiling) on {label}:")
+    print(buf.getvalue().rstrip())
+    plain = [row for row in calls if row.endswith("(plain)")]
+    check(calls and not plain, f"{label} kernel_table: plain rows {plain} on the card")
+    rows = {}
+    for row, n in calls.items():
+        name = row.split(" (")[0]
+        rows[name] = rows.get(name, 0) + n
+    for name, n in counted.items():
+        check(rows.get(name, 0) == n, f"{label} kernel_table: {rows.get(name, 0)} {name} "
+              f"launches, its counter {n}")
+    ms = {row: 1e3 * secs[row] / calls[row] for row in calls}
+    print(f"{label} kernel_table rows match the launch counters {rows}; ms a launch "
+          + ", ".join(f"{row} {ms[row]:.4f} (phase's own {phase_ms[row]:.4f})"
+                      if row in phase_ms else f"{row} {ms[row]:.4f}" for row in ms)
+          + f"; tables took {time.perf_counter() - t0:.1f} s [{smi}]")
+    return {"phases_s": phases, "rows": calls, "ms": ms}
+
+
 def main():
     import torch
 
@@ -4085,7 +4449,26 @@ def main():
     sys.path.insert(0, HERE)
     t0 = time.perf_counter()
     smi = phase_toolchain(torch)
-    build_s = phase_build(torch)
+    # the set-ups of phases 11 and 13 (their disk IC is numpy on the host,
+    # no kernel runs) go on two threads while nvcc builds the kernels, and
+    # all are done before the first timed window
+    set_dir = tempfile.TemporaryDirectory()
+    with concurrent.futures.ThreadPoolExecutor(max_workers=2) as pool:
+        pre = {key: pool.submit(timed_build, make) for key, make in (
+            ("rhd", lambda: rhd_sim(os.path.join(set_dir.name, "rhd"))),
+            ("rhd_plain", lambda: rhd_sim(os.path.join(set_dir.name, "rhd_plain"),
+                                          fused=False)),
+            ("amr", lambda: amr_sim(os.path.join(set_dir.name, "amr"), AMR_CELL, 2.0)),
+            ("amr_plain", lambda: amr_sim(os.path.join(set_dir.name, "amr_plain"), AMR_CELL,
+                                          2.0, fused=False)))}
+        build_s = phase_build(torch)
+        t1 = time.perf_counter()
+        built = {key: f.result() for key, f in pre.items()}
+        del pre
+    print("the set-ups of phases 11 and 13 took " + ", ".join(
+        f"{key} {secs:.1f} s" for key, (_, secs) in built.items())
+          + f" beside the build; the main thread waited {time.perf_counter() - t1:.1f} s "
+          "for them after it")
     err64, err32 = phase_compare(torch)
     sym = phase_linwave(torch)
     res = phase_flagship(torch, smi)
@@ -4094,9 +4477,10 @@ def main():
     decks = phase_disk_decks(torch, smi)
     fld = phase_fld_compare(torch)
     g6 = phase_gather6_compare(torch)
-    rhd = phase_rhd(torch, smi)
+    rhd = phase_rhd(torch, smi, built.pop("rhd"), built.pop("rhd_plain"))
     berr64, berr32 = phase_batched_compare(torch)
-    amr = phase_amr(torch, smi)
+    amr = phase_amr(torch, smi, built.pop("amr"), built.pop("amr_plain"))
+    set_dir.cleanup()
     # the two 512x512x64 disk RHD trees are set up (their disk IC on the
     # host) in the background while rad_shock's host-bound loop runs
     pre_dir = tempfile.TemporaryDirectory()
@@ -4106,6 +4490,10 @@ def main():
         pre_adaptive = pool.submit(timed_build, lambda: amr_sim(
             os.path.join(pre_dir.name, "adaptive"), ADAPT_RHD, 4.0,
             extra=adaptive_ov(ADAPT_TILE, ADAPT_CHECK)))
+        # and phase 25's straight AMR restart run
+        pre_restart = pool.submit(timed_build, lambda: amr_sim(
+            os.path.join(pre_dir.name, "restart"), AMR_CELL, 2.0,
+            extra=[f"parthenon/time/nlim={RESTART_AMR[0]}"]))
         t1 = time.perf_counter()
         shock = phase_rad_shock(torch)
         print(f"phase rad_shock: {time.perf_counter() - t1:.1f} s (the 512x512x64 trees of "
@@ -4113,11 +4501,12 @@ def main():
         # both trees are built before any timed window opens
         t1 = time.perf_counter()
         built_prod, built_adaptive = pre_prod.result(), pre_adaptive.result()
-        print(f"the builds of phases 14 and 26 took {built_prod[1]:.1f} + "
-              f"{built_adaptive[1]:.1f} s; "
+        built_restart = pre_restart.result()
+        print(f"the builds of phases 14, 26 and 25 took {built_prod[1]:.1f} + "
+              f"{built_adaptive[1]:.1f} + {built_restart[1]:.1f} s; "
               f"the main thread waited {time.perf_counter() - t1:.1f} s for them after "
               "rad_shock")
-        del pre_prod, pre_adaptive
+        del pre_prod, pre_adaptive, pre_restart
     prod = phase_amr_prod(torch, smi, built_prod)
     del built_prod
     k5a = phase_k5a(torch, smi)
@@ -4128,19 +4517,25 @@ def main():
     secs = {}
     for key, fn in (("alpha_disk", phase_alpha_disk), ("binary_cyl", phase_binary),
                     ("simple_drag", phase_drag), ("other_decks", phase_other_decks),
-                    ("nbody", phase_nbody), ("restart", phase_restart)):
+                    ("nbody", phase_nbody),
+                    ("restart", lambda torch, smi: phase_restart(torch, smi, built_restart[0]))):
         t1 = time.perf_counter()
         secs[key] = (fn(torch, smi), time.perf_counter() - t1)
         print(f"phase {key}: {secs[key][1]:.1f} s")
     alpha, binary, drag, other, nbody, restart = (
         secs[k][0] for k in ("alpha_disk", "binary_cyl", "simple_drag", "other_decks",
                              "nbody", "restart"))
+    del built_restart
     t1 = time.perf_counter()
     adaptive = phase_adaptive(torch, smi, prod, built_adaptive)
     del built_adaptive
     pre_dir.cleanup()
     print(f"phase adaptive: {time.perf_counter() - t1:.1f} s")
     rest = phase_refinement_rest(torch, smi)
+    t1 = time.perf_counter()
+    sharded = phase_sharded(torch, smi, res.pop("shard_ref"), res["kernel_zcps"],
+                            disk.pop("shard_ref"), disk["kernel_zcps"], shock.pop("shard_ref"))
+    print(f"phase sharded: {time.perf_counter() - t1:.1f} s")
     total = time.perf_counter() - t0
     print(f"chip_smoke: every phase passed in {total:.0f} s, the build included "
           f"({SMOKE_LIMIT_S - total:.0f} s left of the {SMOKE_LIMIT_S} s limit)")
@@ -4184,6 +4579,11 @@ def main():
         "blast_hllc_launches": other["blast_hllc"]["launches"],
         "blast_hllc_shape": list(other["blast_hllc"]["shape"]),
         "blast_hllc_50cycle_err_f64": other["blast_hllc"]["end_err"],
+        "sharded_launches": sharded["flagship"]["launches"],
+        "sharded_shards": SHARDS,
+        "sharded_zone_cycles_per_s": sharded["flagship"]["zcps"],
+        "sharded_max_abs_err_vs_unsharded": sharded["flagship"]["err"],
+        "sharded_exchange_share": sharded["flagship"]["exchange_share"],
     }, {
         "name": "stage_curv",
         "kernel": "stage_tiled_kernel (the tiled body, diffusive)",
@@ -4202,6 +4602,7 @@ def main():
         "bound_ms": disk["bound_ms"],
         "bound_by": disk["bound_by"],
         "library_ms": None,
+        "kernel_table_ms": disk["tables"]["ms"],
         "percell_ms": disk["percell_ms"],
         "registers_spills": disk["regs"],
         "padded_ms": disk["padded_ms"],
@@ -4237,6 +4638,17 @@ def main():
         "bound_ms": decks["padded_bound_ms"],
         "bound_by": decks["padded_bound_by"],
         "library_ms": None,
+        "sharded_launches": sharded["disk_sph"]["launches"],
+        "sharded_shards": SHARDS,
+        "sharded_zone_cycles_per_s": sharded["disk_sph"]["zcps"],
+        "sharded_max_rel_err_vs_unsharded": sharded["disk_sph"]["err"],
+        "sharded_exchange_share": sharded["disk_sph"]["exchange_share"],
+        "sharded_l2_vs_ic": sharded["disk_sph"]["l2"],
+        "sharded_x1_x2_launches": [sharded[f"disk_sph_{a}"]["launches"] for a in ("x1", "x2")],
+        "sharded_x1_x2_max_rel_err_vs_unsharded": [sharded[f"disk_sph_{a}"]["err"]
+                                                   for a in ("x1", "x2")],
+        "sharded_x1_x2_zone_cycles_per_s": [sharded[f"disk_sph_{a}"]["zcps"]
+                                            for a in ("x1", "x2")],
         "percell_ms": decks["padded_percell_ms"],
         "stage_ms": decks["padded_stage_ms"],
         "percell_stage_ms": decks["padded_percell_stage_ms"],
@@ -4313,6 +4725,7 @@ def main():
         "bound_ms": rhd["bound_ms"],
         "bound_by": rhd["bound_by"],
         "library_ms": None,
+        "kernel_table_ms": rhd["tables"]["ms"],
         "percell_ms": rhd["percell_ms"],
         "registers_spills": rhd["regs"],
         "padded_ms": rhd["padded_ms"],
