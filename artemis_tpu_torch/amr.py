@@ -43,10 +43,13 @@ move rebuilds its grid.  Adaptive trees either spawn and destroy tiles of
 a fixed lattice where the refinement tags land (``style = tiled``,
 ``regrid_tiles``) or move one patch per level onto the tagged cells
 (``style = move``, ``_retag``); the tags are computed on the device and
-only their bool masks reach the host.  Sharded trees are not ported
-(ROADMAP Queue 1 item 11b, ``ShardedSMR``).  Patch positions are host integers on the
-nodes; every topology or position change re-runs the tree's set-up
-(``_compile``).
+only their bool masks reach the host.  Patch positions are host integers
+on the nodes; every topology or position change re-runs the tree's set-up
+(``_compile``).  The composable stage, the radiation pass and the set-up
+reach the parent frames, the ghost exchange, the flux correction and the
+restriction through hooks that are identities here;
+``parallel.amr.ShardedSMR`` overrides them to run the tree over several
+devices.
 """
 
 from __future__ import annotations
@@ -334,8 +337,14 @@ class _Node:
     """One mesh region: the root domain (level 0) or a refinement patch."""
 
     def __init__(self, ml: "MultiLevelSMR", grid: Grid, parent: Optional["_Node"], lo, n,
-                 level: int):
+                 level: int, wrap=None, kind: str = "local"):
         self.ml = ml
+        # how a sharded tree holds the node (parallel.amr): "replicated"
+        # (global frame, the same on every shard), "distributed" (a slab of
+        # the patch per shard) or neither (the root, a wrap patch, every
+        # node of a tree on one device)
+        self.replicated = kind == "replicated"
+        self.distributed = kind == "distributed"
         self.parent = parent
         self.children: List[_Node] = []
         self.level = level
@@ -350,7 +359,9 @@ class _Node:
         self.active = tuple(grid.nx[d] > 1 for d in range(3))
         # wrap[d]: the patch spans a (transitively) periodic parent axis;
         # its ghosts there are the periodic image of its own fine data
-        if parent is None:
+        if wrap is not None:
+            self.wrap = tuple(bool(v) for v in wrap)
+        elif parent is None:
             self.wrap = (False, False, False)
         else:
             self.wrap = tuple(self.active[d] and self.lo[d] == 0
@@ -374,7 +385,7 @@ class _Node:
         # this node's fused stage, made once (a regrid rebuilds only the
         # spawned nodes')
         self.curv_stage = None
-        self.hydro = Hydro(grid, ml.cfg, ml.dust_cfg, device=ml.device, dtype=ml.dtype)
+        self.hydro = ml._node_hydro(grid)
         self.sources = ([s.place(ml.device, ml.dtype) for s in ml.sources_factory(grid)]
                         if ml.sources_factory else [])
         self.diffusion = ml.diffusion_factory(self.hydro) if ml.diffusion_factory else None
@@ -387,7 +398,7 @@ class _Node:
         # volume-weighted restriction, and the centroid spacings of the
         # ghost prolongation over the whole rim window (past the padded
         # fine rows: rebuilt from the uniform fine faces)
-        cg = self.parent.grid
+        cg = ml._parent_grid(self)
         self.volf = torch.as_tensor(np.ascontiguousarray(np.broadcast_to(
             grid.geom.volume(), grid.shape_entire)[grid.int_slices]),
             dtype=ml.dtype, device=ml.device)
@@ -413,7 +424,7 @@ class _Node:
         node."""
         if not self.curv or self.parent is None:
             return None
-        cg, fg = self.parent.grid, self.grid
+        cg, fg = self.ml._parent_grid(self), self.grid
         cxv = (cg.geom.xv1, cg.geom.xv2, cg.geom.xv3)
         fxv = (fg.geom.xv1, fg.geom.xv2, fg.geom.xv3)
         sp = []
@@ -433,7 +444,7 @@ class _Node:
         patch is translation-invariant and only changes ``lo``).  The
         caller re-runs the tree's set-up."""
         self.lo = tuple(int(v) for v in new_lo)
-        self._build(_refine_grid(self.parent.grid, self.lo, self.n))
+        self._build(_refine_grid(self.ml._parent_grid(self), self.lo, self.n))
 
     def fluids(self):
         """[(name, cfg)] of the node's fluids: gas, then dust."""
@@ -613,33 +624,39 @@ class _Node:
                 sl[nd - 1 - t] = slice(o, o + fg.nx[t] + 2 * ngf[t])
         return fine[tuple(sl)]
 
-    @staticmethod
-    def _wrap_pad(a, d, width):
+    def _wrap_pad(self, a, d, width):
         """Interior array ``a`` extended periodically by ``width`` cells
-        along axis d (0 = x1)."""
+        along axis d (0 = x1); on a sharded axis the images are the
+        neighbour shards' (``_exchange``)."""
         ax = a.ndim - 1 - d
         n = a.shape[ax]
-        return torch.cat([a.narrow(ax, n - width, width), a, a.narrow(ax, 0, width)], dim=ax)
+        tail, head = self.ml._exchange(a.narrow(ax, n - width, width), a.narrow(ax, 0, width), d)
+        return torch.cat([tail, a, head], dim=ax)
 
-    @staticmethod
-    def _wrap_ghosts(a, d, ng):
+    def _wrap_ghosts(self, a, d, ng):
         """The ng-wide ghosts of padded ``a`` along axis d filled with the
-        periodic image of its interior."""
+        periodic image of its interior (the neighbour shards' on a sharded
+        axis)."""
         ax = a.ndim - 1 - d
         nint = a.shape[ax] - 2 * ng
+        lo_img, hi_img = self.ml._exchange(a.narrow(ax, nint, ng), a.narrow(ax, ng, ng), d)
         out = a.clone()
-        out.narrow(ax, 0, ng).copy_(a.narrow(ax, nint, ng))
-        out.narrow(ax, ng + nint, ng).copy_(a.narrow(ax, ng, ng))
+        out.narrow(ax, 0, ng).copy_(lo_img)
+        out.narrow(ax, ng + nint, ng).copy_(hi_img)
         return out
 
-    def flux_correct(self, fx_c, fx_f, lo):
+    def flux_correct(self, fx_c, fx_f, lo, hc=None, scatter=None):
         """The parent's fluxes ``fx_c`` with its patch-boundary faces
         replaced by the child fluxes ``fx_f`` over each face: their mean on
         a Cartesian patch, their area-weighted sum over the parent face's
-        area on a curvilinear one (SetFluxCorrections)."""
+        area on a curvilinear one (SetFluxCorrections).  ``hc``: the Hydro
+        of the parent frame ``lo`` indexes (the parent's own by default);
+        ``scatter(Fc, update, starts, d, side)``: how a face plane lands in
+        the parent's fluxes (in place at ``starts`` by default)."""
         n = self.n
+        hc = self.parent.hydro if hc is None else hc
         out = {}
-        for d in self.parent.hydro.dims:
+        for d in hc.dims:
             if self.wrap[d - 1]:
                 out[d] = fx_c[d]        # full-span periodic axis: no C-F faces
                 continue
@@ -671,8 +688,11 @@ class _Node:
                         starts.append(0)
                         sizes.append(1)
                 if self.curv:
-                    f_res = f_res / self.parent.hydro.area[d][_zyx(starts, sizes)].squeeze(-d)
-                Fc[_zyx(starts, sizes)] = f_res.unsqueeze(-d)
+                    f_res = f_res / hc.area[d][_zyx(starts, sizes)].squeeze(-d)
+                if scatter is None:
+                    Fc[_zyx(starts, sizes)] = f_res.unsqueeze(-d)
+                else:
+                    Fc = scatter(Fc, f_res.unsqueeze(-d), starts, d, side)
             out[d] = (Fc,) + tuple(fx_c[d][1:])
         return out
 
@@ -716,6 +736,101 @@ class MultiLevelSMR:
         if node.parent is None:
             return node.grid.bc[d] == ("periodic", "periodic")
         return bool(node.wrap[d])
+
+    # -- sharding hooks (identities on one device; parallel.amr.ShardedSMR
+    # overrides them with the exchanges between its shards) ---------------
+    _shard_axis = None  # 1..3 when the tree is sharded along x_d
+    # the fused stage kernels and their glue (ShardedSMR keeps the
+    # composable stage)
+    _fused_ok = True
+
+    @property
+    def ic_grids(self):
+        """Each node's global grid (the problem generator's initial state is
+        made on these)."""
+        return [nd.grid for nd in self.nodes]
+
+    @property
+    def global_nodes(self):
+        """The nodes with their global positions and extents (a checkpoint's
+        topology rows)."""
+        return self.nodes
+
+    def _node_hydro(self, grid):
+        """A node's Hydro on ``grid``."""
+        return Hydro(grid, self.cfg, self.dust_cfg, device=self.device, dtype=self.dtype)
+
+    def _exchange(self, tail, head, d: int):
+        """The (low, high) periodic images along axis ``d`` (0 = x1) from
+        this block's own boundary slabs: on one device its other end."""
+        return tail, head
+
+    def _root_fill(self, w, node: _Node, fluid: str):
+        """The root's padded prims, ghosts from the deck's boundaries."""
+        return bc_mod.pad_and_fill(w, node.grid, fluid, self.bc_custom)
+
+    def _parent_arrs(self, arrs, nodes=None):
+        """Per node (of ``nodes``, every node by default; None elsewhere and
+        for the root), its parent's array from the per-node ``arrs``, in the
+        frame of the node's ``lo``."""
+        want = self.nodes if nodes is None else nodes
+        out = [None] * len(self.nodes)
+        for nd in want:
+            if nd.parent is not None:
+                out[nd.index] = arrs[nd.parent.index]
+        return out
+
+    def _post_fine_ghosts(self, wp, node: _Node, fluid: str):
+        """A patch's padded array after its ghosts are filled."""
+        return wp
+
+    def _parent_grid(self, node: _Node):
+        """The grid of the parent frame ``node.lo`` indexes."""
+        return node.parent.grid
+
+    def _flux_correct(self, node: _Node, fx_c, fx_f, lo):
+        return node.flux_correct(fx_c, fx_f, lo)
+
+    def _restrict_into(self, node: _Node, arr, res, lo):
+        """Deposit the node's restricted array ``res`` into its parent's
+        ``arr`` at ``lo`` (in place; ``arr`` is a fresh output of this
+        stage)."""
+        return self._deposit(arr, res, lo)
+
+    def _node_pforce(self, node: _Node, pf):
+        """The node's N-body force rows as the levels' sum takes them."""
+        return pf
+
+    def _rad_solve(self, node: _Node, st, dt, ghosts):
+        """One node's radiation step and gas re-sync."""
+        rad = node.radiation
+        st = rad.step(st, dt) if ghosts is None else rad.step(st, dt, ghosts=ghosts)
+        return rad.sync_gas(st)
+
+    def node_radiation(self, node: _Node):
+        """The Radiation that steps ``node``'s field."""
+        return node.radiation
+
+    def _sib_pair_ok(self, a: _Node, b: _Node) -> bool:
+        """May siblings ``a`` and ``b`` take each other's fine ghosts?"""
+        return True
+
+    def _place_node(self, node: _Node, lo):
+        """Put a patch at parent cell ``lo`` (a curvilinear one is rebuilt
+        there); the caller re-runs the set-up."""
+        if node.curv:
+            node.rebuild_at(lo)
+        else:
+            node.lo = tuple(int(v) for v in lo)
+
+    def root_state(self, states):
+        """The root's state as ``evolve`` sees it."""
+        return {k: dict(v) for k, v in states[0].items()}
+
+    def with_root(self, states, root_state):
+        """``states`` with the root's state replaced by ``root_state``."""
+        states[0] = {k: dict(v) for k, v in root_state.items()}
+        return states
 
     def add_patch(self, level: int, lo, n, parent=None):
         """Register a patch; ``lo``/``n`` are in the interior cells of its
@@ -785,7 +900,7 @@ class MultiLevelSMR:
                 continue
             ng = node.grid.ng
             for sib in node.parent.children:
-                if sib is node or not self._links_static(sib):
+                if sib is node or not self._links_static(sib) or not self._sib_pair_ok(node, sib):
                     continue
                 dst, src = [], []
                 for d in (2, 1, 0):
@@ -814,13 +929,14 @@ class MultiLevelSMR:
         each patch's own fill_fine_ghosts) with the siblings' fine data
         written over."""
         wpads = [None] * len(self.nodes)
+        pws = self._parent_arrs(ws)
         groups = {}
         for node in self.nodes:
             i = node.index
             if node.parent is None:
-                wpads[i] = bc_mod.pad_and_fill(ws[i], node.grid, fluid, self.bc_custom)
+                wpads[i] = self._root_fill(ws[i], node, fluid)
             elif any(node.wrap) or node.curv:
-                wpads[i] = node.fill_fine_ghosts(ws[i], ws[node.parent.index], node.lo)
+                wpads[i] = node.fill_fine_ghosts(ws[i], pws[i], node.lo)
             else:
                 groups.setdefault(node.n, []).append(node)
         for nodes in groups.values():
@@ -829,7 +945,7 @@ class MultiLevelSMR:
             for d in range(3):
                 if not nodes[0].active[d]:
                     continue
-                fine = prolong_minmod(torch.cat([nd._ghost_windows(ws[nd.parent.index], d, nd.lo)
+                fine = prolong_minmod(torch.cat([nd._ghost_windows(pws[nd.index], d, nd.lo)
                                                  for nd in nodes]), nodes[0].active)
                 for k, node in enumerate(nodes):
                     reg, fg = wpads[node.index], node.grid
@@ -839,8 +955,9 @@ class MultiLevelSMR:
                                                 else slice(fg.ng[d] + fg.nx[d], None))
                         reg[tuple(sl)] = node._ghost_cut(fine, 2 * k + side, d, side)
         for node in self.nodes[1:]:
-            wpads[node.index] = self._apply_sib_links(wpads[node.index],
-                                                      self._sib_links[node.index], ws)
+            wpads[node.index] = self._post_fine_ghosts(
+                self._apply_sib_links(wpads[node.index], self._sib_links[node.index], ws),
+                node, fluid)
         return wpads
 
     @staticmethod
@@ -858,7 +975,7 @@ class MultiLevelSMR:
         Re-run after every topology or position change."""
         self.fused = fused
         self.gather6 = gather6
-        self._fused = self._fused_setup() if fused else None
+        self._fused = self._fused_setup() if fused and self._fused_ok else None
         self._sib_links = self._sibling_links()
         self._masks = [self._cover_mask(node) for node in self.nodes]
         self._gather6 = self._gather6_setup() if gather6 else None
@@ -1120,7 +1237,7 @@ class MultiLevelSMR:
         return u_p
 
     @staticmethod
-    def _restrict_into(arr, res, lo):
+    def _deposit(arr, res, lo):
         """Deposit the restricted child array ``res`` into ``arr`` at ``lo``
         (in place; ``arr`` is a fresh output of this stage)."""
         arr[_zyx([lo[2], lo[1], lo[0]], res.shape[-3:])] = res
@@ -1158,7 +1275,7 @@ class MultiLevelSMR:
             for child in pnode.children:
                 u_f = new_states[child.index]["gas"]["u"]
                 if final:
-                    u_p = self._restrict_into(u_p, restrict_average(u_f, child.active), child.lo)
+                    u_p = self._deposit(u_p, restrict_average(u_f, child.active), child.lo)
                 else:
                     u_p = self._restrict_band_into(child, u_p, u_f, child.lo)
             new_states[p]["gas"]["u"] = u_p
@@ -1223,7 +1340,7 @@ class MultiLevelSMR:
             B = self._aux_switch_math(B)
             u_f = new_states[ci]["gas"]["u"]
             if final:
-                B = self._restrict_into(B, restrict_average(u_f, child.active), lo_reb)
+                B = self._deposit(B, restrict_average(u_f, child.active), lo_reb)
             else:
                 B = self._restrict_band_into(child, B, u_f, lo_reb)
             u_p[sl], w_p[sl] = self._resync_math(B)
@@ -1302,7 +1419,7 @@ class MultiLevelSMR:
         for node in reversed(self.nodes[1:]):
             p = node.parent.index
             for fl, _ in fluids:
-                fxs[p][fl] = node.flux_correct(fxs[p][fl], fxs[node.index][fl], node.lo)
+                fxs[p][fl] = self._flux_correct(node, fxs[p][fl], fxs[node.index][fl], node.lo)
         # 4. update, diffusion and sources per node; the particles'
         # back-reaction summed over the levels, covered cells masked
         new_states = []
@@ -1324,14 +1441,15 @@ class MultiLevelSMR:
             ctx = {"particles": particles, "mask": self._masks[i]}
             st = apply_sources(node.sources, st, fxs[i], time, bdt, hyd, ctx)
             if "pforce" in ctx:
-                pforce = ctx["pforce"] if pforce is None else pforce + ctx["pforce"]
+                pf = self._node_pforce(node, ctx["pforce"])
+                pforce = pf if pforce is None else pforce + pf
             if "gas" in st:
                 st["gas"]["u"] = hyd.set_auxiliary(st["gas"]["u"], self.cfg)
             new_states.append(st)
         # 5. restriction, deepest level first
         for node in reversed(self.nodes[1:]):
             for fl, _ in fluids:
-                self._restrict_into(new_states[node.parent.index][fl]["u"], restrict_average(
+                self._restrict_into(node, new_states[node.parent.index][fl]["u"], restrict_average(
                     new_states[node.index][fl]["u"], node.active, node.volf), node.lo)
         # 6. prims re-synced per node
         out = []
@@ -1356,26 +1474,23 @@ class MultiLevelSMR:
         states = list(states)
         sib_Er = [s["rad"]["Er"] for s in states]
         for lev in sorted({n.level for n in self.nodes}):
-            for node in [n for n in self.nodes if n.level == lev]:
+            nodes = [n for n in self.nodes if n.level == lev]
+            # the parents' new fields, in each patch's frame
+            pEr = self._parent_arrs([s["rad"]["Er"] for s in states], nodes)
+            for node in nodes:
                 i = node.index
-                st = dict(states[i])
-                if node.parent is None:
-                    st = node.radiation.step(st, dt)
-                else:
-                    gh = self._rad_ghost_planes(node, states[node.parent.index]["rad"]["Er"],
-                                                sib_Er)
-                    st = node.radiation.step(st, dt, ghosts=gh)
-                states[i] = node.radiation.sync_gas(st)
+                gh = None if node.parent is None else self._rad_ghost_planes(node, pEr[i], sib_Er)
+                states[i] = self._rad_solve(node, dict(states[i]), dt, gh)
         for node in reversed(self.nodes[1:]):
             p = node.parent.index
             pst = dict(states[p])
             fine = states[node.index]
             u_p = pst["gas"]["u"].clone()
-            self._restrict_into(u_p[:, 4:6], restrict_average(
+            self._restrict_into(node, u_p[:, 4:6], restrict_average(
                 fine["gas"]["u"][:, 4:6], node.active, node.volf), node.lo)
             pst["gas"] = {"u": u_p, "w": pst["gas"]["w"]}
             pst["rad"] = {"Er": self._restrict_into(
-                pst["rad"]["Er"].clone(),
+                node, pst["rad"]["Er"].clone(),
                 restrict_average(fine["rad"]["Er"], node.active, node.volf), node.lo)}
             states[p] = pst
         return [node.radiation.sync_gas(st) if node.children else st
@@ -1416,6 +1531,10 @@ class MultiLevelSMR:
         return gh
 
     # -- the step -------------------------------------------------------------
+    def _stage_inputs(self, states):
+        """Each node's u at the start of a cycle (the RK scheme's u1)."""
+        return [{fl: st[fl]["u"] for fl in st if fl != "rad"} for st in states]
+
     def step(self, states, dt: float, time: float):
         """One cycle of every RK stage over the tree with the host ``dt``
         from the host ``time``, then the radiation pass.  With the run's
@@ -1424,7 +1543,7 @@ class MultiLevelSMR:
         nbody_advance.cpp:85-208)."""
         nbody = self.nbody
         dt_t = torch.full((), dt, dtype=self.dtype, device=self.device)
-        u1s = [{fl: st[fl]["u"] for fl in st if fl != "rad"} for st in states]
+        u1s = self._stage_inputs(states)
         nstages = self.integ.nstages
         if nbody is not None:
             coeffs = nbody_coeffs(self.integ, float(dt))
@@ -1636,10 +1755,7 @@ class MultiLevelSMR:
         re-runs the set-up once per pass."""
         if node.children:
             raise ValueError("cannot move a patch that has children")
-        if node.curv:
-            node.rebuild_at(new_lo)
-        else:
-            node.lo = tuple(int(v) for v in new_lo)
+        self._place_node(node, new_lo)
         states[node.index] = self._fresh_patch_state(states[node.parent.index], node, node.lo)
         return states
 
@@ -1926,13 +2042,17 @@ class SMRDriver:
     ``check_interval`` cycles (``<nbody> refine_type = none`` turns them
     off).  The state ``evolve`` sees is the root's, every fluid of it,
     which carries the restricted fine solution under the patches; the fine
-    levels' states live here."""
+    levels' states live here.  ``devices`` (one per shard) shards the tree
+    along grid axis ``shard_axis`` (``parallel.amr.ShardedSMR``; ``<artemis>
+    amr_distribute`` block-shards the patches that do not span that axis),
+    each shard's custom fills built by ``bc_factory`` on its own grid."""
 
     host_coupled = True
 
     def __init__(self, grid, integrator, gas_cfg, pin, *, device, dtype, dust_cfg=None,
                  sources_factory=None, diffusion_factory=None, bc_custom=None,
-                 omf=0.0, radiation_factory=None, fused=False, nbody=None):
+                 omf=0.0, radiation_factory=None, fused=False, nbody=None, devices=None,
+                 shard_axis: int = 3, bc_factory=None):
         mode = pin.get_str("parthenon/mesh", "refinement")
         if mode not in ("adaptive", "static"):
             raise ValueError(f"refinement {mode!r} not recognized")
@@ -2002,14 +2122,23 @@ class SMRDriver:
             pin.get_or_add_real("nbody", "derefine_factor", 2.0)
             if rtype in ("", "distance"):
                 track = [(k, float(rd)) for k, rd in enumerate(nbody.target_rad) if rd > 0.0]
-        self.smr = MultiLevelSMR(
-            grid, integrator, gas_cfg, device=device, dtype=dtype, dust_cfg=dust_cfg,
-            sources_factory=sources_factory, diffusion_factory=diffusion_factory,
-            bc_custom=bc_custom, omf=omf, patches=patches,
+        tree_kw = dict(
+            dust_cfg=dust_cfg, sources_factory=sources_factory,
+            diffusion_factory=diffusion_factory, omf=omf, patches=patches,
             radiation_factory=radiation_factory, fused=fused, nbody=nbody,
             # tiled pools stay put between regrids (each regrid re-runs the
             # set-up), so they keep sibling links and six-face halos
             moving_patches=(self.adaptive and not self.tiled) or bool(track))
+        if devices is None:
+            self.smr = MultiLevelSMR(grid, integrator, gas_cfg, device=device, dtype=dtype,
+                                     bc_custom=bc_custom, **tree_kw)
+        else:
+            from .parallel.amr import ShardedSMR
+
+            self.smr = ShardedSMR(
+                grid, integrator, gas_cfg, devices=devices, dtype=dtype, axis=shard_axis,
+                bc_factory=bc_factory,
+                distribute=pin.get_or_add_bool("artemis", "amr_distribute", False), **tree_kw)
         # {node index: particle index} of the tracking patches, each wide
         # enough to cover +/- refine_distance around its particle on the
         # root grid
@@ -2034,7 +2163,7 @@ class SMRDriver:
             self.smr._compile(self.smr.fused, self.smr.gather6)
         root = self.smr.root
         self.hydro, self.sources = root.hydro, root.sources
-        self.diffusion, self.radiation = root.diffusion, root.radiation
+        self.diffusion, self.radiation = root.diffusion, self.smr.node_radiation(root)
         self.criterion = None
         if self.adaptive and pin.exists("gas", "refine_thr"):
             self.criterion = dict(
@@ -2159,7 +2288,7 @@ class SMRDriver:
             # level below the root so a feature reaches full depth
             for _ in range(max(1, self.numlevel - 1)):
                 self._states = self._regrid()
-        return {k: dict(v) for k, v in self._states[0].items()}
+        return self.smr.root_state(self._states)
 
     def restart_payloads(self):
         """The fine levels' arrays for a bit-exact restart (name -> fn), as
@@ -2181,7 +2310,7 @@ class SMRDriver:
             if node.radiation is not None:
                 out[f"n{i}.rad.Er"] = host(i, "rad", "Er")
             out[f"n{i}.lo"] = (lambda lo: lambda: np.array(lo, dtype=np.int32))(node.lo)
-        rows = tree_rows(self.smr.nodes)
+        rows = tree_rows(self.smr.global_nodes)
         rows = rows[rows[:, 8] == 1, :8]
         if len(rows):
             out["pool"] = lambda: rows
@@ -2216,10 +2345,7 @@ class SMRDriver:
                 if ml._links_static(node):
                     raise ValueError(f"restart: node {i} sits at {lo}, the deck's static "
                                      f"tree puts it at {node.lo}")
-                if node.curv:
-                    node.rebuild_at(lo)
-                else:
-                    node.lo = lo
+                ml._place_node(node, lo)
                 moved = True
             st = {fl: {"u": dev(f"n{i}.{fl}.u"), "w": dev(f"n{i}.{fl}.w")}
                   for fl, _ in node.fluids()}
@@ -2234,7 +2360,7 @@ class SMRDriver:
             prims = [None] * len(self.smr.nodes)
             prims[0] = {fl: root_state[fl]["w"] for fl in root_state if fl != "rad"}
             self._states = self.smr.initialize(prims)
-        self._states[0] = {k: dict(v) for k, v in root_state.items()}
+        self._states = self.smr.with_root(self._states, root_state)
 
     def step(self, state, dt: float, time: float):
         self._ensure_states(state)
@@ -2247,10 +2373,13 @@ class SMRDriver:
                 self._states = self.smr.retag_user(self._states, self.user_criterion)
             elif self.criterion is not None:
                 self._states = self.smr.retag_criteria(self._states, self.criterion)
-            if self._particle_nodes:
+            # a sharded tree keeps a curvilinear tracking patch where it is
+            # (the JAX package's rule, artemis_tpu/amr.py:3105-3115)
+            if self._particle_nodes and (self.smr._shard_axis is None or not self.smr.nodes[
+                    next(iter(self._particle_nodes))].curv):
                 self._states = self.smr.retag_particles(
                     self._states, self._particle_nodes, self.nbody.pos - self.nbody.Rf)
-        return {k: dict(v) for k, v in self._states[0].items()}
+        return self.smr.root_state(self._states)
 
     def estimate_dt(self, state) -> float:
         self._ensure_states(state)

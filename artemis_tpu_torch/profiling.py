@@ -179,7 +179,7 @@ def _clone(obj):
         return {k: _clone(v) for k, v in obj.items()}
     if isinstance(obj, list):
         return [_clone(v) for v in obj]
-    return obj.clone()   # a sharded run's ShardedState
+    return obj.clone()   # a sharded run's ShardedState or TreeStates
 
 
 def _driver_phases(drv, dt):
@@ -220,7 +220,7 @@ def _smr_phases(drv, dt):
     names.append("dt_estimate")
 
     def run_cycle(states, record):
-        u1s = [{fl: st[fl]["u"] for fl in st if fl != "rad"} for st in states]
+        u1s = smr._stage_inputs(states)
         dt_t = torch.full((), dt, dtype=smr.dtype, device=smr.device)
         for s in range(1, nstages + 1):
             with record(f"stage{s}"):

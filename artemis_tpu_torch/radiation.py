@@ -126,8 +126,9 @@ class Radiation:
         # the IC equilibrium outside the domain instead of reflecting at a
         # zero-flux wall
         self._edge_dirichlet = {}
-        # the sharded axis (enable_sharding), or None
+        # the sharded axis and the number of shards (enable_sharding)
         self._axis_d = None
+        self.nshards = 1
         # the FLD cap extent: the largest domain extent over the active dims
         self._ext_t = self._cap_extent()
         # uniform cell widths (dx, dy, dz) and the kernels' cap extent
@@ -169,6 +170,7 @@ class Radiation:
         operations (the JAX package gates its FLD kernels off under
         sharding, radiation.py:261-263)."""
         self._axis_d = axis_d
+        self.nshards = nshards
         self._ext_t = self._cap_extent(nshards)
         self.widths = widths
         self.use_kernels = False

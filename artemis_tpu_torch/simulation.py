@@ -12,9 +12,9 @@ restart checkpoint, and runs the evolution loop with the deck's outputs
 ``.reb``/``.orb`` files).  ``nshards > 1`` decomposes a single-level run
 along one axis (``<parthenon/mesh> shard_axis = auto | x1 | x2 | x3``) over
 ``nshards`` devices (``parallel.mesh``): every shard on the CPU, one card
-each, or the shards named by ``shard_devices``.  Sharded refinement trees
-are not ported yet: they raise ``NotImplementedError`` naming ROADMAP Queue
-1 item 11b (``ShardedSMR``).
+each, or the shards named by ``shard_devices``.  A refinement tree shards
+every level along a periodic axis (``parallel.amr``; ``<artemis>
+amr_distribute`` splits the patches that do not span it).
 """
 
 from __future__ import annotations
@@ -216,13 +216,20 @@ class Simulation:
         self._problems = {}
         self._srcs, self._omf, self._visc = srcs, omf, visc
         if refinement != "none":
+            shard_kw = {}
             if nshards > 1:
-                self._shard_axis(nshards, tree=True)
-                raise NotImplementedError("sharded refinement trees are not ported yet "
-                                          "(ROADMAP Queue 1 item 11b, ShardedSMR)")
+                from .parallel.mesh import make_device_mesh
+
+                axis = self._shard_axis(nshards, tree=True)
+                devices = make_device_mesh(nshards, self.device, shard_devices)
+                self.device = devices[0]
+                # each shard's custom fills from the problem on its own grid
+                shard_kw = dict(devices=devices, shard_axis=axis, bc_factory=(
+                    (lambda g: self._problem_on(g).bc_custom)
+                    if self.problem.bc_custom else None))
             self.driver = self._smr_driver(pin, problem_name, integrator, gas_cfg, dust_cfg,
                                            diffusion_factory, radiation_factory, omf,
-                                           fused_stage)
+                                           fused_stage, **shard_kw)
         elif nshards > 1:
             from .parallel.mesh import ShardedDriver, make_device_mesh
 
@@ -363,7 +370,7 @@ class Simulation:
         raise ValueError(f"no grid axis divisible into {nshards} shards")
 
     def _smr_driver(self, pin, problem_name, integrator, gas_cfg, dust_cfg,
-                    diffusion_factory, radiation_factory, omf, fused_stage):
+                    diffusion_factory, radiation_factory, omf, fused_stage, **shard_kw):
         """The static or adaptive refinement tree
         (artemis_tpu/simulation.py:223-296), with the run's fluids and its
         N-body system: every node gets the deck's sources (N-body gravity
@@ -374,7 +381,8 @@ class Simulation:
         sources, for those; an adaptive tree's spawned tiles prolong their
         prims).  ``<artemis> amr_user`` hands the problem's own criterion
         to the tree.  The tree's stage kernels run on the card
-        (``fused_stage``)."""
+        (``fused_stage``).  ``shard_kw`` (devices, shard_axis, bc_factory)
+        shards the tree."""
         from .amr import SMRDriver
 
         drv = SMRDriver(self.grid, integrator, gas_cfg, pin, device=self.device,
@@ -382,7 +390,8 @@ class Simulation:
                         diffusion_factory=diffusion_factory,
                         bc_custom=self.problem.bc_custom, omf=omf,
                         radiation_factory=radiation_factory,
-                        fused=fused_stage and self.device.type == "cuda", nbody=self.nbody)
+                        fused=fused_stage and self.device.type == "cuda", nbody=self.nbody,
+                        **shard_kw)
         # a problem-defined refinement criterion (artemis.cpp:149-150)
         if pin.get_or_add_bool("artemis", "amr_user", False):
             if self.problem.amr_criterion is None:
@@ -390,7 +399,7 @@ class Simulation:
                                  "(amr_user = true needs the problem generator to provide "
                                  "Problem.amr_criterion)")
             drv.user_criterion = self.problem.amr_criterion
-        drv._fine_prims = [dict(self._problem_on(nd.grid).prims) for nd in drv.smr.nodes[1:]]
+        drv._fine_prims = [dict(self._problem_on(g).prims) for g in drv.smr.ic_grids[1:]]
         return drv
 
     def _set_radiation_ic_edges(self):

@@ -268,7 +268,21 @@ line is printed:
    K8), both tables printed; every kernel_table row a kernel (none
    ``plain``) and each kernel's rows counting exactly the launches its
    wrapper's counter counted over the same cycles; each kernel's ms per
-   launch printed beside the phase's own CUDA-event time (no gate).
+   launch printed beside the phase's own CUDA-event time (no gate);
+30. sharded refinement trees (``parallel.amr.ShardedSMR``) through
+   ``Simulation(..., nshards=4, shard_devices=["cuda:0"] * 4)``: the
+   flagship box at 256x256x128 f32 with a 128^3-cell wrap patch (a 256^3
+   fine node) on x3 slabs, and with a 128x128x64 patch distributed over the
+   shards, each with the flux sweep (K9) launched 3 x 2 x 2 x 4 = 48 times
+   a cycle (read from its counter over 4 cycles), its end state within
+   1e-5 of each field's scale of the unsharded tree's on the card after 4
+   cycles, and 10 timed cycles beside the unsharded tree's; disk_sph at
+   256x64x64 f32 with a full-phi ring of 128x32x64 cells on phi slabs
+   against its unsharded tree (1e-4), 10 cycles timed; then, in float64 at
+   the tests' sizes, the distributed rad_shock tree, the disk_nbody_cyl
+   tracking tree and the periodic-x3 blast_amr pool (the same tile set)
+   against the port's CPU run of the same sharded case (1e-12), and a
+   sharded checkpoint resumed bit for bit.
 
 Each kernel's bound is the larger of its compulsory HBM traffic per launch
 (every input read once, every output written once) over 3.35 TB/s and the
@@ -602,14 +616,14 @@ def phase_linwave(torch):
 FLAGSHIP = (256, 256, 128)
 
 
-def flagship_sim(dtype, data, fused=True, **kw):
+def flagship_sim(dtype, data, fused=True, extra=(), **kw):
     from artemis_tpu_torch import Simulation
 
     nx, ny, nz = FLAGSHIP
     args = [f"parthenon/mesh/nx1={nx}", f"parthenon/mesh/nx2={ny}",
             f"parthenon/mesh/nx3={nz}", "parthenon/mesh/nghost=2",
             "problem/amp=1.0e-3", "gas/reconstruct=plm", "gas/riemann=hllc",
-            "parthenon/time/integrator=rk2", f"artemis/precision={dtype}"]
+            "parthenon/time/integrator=rk2", f"artemis/precision={dtype}", *extra]
     return Simulation(DECK, args, data, device=DEVICE, fused_stage=fused, **kw)
 
 
@@ -3895,8 +3909,8 @@ REST_BUDGET_S = 100
 
 
 def tree_cells(smr):
-    """Zones over every node of a tree."""
-    return sum(nd.grid.nx[0] * nd.grid.nx[1] * nd.grid.nx[2] for nd in smr.nodes)
+    """Zones over every node of a tree (a sharded tree's global nodes)."""
+    return sum(nd.grid.nx[0] * nd.grid.nx[1] * nd.grid.nx[2] for nd in smr.global_nodes)
 
 
 def host_states(states):
@@ -4384,6 +4398,296 @@ def phase_sharded(torch, smi, flag_ref, flag_zcps, disk_ref, disk_zcps, shock_re
     return res
 
 
+# -- phase 30 ------------------------------------------------------------
+TREE_CMP_CYCLES = 4                 # sharded trees against the unsharded ones
+TREE_TIMED_CYCLES = 10
+# the flagship tree: linwave at FLAGSHIP with a wrap patch of 128^3 parent
+# cells (a 256^3 fine node), or a 128x128x64 patch distributed over the
+# shards (32 fine x3 cells each)
+TREE_FLAG = ["parthenon/mesh/refinement=static", "parthenon/refinement/patch_nx1=128",
+             "parthenon/refinement/patch_nx2=128"]
+TREE_FLAG_WAYS = {"wrap": ["parthenon/refinement/patch_nx3=128"],
+                  "distributed": ["parthenon/refinement/patch_nx3=64",
+                                  "artemis/amr_distribute=true"]}
+# disk_sph at DISK_BENCH with a full-phi ring of 128x32x64 parent cells
+TREE_DISK = ["parthenon/mesh/refinement=static", "parthenon/refinement/patch_nx1=128",
+             "parthenon/refinement/patch_nx2=32", "parthenon/refinement/patch_nx3=64"]
+# the test-size float64 trees of tests/test_torch_amr_sharded*.py, on the
+# card against the port's CPU run of the same sharded case (rad_shock cut
+# from the tests' 10 cycles to 6 for the phase's budget)
+TREE_SMALL = {
+    "rad_shock_distributed": (SHOCK, [
+        "parthenon/time/nlim=6", "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=1",
+        "parthenon/mesh/nx3=16", "parthenon/mesh/ix3_bc=periodic",
+        "parthenon/mesh/ox3_bc=periodic", "parthenon/mesh/x3min=0.0",
+        "parthenon/mesh/x3max=1.0", "parthenon/mesh/refinement=static",
+        "parthenon/refinement/patch_nx1=32", "parthenon/refinement/patch_nx3=8",
+        "artemis/amr_distribute=true"]),
+    "disk_nbody_cyl_tracking": (os.path.join(HERE, "inputs", "disk_nbody_cyl.in"), [
+        "parthenon/time/nlim=10", "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=64",
+        "parthenon/mesh/nx3=1", "parthenon/mesh/refinement=static",
+        "parthenon/mesh/numlevel=1", "nbody/planet1/mass=1.0e-4", "nbody/planet1/a=2.0",
+        "nbody/planet1/f=0.0", "nbody/planet1/refine_distance=0.3",
+        "nbody/disable_outputs=true"]),
+    "blast_amr_pool": (os.path.join(HERE, "inputs", "blast_amr.in"), [
+        "parthenon/time/nlim=20", "parthenon/mesh/nx3=8", "parthenon/mesh/x3min=-0.5",
+        "parthenon/mesh/x3max=0.5", "parthenon/mesh/ix3_bc=periodic",
+        "parthenon/mesh/ox3_bc=periodic", "parthenon/refinement/patch_nx3=8",
+        "parthenon/refinement/check_interval=5", "parthenon/refinement/tile_nx1=8",
+        "parthenon/refinement/tile_nx2=8"]),
+}
+TREE_RESTART = ["parthenon/mesh/nghost=2", "parthenon/mesh/nx1=32", "parthenon/mesh/nx2=8",
+                "parthenon/mesh/nx3=16", "problem/amp=1.0e-6", "gas/reconstruct=plm",
+                "parthenon/mesh/refinement=static", "parthenon/refinement/patch_nx1=16",
+                "parthenon/refinement/patch_nx2=4", "parthenon/refinement/patch_nx3=16"]
+TREE_RESTART_CYCLES = (5, 10)       # the checkpoint's cycle, the end
+TREE_BUDGET_S = 60
+
+
+def tree_states(sim):
+    """Copies of every node's global state (a sharded tree's gathered)."""
+    drv = sim.driver
+    return [{n: {k: v.clone() for k, v in kinds.items()} for n, kinds in drv._states[i].items()}
+            for i in range(len(drv.smr.nodes))]
+
+
+def tree_err(torch, states, ref):
+    """max over nodes and fields of |a - b| / max(1, max |b| of b's
+    component)."""
+    errs = []
+    for a_st, b_st in zip(states, ref):
+        for name, kinds in b_st.items():
+            for k, b in kinds.items():
+                a = a_st[name][k].to(b.device, b.dtype)
+                dims = tuple(i for i in range(b.ndim) if i != 1) if b.ndim == 5 else None
+                scale = (b.abs().amax(dim=dims, keepdim=True) if dims else b.abs().amax())
+                errs.append(float(((a - b).abs() / scale.clamp(min=1.0)).max()))
+    return max(errs)
+
+
+def tree_sharded(make, *args, **kw):
+    """A run through ``make`` with SHARDS shards on SHARD_DEVICES; every
+    shard tree must sit on the card."""
+    sim = make(*args, nshards=SHARDS, shard_devices=SHARD_DEVICES, **kw)
+    smr = sim.driver.smr
+    check(len(smr.trees) == SHARDS and all(t.device.type == "cuda" for t in smr.trees),
+          f"sharded tree placed its shards on {[str(t.device) for t in smr.trees]}")
+    return sim
+
+
+def tree_pair(torch, smi, name, make, want_kind, kernel_per_cycle, tol):
+    """One full-size tree cell: the unsharded tree for TREE_CMP_CYCLES
+    through Simulation.run, its node states kept, then TREE_TIMED_CYCLES
+    timed; the sharded tree with the sweep count reset before and read
+    after its TREE_CMP_CYCLES, held to the unsharded states at ``tol`` of
+    each field's scale, then timed the same way.  The sharded tree is set
+    up on a thread beside the unsharded tree's set-up and untimed cycles,
+    and is done before the first timed window opens."""
+    from artemis_tpu_torch.ops import sweeps as SW
+
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        pre = pool.submit(timed_build, lambda: tree_sharded(make))
+        t0 = time.perf_counter()
+        one = make()
+        one_kernel = one.driver.stage_kernel
+        split = {"build": time.perf_counter() - t0}
+        warm_up(one, TREE_CMP_CYCLES)
+        ref, ref_time = tree_states(one), one.tm.time
+        t0 = time.perf_counter()
+        sim, split["sharded_build"] = pre.result()
+        split["wait"] = time.perf_counter() - t0
+    one_ms, one_zcps = timed_tree_cycles(torch, one, TREE_TIMED_CYCLES)
+    del one
+    torch.cuda.empty_cache()
+    smr = sim.driver.smr
+    node = smr.nodes[1]
+    kind = "distributed" if node.distributed else "replicated" if node.replicated else "wrap"
+    check(kind == want_kind and smr.axis_d == 3 and node.wrap[2] == (kind == "wrap"),
+          f"sharded {name}: node 1 {kind} on axis {smr.axis_d}, wanted {want_kind} on x3")
+    SW.sweep_launches = 0
+    warm_up(sim, TREE_CMP_CYCLES)
+    launches = SW.sweep_launches
+    want = kernel_per_cycle * TREE_CMP_CYCLES
+    check(launches == want, f"sharded {name}: {launches} sweep launches in "
+          f"{TREE_CMP_CYCLES} cycles, wanted {want}")
+    check(abs(sim.tm.time - ref_time) <= 1e-6 * ref_time,
+          f"sharded {name}: t {sim.tm.time} vs unsharded {ref_time}")
+    err = tree_err(torch, tree_states(sim), ref)
+    check(err <= tol, f"sharded {name} vs unsharded after {TREE_CMP_CYCLES} cycles: "
+          f"{err:.3e} > {tol:g}")
+    ms, zcps = timed_tree_cycles(torch, sim, TREE_TIMED_CYCLES)
+    local = [nd.grid.nx for nd in smr.nodes]
+    print(f"sharded tree {name} ({SHARDS} shards on {SHARD_DEVICES[0]}, nodes per shard "
+          f"{local}, {smr.stage_kernel}): {launches} sweep (K9) launches in {TREE_CMP_CYCLES} "
+          f"cycles ({kernel_per_cycle} a cycle); vs the unsharded tree ({one_kernel}) on the "
+          f"same card after {TREE_CMP_CYCLES} cycles {err:.3e} (tol {tol:g}); "
+          f"{TREE_TIMED_CYCLES} cycles {ms:.3f} ms a cycle, {zcps:.6e} zone-cycles/s over every "
+          f"node against unsharded {one_zcps:.6e} ({one_ms:.3f} ms, {zcps / one_zcps:.3f}x); "
+          f"set-ups {split['build']:.1f} s unsharded, {split['sharded_build']:.1f} s sharded "
+          f"beside it (then waited {split['wait']:.1f} s) [{smi}]")
+    out = {"launches": launches, "err": err, "ms": ms, "zcps": zcps, "unsharded_ms": one_ms,
+           "unsharded_zcps": one_zcps, "unsharded_kernel": one_kernel,
+           "nodes_per_shard": local}
+    del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def small_tree(torch, deck, args, data, device, **kw):
+    from artemis_tpu_torch import Simulation
+
+    sim = Simulation(deck, args, data, device=device, nshards=SHARDS, **kw)
+    sim.run()
+    check(sim.status == "complete", f"{deck} on {device} did not complete")
+    return sim
+
+
+def small_summary(sim):
+    """A small tree's end: every node's global state on the host, the tile
+    set, the particles' positions and the cycle."""
+    states = [{n: {k: v.cpu().numpy() for k, v in kinds.items()} for n, kinds in st.items()}
+              for st in tree_states(sim)]
+    pool = sorted(nd.lo for nd in sim.driver.smr.global_nodes if nd.pool)
+    pos = None if sim.nbody is None else sim.nbody.pos.copy()
+    return states, pool, pos, sim.tm.ncycle
+
+
+def cpu_small_trees():
+    """The port's CPU runs of TREE_SMALL (run in a worker process beside
+    the kernels' build): {name: small_summary}."""
+    import torch
+
+    torch.set_num_threads(1)
+    out = {}
+    with tempfile.TemporaryDirectory() as data:
+        for name, (deck, args) in TREE_SMALL.items():
+            out[name] = small_summary(small_tree(torch, deck, args, os.path.join(data, name),
+                                                 "cpu"))
+    return out
+
+
+def card_small_trees():
+    """TREE_SMALL on SHARDS shards of the card (run in a worker process
+    beside rad_shock, whose loop is host-bound and untimed): {name:
+    (small_summary, sweep launches, seconds)}."""
+    import torch
+
+    from artemis_tpu_torch.ops import sweeps as SW
+
+    out = {}
+    with tempfile.TemporaryDirectory() as data:
+        for name, (deck, args) in TREE_SMALL.items():
+            SW.sweep_launches = 0
+            t0 = time.perf_counter()
+            sim = small_tree(torch, deck, args, os.path.join(data, name), DEVICE,
+                             shard_devices=SHARD_DEVICES)
+            secs = time.perf_counter() - t0
+            devs = [str(t.device) for t in sim.driver.smr.trees]
+            check(devs == SHARD_DEVICES, f"sharded {name} placed its shards on {devs}")
+            out[name] = (small_summary(sim), SW.sweep_launches, secs)
+            del sim
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_worker(fn):
+    """A worker process running ``fn`` (spawned, so a CUDA context of its
+    own where ``fn`` uses the card): (pool, future); the caller shuts the
+    pool down."""
+    import multiprocessing
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    return pool, pool.submit(fn)
+
+
+def phase_sharded_trees(torch, smi, cpu_refs, cards_small):
+    """Phase 30: sharded refinement trees on SHARDS shards of the one card;
+    ``cpu_refs``: the future of the small trees' CPU references,
+    ``cards_small``: their card runs (``card_small_trees``)."""
+    from artemis_tpu_torch import Simulation
+
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+    with tempfile.TemporaryDirectory() as data:
+        for way, extra in TREE_FLAG_WAYS.items():
+            # the two trees of a cell are set up at once: a data directory each
+            def make(**kw):
+                return flagship_sim("float32", os.path.join(data, f"flag_{way}", str(len(kw))),
+                                    extra=TREE_FLAG + extra, **kw)
+
+            t1 = time.perf_counter()
+            # 3 directions x 2 stages x 2 nodes per shard x SHARDS shards
+            res[f"flagship_{way}"] = tree_pair(torch, smi, f"flagship f32 {way}", make, way,
+                                               3 * 2 * 2 * SHARDS, F32_TOL)
+            secs[f"flagship_{way}"] = time.perf_counter() - t1
+
+        def disk(**kw):
+            return disk_setup(torch, "float32", DISK_BENCH,
+                              os.path.join(data, "disk", str(len(kw))), extra=TREE_DISK, **kw)
+
+        t1 = time.perf_counter()
+        # a curvilinear tree takes the tensor fluxes: no sweep launch
+        res["disk_ring"] = tree_pair(torch, smi, "disk_sph f32 ring", disk, "wrap", 0,
+                                     DISK_F32_TOL)
+        secs["disk_ring"] = time.perf_counter() - t1
+        small = {name: {"launches": n, "secs": t}
+                 for name, (_, n, t) in cards_small.items()}
+        cards = {name: summary for name, (summary, _, _) in cards_small.items()}
+        t1 = time.perf_counter()
+
+        # a sharded checkpoint resumed bit for bit
+        k, n = TREE_RESTART_CYCLES
+
+        def lin(sub, extra=(), **kw):
+            return Simulation(DECK, TREE_RESTART + list(extra), os.path.join(data, sub),
+                              device=DEVICE, nshards=SHARDS, shard_devices=SHARD_DEVICES, **kw)
+
+        straight = lin("rst_a", [f"parthenon/time/nlim={n}"])
+        straight.run()
+        first = lin("rst_b", [f"parthenon/time/nlim={k}"])
+        first.run()
+        rst = first.write_restart(os.path.join(data, "rst_b", "tree"))
+        resumed = lin("rst_b", [f"parthenon/time/nlim={n}"], restart=rst)
+        resumed.run()
+        same = all(bool(torch.equal(a[fl][key], b[fl][key]))
+                   for a, b in zip(tree_states(straight), tree_states(resumed))
+                   for fl in b for key in b[fl])
+        check(resumed.tm.ncycle == straight.tm.ncycle == n and same,
+              f"sharded tree checkpoint at cycle {k} did not resume bit for bit")
+        res["restart_bitwise"] = same
+        secs["restart"] = time.perf_counter() - t1
+        print(f"sharded tree checkpoint at cycle {k} resumed to cycle {n}: every node bitwise "
+              "equal to the straight run")
+        t1 = time.perf_counter()
+        refs = cpu_refs.result()
+        secs["cpu_wait"] = time.perf_counter() - t1
+    for name, (states, pools, pos, ncycle) in cards.items():
+        r_states, r_pools, r_pos, r_ncycle = refs[name]
+        err = tree_err(torch, [{nm: {key: torch.as_tensor(v) for key, v in kinds.items()}
+                                for nm, kinds in st.items()} for st in states],
+                       [{nm: {key: torch.as_tensor(v) for key, v in kinds.items()}
+                         for nm, kinds in st.items()} for st in r_states])
+        r = small[name]
+        r.update(err=err, ncycle=ncycle, tiles=len(pools))
+        check(ncycle == r_ncycle and err <= F64_TOL and pools == r_pools,
+              f"sharded {name}: card vs CPU {err:.3e} after {ncycle} / {r_ncycle} cycles, "
+              f"tiles {pools} / {r_pools}")
+        if pos is not None:
+            r["particles"] = float(abs(pos - r_pos).max())
+            check(r["particles"] <= F64_TOL, f"sharded {name}: particles {r['particles']}")
+        print(f"sharded tree {name} f64 on the card (beside rad_shock): {ncycle} cycles in "
+              f"{r['secs']:.1f} s, "
+              f"{r['launches']} sweep launches, {r['tiles']} tiles, vs the port's CPU run "
+              f"{err:.3e} (tol {F64_TOL:g})"
+              + (f", particles {r['particles']:.3e}" if "particles" in r else ""))
+    res["small"] = small
+    res["secs"] = time.perf_counter() - t0
+    print(f"phase 30 (sharded trees): {res['secs']:.1f} s (budget {TREE_BUDGET_S} s): "
+          + ", ".join(f"{key} {v:.1f} s" for key, v in secs.items()))
+    return res
+
+
 # -- phase 29 ------------------------------------------------------------
 PROFILE_CYCLES = 3            # phase_table's timed cycles
 PROFILE_KERNEL_CYCLES = 2     # kernel_table's
@@ -4449,6 +4753,17 @@ def main():
     sys.path.insert(0, HERE)
     t0 = time.perf_counter()
     smi = phase_toolchain(torch)
+    # phase 30's CPU references run in a worker process beside the build
+    refs_pool, cpu_refs = start_worker(cpu_small_trees)
+    try:
+        return run_phases(torch, t0, smi, cpu_refs)
+    finally:
+        refs_pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(torch, t0, smi, cpu_refs):
+    """Every phase after the toolchain's, then the kernels line and the
+    device line."""
     # the set-ups of phases 11 and 13 (their disk IC is numpy on the host,
     # no kernel runs) go on two threads while nvcc builds the kernels, and
     # all are done before the first timed window
@@ -4495,9 +4810,18 @@ def main():
             os.path.join(pre_dir.name, "restart"), AMR_CELL, 2.0,
             extra=[f"parthenon/time/nlim={RESTART_AMR[0]}"]))
         t1 = time.perf_counter()
-        shock = phase_rad_shock(torch)
-        print(f"phase rad_shock: {time.perf_counter() - t1:.1f} s (the 512x512x64 trees of "
-              "phases 14 and 26 set up beside it, sharing the interpreter lock)")
+        # and phase 30's small trees on the card, in a worker process
+        card_pool, card_small = start_worker(card_small_trees)
+        try:
+            shock = phase_rad_shock(torch)
+            t2 = time.perf_counter()
+            cards_small = card_small.result()
+        finally:
+            card_pool.shutdown(wait=True, cancel_futures=True)
+        print(f"phase rad_shock: {t2 - t1:.1f} s (the 512x512x64 trees of phases 14 and 26 "
+              "set up beside it, sharing the interpreter lock, and phase 30's small trees "
+              "run on the card beside it in a worker process, which rad_shock then waited "
+              f"{time.perf_counter() - t2:.1f} s for)")
         # both trees are built before any timed window opens
         t1 = time.perf_counter()
         built_prod, built_adaptive = pre_prod.result(), pre_adaptive.result()
@@ -4536,6 +4860,7 @@ def main():
     sharded = phase_sharded(torch, smi, res.pop("shard_ref"), res["kernel_zcps"],
                             disk.pop("shard_ref"), disk["kernel_zcps"], shock.pop("shard_ref"))
     print(f"phase sharded: {time.perf_counter() - t1:.1f} s")
+    trees = phase_sharded_trees(torch, smi, cpu_refs, cards_small)
     total = time.perf_counter() - t0
     print(f"chip_smoke: every phase passed in {total:.0f} s, the build included "
           f"({SMOKE_LIMIT_S - total:.0f} s left of the {SMOKE_LIMIT_S} s limit)")
@@ -4888,6 +5213,19 @@ def main():
         "advection_l1_n32": adv["l1"],
         "advection_ratio": adv["ratio"],
         "advection_launches": adv["launches"],
+        "sharded_tree_launches": {key: trees[key]["launches"] for key in (
+            "flagship_wrap", "flagship_distributed")},
+        "sharded_tree_launches_per_cycle": {key: trees[key]["launches"] // TREE_CMP_CYCLES
+                                            for key in ("flagship_wrap",
+                                                        "flagship_distributed")},
+        "sharded_tree_shards": SHARDS,
+        "sharded_tree_max_err_vs_unsharded": {key: trees[key]["err"] for key in (
+            "flagship_wrap", "flagship_distributed", "disk_ring")},
+        "sharded_tree_zone_cycles_per_s": {key: [trees[key]["zcps"], trees[key]["unsharded_zcps"]]
+                                           for key in ("flagship_wrap", "flagship_distributed",
+                                                       "disk_ring")},
+        "sharded_tree_small_f64": trees["small"],
+        "sharded_tree_restart_bitwise": trees["restart_bitwise"],
         "dust_tree_launches": rest["dust"]["launches"],
         "dust_tree_end_err_f64": rest["dust"]["err"],
         "dust_tree_mass_drift_f64": rest["dust"]["drift"],

@@ -18,8 +18,8 @@ order of the global sums.
 
 Also: the 3-D FLD operator on x3 slabs against the port's unsharded run,
 the shard windows' divisibility and ``max(2, nghost)`` errors, a
-``cuda`` mesh asking for more cards than are present, the tree raise
-(item 11b), the ``Sharded`` fields of the radiation step against the
+``cuda`` mesh asking for more cards than are present, a refined disk RHD
+tree on four shards, the ``Sharded`` fields of the radiation step against the
 unsharded tensor, and checkpoints across the decomposition (a sharded
 run's checkpoint resumes unsharded, an unsharded one sharded, each equal to
 the straight run).
@@ -271,12 +271,23 @@ def test_cuda_mesh_needs_its_cards():
 
 
 def test_sharded_trees_raise_item_11b(tmp_path):
+    """The small refined disk RHD deck with a periodic x3 runs on four
+    shards (its patch replicated, its root and radiation on x3 slabs) as it
+    does in the JAX package, within 1e-11 of the port's unsharded tree
+    after 2 cycles; without a periodic axis the tree refuses to shard."""
     deck = os.path.join(INP, "disk_rhd_amr.in")
     args = ["parthenon/mesh/nx1=32", "parthenon/mesh/nx2=32", "parthenon/mesh/nx3=8"]
-    with pytest.raises(NotImplementedError, match="item 11b"):
-        Simulation(deck, args + ["parthenon/mesh/ix3_bc=periodic",
-                                 "parthenon/mesh/ox3_bc=periodic"],
-                   str(tmp_path), device="cpu", nshards=4)
+    periodic = args + ["parthenon/mesh/ix3_bc=periodic", "parthenon/mesh/ox3_bc=periodic",
+                       "parthenon/time/nlim=2"]
+    whole = Simulation(deck, periodic, str(tmp_path / "whole"), device="cpu")
+    whole.run()
+    sim = Simulation(deck, periodic, str(tmp_path / "shard"), device="cpu", nshards=4)
+    assert sim.driver.smr.nodes[1].replicated and sim.driver.smr.root.grid.nx[2] == 2
+    sim.run()
+    assert sim.tm.ncycle == 2
+    for key, kind in (("gas", "w"), ("rad", "Er")):
+        a, b = whole.state[key][kind].numpy(), sim.state[key][kind].numpy()
+        assert np.abs(a - b).max() <= 1e-11 * np.abs(a).max(), (key, kind)
     # the JAX package's axis rule for trees: a periodic axis must split
     with pytest.raises(ValueError, match="sharded refinement needs a periodic axis"):
         Simulation(deck, args, str(tmp_path), device="cpu", nshards=4)

@@ -98,8 +98,8 @@ def test_package_imports_no_jax(tmp_path):
     sources, diffusion, curvilinear stage, radiation, FLD operator, flux
     sweep, the disk, radiation, shearing-box, advection, constant, blast,
     gaussian-bump and conduction problems, mesh refinement, the dumps and
-    restart files, the N-body package, the profiler and the sharded driver
-    included) pulls in neither jax
+    restart files, the N-body package, the profiler, the sharded driver and
+    the sharded tree included) pulls in neither jax
     nor artemis_tpu; and building the N-body library (here into a fresh
     build directory, so g++ runs) writes nothing under native/ (whose
     libnbody.so the JAX package's own make may write meanwhile)."""
@@ -113,7 +113,8 @@ def test_package_imports_no_jax(tmp_path):
             "artemis_tpu_torch.pgen.constant, artemis_tpu_torch.pgen.blast, "
             "artemis_tpu_torch.pgen.gaussian_bump, artemis_tpu_torch.pgen.conduction, "
             "artemis_tpu_torch.io.dumps, artemis_tpu_torch.nbody, "
-            "artemis_tpu_torch.profiling, artemis_tpu_torch.parallel.mesh, pathlib; "
+            "artemis_tpu_torch.profiling, artemis_tpu_torch.parallel.mesh, "
+            "artemis_tpu_torch.parallel.amr, pathlib; "
             f"artemis_tpu_torch.nbody.BUILD_DIR = pathlib.Path({str(tmp_path)!r}); "
             "artemis_tpu_torch.nbody._lib(); "
             "assert artemis_tpu_torch.nbody.library_path().exists(); "
