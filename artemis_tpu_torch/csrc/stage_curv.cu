@@ -21,9 +21,9 @@
 //                        only its nodes' own compulsory bytes, without the
 //                        TPU path's stacked copies of w, u0 and u1)
 // All compute the body _curv_body (:631-1402), with _plm_g (:518) and the
-// shared _hllc/_hlle/rk_blend (stage_common.cuh); every full stage (K3, K4,
-// K5a, K5b and K6) through the tiled body below, K4's partial mode through
-// the per-cell body.  On the TPU the
+// shared _hllc/_hlle/rk_blend (stage_common.cuh); every stage, full (K3,
+// K4, K5a, K5b and K6) or partial (K4's partial mode), through the tiled
+// body below.  On the TPU the
 // frontends exist because of how Mosaic's DMAs fetch a halo; here a thread
 // reads its halo by index, so one kernel templated on the halo source
 // covers them (the x3 strips are a runtime switch of the gather variant,
@@ -56,18 +56,19 @@
 // divergence, contravariant velocities, transverse gradients and the
 // viscosity model at two cells, plus some 60 divisions and square roots.
 //
-// Two bodies.  The tiled body (stage_tiled_kernel) runs every full launch
-// on a ghost width of two: K3 (x1/x2 strips, x3 wrapped) and K5a (six
-// strips) with the viscous stencil, K5b without it, K6 as K5b's node
-// axis, and K4 (a padded array: disk_cyl, disk_axi) with or without it.
-// The per-cell body (stage_curv_kernel, one thread per cell in flat
-// 128-thread blocks) runs partial mode: each thread recomputes every face
-// it touches, so each face (hydro and viscous) is solved twice,
-// identically, by the two threads that share it, the viscous stress
-// re-derives each cell quantity for every face that needs it, and every
-// stencil read of a gather variant makes up to four range tests to pick
-// its strip (full launches reach it only through the wrapper's measurement
-// switch); stencil and coefficient-row loads go through L1/L2.
+// Two bodies.  The tiled body (stage_tiled_kernel<T, DIFF, FULL>) runs
+// every launch on a ghost width of two: K3 (x1/x2 strips, x3 wrapped) and
+// K5a (six strips) with the viscous stencil, K5b without it, K6 as K5b's
+// node axis, and K4 (a padded array: disk_cyl, disk_axi) with or without
+// it, full or partial (FULL = false: the alpha_disk, binary_cyl and N-body
+// decks, 2-D cylindrical f64).  The per-cell body (stage_curv_kernel, one
+// thread per cell in flat 128-thread blocks) is reached only through the
+// wrapper's measurement switch: each thread recomputes every face it
+// touches, so each face (hydro and viscous) is solved twice, identically,
+// by the two threads that share it, the viscous stress re-derives each
+// cell quantity for every face that needs it, and every stencil read of a
+// gather variant makes up to four range tests to pick its strip; stencil
+// and coefficient-row loads go through L1/L2.
 //
 // The tiled body: a block owns a TX x TY footprint of columns (32 x 8; 32
 // x 4 for f64 without diffusion) and marches up a chunk of TZ planes of one
@@ -114,6 +115,24 @@
 // update are long chains of IEEE divisions and roots (PERF.md has the
 // measured split).  The stage has no matrix product, so the tensor cores
 // (wgmma) have nothing to do.
+//
+// K4's partial mode (FULL = false) is the same body: it writes u alone
+// (cell_finish) and makes neither the diffusive CFL limit nor the dtden
+// maximum.  Its decks run 2-D f64 nodes (alpha_disk 512 x 1024, binary_cyl
+// and the N-body decks 96-128 x 192-256).  ptxas -v on the H100 build: the
+// f64 diffusive partial instantiation takes 231 registers without spills
+// and 229,184 B of shared memory a block, so registers and shared memory
+// both cap an SM at one 256-thread block (8 warps, as the per-cell body's
+// two 128-thread blocks at 194); the inviscid one 186 registers and
+// 111,616 B, two 128-thread blocks.  A 2-D node keeps the 3-D layout: a
+// ring sized for its one plane (160 KB at 32 x 8; at 32 x 4, 91,200 B and
+// two blocks per SM) ran within 3% of it, and three 32 x 4 blocks an SM
+// (168 registers, with spills) 5% slower (tools/tile_probe.py partial*,
+// PERF.md): at ~230 registers the register file holds 8 warps whatever
+// the footprint, and the body is latency-bound on its chains of f64
+// divisions and roots.  Each dtype and mode (-DARTEMIS_CURV_DTYPE,
+// -DARTEMIS_CURV_FULL) is a library of its own, built by its own nvcc run
+// in parallel with the others.
 //
 // Built with -fmad=false (_build.SOURCE_FLAGS): the GATHER, padded and
 // tiled kernels are compiled separately, and with multiply-add contraction
@@ -1037,8 +1056,8 @@ __device__ __forceinline__ T curv_cell(const CurvParams& p, const NodePtrs& nd, 
 }
 
 // ---------------------------------------------------------------------------
-// the tiled body (every full launch: K3, K4, K5a, K5b, and K6 as its node
-// axis)
+// the tiled body (every launch on a ghost width of two: K3, K4 full and
+// partial, K5a, K5b, and K6 as its node axis)
 // ---------------------------------------------------------------------------
 
 // A block's footprint of columns per dtype and body (DIFF: the viscous and
@@ -1558,8 +1577,10 @@ struct TileFluxes {
 // state) for every thread of the block and then synchronises it (on the
 // card, each thread runs its own call between __syncthreads; the host
 // build of the tests loops over the threads).  ``smem`` holds
-// TileLayout<T, DIFF>::ELEMS elements.
-template <typename T, bool DIFF, class Exec>
+// TileLayout<T, DIFF>::ELEMS elements.  FULL: the whole stage; otherwise
+// K4's partial mode, which writes u alone (cell_finish) and skips the
+// diffusive CFL limit and the block's dtden maximum.
+template <typename T, bool DIFF, bool FULL, class Exec>
 __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& nd, int64_t blk,
                                            T* smem, Exec& ex) {
   using L = TileLayout<T, DIFF>;
@@ -1640,7 +1661,7 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
       // rows of plane k + 1 replace them
       const QCell<T, DIFF, 3> za{C, m, s, ty + 1, tx + 1, k, j, i};
       T vtop[4], den_diff = T(0);
-      if (DIFF && own) den_diff = diff_den(C, p, k, j, i, m.w(s, 0, ty + 2, tx + 2), za);
+      if (FULL && DIFF && own) den_diff = diff_den(C, p, k, j, i, m.w(s, 0, ty + 2, tx + 2), za);
       if (DIFF && az && i <= n.nx && j <= n.ny && (own || k + 1 < tp.z1)) {
         T qb[kQCell];
         cell_q(C, m, s, slot(k + 1), slot(k + 2), ty + 1, tx + 1, k + 1, j, i, false, qb);
@@ -1673,7 +1694,7 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
           };
           diff_update(C, p, k, j, i, faces, wc, gm, u);
         }
-        st.den = vmax(st.den, cell_finish<T, true, true>(C, p, nd, k, j, i, cell, u, DIFF,
+        st.den = vmax(st.den, cell_finish<T, true, FULL>(C, p, nd, k, j, i, cell, u, DIFF,
                                                          den_diff));
 #pragma unroll
         for (int q = 0; q < 8; ++q) st.bot[q] = st.top[q];
@@ -1689,6 +1710,7 @@ __device__ __forceinline__ void tile_block(const CurvParams& p, const NodePtrs& 
   }
 
   // the block's maximum of the CFL denominator (the x face area is free)
+  if (!FULL) return;
   T* red = m.xf;
   ex.each([&](int tid, St& st) { red[tid] = st.den; });
   for (int h = L::NT / 2; h > 0; h >>= 1)
@@ -1710,13 +1732,13 @@ struct CellDims {
   static constexpr int MINB = sizeof(T) == 4 ? 4 : 1;
 };
 
-// May a launch take the tiled body?  Full stages of every halo source (six
-// strips, the x1/x2 strips with x3 wrapped, or a padded array), with or
-// without diffusion, on a ghost width of two (none along x3 for a 2-D
-// node).  Partial stages keep the per-cell body.
-inline bool tiled_ok(const CurvParams& p, int full) {
+// May a launch take the tiled body?  Full and partial stages of every
+// halo source (six strips, the x1/x2 strips with x3 wrapped, or a padded
+// array), with or without diffusion, on a ghost width of two (none along
+// x3 for a 2-D node).
+inline bool tiled_ok(const CurvParams& p) {
   const CurvInts& n = p.n;
-  return full && n.g1 == 2 && n.g2 == 2 && n.g3 == (n.nz > 1 ? 2 : 0);
+  return n.g1 == 2 && n.g2 == 2 && n.g3 == (n.nz > 1 ? 2 : 0);
 }
 
 // Does a tiled launch take the diffusive body?
@@ -1784,47 +1806,59 @@ struct DeviceExec {
   }
 };
 
-template <typename T, bool DIFF>
+template <typename T, bool DIFF, bool FULL>
 __global__ void __launch_bounds__((TileLayout<T, DIFF>::NT), (TileDims<T, DIFF>::MINB))
 stage_tiled_kernel(const __grid_constant__ CurvParams p) {
   extern __shared__ __align__(16) unsigned char tile_smem[];
   DeviceExec<T, DIFF> ex;
-  tile_block<T, DIFF>(p, p.node[blockIdx.y], int64_t(blockIdx.x),
-                      reinterpret_cast<T*>(tile_smem), ex);
+  tile_block<T, DIFF, FULL>(p, p.node[blockIdx.y], int64_t(blockIdx.x),
+                            reinterpret_cast<T*>(tile_smem), ex);
 }
 
-template <typename T, bool DIFF>
+template <typename T, bool DIFF, bool FULL>
 cudaError_t launch_tiled(const CurvParams& p, cudaStream_t stream) {
   // above 48 KB a block's dynamic shared memory is asked for, once; the
   // carveout leaves room for MINB blocks on an SM
   static const cudaError_t attr = [] {
-    cudaError_t e = cudaFuncSetAttribute(stage_tiled_kernel<T, DIFF>,
+    cudaError_t e = cudaFuncSetAttribute(stage_tiled_kernel<T, DIFF, FULL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          TileLayout<T, DIFF>::BYTES);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(stage_tiled_kernel<T, DIFF>,
+      e = cudaFuncSetAttribute(stage_tiled_kernel<T, DIFF, FULL>,
                                cudaFuncAttributePreferredSharedMemoryCarveout,
                                int(cudaSharedmemCarveoutMaxShared));
     return e;
   }();
   if (attr != cudaSuccess) return attr;
   const dim3 grid(unsigned(tile_count<T, DIFF>(p.n.nx, p.n.ny, p.n.nz)), unsigned(p.nnodes));
-  stage_tiled_kernel<T, DIFF>
+  stage_tiled_kernel<T, DIFF, FULL>
       <<<grid, TileLayout<T, DIFF>::NT, TileLayout<T, DIFF>::BYTES, stream>>>(p);
   return cudaGetLastError();
 }
 
+template <typename T, bool FULL>
+cudaError_t launch_mode(const CurvParams& p, int gather, int tiled, cudaStream_t s) {
+  if (tiled)
+    return tiled_diff(p) ? launch_tiled<T, true, FULL>(p, s) : launch_tiled<T, false, FULL>(p, s);
+  return gather ? launch<T, true, FULL>(p, s) : launch<T, false, FULL>(p, s);
+}
+
 template <typename T>
 cudaError_t launch_t(const CurvParams& p, int gather, int full, int tiled, cudaStream_t s) {
-  if (tiled) return tiled_diff(p) ? launch_tiled<T, true>(p, s) : launch_tiled<T, false>(p, s);
-  if (gather) return full ? launch<T, true, true>(p, s) : launch<T, true, false>(p, s);
-  return full ? launch<T, false, true>(p, s) : launch<T, false, false>(p, s);
+#if !defined(ARTEMIS_CURV_FULL) || ARTEMIS_CURV_FULL == 1
+  if (full) return launch_mode<T, true>(p, gather, tiled, s);
+#endif
+#if !defined(ARTEMIS_CURV_FULL) || ARTEMIS_CURV_FULL == 0
+  if (!full) return launch_mode<T, false>(p, gather, tiled, s);
+#endif
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 float32, 1 float64 (a build with -DARTEMIS_CURV_DTYPE=0 or 1
-// carries that type only; the wrapper builds the two in parallel).  halo:
+// carries that type only, and with -DARTEMIS_CURV_FULL=1 or 0 the full or
+// the partial stage only; the wrapper builds the four in parallel).  halo:
 // kPadded (a padded array), kGather (interior + x1/x2 strips, x3 wrapped)
 // or kGather6 (interior + the six face strips).  full: 1 whole stage, 0
 // partial.  tiled: 1 the tiled body (tiled_ok), 0 the per-cell body.
@@ -1841,7 +1875,7 @@ extern "C" int artemis_stage_curv(int dtype, int halo, int full, int tiled,
   CurvParams p;
   if (halo < kPadded || halo > kGather6 ||
       !make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p) ||
-      (tiled && !tiled_ok(p, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
+      (tiled && !tiled_ok(p)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
     return int(cudaErrorInvalidValue);
   const int gather = halo != kPadded;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -24,11 +24,12 @@ and six face strips; every other layout is read from primitives padded by
 one grid shape (a refined tree's nodes, each with its own coefficient rows
 and six strips), the node index on the launch grid's y axis: the TPU's
 node-batched K6 ``stage_curv_gather6_batched``.  The kernel has two bodies:
-every full launch (K3, K4, K5a, K5b, K6: a gather or a padded halo) takes
-the tiled one, which stages each plane of its footprint with the halo in
-shared memory and solves each face, hydro and diffusive, once; partial
-stages take the per-cell one (``CurvStage.tiled``).  Each body writes one
-dtden entry per block of its own (``CurvStage.dtden_blocks``).
+every launch, full or partial (K3, K4, K5a, K5b, K6: a gather or a padded
+halo), takes the tiled one, which stages each plane of its footprint with
+the halo in shared memory and solves each face, hydro and diffusive, once
+(``CurvStage.tiled``); the per-cell one is reached only through the
+private switch ``_percell_body``.  A full stage writes one dtden entry per
+block of its body (``CurvStage.dtden_blocks``), a partial one none.
 
 The coefficient packing (``_axis_pack`` ... ``CurvCoeffs.pack``,
 ``_dp_tuple``) is numpy only, copied from the JAX module; the rows are
@@ -49,7 +50,8 @@ from ..profiling import kernel_span
 
 BLOCK = 128  # threads per block of the per-cell body (kBlock); one dtden entry per block
 # the tiled body's footprint and planes per block (TileDims: TX, TY, TZ) by
-# dtype and whether the stage has diffusion; one dtden entry per block
+# dtype and whether the stage has diffusion; one dtden entry per block of a
+# full stage (a partial one writes none)
 TILE = {(torch.float32, False): (32, 8, 16), (torch.float64, False): (32, 4, 16),
         (torch.float32, True): (32, 8, 16), (torch.float64, True): (32, 8, 16)}
 
@@ -698,12 +700,12 @@ class CurvStage:
 
     def tiled(self, halo) -> bool:
         """Does a launch with halo source ``halo`` take the tiled body?
-        Full stages of every halo source do (K3, K5a, K5b, K6 gathered, K4
-        padded), with or without diffusion, on the kernel's ghost width of
-        two (none along x3 for a 2-D grid), unless ``_percell_body`` is on;
-        partial stages take the per-cell body."""
+        Full and partial stages of every halo source do (K3, K5a, K5b, K6
+        gathered, K4 padded), with or without diffusion, on the kernel's
+        ghost width of two (none along x3 for a 2-D grid), unless
+        ``_percell_body`` is on."""
         nz = self.grid.nx[2]
-        return (halo in HALO_CODES and self.full and not _percell
+        return (halo in HALO_CODES and not _percell
                 and tuple(self.grid.ng) == (2, 2, 2 if nz > 1 else 0))
 
 
@@ -772,16 +774,18 @@ def stage_curv(cs: CurvStage, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm,
     return _launch(cs, w_pad, w, u0, u1, gam0, gam1, beta, dt, time, force_pcm, "padded")
 
 
-def build_defines(dtype):
-    """The macro that builds the kernel's library for one dtype only (the
-    float32 and float64 builds run in parallel, each half as long)."""
-    return (f"ARTEMIS_CURV_DTYPE={0 if dtype == torch.float32 else 1}",)
+def build_defines(dtype, full=True):
+    """The macros that build the kernel's library for one dtype and one
+    mode only, full or partial (the four builds run in parallel, each a
+    quarter of the kernels)."""
+    return (f"ARTEMIS_CURV_DTYPE={0 if dtype == torch.float32 else 1}",
+            f"ARTEMIS_CURV_FULL={int(bool(full))}")
 
 
-def _lib(dtype):
+def _lib(dtype, full=True):
     from .. import _build
 
-    fn = _build.load("stage_curv", build_defines(dtype)).artemis_stage_curv
+    fn = _build.load("stage_curv", build_defines(dtype, full)).artemis_stage_curv
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.restype = i
@@ -789,9 +793,10 @@ def _lib(dtype):
     return fn
 
 
-# Measurement only: while on, full launches take the per-cell body, so
-# that chip_smoke.py and the tests can time and compare the two designs on
-# one state.  Nothing in Simulation, the deck or the CLI reaches it.
+# Measurement only: while on, every launch, full or partial, takes the
+# per-cell body, so that chip_smoke.py and the tests can time and compare
+# the two designs on one state.  Nothing in Simulation, the deck or the CLI
+# reaches it.
 _percell = False
 
 
@@ -913,7 +918,7 @@ def _launch_nodes(stages, srcs, u0s, u1s, gam0, gam1, beta, dt, time, force_pcm,
         outs.append((u, w_out, dmax))
     if halo == "gather6" and any(("x3", 0) not in (s or {}) for s in strips_list):
         raise ValueError("a gather6 launch needs the six face strips of every node")
-    fn = _lib(dtype)
+    fn = _lib(dtype, cs0.full)
     ints = [len(ints) + 1] + ints
     reals = [float(len(reals) + 1)] + reals
     c_ints = (ctypes.c_int * len(ints))(*ints)

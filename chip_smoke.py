@@ -12,7 +12,8 @@ line is printed:
    power limit (nvidia-smi), torch's CUDA version, nvcc's version and
    whether triton imports;
 2. build: compiles ``artemis_tpu_torch/csrc/stage_cart.cu``, ``fld.cu``,
-   ``sweep.cu`` and ``stage_curv.cu`` (once per dtype) with nvcc and
+   ``sweep.cu`` and ``stage_curv.cu`` (once per dtype and mode, full or
+   partial) with nvcc and
    ``native/nbody.cpp`` with g++ (the N-body package's integrator), all at
    once, and prints the stage_cart build flags and ptxas's registers and
    spills;
@@ -44,9 +45,9 @@ line is printed:
    the diffusion, gravity and rotating-frame variants; the disk_sph layout
    (ic strips) through both halo sources (<= 1e-12 / 1e-4: cells at the
    density floor amplify the two versions' operation orders to ~150 ulps),
-   bitwise equal to each other, and its full stages on the tiled body
-   (K3 with viscosity) bitwise equal to the per-cell body, the dtden
-   maxima included;
+   bitwise equal to each other, and its full and partial stages on the
+   tiled body (K3 with viscosity, and its partial mode) bitwise equal to
+   the per-cell body, the dtden maxima of the full ones included;
 7. disk_sph at bench.py's shape (256x64x64 float32, rk2 + plm + hlle,
    alpha viscosity, point gravity, rotating frame): the main path through
    ``Simulation.run`` on the gather kernel with the launch counts reset
@@ -129,7 +130,11 @@ line is printed:
    phases 11 and 13 are set up on two threads while nvcc builds the
    kernels in phase 2, and all are built before phase 3 starts);
 15. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
-   tests/test_radiation.py's test_rad_shock;
+   tests/test_radiation.py's test_rad_shock; beside its host-bound,
+   untimed loop a worker process runs on the card phase 30's small trees
+   and the untimed checks of phase 23 (simple_drag, the other decks) and
+   of phase 26 (blast_amr at numlevel 3), whose lines it prints after
+   rad_shock's;
 16. the six-face launch with alpha viscosity (K5a) at disk_sph's
    256x64x64 float32 with x3 ic: its launches through Simulation.run,
    every one on the tiled body, its time per launch on the tiled and on the
@@ -158,22 +163,25 @@ line is printed:
    6 sweep launches per cycle and zone-cycles/s of both paths;
 21. ``inputs/alpha_disk.in`` as written (512x1024 float64: cylindrical
    2-D, viscous x1 walls, alpha viscosity, point gravity, beta cooling) on
-   the partial mode of the padded curvilinear stage (K4, the per-cell
+   the partial mode of the padded curvilinear stage (K4 on the tiled
    body; gravity and cooling run in the composable chain after it): the
    main path through ``Simulation.run`` with the launch counts reset
-   before and read after (2 per cycle, every one partial), zone-cycles/s
-   of the kernel path (20 cycles after 2 warm-up) and of the plain path,
-   partial K4 per launch alone and with its viscous ghost fill against
-   the plain stage and the bound, the cycle's device busy time and idle
-   share under torch.profiler split into K4, the viscous fill and the
-   gravity + cooling chain, one partial launch on the deck's state against
-   the plain version (float64 1e-12, float32 1e-4 abs), and the kernel and
-   plain end states after 5 cycles (1e-10 of each field's maximum);
+   before and read after (2 per cycle, every one partial and tiled),
+   zone-cycles/s of the kernel path (20 cycles after 2 warm-up) and of the
+   plain path, partial K4 per launch alone and with its viscous ghost fill
+   on the tiled and on the per-cell body (the private switch) against the
+   plain stage and the bound, the cycle's device busy time and idle share
+   under torch.profiler split into K4, the viscous fill and the gravity +
+   cooling chain, one partial launch on the deck's state against the plain
+   version (float64 1e-12, float32 1e-4 abs) and bitwise against the
+   per-cell body, the partial kernels' registers, and the kernel and plain
+   end states after 5 cycles (1e-10 of each field's maximum);
 22. ``inputs/binary_cyl.in`` at deck size (128x256 float64, 30 cycles,
    the twin of tests/test_binary.py's test_binary_smoke) on partial K4:
-   launches, finite state, positive density, the wake at the planet's
-   radius, partial K4 against the plain version on the deck's state, and
-   the kernel and plain end states;
+   launches (every one on the tiled body), finite state, positive density,
+   the wake at the planet's radius, partial K4 against the plain version on
+   the deck's state and bitwise against the per-cell body, and the kernel
+   and plain end states;
 23. ``inputs/simple_drag.in`` to t = 2 (the deck's tlim is 10) with
    tests/test_drag.py's thresholds (the plain chain: HLLE and dust);
    ``conduction.in`` and ``gaussian_bump.in`` for 50 cycles through the
@@ -189,12 +197,14 @@ line is printed:
    disk_collision 128x256 and disk_nbody_cyl 96x192 on partial K4, cb_disk
    256x256 on the plain chain, its LLF solver outside every stage kernel;
    20 cycles each): per deck the stage kernel, its launches (counts set to
-   0 before, read after), cycle ms, zone-cycles/s of the kernel and plain
+   0 before, read after; every partial launch on the tiled body), cycle
+   ms, zone-cycles/s of the kernel and plain
    paths, the host time of the particle advance per stage, and the kernel
    and plain end states after 5 cycles (1e-10 of each field's maximum,
    particles 1e-12); binary_nbody_cyl: test_nbody_smoke's checks at cycle
-   20, partial K4 against its plain stage on the deck's state (1e-12), its
-   time per launch against the plain stage and the bound; every deck's
+   20, partial K4 against its plain stage on the deck's state (1e-12) and
+   bitwise against the per-cell body, its time per launch on both bodies
+   against the plain stage and the bound; every deck's
    device busy time and idle share under torch.profiler; disk_collision:
    its .reb file, the active particles' total mass conserved to 1e-12;
 25. bitwise restarts: disk_sph at 256x64x64 float32 on K3 (10 cycles
@@ -298,6 +308,7 @@ object describing each kernel; the last line is
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import itertools
 import json
 import os
@@ -371,8 +382,9 @@ def phase_build(torch):
     from artemis_tpu_torch import _build, nbody
     from artemis_tpu_torch.ops import stage_curv as SC
 
-    builds = [("stage_cart", ()), ("fld", ()), ("sweep", ())] + [("stage_curv", SC.build_defines(dt))
-                                                  for dt in (torch.float32, torch.float64)]
+    builds = [("stage_cart", ()), ("fld", ()), ("sweep", ())] + [
+        ("stage_curv", SC.build_defines(dt, full))
+        for dt in (torch.float32, torch.float64) for full in (True, False)]
 
     def native():
         t1 = time.perf_counter()
@@ -441,9 +453,9 @@ def tensor_bytes(*ts):
 # the gather launch's bodies in stage_curv.cu: a mangled-name piece of each
 # f32 kernel (the tiled one without and with diffusion; the per-cell one
 # with the gather halo, full mode)
-KERNEL_ENTRIES = (("tiled", "stage_tiled_kernelIfLb0EE"),
+KERNEL_ENTRIES = (("tiled", "stage_tiled_kernelIfLb0ELb1EE"),
                   ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
-DIFF_KERNEL_ENTRIES = (("tiled diffusive", "stage_tiled_kernelIfLb1EE"),
+DIFF_KERNEL_ENTRIES = (("tiled diffusive", "stage_tiled_kernelIfLb1ELb1EE"),
                        ("per-cell", "stage_curv_kernelIfLb1ELb1EE"))
 # the per-cell body's padded full-stage kernel (K4 through the private switch)
 PADDED_PERCELL_ENTRY = (("per-cell padded", "stage_curv_kernelIfLb0ELb1EE"),)
@@ -458,18 +470,20 @@ CART_ENTRIES = {periodic: (("tiled", f"stage_cart_tiled_kernelIfLi1ELb{periodic}
 
 def ptxas_usage(torch, dtype, entry, source="stage_curv"):
     """(registers, spill store bytes, spill load bytes) that ptxas printed
-    for the kernel of ``source`` (stage_curv: its build for ``dtype``;
-    any other source: its one build) whose mangled name holds ``entry``,
-    from this process's build; None when it did not build."""
+    for the kernel of ``source`` (stage_curv: its full and partial builds
+    for ``dtype``; any other source: its one build) whose mangled name
+    holds ``entry``, from this process's build; None when it did not
+    build."""
     import re
 
     from artemis_tpu_torch import _build
     from artemis_tpu_torch.ops import stage_curv as SC
 
-    log = _build.build_log.get(_build.variant("stage_curv", SC.build_defines(dtype))
-                               if source == "stage_curv" else source)
+    names = ([_build.variant("stage_curv", SC.build_defines(dtype, full))
+              for full in (True, False)] if source == "stage_curv" else [source])
+    logs = [_build.build_log.get(name) for name in names]
     cur = spill = None
-    for line in (log[1] if log else "").splitlines():
+    for line in "\n".join(log[1] for log in logs if log).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             cur, spill = m.group(1), None
@@ -834,9 +848,16 @@ def phase_flagship(torch, smi):
         res["f64_ms"] = time_launches(torch, kern, 10)
         with S._percell_body():
             res["f64_percell_ms"] = time_launches(torch, kern, 10)
+        # the f32 launch's bytes in 8-byte words, its flops at the f64 rate
+        nblk = S.dtden_blocks(*FLAGSHIP, torch.float64)
+        nbytes = (tensor_bytes(w, u1, w, u, u1)
+                  + 2 * (tensor_bytes(u, w) + nblk * u.element_size())) / 2
+        res["f64_bound_ms"], res["f64_bound_by"] = bound(nbytes, flops, F64_FLOPS)
         print(f"flagship f64 kernel path: 10 cycles, {res['kernel_f64_zcps']:.6e} "
               f"zone-cycles/s; K1 per f64 launch on the tiled body {res['f64_ms']:.4f} ms, on "
-              f"the per-cell body {res['f64_percell_ms']:.4f} ms [{smi}]")
+              f"the per-cell body {res['f64_percell_ms']:.4f} ms; bound "
+              f"{res['f64_bound_ms']:.4f} ms ({nbytes / 1e6:.1f} MB, {res['f64_bound_by']}-"
+              f"bound) [{smi}]")
         del u, w, u1, hyd
         del sim64
         torch.cuda.empty_cache()
@@ -1004,8 +1025,8 @@ def phase_curv_compare(torch):
                                       diffusion=d.diffusion, full=full, strips=strips,
                                       bc_custom=d.bc_custom)
                     w, u = sim.state["gas"]["w"], sim.state["gas"]["u"]
-                    check(cs.tiled("gather") == full,
-                          f"disk layout full={full}: tiled body {cs.tiled('gather')}")
+                    check(cs.tiled("gather") and cs.tiled("padded"),
+                          f"disk layout full={full}: a launch off the tiled body")
                     eg, og = compare_curv(torch, cs, w, u, tol)
                     ep, op = compare_curv(torch, cs, w, u, tol, padded=True)
                     check(same_stage(torch, og, op),
@@ -1013,16 +1034,17 @@ def phase_curv_compare(torch):
                           "sources differ")
                     disk_worst[dtype] = max(disk_worst.get(dtype, 0.0), eg, ep)
                     ncase += 4
-                    if full:
-                        # the tiled viscous body against the per-cell one
-                        with SC._percell_body():
-                            ec, oc = compare_curv(torch, cs, w, u, tol)
-                        check(same_stage(torch, og, oc),
-                              f"disk layout {dtype} {scheme}: tiled and per-cell bodies differ")
-                        disk_worst[dtype] = max(disk_worst[dtype], ec)
-                        ncase += 2
+                    # the tiled viscous body against the per-cell one
+                    with SC._percell_body():
+                        ec, oc = compare_curv(torch, cs, w, u, tol)
+                    check(same_stage(torch, og, oc),
+                          f"disk layout {dtype} full={full} {scheme}: tiled and per-cell "
+                          "bodies differ")
+                    disk_worst[dtype] = max(disk_worst[dtype], ec)
+                    ncase += 2
     print(f"curv compare: disk_sph layout (K3 with alpha viscosity), gather == padded "
-          f"bitwise, and on full stages the tiled body == the per-cell body bitwise; max abs "
+          f"bitwise, and on full and partial stages the tiled body == the per-cell body "
+          f"bitwise; max abs "
           f"err f64 {disk_worst[torch.float64]:.3e} (tol {F64_TOL:g}), f32 "
           f"{disk_worst[torch.float32]:.3e} (tol {DISK_F32_TOL:g}); {ncase} cases in all")
     return worst[torch.float64], worst[torch.float32], disk_worst[torch.float32]
@@ -2674,8 +2696,15 @@ DECK_CMP_CYCLES = 5
 # max |diff| / max |field| per component
 DECK_F64_TOL = 1e-10
 F64_FLOPS = 34e12   # the H100 SXM data sheet's float64 rate outside the tensor cores
-# the per-cell body's padded partial kernel (K4's partial mode), f64
-PARTIAL_ENTRY = (("per-cell padded partial", "stage_curv_kernelIdLb0ELb0EE"),)
+# K4's partial mode in f64: the tiled body with diffusion (the decks' path)
+# and without, and the per-cell body's padded partial kernel (the private
+# switch)
+PARTIAL_ENTRY = (("tiled partial", "stage_tiled_kernelIdLb1ELb0EE"),
+                 ("tiled partial inviscid", "stage_tiled_kernelIdLb0ELb0EE"),
+                 ("per-cell padded partial", "stage_curv_kernelIdLb0ELb0EE"))
+# the partial tiled body's kernel, as the profiler names it
+PARTIAL_KERNEL = "stage_tiled_kernel"
+
 
 
 def rel_err(torch, a, b):
@@ -2704,40 +2733,58 @@ def run_timed(torch, sim, ncycles):
 def partial_check(torch, cs, w, u, tol):
     """One partial launch of ``cs`` on this state (the second RK stage's
     registers) against stage_curv_reference: max |kernel - plain| over u;
-    the launch takes the per-cell body."""
+    the launch takes the tiled body, and its u is bitwise equal to the
+    per-cell body's on the same state (the private switch)."""
     from artemis_tpu_torch.ops import stage_curv as SC
 
-    check(not cs.full and cs.halo == "padded" and not cs.tiled("padded"),
-          "the deck's stage is not a partial padded stage on the per-cell body")
+    check(not cs.full and cs.halo == "padded" and cs.tiled("padded"),
+          "the deck's stage is not a partial padded stage on the tiled body")
     dt = torch.full((1,), 1e-3, dtype=u.dtype, device=u.device)
     n0 = SC.tiled_launches
     uk, wk, _ = SC.stage_curv(cs, w, u, u.clone(), *RK2[1], dt, 0.0, False)
+    check(SC.tiled_launches == n0 + 1, "a partial launch did not take the tiled body")
+    with SC._percell_body():
+        uc, _, _ = SC.stage_curv(cs, w, u, u.clone(), *RK2[1], dt, 0.0, False)
     ur, _, _ = SC.stage_curv_reference(cs, w, u, u.clone(), *RK2[1], dt, 0.0, False)
     torch.cuda.synchronize()
     err = float((uk - ur).abs().max())
-    check(SC.tiled_launches == n0 and wk is w and bool(torch.isfinite(uk).all())
-          and err <= tol, f"partial K4 vs plain on the deck's state: {err:.3e} > {tol:g}")
+    check(torch.equal(uk, uc), "partial K4: the tiled and the per-cell body differ")
+    check(wk is w and bool(torch.isfinite(uk).all()) and err <= tol,
+          f"partial K4 vs plain on the deck's state: {err:.3e} > {tol:g}")
     return err
 
 
 def partial_timings(torch, cs, w, u, u1, dt, tnow):
-    """K4's partial launch on this state: the kernel alone (``ms``, 20
-    timed, the two RK stages in turn), with its ghost fill (``stage_ms``),
-    the plain stage (``plain_ms``), and the bound of one launch averaged
-    over the two stages (the padded prims and rows read once, u0 on the
-    second stage, u1, u written once; the plain version's flops at the
-    float64 rate)."""
+    """K4's partial launch on this state: the kernel alone on the tiled
+    body (``ms``, 20 timed, the two RK stages in turn) and on the per-cell
+    body (``percell_ms``, the private switch), each with its ghost fill
+    (``stage_ms``, ``percell_stage_ms``), in turns (tiled, per-cell,
+    per-cell, tiled: the mean of each pair), the plain stage
+    (``plain_ms``), and the bound of one launch averaged over the two
+    stages (the padded prims and rows read once, u0 on the second stage,
+    u1, u written once; the plain version's flops at the float64 rate)."""
     from artemis_tpu_torch import bc as bc_mod
     from artemis_tpu_torch.ops import stage_curv as SC
 
     w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
     calls = itertools.cycle(RK2)
-    out = {"ms": time_launches(torch, lambda: SC._launch(
-               cs, w_pad, w, u, u1, *next(calls), dt, tnow, False, "padded"), 20),
-           "stage_ms": time_launches(torch, lambda: SC.stage_curv(
-               cs, w, u, u1, *next(calls), dt, tnow, False), 20),
-           "plain_ms": time_launches(torch, lambda: SC.stage_curv_reference(
-               cs, w, u, u1, *next(calls), dt, tnow, False), 4)}
+
+    def kernel():
+        return time_launches(torch, lambda: SC._launch(
+            cs, w_pad, w, u, u1, *next(calls), dt, tnow, False, "padded"), 20)
+
+    def stage():
+        return time_launches(torch, lambda: SC.stage_curv(
+            cs, w, u, u1, *next(calls), dt, tnow, False), 20)
+
+    times = {}
+    for key, percell in (("", False), ("percell_", True), ("percell_", True), ("", False)):
+        with SC._percell_body() if percell else contextlib.nullcontext():
+            times.setdefault(key + "ms", []).append(kernel())
+            times.setdefault(key + "stage_ms", []).append(stage())
+    out = {k: sum(v) / len(v) for k, v in times.items()}
+    out["plain_ms"] = time_launches(torch, lambda: SC.stage_curv_reference(
+        cs, w, u, u1, *next(calls), dt, tnow, False), 4)
     nbytes = (2 * tensor_bytes(w_pad, *cs.rows) + tensor_bytes(u1, u, u1)
               + 2 * tensor_bytes(u)) / 2
     flops = sum(count_flops(torch, lambda g=g: SC.stage_curv_reference(
@@ -2802,13 +2849,15 @@ def phase_alpha_disk(torch, smi):
     viscous x1 walls, alpha viscosity, point gravity, beta cooling) on K4's
     partial mode: the main path through Simulation.run with the launch
     counts reset before and read after (2 per cycle, every one partial and
-    on the per-cell body), zone-cycles/s of the kernel path
+    on the tiled body), zone-cycles/s of the kernel path
     (ALPHA_CYCLES after 2 warm-up) and of the plain path, partial K4 per
-    launch against its plain stage and its bound, the cycle's device busy
+    launch on the tiled and the per-cell body against its plain stage and
+    its bound, the cycle's device busy
     time and idle share under torch.profiler split into K4, the viscous
     fill and the gravity + cooling chain, one partial launch on the deck's
-    state against the plain version (float64 1e-12, float32 1e-4), and the
-    kernel and plain end states after DECK_CMP_CYCLES."""
+    state against the plain version (float64 1e-12, float32 1e-4) and
+    bitwise against the per-cell body, and the kernel and plain end states
+    after DECK_CMP_CYCLES."""
     from artemis_tpu_torch import Simulation, bc as bc_mod
     from artemis_tpu_torch.ops import stage_curv as SC
 
@@ -2825,7 +2874,7 @@ def phase_alpha_disk(torch, smi):
         warm_up(sim, 2)
         res["zcps"] = run_timed(torch, sim, ALPHA_CYCLES)
         res["launches"] = SC.stage_curv_launches
-        check(res["launches"] == 2 * sim.tm.ncycle and SC.tiled_launches == 0,
+        check(res["launches"] == 2 * sim.tm.ncycle and SC.tiled_launches == res["launches"],
               f"alpha_disk: {res['launches']} launches ({SC.tiled_launches} tiled) for "
               f"{sim.tm.ncycle} rk2 cycles")
         u, w = sim.state["gas"]["u"], sim.state["gas"]["w"]
@@ -2835,7 +2884,7 @@ def phase_alpha_disk(torch, smi):
         print(f"alpha_disk {tuple(sim.grid.nx)} f64 on partial K4: {ALPHA_CYCLES} cycles "
               f"through Simulation.run, {res['zcps']:.6e} zone-cycles/s, cycle "
               f"{res['cycle_ms']:.4f} ms, {res['launches']} launches in {sim.tm.ncycle} cycles, "
-              f"every one partial on the per-cell body, dt {sim.tm.dt:.6e} [{smi}]")
+              f"every one partial on the tiled body, dt {sim.tm.dt:.6e} [{smi}]")
         cs = d._curv
         u1 = u.clone()
         dt = torch.full((1,), sim.tm.dt, dtype=u.dtype, device=DEVICE)
@@ -2843,16 +2892,18 @@ def phase_alpha_disk(torch, smi):
         res["err_f64"] = partial_check(torch, cs, w, u, F64_TOL)
         res["regs"] = {body: ptxas_usage(torch, torch.float64, entry)
                        for body, entry in PARTIAL_ENTRY}
-        print(f"alpha_disk partial K4 per launch (f64): kernel {res['ms']:.4f} ms, with the "
-              f"viscous ghost fill {res['stage_ms']:.4f} ms, plain stage {res['plain_ms']:.4f} "
-              f"ms; bound {res['bound_ms']:.4f} ms ({res['mb']:.1f} MB, {res['gflop']:.3f} "
-              f"GFLOP, {res['bound_by']}-bound); vs plain on the deck's state "
-              f"{res['err_f64']:.3e} (tol {F64_TOL:g}); {regs_text(res['regs'])} [{smi}]")
+        print(f"alpha_disk partial K4 per launch (f64): tiled body {res['ms']:.4f} ms, with "
+              f"the viscous ghost fill {res['stage_ms']:.4f} ms; per-cell body "
+              f"{res['percell_ms']:.4f} ms, {res['percell_stage_ms']:.4f} ms; plain stage "
+              f"{res['plain_ms']:.4f} ms; bound {res['bound_ms']:.4f} ms ({res['mb']:.1f} MB, "
+              f"{res['gflop']:.3f} GFLOP, {res['bound_by']}-bound); vs plain on the deck's "
+              f"state {res['err_f64']:.3e} (tol {F64_TOL:g}), bitwise equal to the per-cell "
+              f"body; {regs_text(res['regs'])} [{smi}]")
         print("  " + smi_clocks())
         chain = [(s_, "apply") for s_ in d._curv_srcs]
         prof = profile_split(torch, sim, 3, {"viscous fill": [(bc_mod, "pad_and_fill")],
                                              "gravity + cooling": chain},
-                             {"K4 partial": "stage_curv_kernel"})
+                             {"K4 partial": PARTIAL_KERNEL})
         res["profile"] = prof
         res["idle_share"] = 1.0 - prof["busy_ms"] / res["cycle_ms"] if prof else None
         if prof:
@@ -2920,9 +2971,10 @@ def phase_binary(torch, smi):
     """inputs/binary_cyl.in at deck size (128x256 float64: binary gravity,
     rotating frame folded into partial K4, alpha viscosity, damping zones)
     for BINARY_CYCLES cycles, the twin of tests/test_binary.py's
-    test_binary_smoke: launches counted (2 per cycle, partial, per-cell
+    test_binary_smoke: launches counted (2 per cycle, partial, tiled
     body), its thresholds, one partial launch on the deck's end state
-    against the plain version, and the kernel and plain end states."""
+    against the plain version and bitwise against the per-cell body, and
+    the kernel and plain end states."""
     from artemis_tpu_torch import Simulation
     from artemis_tpu_torch.ops import stage_curv as SC
 
@@ -2940,8 +2992,9 @@ def phase_binary(torch, smi):
             sim.run()
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            check(sim.tm.ncycle == BINARY_CYCLES and SC.tiled_launches == 0
-                  and SC.stage_curv_launches == (2 * BINARY_CYCLES if fused else 0),
+            check(sim.tm.ncycle == BINARY_CYCLES
+                  and SC.stage_curv_launches == SC.tiled_launches
+                  == (2 * BINARY_CYCLES if fused else 0),
                   f"binary_cyl (fused_stage={fused}): {SC.stage_curv_launches} launches "
                   f"({SC.tiled_launches} tiled) in {sim.tm.ncycle} cycles")
             amp = binary_wake(sim)
@@ -3183,7 +3236,7 @@ def nbody_deck(torch, smi, name, ncycles, kernel, data):
                alive=int(nb.alive.sum()), shape=tuple(sim.grid.nx), **smoke)
     want = 2 * ncycles if kernel == PARTIAL_K4 else 0
     check(sim.tm.ncycle == ncycles and sim.status == "complete"
-          and res["launches"] == want and SC.tiled_launches == 0 and SW.sweep_launches == 0
+          and res["launches"] == want == SC.tiled_launches and SW.sweep_launches == 0
           and len(host) == 2 * ncycles,
           f"{name}: {res['launches']} partial K4 launches ({SC.tiled_launches} tiled, "
           f"{SW.sweep_launches} sweeps) and {len(host)} particle advances in "
@@ -3262,7 +3315,7 @@ def phase_nbody(torch, smi):
             sim = r.pop("sim")
             srcs = sim.driver._curv_srcs if kernel == PARTIAL_K4 else sim.driver.sources
             prof = profile_split(torch, sim, 3, {"sources": [(s_, "apply") for s_ in srcs]},
-                                 {"K4 partial": "stage_curv_kernel"})
+                                 {"K4 partial": PARTIAL_KERNEL})
             r["busy_ms"] = prof["busy_ms"] if prof else None
             r["split"] = prof["split"] if prof else None
             r["idle_share"] = 1.0 - prof["busy_ms"] / r["cycle_ms"] if prof else None
@@ -3277,9 +3330,10 @@ def phase_nbody(torch, smi):
                 r["err_f64"] = partial_check(torch, cs, w, u, F64_TOL)
                 dt = torch.full((1,), sim.tm.dt, dtype=u.dtype, device=DEVICE)
                 r.update(partial_timings(torch, cs, w, u, u.clone(), dt, sim.tm.time))
-                print(f"binary_nbody_cyl partial K4 per launch (f64): kernel {r['ms']:.4f} ms, "
-                      f"with its ic fill {r['stage_ms']:.4f} ms, plain stage {r['plain_ms']:.4f}"
-                      f" ms; bound {r['bound_ms']:.4f} ms ({r['mb']:.2f} MB, {r['bound_by']}-"
+                print(f"binary_nbody_cyl partial K4 per launch (f64): tiled body {r['ms']:.4f} "
+                      f"ms, with its ic fill {r['stage_ms']:.4f} ms; per-cell body "
+                      f"{r['percell_ms']:.4f} ms, {r['percell_stage_ms']:.4f} ms; plain stage "
+                      f"{r['plain_ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['mb']:.2f} MB, {r['bound_by']}-"
                       f"bound); vs plain on the deck's state {r['err_f64']:.3e} (tol "
                       f"{F64_TOL:g}); planet separation {r['sep']:.6f} at cycle 20 [{smi}]")
             if name == "disk_collision":
@@ -3579,11 +3633,42 @@ def tile_vs_plain(torch, sim):
             "coeffs_err": coeffs_err, "matvec_err": matvec_err}
 
 
-def phase_adaptive(torch, smi, prod, built):
+def adaptive_blast3(torch):
+    """blast_amr.in at numlevel 3 to tlim 0.05 on K4 per node: the launches
+    per node a cycle, the levels, the root's mass drift (< 1e-8)."""
+    from artemis_tpu_torch.state import tree_rows
+
+    t_part = time.perf_counter()
+    with tempfile.TemporaryDirectory() as data:
+        sim = blast_amr_sim(os.path.join(data, "n3"), ["parthenon/mesh/numlevel=3",
+                                                       "parthenon/time/tlim=0.05"])
+        m0 = root_mass(sim)
+        k3 = tree_run(torch, sim)
+        drift = abs(root_mass(sim) - m0) / m0
+        levels = sorted({int(r[0]) for r in tree_rows(sim.driver.smr.nodes)})
+        check(drift < 1e-8 and levels == [1, 2]
+              and all(s == PADDED_PER_NODE for s in k3["kernels"])
+              and k3["launches"] == 2 * sum(k3["nodes"][:-1]),
+              f"blast_amr numlevel 3: drift {drift:.3e}, levels {levels}, launches "
+              f"{k3['launches']}")
+        res = {"ncycle": sim.tm.ncycle, "launches": k3["launches"], "drift": drift,
+               "part_s": time.perf_counter() - t_part,
+               "nodes": [k3["nodes"][0], max(k3["nodes"])],
+               "cycle_ms": 1e3 * k3["secs"] / sim.tm.ncycle}
+        print(f"blast_amr numlevel 3 to t = 0.05: {sim.tm.ncycle} cycles, nodes "
+              f"{k3['nodes'][0]} -> {max(k3['nodes'])}, {k3['launches']} K4 launches, "
+              f"{res['cycle_ms']:.3f} ms a cycle (beside rad_shock), mass drift {drift:.3e} "
+              "(gate 1e-8)")
+        del sim
+    return res
+
+
+def phase_adaptive(torch, smi, prod, built, blast3):
     """Adaptive refinement on the card: blast_amr.in as written on K4 per
-    node (and its plain path, numlevel 3, a pool restart), and bench.py's
-    tiled AMR disk RHD at full size on K5b, K7 and K8 per node (``built``:
-    that tree and its set-up seconds, timed_build)."""
+    node (and its plain path, a pool restart), and bench.py's tiled AMR
+    disk RHD at full size on K5b, K7 and K8 per node (``built``: that tree
+    and its set-up seconds, timed_build); ``blast3``: adaptive_blast3's
+    result, run beside rad_shock."""
     import numpy as np
 
     from artemis_tpu_torch.ops import fld as FLD
@@ -3695,28 +3780,7 @@ def phase_adaptive(torch, smi, prod, built):
               f"the main run's at load and after {more} more cycles")
         del sim, resumed, snap
         res["blast"]["part_s"] = time.perf_counter() - t_part
-
-        # numlevel 3 to tlim 0.05: mass drift
-        t_part = time.perf_counter()
-        sim = blast_amr_sim(os.path.join(data, "n3"), ["parthenon/mesh/numlevel=3",
-                                                       "parthenon/time/tlim=0.05"])
-        m0 = root_mass(sim)
-        k3 = tree_run(torch, sim)
-        drift = abs(root_mass(sim) - m0) / m0
-        levels = sorted({int(r[0]) for r in tree_rows(sim.driver.smr.nodes)})
-        check(drift < 1e-8 and levels == [1, 2]
-              and all(s == PADDED_PER_NODE for s in k3["kernels"])
-              and k3["launches"] == 2 * sum(k3["nodes"][:-1]),
-              f"blast_amr numlevel 3: drift {drift:.3e}, levels {levels}, launches "
-              f"{k3['launches']}")
-        res["blast3"] = {"ncycle": sim.tm.ncycle, "launches": k3["launches"], "drift": drift,
-                         "part_s": time.perf_counter() - t_part,
-                         "nodes": [k3["nodes"][0], max(k3["nodes"])],
-                         "cycle_ms": 1e3 * k3["secs"] / sim.tm.ncycle}
-        print(f"blast_amr numlevel 3 to t = 0.05: {sim.tm.ncycle} cycles, nodes "
-              f"{k3['nodes'][0]} -> {max(k3['nodes'])}, {k3['launches']} K4 launches, "
-              f"{res['blast3']['cycle_ms']:.3f} ms a cycle, mass drift {drift:.3e} (gate 1e-8)")
-        del sim
+        res["blast3"] = blast3
 
         # (3) bench.py's tiled AMR disk RHD at full size
         t_part = time.perf_counter()
@@ -4590,15 +4654,37 @@ def card_small_trees():
     return out
 
 
-def start_worker(fn):
-    """A worker process running ``fn`` (spawned, so a CUDA context of its
-    own where ``fn`` uses the card): (pool, future); the caller shuts the
-    pool down."""
+def start_worker(fn, *args):
+    """A worker process running ``fn(*args)`` (spawned, so a CUDA context
+    of its own where ``fn`` uses the card): (pool, future); the caller
+    shuts the pool down."""
     import multiprocessing
 
     pool = concurrent.futures.ProcessPoolExecutor(
         1, mp_context=multiprocessing.get_context("spawn"))
-    return pool, pool.submit(fn)
+    return pool, pool.submit(fn, *args)
+
+
+def beside_rad_shock(smi):
+    """What a worker process runs on the card beside rad_shock, whose loop
+    is host-bound and untimed: phase 30's small trees, then the untimed
+    checks of phase 23 (simple_drag, the other decks) and of phase 26
+    (blast_amr at numlevel 3).  Returns ({part: result}, {part: seconds},
+    what they printed), for the main process to print after rad_shock."""
+    import io
+
+    import torch
+
+    parts = (("small_trees", card_small_trees), ("simple_drag", lambda: phase_drag(torch, smi)),
+             ("other_decks", lambda: phase_other_decks(torch, smi)),
+             ("blast3", lambda: adaptive_blast3(torch)))
+    res, secs, out = {}, {}, io.StringIO()
+    with contextlib.redirect_stdout(out):
+        for key, fn in parts:
+            t0 = time.perf_counter()
+            res[key] = fn()
+            secs[key] = time.perf_counter() - t0
+    return res, secs, out.getvalue()
 
 
 def phase_sharded_trees(torch, smi, cpu_refs, cards_small):
@@ -4810,18 +4896,24 @@ def run_phases(torch, t0, smi, cpu_refs):
             os.path.join(pre_dir.name, "restart"), AMR_CELL, 2.0,
             extra=[f"parthenon/time/nlim={RESTART_AMR[0]}"]))
         t1 = time.perf_counter()
-        # and phase 30's small trees on the card, in a worker process
-        card_pool, card_small = start_worker(card_small_trees)
+        # and, in a worker process on the card, phase 30's small trees and
+        # the untimed checks of phases 23 and 26
+        side_pool, side = start_worker(beside_rad_shock, smi)
         try:
             shock = phase_rad_shock(torch)
             t2 = time.perf_counter()
-            cards_small = card_small.result()
+            side_res, side_secs, side_out = side.result()
         finally:
-            card_pool.shutdown(wait=True, cancel_futures=True)
+            side_pool.shutdown(wait=True, cancel_futures=True)
         print(f"phase rad_shock: {t2 - t1:.1f} s (the 512x512x64 trees of phases 14 and 26 "
-              "set up beside it, sharing the interpreter lock, and phase 30's small trees "
-              "run on the card beside it in a worker process, which rad_shock then waited "
-              f"{time.perf_counter() - t2:.1f} s for)")
+              "set up beside it, sharing the interpreter lock, and in a worker process on the "
+              "card phase 30's small trees, simple_drag, the other decks and blast_amr at "
+              f"numlevel 3, which rad_shock then waited {time.perf_counter() - t2:.1f} s for)")
+        print(side_out, end="")
+        print("the worker beside rad_shock: " + ", ".join(
+            f"{key} {secs:.1f} s" for key, secs in side_secs.items()))
+        cards_small, drag, other = (side_res[k] for k in ("small_trees", "simple_drag",
+                                                          "other_decks"))
         # both trees are built before any timed window opens
         t1 = time.perf_counter()
         built_prod, built_adaptive = pre_prod.result(), pre_adaptive.result()
@@ -4840,18 +4932,16 @@ def run_phases(torch, t0, smi, cpu_refs):
     adv = phase_advection(torch, smi)
     secs = {}
     for key, fn in (("alpha_disk", phase_alpha_disk), ("binary_cyl", phase_binary),
-                    ("simple_drag", phase_drag), ("other_decks", phase_other_decks),
                     ("nbody", phase_nbody),
                     ("restart", lambda torch, smi: phase_restart(torch, smi, built_restart[0]))):
         t1 = time.perf_counter()
         secs[key] = (fn(torch, smi), time.perf_counter() - t1)
         print(f"phase {key}: {secs[key][1]:.1f} s")
-    alpha, binary, drag, other, nbody, restart = (
-        secs[k][0] for k in ("alpha_disk", "binary_cyl", "simple_drag", "other_decks",
-                             "nbody", "restart"))
+    alpha, binary, nbody, restart = (
+        secs[k][0] for k in ("alpha_disk", "binary_cyl", "nbody", "restart"))
     del built_restart
     t1 = time.perf_counter()
-    adaptive = phase_adaptive(torch, smi, prod, built_adaptive)
+    adaptive = phase_adaptive(torch, smi, prod, built_adaptive, side_res["blast3"])
     del built_adaptive
     pre_dir.cleanup()
     print(f"phase adaptive: {time.perf_counter() - t1:.1f} s")
@@ -4900,6 +4990,7 @@ def run_phases(torch, t0, smi, cpu_refs):
                               "kernel_f64": res["kernel_f64_zcps"]},
         "f64_ms": res["f64_ms"],
         "f64_percell_ms": res["f64_percell_ms"],
+        "f64_bound_ms": res["f64_bound_ms"],
         "idle_share": res["idle_share"],
         "blast_hllc_launches": other["blast_hllc"]["launches"],
         "blast_hllc_shape": list(other["blast_hllc"]["shape"]),
@@ -4995,7 +5086,7 @@ def run_phases(torch, t0, smi, cpu_refs):
         "zone_cycles_per_s": {"kernel": decks["zcps"]},
     }, {
         "name": "stage_curv_partial",
-        "kernel": "stage_curv_kernel (the per-cell body, padded halo, partial mode)",
+        "kernel": "stage_tiled_kernel (the tiled body, diffusive, padded halo, partial mode)",
         "route": "cuda",
         "source": "artemis_tpu_torch/csrc/stage_curv.cu",
         "replaces": "artemis_tpu/ops/pallas_stage_curv.py:604",
@@ -5011,6 +5102,8 @@ def run_phases(torch, t0, smi, cpu_refs):
         "bound_by": alpha["bound_by"],
         "library_ms": None,
         "stage_ms": alpha["stage_ms"],
+        "percell_ms": alpha["percell_ms"],
+        "percell_stage_ms": alpha["percell_stage_ms"],
         "registers_spills": alpha["regs"],
         "shape": [512, 1024, 1],
         "dtype": "float64",
@@ -5024,6 +5117,7 @@ def run_phases(torch, t0, smi, cpu_refs):
         "simple_drag": {"err": drag["err"], "momentum_drift": drag["drift"],
                         "cycles": drag["ncycle"]},
         "binary_nbody_cyl_ms": nbody["binary_nbody_cyl"]["ms"],
+        "binary_nbody_cyl_percell_ms": nbody["binary_nbody_cyl"]["percell_ms"],
         "binary_nbody_cyl_plain_ms": nbody["binary_nbody_cyl"]["plain_ms"],
         "binary_nbody_cyl_bound_ms": nbody["binary_nbody_cyl"]["bound_ms"],
         "binary_nbody_cyl_bound_by": nbody["binary_nbody_cyl"]["bound_by"],

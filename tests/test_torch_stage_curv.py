@@ -27,10 +27,11 @@ version.
   own rows and six strips in one launch of the host-compiled device code,
   bitwise equal to N one-node launches and within 1e-13 (f64) / 1e-5 (f32)
   of ``stage_curv_batched_reference``;
-* the tiled body, which every full launch takes (K3 and K5a with the
-  viscous stencil, K5b and K6 without, K4 from a padded array with and
-  without it): its blocks run on the host phase by phase with shared
-  memory starting as NaN, bitwise equal to the per-cell body on the same
+* the tiled body, which every launch on a ghost width of two takes, full
+  and partial (K3 and K5a with the viscous stencil, K5b and K6 without, K4
+  from a padded array with and without it, K4's partial mode): its blocks
+  run on the host phase by phase with shared memory starting as NaN,
+  bitwise equal to the per-cell body on the same
   halo (the wrapper's private switch ``_percell_body``) and to the padded
   halo (u, w, and the dtden maxima: the bodies' block counts differ),
   within the plain version's tolerances, on the all-ic Cartesian disk, the all-ic spherical disk with
@@ -41,13 +42,17 @@ version.
   and two z chunks (x3 wrapping across a chunk edge), and a 2-D node; the
   padded halo (K4) on every padded case and on the disk_cyl (x2 periodic
   through its ghosts) and disk_axi (2-D) states, f32 and f64, bitwise
-  equal to the per-cell padded body; partial stages keep the per-cell
-  body; power-law viscosity on disk_sph's own float64 state, held relative
-  to each component's maximum (cells at the density floor);
-* the partial stages of the 2-D cylindrical decks on the per-cell body
-  (alpha_disk behind its viscous x1 fill, with gravity and cooling left to
-  the chain; binary_cyl with the rotating frame folded, its binary gravity
-  and damping left to the chain) against the plain version at TOL_DISK;
+  equal to the per-cell padded body; power-law viscosity on disk_sph's own
+  float64 state, held relative to each component's maximum (cells at the
+  density floor); a launch that the kernel's tiled_ok refuses (a ghost
+  width of three) raises, full or partial;
+* partial stages on the tiled body, bitwise equal in u to the per-cell
+  body: the 2-D cylindrical decks (alpha_disk behind its viscous x1 fill,
+  with gravity and cooling left to the chain; binary_cyl with the rotating
+  frame folded, its binary gravity and damping left to the chain) within
+  TOL_DISK of the plain version, and random partial
+  nodes (a ragged 2-D viscous one, a 3-D one with two z chunks, a 2-D one
+  with the rotating frame) within TOL in f64 and f32;
 * the ``cuda``-marked tests run the same checks on the card.  They skip
   without a GPU; run them there with (``tests/conftest.py`` imports jax,
   which the card's machine lacks; the JAX comparisons import it only
@@ -394,21 +399,24 @@ struct HostExec {
 };
 // Shared memory starts as NaN in every block: a read of an element no
 // phase wrote would show in the outputs.
-template <typename T, bool D>
+template <typename T, bool D, bool F>
 void run_tiled(const CurvParams& p) {
   const int64_t nb = tile_count<T, D>(p.n.nx, p.n.ny, p.n.nz);
   for (int k = 0; k < p.nnodes; ++k)
     for (int64_t b = 0; b < nb; ++b) {
       std::vector<T> smem(TileLayout<T, D>::ELEMS, std::numeric_limits<T>::quiet_NaN());
       HostExec<T, D> ex;
-      tile_block<T, D>(p, p.node[k], b, smem.data(), ex);
+      tile_block<T, D, F>(p, p.node[k], b, smem.data(), ex);
     }
+}
+template <typename T, bool F>
+void run_mode(const CurvParams& p, int gather, int tiled) {
+  if (tiled) return tiled_diff(p) ? run_tiled<T, true, F>(p) : run_tiled<T, false, F>(p);
+  return gather ? run<T, true, F>(p) : run<T, false, F>(p);
 }
 template <typename T>
 void run_t(const CurvParams& p, int gather, int full, int tiled) {
-  if (tiled) return tiled_diff(p) ? run_tiled<T, true>(p) : run_tiled<T, false>(p);
-  if (gather) return full ? run<T, true, true>(p) : run<T, true, false>(p);
-  return full ? run<T, false, true>(p) : run<T, false, false>(p);
+  return full ? run_mode<T, true>(p, gather, tiled) : run_mode<T, false>(p, gather, tiled);
 }
 }  // namespace
 extern "C" int artemis_stage_curv(int dtype, int halo, int full, int tiled, const int* ints,
@@ -416,7 +424,7 @@ extern "C" int artemis_stage_curv(int dtype, int halo, int full, int tiled, cons
                                   int nptrs, int nnodes, int ndmax, void*) {
   CurvParams p;
   if (!make_params(halo, ints, reals, ptrs, nptrs, nnodes, &p) ||
-      (tiled && !tiled_ok(p, full)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
+      (tiled && !tiled_ok(p)) || ndmax != (full ? dtden_len(p, dtype, tiled) : 0))
     return 1;
   const int gather = halo != kPadded;
   if (dtype == 0) run_t<float>(p, gather, full, tiled);
@@ -453,7 +461,7 @@ def host_kernel(tmp_path_factory):
 @pytest.fixture
 def on_host(host_kernel, monkeypatch):
     """Route the wrapper's launch to the host build (CPU tensors)."""
-    monkeypatch.setattr(SC, "_lib", lambda dtype: host_kernel)
+    monkeypatch.setattr(SC, "_lib", lambda dtype, full=True: host_kernel)
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda: types.SimpleNamespace(cuda_stream=None))
@@ -521,10 +529,12 @@ def padded_case_stage(case, scheme, full=True, dtype=torch.float64, device="cpu"
 @pytest.mark.parametrize("scheme", ["hllc-plm", "hlle-pcm", "hlle-plm", "hllc-pcm"])
 @pytest.mark.parametrize("case", list(PADDED_CASES))
 def test_host_compiled_padded_kernel_matches_plain(on_host, case, scheme, full):
-    """Full stages on the tiled body, partial ones on the per-cell body."""
+    """Full and partial stages, both on the tiled body."""
     cs, w, u = padded_case_stage(case, scheme, full)
-    assert cs.tiled("padded") == full
+    assert cs.tiled("padded")
+    n0 = SC.tiled_launches
     check_against_plain(cs, w, u, torch.float64, on_host)
+    assert SC.tiled_launches == n0 + 2
 
 
 def disk_stage(dtype, device, rsolver="hlle", recon="plm", full=True, nx=(20, 12, 6),
@@ -557,14 +567,17 @@ def disk_stage(dtype, device, rsolver="hlle", recon="plm", full=True, nx=(20, 12
 def test_host_compiled_disk_kernel_gather_and_padded(on_host, tmp_path, scheme, full):
     """The disk layout through both halo sources: each against the plain
     version, and the two bitwise equal (the gather sources every halo cell,
-    corners included, as stage_curv_gather does; a full gather stage takes
-    the tiled body, so the dtden outputs are compared by their maxima)."""
+    corners included, as stage_curv_gather does; full and partial stages
+    take the tiled body, and the full ones' dtden outputs are compared by
+    their maxima)."""
     rsolver, recon = scheme.split("-")
     cs, w, u = disk_stage(torch.float64, "cpu", rsolver, recon, full, data_dir=str(tmp_path))
-    assert cs.tiled("gather") == full
+    assert cs.tiled("gather") and cs.tiled("padded")
+    n0 = SC.tiled_launches
     ug, wg, dg = check_against_plain(cs, w, u, torch.float64, on_host, tols=TOL_DISK)
     up, wp, dp = check_against_plain(cs, w, u, torch.float64, on_host, padded=True,
                                      tols=TOL_DISK)
+    assert SC.tiled_launches == n0 + 4
     assert torch.equal(ug, up) and torch.equal(wg, wp)
     if full:
         assert torch.equal(dg.amax(), dp.amax())
@@ -1084,7 +1097,7 @@ PARTIAL_DECKS = {"alpha_disk": ((16, 24, 1), ["Gravity", "BetaCooling"]),
 
 def partial_deck_stage(deck, dtype, device, data_dir):
     """A PARTIAL_DECKS deck through the user entry point (plain path): the
-    partial CurvStage its driver makes on the card (padded, per-cell body,
+    partial CurvStage its driver makes on the card (padded, tiled body,
     the deck's alpha viscosity folded), the initial w and u."""
     nx, chain = PARTIAL_DECKS[deck]
     sim = Simulation(os.path.join(HERE, "..", "inputs", f"{deck}.in"),
@@ -1093,60 +1106,126 @@ def partial_deck_stage(deck, dtype, device, data_dir):
                       "artemis/precision=" + str(dtype).removeprefix("torch.")],
                      data_dir, device=device, fused_stage=False)
     cs = sim.driver._make_curv_stage(sim.grid, sim.gas_cfg)
-    assert cs.halo == "padded" and not cs.full and cs.diffusive and not cs.tiled("padded")
+    assert cs.halo == "padded" and not cs.full and cs.diffusive and cs.tiled("padded")
     assert [type(s).__name__ for s in sim.driver._curv_srcs] == chain
     assert sim.grid.ng[2] == 0
     return cs, sim.state["gas"]["w"], sim.state["gas"]["u"]
 
 
+def check_partial(cs, w, u, dtype, tol):
+    """A partial padded launch of ``cs`` takes the tiled body: bitwise equal
+    in u to the per-cell body on the same padded array (the wrapper's
+    private switch), w passed through and dtden zero, and within ``tol``
+    (absolute) of the plain version, both RK register patterns."""
+    from artemis_tpu_torch import bc as bc_mod
+
+    assert not cs.full and cs.tiled("padded")
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    dt = torch.full((1,), 2e-3, dtype=dtype, device=w.device)
+    for gam0, gam1, beta in ((0.0, 1.0, 1.0), (0.5, 0.5, 0.5)):
+        args = (u, u.clone(), gam0, gam1, beta, dt, 0.0, False)
+        n0 = SC.tiled_launches
+        ut, wt, dt_ = SC._launch(cs, w_pad, w, *args, "padded")
+        assert SC.tiled_launches == n0 + 1
+        with SC._percell_body():
+            uc, wc, dc = SC._launch(cs, w_pad, w, *args, "padded")
+        ur, _, _ = SC.stage_curv_reference(cs, w, *args, w_pad=w_pad)
+        assert SC.tiled_launches == n0 + 1
+        assert torch.equal(ut, uc) and wt is w and wc is w
+        assert not dt_.any() and not dc.any()
+        assert torch.isfinite(ut).all() and float((ut - ur).abs().max()) <= tol
+
+
 @pytest.mark.parametrize("deck", list(PARTIAL_DECKS))
 def test_host_compiled_partial_deck_stages(on_host, tmp_path, deck):
-    """K4's partial mode on the per-cell body on the alpha_disk and
-    binary_cyl states (float64, TOL_DISK), the ghost fill of each deck's
-    walls (alpha_disk's viscous inflow) in front of the kernel."""
+    """K4's partial mode on the tiled body on the alpha_disk and binary_cyl
+    states (float64, TOL_DISK), the ghost fill of each deck's walls
+    (alpha_disk's viscous inflow) in front of the kernel: bitwise equal to
+    the per-cell body and within TOL_DISK of the plain version."""
     cs, w, u = partial_deck_stage(deck, torch.float64, "cpu", str(tmp_path))
     n0 = SC.tiled_launches
     check_against_plain(cs, w, u, torch.float64, on_host, padded=True, tols=TOL_DISK)
-    assert SC.tiled_launches == n0
+    assert SC.tiled_launches == n0 + 2
+    check_partial(cs, w, u, torch.float64, TOL_DISK[torch.float64])
 
 
-def test_host_compiled_tiled_refusal_raises(on_host, tmp_path, monkeypatch):
+# partial nodes on random states: (coords, cells, options); a 2-D
+# cylindrical node ragged in x and y (the decks' layout: no x3 ghosts,
+# gravity left to the chain) with alpha viscosity, a 3-D one with two z
+# chunks (the second of two planes) with power-law viscosity, conduction
+# and point gravity, and a 2-D one with the rotating frame folded (as
+# binary_cyl folds it)
+PARTIAL_NODES = {
+    "cyl2d-alpha-36x10": ("cylindrical", (36, 10, 1), dict(visc="alpha", omf=1.0)),
+    "cyl3d-plaw+cond-20x6x18": ("cylindrical", (20, 6, 18),
+                                dict(visc="plaw", cond="cond", grav=True, omf=0.7)),
+    "cyl2d-rf-20x12": ("cylindrical", (20, 12, 1), dict(visc="alpha", rf=True, omf=1.0)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", list(PARTIAL_NODES))
+def test_host_compiled_tiled_partial(on_host, case, dtype):
+    """Partial stages on the tiled body, block by block with shared memory
+    starting as NaN: bitwise equal to the per-cell body, within TOL (1e-12
+    f64, 1e-5 f32) of the plain version."""
+    coords, nx, opt = PARTIAL_NODES[case]
+    s = port_setup(coords, dtype=dtype, rotating=opt.get("rf", False), nx=nx)
+    assert s.grid.ng[2] == (2 if nx[2] > 1 else 0)
+    cs = curv_stage(s, omf=opt["omf"], visc=VISC[opt["visc"]], cond=COND.get(opt.get("cond")),
+                    grav=opt.get("grav", False), rf=opt.get("rf", False), full=False)
+    assert cs.diffusive and (cs.gravity is not None) == opt.get("grav", False)
+    check_partial(cs, s.w, s.u, dtype, TOL[dtype])
+
+
+def test_host_compiled_tiled_refusal_raises(on_host, monkeypatch):
     """No fallback: a tiled launch that the kernel's tiled_ok refuses (a
-    partial stage, from a padded array or a gather halo) returns an error,
-    and the wrapper raises instead of running another body; the full
-    padded stage is taken."""
-    cs, w, u = disk_stage(torch.float64, "cpu", data_dir=str(tmp_path))
-    part, _, _ = disk_stage(torch.float64, "cpu", full=False, data_dir=str(tmp_path))
-    monkeypatch.setattr(SC.CurvStage, "tiled", lambda self, halo: True)
+    ghost width of three, full and partial, from a padded array, with the
+    wrapper's envelope opened to it) returns an error, and the wrapper
+    raises instead of running another body; the per-cell body takes the
+    same stages, within TOL of the plain version."""
+    s = port_setup("cylindrical")
+    s.pin.apply_overrides(["parthenon/mesh/nghost=3"])
+    s.grid = grid_from_input(s.pin)
+    s.hyd = Hydro(s.grid, s.cfg, device="cpu", dtype=torch.float64)
+    assert not SC.supported_curv(s.grid, s.cfg)
+    monkeypatch.setattr(SC, "supported_curv", lambda grid, cfg: True)
     dt = torch.full((1,), 2e-3, dtype=torch.float64)
-    for padded in (True, False):
-        with pytest.raises(RuntimeError, match="launch failed"):
-            on_host(part, w, u, u, 0.5, 0.5, 0.5, dt, 0.0, False, padded=padded)
-    uk, wk, dk = on_host(cs, w, u, u, 0.5, 0.5, 0.5, dt, 0.0, False, padded=True)
-    assert dk.numel() == cs.dtden_blocks(True) and torch.isfinite(uk).all()
+    for full in (True, False):
+        cs = curv_stage(s, visc=VISC["alpha"], full=full)
+        assert s.grid.ng == (3, 3, 3) and not cs.tiled("padded")
+        with SC._percell_body():
+            check_against_plain(cs, s.w, s.u, torch.float64, on_host)
+        with monkeypatch.context() as m:
+            m.setattr(SC.CurvStage, "tiled", lambda self, halo: True)
+            n0 = SC.stage_curv_launches, SC.tiled_launches
+            with pytest.raises(RuntimeError, match="launch failed"):
+                on_host(cs, s.w, s.u, s.u, 0.5, 0.5, 0.5, dt, 0.0, False, padded=True)
+            assert (SC.stage_curv_launches, SC.tiled_launches) == n0
 
 
 def test_tiled_body_choice():
-    """Which launches take the tiled body: full stages of every halo source
-    (six strips, the x1/x2 strips with x3 wrapped, a padded array), with
-    or without diffusion, 3-D and 2-D, unless the private switch is on;
-    partial stages keep the per-cell body.  The dtden length follows the
+    """Which launches take the tiled body: full and partial stages of every
+    halo source (six strips, the x1/x2 strips with x3 wrapped, a padded
+    array), with or without diffusion, 3-D and 2-D, on a ghost width of
+    two, unless the private switch is on.  The dtden length follows the
     body (the diffusive one has a 32 x 8 footprint in both dtypes)."""
     s = port_setup("cartesian")
     cs = SC.CurvStage(s.hyd)
     assert cs.tiled("gather6") and cs.tiled("gather") and cs.tiled("padded")
     part = SC.CurvStage(s.hyd, full=False)
-    assert not part.tiled("gather6") and not part.tiled("padded")
+    assert part.tiled("gather6") and part.tiled("padded")
     with SC._percell_body():
         assert not cs.tiled("gather6") and not cs.tiled("gather") and not cs.tiled("padded")
+        assert not part.tiled("padded")
     assert cs.tiled("gather6")
     sp = port_setup("spherical")
     cv = curv_stage(sp, visc=VISC["alpha"])
     assert cv.tiled("gather6") and cv.tiled("gather") and cv.tiled("padded")
-    assert not curv_stage(sp, visc=VISC["alpha"], full=False).tiled("gather")
+    assert curv_stage(sp, visc=VISC["alpha"], full=False).tiled("gather")
     axi = curv_stage(port_setup("axisymmetric"), visc=VISC["alpha"])
     assert axi.grid.ng[2] == 0 and axi.tiled("padded")
-    assert not curv_stage(port_setup("axisymmetric"), full=False).tiled("padded")
+    assert curv_stage(port_setup("axisymmetric"), full=False).tiled("padded")
     assert cs.dtden_blocks() == -(-20 * 12 * 6 // 128) and cs.dtden_blocks(True) == 1 * 3 * 1
     c32 = SC.CurvStage(port_setup("cartesian", dtype=torch.float32).hyd)
     assert c32.dtden_blocks(True) == 1 * 2 * 1
@@ -1170,9 +1249,30 @@ def cuda():
 @pytest.mark.parametrize("full", [True, False], ids=["full", "partial"])
 @pytest.mark.parametrize("case", list(PADDED_CASES))
 def test_kernel_matches_plain(cuda, case, full, dtype):
+    """On the card: full and partial padded stages on the tiled body
+    against the plain version; the partial ones bitwise equal in u to the
+    per-cell body."""
     for scheme in ("hllc-plm", "hlle-pcm"):
         cs, w, u = padded_case_stage(case, scheme, full, dtype, cuda)
+        assert cs.tiled("padded")
+        n0 = SC.tiled_launches
         check_against_plain(cs, w, u, dtype, SC.stage_curv)
+        assert SC.tiled_launches == n0 + 2
+        if not full:
+            check_partial(cs, w, u, dtype, TOL[dtype])
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_tiled_partial(cuda, dtype):
+    """On the card: the partial nodes of test_host_compiled_tiled_partial."""
+    for coords, nx, opt in PARTIAL_NODES.values():
+        s = port_setup(coords, dtype=dtype, device=cuda, rotating=opt.get("rf", False), nx=nx)
+        cs = curv_stage(s, omf=opt["omf"], visc=VISC[opt["visc"]],
+                        cond=COND.get(opt.get("cond")), grav=opt.get("grav", False),
+                        rf=opt.get("rf", False), full=False)
+        check_partial(cs, s.w, s.u, dtype, TOL[dtype])
         torch.cuda.synchronize()
 
 
@@ -1308,12 +1408,14 @@ def test_kernel_tiled_random_diffusion(cuda, case, dtype):
 def test_kernel_plaw_on_the_deck_state_and_partial_decks(cuda, tmp_path, dtype):
     """On the card: power-law viscosity on disk_sph's float64 state
     (relative to each component's maximum, as on the host) and the partial
-    stages of the alpha_disk and binary_cyl states."""
+    stages of the alpha_disk and binary_cyl states on the tiled body,
+    bitwise equal to the per-cell body."""
     if dtype == torch.float64:
         cs, w, u = tiled_stage("disk_sph", dtype, cuda, str(tmp_path),
                                diff=(VISC["plaw"], None))
         check_tiled(cs, w, u, dtype, TOL[dtype], rel=True)
     for deck in PARTIAL_DECKS:
-        check_against_plain(*partial_deck_stage(deck, dtype, cuda, str(tmp_path)), dtype,
-                            SC.stage_curv, padded=True, tols=TOL_DISK)
+        cs, w, u = partial_deck_stage(deck, dtype, cuda, str(tmp_path))
+        check_against_plain(cs, w, u, dtype, SC.stage_curv, padded=True, tols=TOL_DISK)
+        check_partial(cs, w, u, dtype, TOL_DISK[dtype])
     torch.cuda.synchronize()

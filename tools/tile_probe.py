@@ -7,9 +7,13 @@ K1 and K2; ``coeffs_tiled_kernel`` in ``fld.cu``: K7), on one CUDA card.
 Run from the repository root:
 
     python tools/tile_probe.py [--build-only] [VARIANT ...]
+    python tools/tile_probe.py --build-split
 
 (all variants when none is named; ``--build-only`` prints ptxas's
-registers and spills of the variants' tiled kernels and times nothing).
+registers and spills of the variants' tiled kernels and times nothing;
+``--build-split`` times the stage_curv build as the wrapper makes it, one
+nvcc run per dtype and mode, four in parallel, against one run per dtype
+carrying both modes, two in parallel, each from a fresh copy).
 
 Each variant is a copy of ``artemis_tpu_torch`` in a temporary directory
 with one textual change to the kernel source (and the wrapper's tile
@@ -74,6 +78,21 @@ variants:
   simpler alternative, Dcell of every cell in one pass, then each cell's
   faces from Dcell through L1/L2 in a second (11 fields moved instead of
   10).
+* ``partial``: K4's partial mode on the tiled body as it is (float64, the
+  diffusive body: a 32 x 8 footprint, the four-plane ring, one block per
+  SM at ~231 registers), and on the per-cell body, on alpha_disk's
+  512x1024 state as written (the deck's initial state, its viscous ghost
+  fill made once outside the timing); the alternatives, which change the
+  f64 diffusive body of full stages too but time the partial one:
+  ``partial-ty4`` (a 32 x 4 footprint of 128 threads on the four-plane
+  ring, one block per SM), ``partial-ring1`` (a 2-D node's ring sized for
+  its one plane), ``partial-ty4-ring1`` (both: 91,200 B a block, two
+  blocks per SM) and ``partial-ty4-ring1-minb3`` (with a launch bound of
+  three blocks per SM, at most 168 registers); ``partial-nbody`` and
+  ``partial-nbody-ty4-ring1``: the body as it is and the two-block
+  alternative on binary_nbody_cyl's 128x256 state (the per-cell body
+  beside the first); ``partial-coll``: the inviscid partial body as it is
+  on disk_collision's 128x256 state, and the per-cell body.
 
 Prints the card's name and power limit, ptxas's registers and spills per
 variant, and each variant's ms per launch; the variants that compute the
@@ -226,6 +245,39 @@ VARIANTS.update({
     "cart-no-values": [(CART, *CART_VALUES)],
     "cart-load-only": [(CART, *CART_SOLVE), (CART, *CART_UPDATE), (CART, *CART_VALUES)],
 })
+# the f64 diffusive body's footprint and launch bound (TY, MINB)
+F64D = "struct TileDims<double, true> {\n  static constexpr int TX = 32, TY = 8, TZ = 16, MINB = 1;"
+TY4 = [(CU, F64D, F64D.replace("TY = 8, TZ = 16, MINB = 1", "TY = 4, TZ = 16, MINB = 2"))]
+TY4_MINB3 = [(CU, F64D, F64D.replace("TY = 8, TZ = 16, MINB = 1", "TY = 4, TZ = 16, MINB = 3"))]
+# a 2-D node's ring sized for its one plane: the layout's faces follow one
+# plane, the slot is 0, and the launch asks for that much shared memory
+RING1 = [(CU, "__device__ __forceinline__ TileMem(T* s, bool padded)\n"
+              "      : ring(s + (padded ? 2 : 0)), xl(s + kRing * L::PLANE),",
+          "__device__ __forceinline__ TileMem(T* s, bool padded, int nring = kRing)\n"
+          "      : ring(s + (padded ? 2 : 0)), xl(s + nring * L::PLANE),"),
+         (CU, "  const TileMem<T, DIFF> m(smem, padded);\n"
+              "  const TilePos tp = tile_pos<T, DIFF>(n, blk);\n"
+              "  const bool az = n.nz > 1;\n"
+              "  auto slot = [&](int kk) { return (kk - tp.z0 + 2) & (kRing - 1); };",
+          "  const TileMem<T, DIFF> m(smem, padded, n.nz > 1 ? kRing : 1);\n"
+          "  const TilePos tp = tile_pos<T, DIFF>(n, blk);\n"
+          "  const bool az = n.nz > 1;\n"
+          "  auto slot = [&](int kk) { return az ? (kk - tp.z0 + 2) & (kRing - 1) : 0; };"),
+         (CU, "<<<grid, TileLayout<T, DIFF>::NT, TileLayout<T, DIFF>::BYTES, stream>>>(p);",
+          "<<<grid, TileLayout<T, DIFF>::NT, TileLayout<T, DIFF>::BYTES - (p.n.nz > 1 ? 0 : "
+          "(kRing - 1) * TileLayout<T, DIFF>::PLANE * int(sizeof(T))), stream>>>(p);")]
+VARIANTS.update({
+    "partial": [],
+    "partial-ty4": TY4,
+    "partial-ring1": RING1,
+    "partial-ty4-ring1": TY4 + RING1,
+    "partial-ty4-ring1-minb3": TY4_MINB3 + RING1,
+    "partial-nbody": [],
+    "partial-nbody-ty4-ring1": TY4 + RING1,
+    "partial-coll": [],
+})
+PARTIAL_DECKS = {"partial-coll": "disk_collision.in", "partial-nbody": "binary_nbody_cyl.in",
+                 "partial-nbody-ty4-ring1": "binary_nbody_cyl.in"}
 PROBES = ("load-only", "no-update", "no-solve", "no-values", "visc-no-faces", "visc-no-cells",
           "cart-no-faces", "cart-no-update", "cart-no-values", "cart-load-only")
 
@@ -239,6 +291,12 @@ if sys.argv[2] == "cart":
     name = "stage_cart"
     _build.load(name)
     entries = (("K1 f32 plm", "stage_cart_tiled_kernelIfLi1ELb1EE"),)
+elif sys.argv[2] == "partial":
+    name = _build.variant("stage_curv", SC.build_defines(torch.float64, False))
+    _build.load("stage_curv", SC.build_defines(torch.float64, False))
+    entries = (("partial diffusive", "stage_tiled_kernelIdLb1ELb0EE"),
+               ("partial inviscid", "stage_tiled_kernelIdLb0ELb0EE"),
+               ("per-cell partial", "stage_curv_kernelIdLb0ELb0EE"))
 elif sys.argv[2] == "fld":
     name = "fld"
     _build.load(name)
@@ -247,7 +305,7 @@ elif sys.argv[2] == "fld":
 else:
     name = _build.variant("stage_curv", SC.build_defines(torch.float32))
     _build.load("stage_curv", SC.build_defines(torch.float32))
-    entries = (("inviscid", "stage_tiled_kernelIfLb0EE"), ("diffusive", "stage_tiled_kernelIfLb1EE"))
+    entries = (("inviscid", "stage_tiled_kernelIfLb0ELb1EE"), ("diffusive", "stage_tiled_kernelIfLb1ELb1EE"))
 log = _build.build_log.get(name)
 lines = (log[1] if log else "").splitlines()
 out = []
@@ -255,7 +313,7 @@ for body, entry in entries:
     at = [i for i, l in enumerate(lines) if "Compiling entry" in l and entry in l]
     out.append(body + ": " + (", ".join(l.split(":", 1)[-1].strip() for l in lines[at[0]:at[0] + 4]
                                          if "registers" in l or "spill" in l) if at else "not read"))
-print("; ".join(out))
+print("; ".join(out) + f"; nvcc {log[0]:.1f} s" if log else "; ".join(out))
 """
 
 TIMER = r"""
@@ -308,6 +366,36 @@ if name.startswith("fld"):
     same = all(torch.equal(a, b) for a, b in zip(kt, kp))
     print(f"{name}: {t:.4f} ms per launch, bitwise equal to the per-cell body: {same}; the "
           f"per-cell body {pc:.4f} ms; fld_matvec {mv:.4f} ms", flush=True)
+    sys.exit(0)
+
+
+if name.startswith("partial"):
+    # K4's partial mode on a deck's initial state (float64)
+    import tempfile
+
+    from artemis_tpu_torch import Simulation, bc as bc_mod
+
+    sim = Simulation(deck, ["parthenon/time/nlim=0"], tempfile.mkdtemp(), device=dev)
+    cs, u, w = sim.driver._curv, sim.state["gas"]["u"], sim.state["gas"]["w"]
+    assert not cs.full and cs.tiled("padded") and u.dtype == torch.float64
+    w_pad = bc_mod.pad_and_fill(w, cs.grid, "gas", cs.bc_custom)
+    u1 = u.clone()
+    dt = torch.full((1,), 1e-5, dtype=u.dtype, device=dev)
+    calls = itertools.cycle([(0.0, 1.0, 1.0), (0.5, 0.5, 0.5)])
+
+    def launch(*g):
+        return SC._launch(cs, w_pad, w, u, u1, *g, dt, 0.0, False, "padded")
+
+    t = ms(lambda: launch(*next(calls)))
+    x = launch(0.5, 0.5, 0.5)[0]
+    with SC._percell_body():
+        y = launch(0.5, 0.5, 0.5)[0]
+        pc = (ms(lambda: launch(*next(calls)))
+              if name in ("partial", "partial-coll", "partial-nbody") else None)
+    torch.cuda.synchronize()
+    line = (f"{name} ({tuple(cs.grid.nx)}, diffusive {cs.diffusive}): {t:.4f} ms per launch, "
+            f"bitwise equal to the per-cell body: {torch.equal(x, y)}")
+    print(line + (f"; the per-cell body {pc:.4f} ms" if pc is not None else ""), flush=True)
     sys.exit(0)
 
 
@@ -421,6 +509,37 @@ print(line, flush=True)
 """
 
 
+BUILD_SPLIT = r"""
+import concurrent.futures, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from artemis_tpu_torch import _build
+from artemis_tpu_torch.ops import stage_curv as SC
+split = sys.argv[2] == "1"
+defs = [SC.build_defines(dt, full) if split else SC.build_defines(dt)[:1]
+        for dt in (torch.float32, torch.float64) for full in ((True, False) if split else (True,))]
+t0 = time.perf_counter()
+with concurrent.futures.ThreadPoolExecutor(len(defs)) as pool:
+    for f in [pool.submit(_build.load, "stage_curv", d) for d in defs]:
+        f.result()
+each = "; ".join(f"{' '.join(d)}: {_build.build_log[_build.variant('stage_curv', d)][0]:.1f} s"
+                 for d in defs)
+print(f"{len(defs)} stage_curv nvcc runs in parallel, {time.perf_counter() - t0:.1f} s ({each})")
+"""
+
+
+def build_split(smi):
+    """The stage_curv build in both partitions, each from a fresh copy."""
+    with tempfile.TemporaryDirectory() as base:
+        for split in ("0", "1"):
+            d = variant_tree(base, f"split{split}", [])
+            r = subprocess.run([sys.executable, "-c", BUILD_SPLIT, d, split],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise SystemExit(f"the build failed:\n{r.stderr[-3000:]}")
+            print(r.stdout.strip() + f" [{smi}]", flush=True)
+
+
 def variant_tree(base, name, subs):
     d = os.path.join(base, name)
     shutil.copytree(os.path.join(ROOT, "artemis_tpu_torch"), os.path.join(d, "artemis_tpu_torch"),
@@ -443,12 +562,14 @@ def main():
     args = sys.argv[1:]
     build_only = "--build-only" in args
     names = [a for a in args if a != "--build-only"] or list(VARIANTS)
-    unknown = [n for n in names if n not in VARIANTS]
-    if unknown:
-        raise SystemExit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip().splitlines()[0]
     print(f"nvidia-smi: {smi}", flush=True)
+    if names == ["--build-split"]:
+        return build_split(smi)
+    unknown = [n for n in names if n not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"unknown variants {unknown}; known: {list(VARIANTS)}")
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as base:
         dirs = {n: variant_tree(base, n, VARIANTS[n]) for n in names}
@@ -469,7 +590,8 @@ def main():
             f.write(TIMER)
         for _ in range(2):
             for n, d in dirs.items():
-                deck = "linwave.in" if n.startswith("cart") else "disk_sph.in"
+                deck = ("linwave.in" if n.startswith("cart") else PARTIAL_DECKS.get(
+                    n, "alpha_disk.in") if n.startswith("partial") else "disk_sph.in")
                 r = subprocess.run([sys.executable, timer, d, n, "1" if n in PROBES else "0",
                                     os.path.join(ROOT, "inputs", deck)],
                                    capture_output=True, text=True)
