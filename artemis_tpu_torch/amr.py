@@ -1464,23 +1464,53 @@ class MultiLevelSMR:
         return out, pforce
 
     # -- radiation over levels ----------------------------------------------
-    def _radiation_pass(self, states, dt):
+    # a tree whose same-shape patches may solve as one batched system (a
+    # shard's tree solves node by node, as the JAX tree does under sharding)
+    _batch_radiation = True
+
+    def _radiation_pass(self, states, dt, *, _sequential=False):
         """Operator-split radiation after the stages, level by level:
         parents solve first, each patch against Dirichlet ghost planes
         prolonged from its parent's new field (siblings' fine fields from
         before any solve), then the fine Er and gas energies restrict back
-        and the parents re-sync.  The solves run one after another, as the
-        JAX tree does whenever its FLD kernels are on."""
+        and the parents re-sync.  At each level the patches of one shape
+        (the grid, the state's fields, the ghost planes' shapes and the
+        Radiation's ``batch_key``), Cartesian and with no wrap axis, solve
+        as one system over a node axis where there are two or more
+        (``Radiation.step_batched``): the JAX tree's default pass, its
+        ``vmap`` over each group (``artemis_tpu/amr.py:1939-1984``).  The
+        others solve one by one.  ``_sequential``: solve every node one by
+        one (the comparison of the tests and chip_smoke.py)."""
         states = list(states)
         sib_Er = [s["rad"]["Er"] for s in states]
+        batch = self._batch_radiation and not _sequential
         for lev in sorted({n.level for n in self.nodes}):
             nodes = [n for n in self.nodes if n.level == lev]
             # the parents' new fields, in each patch's frame
             pEr = self._parent_arrs([s["rad"]["Er"] for s in states], nodes)
+            groups = {}
             for node in nodes:
                 i = node.index
                 gh = None if node.parent is None else self._rad_ghost_planes(node, pEr[i], sib_Er)
-                states[i] = self._rad_solve(node, dict(states[i]), dt, gh)
+                if gh is None or not batch or node.curv or any(node.wrap):
+                    states[i] = self._rad_solve(node, dict(states[i]), dt, gh)
+                    continue
+                key = (tuple(node.grid.nx),
+                       tuple((f, tuple(sorted(v))) for f, v in sorted(states[i].items())),
+                       tuple((d, tuple(lo.shape), tuple(hi.shape))
+                             for d, (lo, hi) in sorted(gh.items())),
+                       node.radiation.batch_key())
+                groups.setdefault(key, []).append((node, gh))
+            for members in groups.values():
+                if len(members) == 1:
+                    node, gh = members[0]
+                    states[node.index] = self._rad_solve(node, dict(states[node.index]), dt, gh)
+                    continue
+                rads = [node.radiation for node, _ in members]
+                outs = rads[0].step_batched(rads, [states[node.index] for node, _ in members],
+                                            dt, [gh for _, gh in members])
+                for (node, _), st in zip(members, outs):
+                    states[node.index] = node.radiation.sync_gas(st)
         for node in reversed(self.nodes[1:]):
             p = node.parent.index
             pst = dict(states[p])

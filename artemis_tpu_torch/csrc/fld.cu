@@ -26,6 +26,19 @@
 // fld_matvec, per cell: (diag + sf) E - sum_d (AH_d E_+d + AL_d E_-d),
 // the terms subtracted in the kernel's order (x, y, z; hi before lo).
 //
+// The node axis (the counterpart of the JAX tree's vmap over a level's
+// same-shape patches, artemis_tpu/amr.py:1968-1984): one launch takes nn
+// same-shape nodes stacked on a leading axis, the fields as
+// [nn, nz, ny, nx] and A as [nn, 6, nz, ny, nx], so that A[n] is node n's
+// one-node layout.  The node is the grid's y index (blockIdx.y) in both
+// kernels; node_params moves every pointer to that node's fields, and the
+// node's cells then run the one-node code unchanged, so every neighbour
+// wraps inside the node's own box and a node-axis launch is bitwise equal
+// to nn one-node launches.  (The stack read as one [nn nz, ny, nx] box
+// would give a node's edge cell its z neighbour from the next node, and
+// the limiter's gradient there is not masked: a wrong answer, not a
+// harmless one.)
+//
 // What bounds them on the H100: bytes.  fld_coeffs reads E and chi and
 // writes A (6 fields), diag and Dcell: 10 fields, 4 B each in float32, one
 // square root and three divisions per cell; fld_matvec reads E, A (6),
@@ -73,6 +86,7 @@ struct FldInts {
   int count;                // sizeof(FldInts) / sizeof(int), from the caller
   int nx, ny, nz;
   int lo_dir[3], hi_dir[3]; // per direction: Dirichlet (1) or zero-flux (0) edge
+  int nn;                   // nodes on the leading axis (1: one [nz, ny, nx] node)
 };
 
 struct FldReals {
@@ -87,9 +101,10 @@ struct FldReals {
 struct FldParams {
   FldInts n;
   FldReals r;
+  // per node (each pointer leads an [nn, ...] stack of these)
   const void* E;            // [nz, ny, nx]
   const void* chi;          // [nz, ny, nx] (coeffs) or the coefficients A [6, nz, ny, nx] (matvec)
-  const void* dt;           // one element (coeffs)
+  const void* dt;           // one element (coeffs), shared by the nodes
   const void* diag;         // [nz, ny, nx] (matvec)
   const void* sf;           // [nz, ny, nx] (matvec)
   void* out0;               // coeffs: A [6, nz, ny, nx]; matvec: the product [nz, ny, nx]
@@ -105,7 +120,7 @@ inline bool make_params(const int* ints, const double* reals, FldParams* p) {
     return false;
   memcpy(&p->n, ints, sizeof(FldInts));
   memcpy(&p->r, reals, sizeof(FldReals));
-  return true;
+  return p->n.nn >= 1 && p->n.nn <= 65535;
 }
 
 template <typename T>
@@ -420,6 +435,28 @@ __device__ __forceinline__ void coeffs_block(const FldParams& p, int64_t blk, T*
   ex.each([&](int tid) { outputs(tp.z1 - 1, tid, dt); });
 }
 
+// The parameters of node ``node`` of a node-axis launch: every field
+// pointer moved to that node's fields (A, six fields a node, as fld_coeffs'
+// output and as fld_matvec's input), the one-node launch's parameters.
+template <typename T, bool COEFFS>
+__device__ __forceinline__ FldParams node_params(const FldParams& p, int node) {
+  const int64_t off = int64_t(p.n.nx) * p.n.ny * p.n.nz * node;
+  FldParams q = p;
+  q.E = static_cast<const T*>(p.E) + off;
+  if (COEFFS) {
+    q.chi = static_cast<const T*>(p.chi) + off;
+    q.out0 = static_cast<T*>(p.out0) + 6 * off;
+    q.out1 = static_cast<T*>(p.out1) + off;
+    q.out2 = static_cast<T*>(p.out2) + off;
+  } else {
+    q.chi = static_cast<const T*>(p.chi) + 6 * off;
+    q.diag = static_cast<const T*>(p.diag) + off;
+    q.sf = static_cast<const T*>(p.sf) + off;
+    q.out0 = static_cast<T*>(p.out0) + off;
+  }
+  return q;
+}
+
 // fld_matvec at one cell.
 template <typename T>
 __device__ __forceinline__ void matvec_cell(const FldParams& p, int64_t cell) {
@@ -446,32 +483,34 @@ __device__ __forceinline__ void matvec_cell(const FldParams& p, int64_t cell) {
 
 constexpr int kBlock = 256;
 
+// One thread per cell of node blockIdx.y.
 template <typename T, bool COEFFS>
 __global__ void __launch_bounds__(kBlock) fld_kernel(const __grid_constant__ FldParams p) {
   const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
   const int64_t cell = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (cell >= n) return;
+  const FldParams q = node_params<T, COEFFS>(p, int(blockIdx.y));
   if (COEFFS)
-    coeffs_cell<T>(p, cell);
+    coeffs_cell<T>(q, cell);
   else
-    matvec_cell<T>(p, cell);
+    matvec_cell<T>(q, cell);
 }
 
 template <bool COEFFS>
 int launch(int dtype, const FldParams& p, void* stream) {
   const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
-  const unsigned nblk = unsigned((n + kBlock - 1) / kBlock);
+  const dim3 grid(unsigned((n + kBlock - 1) / kBlock), unsigned(p.n.nn));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    fld_kernel<float, COEFFS><<<nblk, kBlock, 0, s>>>(p);
+    fld_kernel<float, COEFFS><<<grid, kBlock, 0, s>>>(p);
   else if (dtype == 1)
-    fld_kernel<double, COEFFS><<<nblk, kBlock, 0, s>>>(p);
+    fld_kernel<double, COEFFS><<<grid, kBlock, 0, s>>>(p);
   else
     return int(cudaErrorInvalidValue);
   return int(cudaGetLastError());
 }
 
-// The tiled body: one block per footprint and z chunk.
+// The tiled body: one block per footprint and z chunk of node blockIdx.y.
 struct DeviceExec {
   template <class F>
   __device__ __forceinline__ void each(F&& f) {
@@ -485,7 +524,8 @@ __global__ void __launch_bounds__(FldTile<T>::NT, FldTile<T>::MINB)
 coeffs_tiled_kernel(const __grid_constant__ FldParams p) {
   extern __shared__ __align__(16) unsigned char fld_smem[];
   DeviceExec ex;
-  coeffs_block<T>(p, int64_t(blockIdx.x), reinterpret_cast<T*>(fld_smem), ex);
+  coeffs_block<T>(node_params<T, true>(p, int(blockIdx.y)), int64_t(blockIdx.x),
+                  reinterpret_cast<T*>(fld_smem), ex);
 }
 
 template <typename T>
@@ -503,8 +543,8 @@ int launch_tiled_t(const FldParams& p, cudaStream_t s) {
     return e;
   }();
   if (attr != cudaSuccess) return int(attr);
-  coeffs_tiled_kernel<T>
-      <<<unsigned(fld_tiles<T>(p.n)), FldTile<T>::NT, FldTile<T>::BYTES, s>>>(p);
+  const dim3 grid(unsigned(fld_tiles<T>(p.n)), unsigned(p.n.nn));
+  coeffs_tiled_kernel<T><<<grid, FldTile<T>::NT, FldTile<T>::BYTES, s>>>(p);
   return int(cudaGetLastError());
 }
 
@@ -518,7 +558,8 @@ int launch_tiled(int dtype, const FldParams& p, void* stream) {
 }  // namespace
 
 // dtype: 0 float32, 1 float64.  tiled: 1 the tiled body of fld_coeffs, 0
-// its per-cell body.  ints/reals: FldInts/FldReals, led by their counts.
+// its per-cell body.  ints/reals: FldInts/FldReals, led by their counts
+// (ints' nn: the nodes on the fields' leading axis, at most 65535).
 // Returns a cudaError_t (0 on success).
 extern "C" int artemis_fld_coeffs(int dtype, int tiled, const int* ints, const double* reals,
                                   const void* E, const void* chi, const void* dt,

@@ -4,7 +4,12 @@ PyTorch versions (port of ``artemis_tpu/ops/pallas_fld.py``).
 ``fld_coeffs`` sets up the implicit operator ``I - dt div D grad`` of one
 radiation step: the Levermore-Pomraning limiter, the capped diffusivity,
 the masked face coefficients and the Jacobi diagonal.  ``fld_matvec``
-applies it once per conjugate-gradient iteration.  Both dispatch on the
+applies it once per conjugate-gradient iteration.  Both take one node's
+``[nz, ny, nx]`` fields or N same-shape nodes stacked on a leading axis
+(``[N, nz, ny, nx]``, the coefficients ``A`` as ``[N, 6, nz, ny, nx]``):
+the node axis of a tree level's batched radiation solve, one launch for
+every node, each node's neighbours wrapped inside its own box (what the
+JAX tree's ``vmap`` of the plain operator gives).  Both dispatch on the
 tensor's device: a CPU tensor runs the plain version, a CUDA tensor
 launches ``csrc/fld.cu`` (which replaces the TPU kernels K7 ``fld_coeffs``
 and K8 ``fld_matvec``) or raises.  The JAX package keeps its kernels behind
@@ -29,11 +34,14 @@ import torch
 from ..profiling import kernel_span
 
 # kernel launches since the last reset (the counts a run reads to show
-# that the main path went through the kernels), and of the fld_coeffs
-# launches those of the tiled body
+# that the main path went through the kernels), of the fld_coeffs
+# launches those of the tiled body, and of each kernel's launches those
+# over a node axis (one launch however many nodes)
 fld_coeffs_launches = 0
 fld_coeffs_tiled_launches = 0
 fld_matvec_launches = 0
+fld_coeffs_node_launches = 0
+fld_matvec_node_launches = 0
 
 # Measurement only: while on, fld_coeffs launches take the per-cell body,
 # so that chip_smoke.py and the tests can time and compare the two bodies
@@ -79,11 +87,14 @@ def edge_masks(a, d):
 
 
 def fld_coeffs_reference(E, chi, dt, dxs, c_code, ext, flags):
-    """The plain version: ``(A, diag_geo, Dcell)`` for E, chi [nz, ny, nx],
-    a one-element ``dt`` tensor, uniform widths ``dxs`` = (dx, dy, dz), the
-    cap extent ``ext`` and ``flags[d] = (lo_dirichlet, hi_dirichlet)``.
-    A rows: [AL1, AH1, AL2, AH2, AL3, AH3] with dt / w^2 folded in.  The
-    operations follow the TPU kernel's order."""
+    """The plain version: ``(A, diag_geo, Dcell)`` for E, chi [nz, ny, nx]
+    (or [N, nz, ny, nx]: every stencil counts its dims from the end, so
+    each node wraps inside its own box), a one-element ``dt`` tensor,
+    uniform widths ``dxs`` = (dx, dy, dz), the cap extent ``ext`` and
+    ``flags[d] = (lo_dirichlet, hi_dirichlet)``.
+    A rows: [AL1, AH1, AL2, AH2, AL3, AH3] with dt / w^2 folded in, on the
+    axis before the grid's.  The operations follow the TPU kernel's
+    order."""
     tiny = torch.finfo(E.dtype).tiny
     dt = dt.reshape(())
     gs = [(shift(E, d, 1) - shift(E, d, -1)) * (0.5 / dxs[d - 1]) for d in (1, 2, 3)]
@@ -112,15 +123,17 @@ def fld_coeffs_reference(E, chi, dt, dxs, c_code, ext, flags):
         iw2 = (1.0 / dxs[d - 1]) * (1.0 / dxs[d - 1])
         diag = diag + dt * ((D_hi + D_lo) * iw2)
         rows += [(dt * iw2) * A_lo, (dt * iw2) * A_hi]
-    return torch.stack(rows), diag, Dc
+    return torch.stack(rows, dim=-4), diag, Dc
 
 
 def fld_matvec_reference(E, A, diag_geo, sf):
     """The plain version: (diag_geo + sf) E - sum_d (AH_d E_+d + AL_d E_-d)
-    on [nz, ny, nx] arrays, A as fld_coeffs returns it."""
+    on [nz, ny, nx] (or [N, nz, ny, nx]) arrays, A as fld_coeffs returns
+    it."""
     out = (diag_geo + sf) * E
     for d in (1, 2, 3):
-        out = out - A[2 * d - 1] * shift(E, d, 1) - A[2 * d - 2] * shift(E, d, -1)
+        out = (out - A.select(-4, 2 * d - 1) * shift(E, d, 1)
+               - A.select(-4, 2 * d - 2) * shift(E, d, -1))
     return out
 
 
@@ -155,9 +168,12 @@ def _check(ts, shapes, dtype, device):
 
 
 def _args(shape, dxs=(1.0, 1.0, 1.0), c_code=0.0, ext=0.0, flags=((0, 0),) * 3, tiny=0.0):
-    """The kernel's FldInts / FldReals arrays, led by their counts."""
-    nz, ny, nx = shape
-    ints = [nx, ny, nz] + [int(bool(f[0])) for f in flags] + [int(bool(f[1])) for f in flags]
+    """The kernel's FldInts / FldReals arrays, led by their counts, for
+    fields of ``shape`` ([nz, ny, nx] or [N, nz, ny, nx])."""
+    nn = shape[0] if len(shape) == 4 else 1
+    nz, ny, nx = shape[-3:]
+    ints = ([nx, ny, nz] + [int(bool(f[0])) for f in flags]
+            + [int(bool(f[1])) for f in flags] + [nn])
     reals = ([0.5 / w for w in dxs] + [(1.0 / w) * (1.0 / w) for w in dxs]
              + [c_code * ext, c_code, tiny])
     ints = [len(ints) + 1] + ints
@@ -195,37 +211,55 @@ def fld_matvec(E, A, diag_geo, sf):
     return _launch_matvec(E, A, diag_geo, sf)
 
 
+def _a_shape(shape):
+    """The coefficients' shape for fields of ``shape``: six rows per node."""
+    return tuple(shape[:-3]) + (6,) + tuple(shape[-3:])
+
+
+def _node_axis(shape, name):
+    """Whether fields of ``shape`` carry a node axis, and the kernel table
+    row's suffix; raises for a shape the kernels do not take."""
+    if len(shape) == 3:
+        return False, ""
+    if len(shape) == 4 and 1 <= shape[0] <= 65535:
+        return True, ", node axis"
+    raise ValueError(f"{name} takes [nz, ny, nx] or [N, nz, ny, nx] fields (N <= 65535), "
+                     f"not {tuple(shape)}")
+
+
 def _launch_coeffs(E, chi, dt, dxs, c_code, ext, flags):
-    global fld_coeffs_launches, fld_coeffs_tiled_launches
+    global fld_coeffs_launches, fld_coeffs_tiled_launches, fld_coeffs_node_launches
     shape = tuple(E.shape)
-    if len(shape) != 3 or dt.numel() != 1:
-        raise ValueError("fld_coeffs takes [nz, ny, nx] fields and a one-element dt")
+    nodes, suffix = _node_axis(shape, "fld_coeffs")
+    if dt.numel() != 1:
+        raise ValueError("fld_coeffs takes a one-element dt")
     _check((E, chi, dt), (shape, shape, tuple(dt.shape)), E.dtype, E.device)
-    A = torch.empty((6,) + shape, dtype=E.dtype, device=E.device)
+    A = torch.empty(_a_shape(shape), dtype=E.dtype, device=E.device)
     diag = torch.empty_like(E)
     Dc = torch.empty_like(E)
     ints, reals = _args(shape, tuple(float(w) for w in dxs), float(c_code), float(ext),
                         flags, torch.finfo(E.dtype).tiny)
     tiled = not _percell
-    _run(_lib().artemis_fld_coeffs, "fld_coeffs", "tiled" if tiled else "per-cell",
+    _run(_lib().artemis_fld_coeffs, "fld_coeffs", ("tiled" if tiled else "per-cell") + suffix,
          E.dtype, E.device, int(tiled), ints, reals,
          E.data_ptr(), chi.data_ptr(), dt.data_ptr(), A.data_ptr(), diag.data_ptr(),
          Dc.data_ptr())
     fld_coeffs_launches += 1
     fld_coeffs_tiled_launches += int(tiled)
+    fld_coeffs_node_launches += int(nodes)
     return A, diag, Dc
 
 
 def _launch_matvec(E, A, diag_geo, sf):
-    global fld_matvec_launches
+    global fld_matvec_launches, fld_matvec_node_launches
     shape = tuple(E.shape)
-    if len(shape) != 3:
-        raise ValueError("fld_matvec takes [nz, ny, nx] fields")
-    _check((E, A, diag_geo, sf), (shape, (6,) + shape, shape, shape), E.dtype, E.device)
+    nodes, suffix = _node_axis(shape, "fld_matvec")
+    _check((E, A, diag_geo, sf), (shape, _a_shape(shape), shape, shape), E.dtype, E.device)
     out = torch.empty_like(E)
     ints, reals = _args(shape)
-    _run(_lib().artemis_fld_matvec, "fld_matvec", "per-cell", E.dtype, E.device, ints,
-         reals, E.data_ptr(),
+    _run(_lib().artemis_fld_matvec, "fld_matvec", "per-cell" + suffix, E.dtype, E.device,
+         ints, reals, E.data_ptr(),
          A.data_ptr(), diag_geo.data_ptr(), sf.data_ptr(), out.data_ptr())
     fld_matvec_launches += 1
+    fld_matvec_node_launches += int(nodes)
     return out

@@ -196,6 +196,9 @@ class _ShardTree(MultiLevelSMR):
         super().__init__(root_grid, integrator, gas_cfg, **kw)
 
     _fused_ok = False
+    # every node solves its own radiation step: the JAX tree batches only
+    # when it is not sharded (artemis_tpu/amr.py:1952)
+    _batch_radiation = False
 
     @property
     def _comm(self):

@@ -46,8 +46,10 @@ _NULL = contextlib.nullcontext()
 def kernel_span(name: str, body: str, device):
     """The context a dispatch point wraps around one launch of kernel
     ``name`` on ``body`` ("tiled", "per-cell", or "plain" where the plain
-    version runs in its place) on ``device``: a timed span while
-    ``kernel_table`` records, else a null context."""
+    version runs in its place; ", node axis" after it for one launch over
+    a tree level's stacked nodes, the batched radiation solve's FLD
+    operator) on ``device``: a timed span while ``kernel_table`` records,
+    else a null context."""
     rec = _recorder
     if rec is None:
         return _NULL

@@ -23,6 +23,12 @@ tensor operations.  The two loops are host loops over device tensors: the CG
 loop reads its residual test back once per iteration and the Newton loop its
 convergence test once per outer iteration.
 
+A refinement tree's level solves its same-shape patches as one system
+(``step_batched``, the JAX tree's ``vmap`` of ``step``): the fields stacked
+on a node axis, the kernels launched once over it, the dot products, maxima
+and loop tests per node, and a node whose loop has ended held where it
+stopped while the others go on; one host read serves every node's test.
+
 A sharded run (``parallel.mesh``) steps one Radiation whose fields hold one
 tensor per shard (``enable_sharding``): along the sharded axis a stencil
 shift takes the neighbour shard's boundary plane and only the first and last
@@ -214,13 +220,84 @@ class Radiation:
         ``ghosts``: optional {d: (E_lo_plane, E_hi_plane)} Dirichlet
         boundary planes one cell outside the domain along d (AMR patch
         solves); they take precedence over the deck's ``ic`` edges."""
+        u = state["gas"]["u"]
+        Er, de, iters, nk = self._coupled(u[:1, 0], u[:1, 5], state["rad"]["Er"], dt,
+                                          self._ghosts(ghosts), None)
+        self.cg_iters = iters[0][:nk[0]]
+        new = self._charged(state, Er, de)
+        if with_iters:
+            return new, iters[0]
+        return new
+
+    def step_batched(self, rads, states, dt, ghosts):
+        """One coupled radiation update of a tree level's group of same-shape
+        nodes, as one system over a node axis: the JAX tree's ``vmap`` of
+        ``step`` over its stacked group (``artemis_tpu/amr.py:1968-1984``).
+        ``rads``: the members' Radiations, this one first; ``states`` and
+        ``ghosts`` (their Dirichlet planes, as ``step`` takes them): theirs,
+        in that order.  Each member's result is its own ``step``'s to
+        round-off (the dot products and maxima are reduced per node over the
+        stack), with its own CG iteration counts in ``cg_iters``; the loop
+        tests read every node at once, counted once, in this Radiation's
+        ``host_reads``.  Returns the members' new states (not yet re-synced:
+        each member runs its own ``sync_gas``).  Every member must share
+        this one's configuration (``batch_key``): the JAX tree steps its
+        group with its first member's Radiation without checking."""
+        key = self.batch_key()
+        for rad in rads[1:]:
+            if rad.batch_key() != key:
+                raise ValueError("a batched radiation step needs one configuration for every "
+                                 f"member: {rad.batch_key()} against {key}")
+        nb = len(states)
+        gh = {d: tuple(None if pl[0] is None else torch.stack(pl)
+                       for pl in zip(*(g[d] for g in ghosts))) for d in ghosts[0]}
+        Er, de, iters, nk = self._coupled(
+            torch.stack([st["gas"]["u"][:1, 0] for st in states]),
+            torch.stack([st["gas"]["u"][:1, 5] for st in states]),
+            torch.stack([st["rad"]["Er"] for st in states]), dt, self._ghosts(gh), nb)
+        for rad, its, k in zip(rads, iters, nk):
+            rad.cg_iters = its[:k]
+        return [self._charged(st, e, x) for st, e, x in zip(states, Er.unbind(0),
+                                                            de.unbind(0))]
+
+    def batch_key(self):
+        """What a batched step requires equal across its members: the
+        configuration, the cell widths (uniform: the grid is Cartesian) and
+        cap extent, the active dims, the operator's path and the deck's
+        Dirichlet edges."""
+        return (self.cfg, self._wuni, self._ext, tuple(self.dims), self.use_kernels,
+                tuple(sorted(self._edge_dirichlet.items())))
+
+    def _ghosts(self, ghosts):
+        """The Dirichlet planes of a solve: ``ghosts``, then the deck's
+        ``ic`` edges where ``ghosts`` has no plane along d."""
+        gh = dict(ghosts) if ghosts else {}
+        for d, (lo_v, hi_v) in self._edge_dirichlet.items():
+            if d not in gh:
+                gh[d] = (lo_v, hi_v)
+        return gh
+
+    def _charged(self, state, Er, de):
+        """``state`` with the new field and the gas energy charged with
+        ``de`` (the gas prims as they were: ``sync_gas`` re-syncs them)."""
+        u = state["gas"]["u"].clone()
+        u[:1, 5] += de
+        u[:1, 4] += de
+        new = dict(state)
+        new["gas"] = {"u": u, "w": state["gas"]["w"]}
+        new["rad"] = {"Er": Er}
+        return new
+
+    def _coupled(self, rho_u, eint, Er0, dt, gh, nb):
+        """(Er, de, iters, nk) of one coupled solve from the gas density
+        ``rho_u`` (u[:1, 0]), internal energy ``eint`` (u[:1, 5]) and the
+        field Er0: the new field, the gas energy change, and per node its
+        CG iterations per Newton outer and its outers.  ``nb``: None for
+        one node, else the number of nodes stacked on the leading axis."""
         cfg = self.cfg
         gas = self.gas
-        u = state["gas"]["u"]
-        Er0 = state["rad"]["Er"]
         dt = torch.as_tensor(dt, dtype=Er0.dtype, device=Er0.device)
-        rho = torch.clamp_min(u[:1, 0], gas.dfloor)
-        eint = u[:1, 5]
+        rho = torch.clamp_min(rho_u, gas.dfloor)
         T0 = eint / (rho * gas.cv)
         rcv = rho * gas.cv
 
@@ -230,25 +307,22 @@ class Radiation:
         chi = kap_t * rho  # 1/mfp
         ftiny = torch.finfo(Er0.dtype).tiny
 
-        gh = dict(ghosts) if ghosts else {}
-        for d, (lo_v, hi_v) in self._edge_dirichlet.items():
-            if d not in gh:
-                gh[d] = (lo_v, hi_v)
-
         if self.use_kernels:
-            return self._kernel_operator(state, u, Er0, rho, rcv, T0, chi, dt, gh,
-                                         with_iters)
+            matvec, diag_geo, b_ghost = self._kernel_operator(Er0, chi, dt, gh, nb)
+        else:
+            # the tensor operator (the plain versions of fld_coeffs and
+            # fld_matvec)
+            body = "plain" if nb is None else "plain, node axis"
+            with kernel_span("fld_coeffs", body, Er0.device):
+                matvec, diag_geo, b_ghost = self._tensor_operator(Er0, chi, dt, gh, ftiny,
+                                                                  body)
+        return self._solve_coupled(Er0, rho, rcv, T0, dt, matvec, diag_geo, b_ghost, nb)
 
-        # the tensor operator (the plain versions of fld_coeffs and fld_matvec)
-        with kernel_span("fld_coeffs", "plain", Er0.device):
-            matvec, diag_geo, b_ghost = self._tensor_operator(Er0, chi, dt, gh, ftiny)
-        return self._solve_coupled(state, u, Er0, rho, rcv, T0, dt, matvec, diag_geo,
-                                   b_ghost, with_iters)
-
-    def _tensor_operator(self, Er0, chi, dt, gh, ftiny):
+    def _tensor_operator(self, Er0, chi, dt, gh, ftiny, body="plain"):
         """(matvec, diag_geo, b_ghost) of the operator from tensor
         operations: the limited, capped diffusivity, the masked face
-        coefficients and the Jacobi diagonal."""
+        coefficients and the Jacobi diagonal.  Every stencil counts its
+        dims from the end, so a stack of nodes wraps each in its own box."""
         cfg = self.cfg
 
         def grad_mag(E):
@@ -311,7 +385,7 @@ class Radiation:
             AL[d] = dt * (DL[d] * ZL[d] if ZL[d] is not None else DL[d])
 
         def matvec(E, sf):
-            with kernel_span("fld_matvec", "plain", E.device):
+            with kernel_span("fld_matvec", body, E.device):
                 out = (diag_geo + sf) * E
                 for d in self.dims:
                     out = out - (AH[d] * self._shift(E, d, 1) + AL[d] * self._shift(E, d, -1))
@@ -319,16 +393,17 @@ class Radiation:
 
         return matvec, diag_geo, b_ghost
 
-    def _kernel_operator(self, state, u, Er0, rho, rcv, T0, chi, dt, gh, with_iters):
-        """The operator through the FLD kernels: one fld_coeffs launch per
-        step, one fld_matvec launch per CG matvec."""
-        shp3 = tuple(Er0.shape[-3:])
+    def _kernel_operator(self, Er0, chi, dt, gh, nb):
+        """(matvec, diag_geo, b_ghost) of the operator through the FLD
+        kernels: one fld_coeffs launch per step, one fld_matvec launch per
+        CG matvec, over the node axis where ``nb`` nodes are stacked."""
+        shp = tuple(Er0.shape[-3:]) if nb is None else (nb,) + tuple(Er0.shape[-3:])
         flags = []
         for d in (1, 2, 3):
             lo_g, hi_g = gh.get(d, (None, None))
             flags.append((lo_g is not None, hi_g is not None))
-        chi3 = torch.broadcast_to(chi, Er0.shape).reshape(shp3).contiguous()
-        A6, dg3, Dc3 = fld_mod.fld_coeffs(Er0.reshape(shp3).contiguous(), chi3, dt.reshape(1),
+        chi3 = torch.broadcast_to(chi, Er0.shape).reshape(shp).contiguous()
+        A6, dg3, Dc3 = fld_mod.fld_coeffs(Er0.reshape(shp).contiguous(), chi3, dt.reshape(1),
                                           self._wuni, self.cfg.c_code, self._ext, flags)
         diag_geo = dg3.reshape(Er0.shape)
         Dc_f = Dc3.reshape(Er0.shape)
@@ -351,54 +426,96 @@ class Radiation:
                 b_ghost[sl] = b_ghost[sl] + (dt * iw2) * Dc_f[sl] * g
 
         def matvec(E, sf):
-            sf3 = torch.broadcast_to(sf, E.shape).reshape(shp3).contiguous()
-            out = fld_mod.fld_matvec(E.reshape(shp3).contiguous(), A6, dg3, sf3)
+            sf3 = torch.broadcast_to(sf, E.shape).reshape(shp).contiguous()
+            out = fld_mod.fld_matvec(E.reshape(shp).contiguous(), A6, dg3, sf3)
             return out.reshape(E.shape)
 
-        return self._solve_coupled(state, u, Er0, rho, rcv, T0, dt, matvec, diag_geo,
-                                   b_ghost, with_iters)
+        return matvec, diag_geo, b_ghost
 
-    def _solve_coupled(self, state, u, Er0, rho, rcv, T0, dt, matvec, diag_geo, b_ghost,
-                       with_iters):
+    def _solve_coupled(self, Er0, rho, rcv, T0, dt, matvec, diag_geo, b_ghost, nb):
         """Newton-outer coupled exchange+diffusion solve with exact energy
-        bookkeeping, shared by both operator paths."""
+        bookkeeping, shared by both operator paths.  Returns (Er, de, iters,
+        nk): per node its CG iterations per outer (``coupled_iters`` ints)
+        and its outers.
+
+        ``nb`` nodes stacked on the leading axis (None: one node) solve as
+        the JAX tree's ``vmap`` of the one-node solve: the dot products and
+        maxima are per node, each loop test is read for every node at once,
+        and a node whose own test has ended keeps its iterate (``where`` on
+        its carry, as ``vmap``'s ``while_loop`` selects the old one) while
+        the others go on; a node whose Newton loop has ended takes no CG
+        iteration in a later outer."""
         cfg = self.cfg
         fi = torch.finfo(Er0.dtype)
         # dtype-aware tolerance: in float32 the deck default 1e-10 is far
         # below roundoff; ~50 eps is the reachable relative-residual floor
         tol = max(cfg.cg_tol, 50.0 * fi.eps)
         tiny = fi.tiny
+        n = 1 if nb is None else nb
+        if nb is None:
+            dot, big = torch.sum, torch.max
+        else:
+            per = (nb,) + (1,) * (Er0.ndim - 1)
 
-        def cg(b, x, sf, diag):
-            """Jacobi-preconditioned CG from x; returns (x, r, iterations)
-            with r the maintained residual b - matvec(x, sf)."""
+            def dot(x):
+                return x.reshape(nb, -1).sum(1).reshape(per)
+
+            def big(x):
+                return torch.amax(x.reshape(nb, -1), 1).reshape(per)
+
+        def test(t):
+            """The loop test ``t`` read back for every node: one host read."""
+            if nb is None:
+                return [self._read(t)]
+            self.host_reads += 1
+            return t.reshape(-1).tolist()
+
+        def keep(run, new, old):
+            """``new`` where ``run`` (None: every node runs), else ``old``."""
+            return new if run is None else torch.where(run, new, old)
+
+        def cg(b, x, sf, diag, live):
+            """Jacobi-preconditioned CG from x; returns (x, r, iterations per
+            node) with r the maintained residual b - matvec(x, sf).
+            ``live``: None, or the nodes whose Newton loop runs (the others
+            take no iteration)."""
             r = b - matvec(x, sf)
-            rs = torch.sum(r * r)
-            bb = torch.sum(b * b)
+            rs = dot(r * r)
+            if live is not None:
+                rs = torch.where(live, rs, 0.0)
+            bb = dot(b * b)
             # the first search direction is the preconditioned residual z
             # (seeding p = r loses conjugacy where dt D / w^2 is large)
             z = r / diag
             p = z
-            rz = torch.sum(r * z)
+            rz = dot(r * z)
             thresh = tol * tol * bb
+            its = [0] * n
             it = 0
-            while it < cfg.cg_maxiter and self._read(rs > thresh):
+            while it < cfg.cg_maxiter:
+                run = rs > thresh
+                act = test(run)
+                if not any(act):
+                    break
+                run = None if all(act) else run
                 Ap = matvec(p, sf)
-                pAp = torch.sum(p * Ap)
+                pAp = dot(p * Ap)
                 # breakdown guard: near the attainable-residual floor
                 # roundoff can make p.Ap <= 0; then freeze x and r and
                 # force rs to 0 so the loop ends with the best iterate
                 ok = pAp > tiny
                 alpha = torch.where(ok, rz, 0.0) / torch.where(ok, pAp, 1.0)
-                x = x + alpha * p
-                r = r - alpha * Ap
-                z = r / diag
-                rz_new = torch.sum(r * z)
-                rs = torch.where(ok, torch.sum(r * r), 0.0)
-                p = z + (rz_new / torch.clamp_min(rz, tiny)) * p
-                rz = rz_new
+                x = keep(run, x + alpha * p, x)
+                r_new = r - alpha * Ap
+                z = r_new / diag
+                rz_new = dot(r_new * z)
+                rs = keep(run, torch.where(ok, dot(r_new * r_new), 0.0), rs)
+                p = keep(run, z + (rz_new / torch.clamp_min(rz, tiny)) * p, p)
+                rz = keep(run, rz_new, rz)
+                r = keep(run, r_new, r)
+                its = [i + a for i, a in zip(its, act)]
                 it += 1
-            return x, r, it
+            return x, r, its
 
         # Coupled implicit exchange + diffusion: Newton-linearize the
         # emission (a T^4 ~ a Tk^4 + 4 a Tk^3 (T - Tk)), eliminate the local
@@ -407,25 +524,40 @@ class Radiation:
         #   (1 + sf) Er - dt div D grad Er = Er0 + sf emis.
         a_r = cfg.arad
         tol_outer = 50.0 * fi.eps
-        Tscale = torch.max(torch.abs(T0)) + tiny
-        iters = [0] * cfg.coupled_iters
+        Tscale = big(torch.abs(T0)) + tiny
+        iters = [[0] * cfg.coupled_iters for _ in range(n)]
+        nk = [0] * n
         Er_k, Tk = Er0, T0
-        k, dT = 0, None
+        r = b = sf = dT = live = None
+        k = 0
         # the first outer always runs; later ones only while the Newton
         # temperature iterate still moves at the dtype's resolution
-        while k < cfg.coupled_iters and (k < 1 or self._read(dT > tol_outer * Tscale)):
+        while k < cfg.coupled_iters:
+            if k >= 1:
+                run = dT > tol_outer * Tscale
+                act = test(run)
+                if not any(act):
+                    break
+                live = None if all(act) else run
+            else:
+                act = [True] * n
             kap = self.kappa(rho, Tk)
             sig = dt * cfg.c_code * kap * rho
             beta = 4.0 * a_r * _pow3(Tk)
             f = rcv / (rcv + sig * beta)
-            sf = sig * f
+            sf_k = sig * f
             emis = a_r * _pow4(Tk) + beta * (T0 - Tk)
-            b = Er0 + sf * emis + b_ghost
-            Er_k, r, it = cg(b, Er_k, sf, diag_geo + sf)
-            Tk2 = T0 - sf * (emis - Er_k) / rcv
-            dT = torch.max(torch.abs(Tk2 - Tk))
-            iters[k] = it
-            Tk = Tk2
+            b_k = Er0 + sf_k * emis + b_ghost
+            Er_new, r_k, its = cg(b_k, Er_k, sf_k, diag_geo + sf_k, live)
+            Tk2 = T0 - sf_k * (emis - Er_new) / rcv
+            dT = keep(live, big(torch.abs(Tk2 - Tk)), dT)
+            for j in range(n):
+                if act[j]:
+                    iters[j][k] = its[j]
+                    nk[j] += 1
+            Er_k, r, b, sf = (keep(live, Er_new, Er_k), keep(live, r_k, r), keep(live, b_k, b),
+                              keep(live, sf_k, sf))
+            Tk = keep(live, Tk2, Tk)
             k += 1
 
         # Charge the gas with the radiation field's actual gain net of
@@ -435,18 +567,7 @@ class Radiation:
         # matvec(Er, 0) = b - r - sf Er; b_ghost restores the Dirichlet fluxes.
         LEr = b - r - sf * Er_k - Er_k
         de = -(Er_k - Er0 + LEr - b_ghost)
-
-        u = u.clone()
-        u[:1, 5] += de
-        u[:1, 4] += de
-        self.cg_iters = iters[:k]
-
-        new = dict(state)
-        new["gas"] = {"u": u, "w": state["gas"]["w"]}
-        new["rad"] = {"Er": Er_k}
-        if with_iters:
-            return new, iters
-        return new
+        return Er_k, de, iters, nk
 
     def sync_gas(self, state):
         """Re-sync the gas prims after the split update (IMC::SyncFields,

@@ -6,7 +6,10 @@ Run from the repository root with no arguments:
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero before the last
-line is printed:
+line is printed.  The phases that only check kernels against their plain
+versions (3, 4, 6, 9, 10, 12 and 17: CHECKS_BESIDE) run in a worker process
+on the card beside rad_shock (15), whose loop is host-bound and untimed,
+with phase 30's small trees and the untimed checks of phases 23 and 26:
 
 1. toolchain: a CUDA device must be present; prints the card's name and
    power limit (nvidia-smi), torch's CUDA version, nvcc's version and
@@ -77,6 +80,9 @@ line is printed:
    relative, Dirichlet flags off, on and mixed, an odd nz, the smallest
    extents and a shape ragged across the tiled footprint and z chunks
    included, fld_coeffs' tiled body bitwise equal to its per-cell body;
+   both over a node axis (N = 1, 2 and 16 nodes of 128x128x64 f32, 3 of
+   17x9x33 f64, distinct fields): one launch each, bitwise equal to N
+   one-node launches, within the same tolerances of the plain versions;
 10. the six-face strip halo of ``stage_curv.cu`` on the tiled body against
    the plain version and bitwise equal to the padded halo and to the
    per-cell body (the wrapper's private switch) on small all-ic disks: the
@@ -129,8 +135,8 @@ line is printed:
    releases the interpreter lock; likewise the kernel and plain sims of
    phases 11 and 13 are set up on two threads while nvcc builds the
    kernels in phase 2, and all are built before phase 3 starts);
-15. rad_shock.in (1-D, float64) to t = 0.02 against the thresholds of
-   tests/test_radiation.py's test_rad_shock; beside its host-bound,
+15. rad_shock.in (1-D, float64) to t = 0.005 (``SHOCK_TLIM``) against
+   the thresholds of tests/test_radiation.py's test_rad_shock; beside its host-bound,
    untimed loop a worker process runs on the card phase 30's small trees
    and the untimed checks of phase 23 (simple_drag, the other decks) and
    of phase 26 (blast_amr at numlevel 3), whose lines it prints after
@@ -229,10 +235,19 @@ line is printed:
    < 1e-8); then
    bench.py's tiled AMR disk RHD (512x512x64 f32 root over [-4, 4]^2,
    density magnitude criterion at 0.3, 64x64x32 tiles, a regrid every 25
-   cycles): tiles, node shapes, the six-face stage per node (K5b),
-   K5b/K7/K8 launches, zone-cycles/s over every node's zones (25 cycles
-   after 2 warm-up, one regrid) and its ratio to the static production
-   tree of phase 14, the device's idle share, one regrid's ms split into
+   cycles): tiles, node shapes, the six-face stage per node (K5b), the
+   batched radiation pass (K7 once a cycle for the root and once for each
+   group of same-shape tiles on the node axis, K8 1 + the solve's CG
+   iterations a Newton outer, checked from each pass's own counts), host
+   reads a cycle, zone-cycles/s over every node's zones (25 cycles after 2
+   warm-up, one regrid) and its ratio to the static production tree of
+   phase 14, windows of cycles on the sequential and the batched pass, the
+   device's idle share; the largest group on its own state: node-axis K7
+   and K8 against their bounds, against as many one-node launches and the
+   plain versions, K8 against a block-diagonal CSR SpMV, the stacking's
+   cost, one pass batched against the sequential loop on a clone (every
+   node's fields within 1e-4 of each array's max, CG counts equal); phase
+   29's tables on the pool; one regrid's ms split into
    tags on the device, the mask copy, the set-up and a tile's
    prolongation, the mask bytes, peak device memory; and the same
    composition at 128x128x32 with 32x32x16 tiles, kernel against plain
@@ -309,6 +324,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import functools
 import itertools
 import json
 import os
@@ -322,6 +338,11 @@ DECK = os.path.join(HERE, "inputs", "linwave.in")
 DISK = {name: os.path.join(HERE, "inputs", f"{name}.in")
         for name in ("disk_sph", "disk_cyl", "disk_axi", "disk_rhd_amr")}
 SHOCK = os.path.join(HERE, "inputs", "rad_shock.in")
+# rad_shock's end time here (the test's is 0.02): the shock between the ic
+# boundaries is steady by then, with the end states, the precursor and the
+# smooth Trad of test_rad_shock's thresholds (490 cycles; its host-bound CG
+# loop took 470-478 s on the H100 to t = 0.02)
+SHOCK_TLIM = 0.005
 DEVICE = "cuda"
 F64_TOL = 1e-12
 F32_TOL = 1e-5
@@ -1448,10 +1469,49 @@ def fld_pairs(torch, E, chi, dt, dxs, c_code, ext, flags, sf):
     return list(zip(kc, pc)) + [(km, pm)]
 
 
+# node-axis cases (N, (nz, ny, nx), dtype, flags): the tiled AMR RHD
+# pool's 128x128x64 tiles at N = 1, 2 and 16 with its Dirichlet faces, and
+# a small f64 stack ragged across fld_coeffs' footprint and z chunks
+FLD_NODE_CASES = ((1, (64, 128, 128), "float32", "dirichlet"),
+                  (2, (64, 128, 128), "float32", "mixed"),
+                  (16, (64, 128, 128), "float32", "dirichlet"),
+                  (3, (17, 9, 33), "float64", "mixed"))
+
+
+def fld_node_pairs(torch, n, shape, dtype, flags):
+    """Both FLD kernels over a node axis of n nodes with distinct random
+    fields, checked bitwise equal to n one-node launches stacked (one
+    launch each, counted as a node-axis launch); returns the (kernel,
+    plain) output pairs."""
+    from artemis_tpu_torch.ops import fld as FLD
+
+    g = torch.Generator(device=DEVICE).manual_seed(n * 1000 + sum(shape))
+    full = (n,) + shape
+    rand = lambda: torch.rand(full, generator=g, dtype=dtype, device=DEVICE)  # noqa: E731
+    E, chi, sf = 0.5 + rand(), 3.0 * (1.0 + rand()), rand()
+    dt = torch.full((1,), 1e-3, dtype=dtype, device=DEVICE)
+    const = ((0.05, 0.07, 0.03), 10.0, 2.0, FLD_FLAGS[flags])
+    n0 = (FLD.fld_coeffs_node_launches, FLD.fld_matvec_node_launches)
+    kc = FLD.fld_coeffs(E, chi, dt, *const)
+    km = FLD.fld_matvec(E, kc[0], kc[1], sf)
+    counted = (FLD.fld_coeffs_node_launches - n0[0], FLD.fld_matvec_node_launches - n0[1])
+    one = [FLD.fld_coeffs(E[i], chi[i], dt, *const) for i in range(n)]
+    om = torch.stack([FLD.fld_matvec(E[i], *one[i][:2], sf[i]) for i in range(n)])
+    torch.cuda.synchronize()
+    check(counted == (1, 1) and all(torch.equal(k, torch.stack(o)) for k, o in zip(kc, zip(*one)))
+          and torch.equal(km, om),
+          f"FLD node axis N = {n} {shape} {dtype} {flags}: not bitwise equal to {n} one-node "
+          f"launches (node-axis launches counted {counted})")
+    pc = FLD.fld_coeffs_reference(E, chi, dt, *const)
+    pm = FLD.fld_matvec_reference(E, pc[0], pc[1], sf)
+    return list(zip(kc, pc)) + [(km, pm)]
+
+
 def phase_fld_compare(torch):
     """fld_coeffs and fld_matvec against their plain versions on random
     states: float64 and float32, Dirichlet flags off, on and mixed, an odd
-    nz included."""
+    nz included; then both over a node axis (FLD_NODE_CASES), bitwise
+    equal to one-node launches."""
     import numpy as np
 
     worst = {}
@@ -1475,6 +1535,22 @@ def phase_fld_compare(torch):
           f"f64 {worst['float64'][0]:.3e} / {worst['float64'][1]:.3e} "
           f"(tol {FLD_TOL['float64']:g} rel), f32 {worst['float32'][0]:.3e} / "
           f"{worst['float32'][1]:.3e} (tol {FLD_TOL['float32']:g} rel)")
+    t0 = time.perf_counter()
+    node = worst["node_axis"] = {}
+    for n, shape, name, flags in FLD_NODE_CASES:
+        ab, rl = errs(fld_node_pairs(torch, n, shape, getattr(torch, name), flags))
+        check(rl <= FLD_TOL[name], f"FLD node axis N = {n} {shape} {name} vs plain: relative "
+                                   f"error {rl:.3e} > {FLD_TOL[name]:g}")
+        w = node.setdefault(name, [0.0, 0.0])
+        w[0], w[1] = max(w[0], ab), max(w[1], rl)
+        torch.cuda.empty_cache()
+    print(f"fld node axis: {len(FLD_NODE_CASES)} cases (N = "
+          + ", ".join(f"{n} x {'x'.join(map(str, shape))} {name}"
+                      for n, shape, name, _ in FLD_NODE_CASES)
+          + ") each one launch of K7 and of K8, bitwise equal to N one-node launches; max abs / "
+          f"relative err vs the plain versions on the stack f32 {node['float32'][0]:.3e} / "
+          f"{node['float32'][1]:.3e}, f64 {node['float64'][0]:.3e} / {node['float64'][1]:.3e} "
+          f"({time.perf_counter() - t0:.1f} s)")
     return worst
 
 
@@ -1576,15 +1652,16 @@ def coeffs_timings(torch, args):
 def matvec_csr(torch, A, diag, sf):
     """K8's operator as one CSR matrix: per row the cell's diag + sf and,
     at the wrapped neighbours' columns, -AL_d below and -AH_d above along
-    x, y, z; columns sorted, int32 indices."""
-    nz, ny, nx = diag.shape
+    x, y, z; columns sorted, int32 indices.  Over a node axis ([N, nz, ny,
+    nx] fields) the matrix is block diagonal, each node wrapped in its own
+    box."""
     n = diag.numel()
-    idx = torch.arange(n, dtype=torch.int32, device=diag.device).reshape(nz, ny, nx)
+    idx = torch.arange(n, dtype=torch.int32, device=diag.device).reshape(diag.shape)
     cols, vals = [idx], [diag + sf]
     for d in (1, 2, 3):
-        dim = 3 - d
+        dim = idx.ndim - d
         cols += [torch.roll(idx, 1, dims=dim), torch.roll(idx, -1, dims=dim)]
-        vals += [-A[2 * d - 2], -A[2 * d - 1]]
+        vals += [-A.select(-4, 2 * d - 2), -A.select(-4, 2 * d - 1)]
     cols, order = torch.sort(torch.stack(cols, -1).reshape(n, 7), dim=1)
     vals = torch.gather(torch.stack(vals, -1).reshape(n, 7), 1, order)
     crow = torch.arange(0, 7 * n + 1, 7, dtype=torch.int32, device=diag.device)
@@ -2229,13 +2306,13 @@ def phase_amr_prod(torch, smi, built):
 # -- phase 15 ------------------------------------------------------------
 def phase_rad_shock(torch):
     """rad_shock.in (1-D Lowrie-Edwards shock, float64, the tensor operator)
-    to t = 0.02 against tests/test_radiation.py's thresholds."""
+    to t = SHOCK_TLIM against tests/test_radiation.py's thresholds."""
     import numpy as np
 
     from artemis_tpu_torch import Simulation
 
     with tempfile.TemporaryDirectory() as data:
-        sim = Simulation(SHOCK, ["parthenon/time/tlim=0.02"], data, device=DEVICE)
+        sim = Simulation(SHOCK, [f"parthenon/time/tlim={SHOCK_TLIM}"], data, device=DEVICE)
         rad = sim.driver.radiation
         check(not rad.use_kernels, "1-D rad_shock took the FLD kernels")
         cg = []
@@ -2266,7 +2343,7 @@ def phase_rad_shock(torch):
     check(ok, f"rad_shock: rho ends {rho[0]:.4f} {rho[-1]:.4f}, T ends {T[0]:.4f} "
               f"{T[-1]:.4f}, Trad [{Trad.min():.4f}, {Trad.max():.4f}], d2 {d2:.3e}, "
               f"precursor {ahead.max() if ahead.size else float('nan'):.4f}")
-    print(f"rad_shock f64 to t=0.02: {sim.tm.ncycle} cycles in {secs:.1f} s, {sum(cg)} CG "
+    print(f"rad_shock f64 to t={SHOCK_TLIM}: {sim.tm.ncycle} cycles in {secs:.1f} s, {sum(cg)} CG "
           f"iterations ({1e3 * secs / sum(cg):.4f} ms each, the cycle's other work included), "
           f"{rad.host_reads} host read-backs of loop tests")
     print(f"rad_shock thresholds: rho ends "
@@ -3498,6 +3575,7 @@ ADAPT_RHD = (512, 512, 64)
 ADAPT_TILE = (64, 64, 32)
 ADAPT_CHECK = 25
 ADAPT_CYCLES = 25
+ADAPT_SEQ_CYCLES = 3              # a window of the tiled RHD on either radiation pass
 ADAPT_SMALL = (128, 128, 32)      # the kernel-vs-plain check
 ADAPT_SMALL_TILE = (32, 32, 16)
 ADAPT_SMALL_CYCLES = 4
@@ -3663,16 +3741,371 @@ def adaptive_blast3(torch):
     return res
 
 
+def window_ms(torch, sim, ncycles, sequential=False):
+    """ms a cycle over ``ncycles`` of the evolution loop (CUDA events); with
+    ``sequential`` the tree's radiation pass solves every node alone (the
+    private keyword, set on the instance for the window only)."""
+    from artemis_tpu_torch.driver import evolve
+
+    smr = sim.driver.smr
+    if sequential:
+        smr._radiation_pass = functools.partial(type(smr)._radiation_pass, smr,
+                                                _sequential=True)
+    sim.tm.nlim = sim.tm.ncycle + ncycles
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        torch.cuda.synchronize()
+        start.record()
+        sim.state, sim.tm, _, status = evolve(sim.driver, sim.state, sim.tm)
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        if sequential:
+            del smr._radiation_pass
+    check(status == "complete", f"{ncycles} cycles stopped: {status}")
+    return start.elapsed_time(end) / ncycles
+
+
+def rad_pass_recorder(smr):
+    """Wraps the tree's ``_radiation_pass`` (on the instance) to record, per
+    pass, each node's (level, grid, is the root, CG iterations per outer)
+    and the host reads of its loop tests; returns (records, undo)."""
+    orig = smr._radiation_pass
+    recs = []
+
+    def recorded(states, dt, **kw):
+        reads = sum(nd.radiation.host_reads for nd in smr.nodes)
+        out = orig(states, dt, **kw)
+        recs.append({"nodes": [(nd.level, tuple(nd.grid.nx), nd.parent is None,
+                                list(nd.radiation.cg_iters)) for nd in smr.nodes],
+                     "reads": sum(nd.radiation.host_reads for nd in smr.nodes) - reads})
+        return out
+
+    smr._radiation_pass = recorded
+    return recs, lambda: delattr(smr, "_radiation_pass")
+
+
+def batched_fld_launches(nodes):
+    """(K7, K8, node-axis K7, node-axis K8) launches that one batched pass
+    over a tiled pool's ``nodes`` (rad_pass_recorder's rows; every patch
+    Cartesian, unsharded, no wrap axis) makes: one K7 per solve (the root,
+    each group of same-shape patches of a level, on the node axis where it
+    holds two or more), and in each Newton outer of a solve 1 + the most
+    CG iterations of the members whose Newton loop runs in it."""
+    groups = {}
+    for level, nx, root, its in nodes:
+        groups.setdefault("root" if root else (level, nx), []).append(its)
+    k7 = k8 = n7 = n8 = 0
+    for members in groups.values():
+        mv = sum(1 + max(m[k] for m in members if len(m) > k)
+                 for k in range(max(len(m) for m in members)))
+        k7, k8 = k7 + 1, k8 + mv
+        if len(members) > 1:
+            n7, n8 = n7 + 1, n8 + mv
+    return k7, k8, n7, n8
+
+
+def pool_group_timings(torch, sim):
+    """The tiled pool's largest group of same-shape tiles on its own state:
+    node-axis K7 and K8 against their bounds, the same nodes as one-node
+    launches, the plain versions on the stack and K8's operator as one
+    block-diagonal CSR SpMV; the stacking of the group's fields; and one
+    radiation pass batched against the sequential loop on a clone of the
+    tree's state (every node's fields within DISK_F32_TOL of each array's
+    max, every node's CG counts equal)."""
+    from artemis_tpu_torch.ops import fld as FLD
+
+    drv, smr = sim.driver, sim.driver.smr
+    states = drv._states
+    by_shape = {}
+    for nd in smr.nodes[1:]:
+        by_shape.setdefault((nd.level, tuple(nd.grid.nx)), []).append(nd)
+    members = max(by_shape.values(), key=len)
+    n = len(members)
+    check(n >= 2, f"tiled RHD: no two tiles of one shape ({sorted(by_shape)})")
+    faces = {d: (True, True) for d in (1, 2, 3)}
+    ins = [fld_inputs(torch, nd.radiation, states[nd.index], sim.tm.dt, ghosts=faces)
+           for nd in members]
+    E, chi = (torch.stack([a[k] for a, _ in ins]) for k in (0, 1))
+    sf = torch.stack([f for _, f in ins])
+    dt, const = ins[0][0][2], ins[0][0][3:]
+    cargs = (E, chi, dt, *const)
+    del ins
+    out = {"nodes": n, "shape": list(members[0].grid.nx)}
+    kc = FLD.fld_coeffs(*cargs)
+    km = FLD.fld_matvec(E, kc[0], kc[1], sf)
+    pc = FLD.fld_coeffs_reference(*cargs)
+    pm = FLD.fld_matvec_reference(E, kc[0], kc[1], sf)
+    torch.cuda.synchronize()
+    out["coeffs_err"], out["matvec_err"] = errs(list(zip(kc, pc))), errs([(km, pm)])
+    check(max(out["coeffs_err"][1], out["matvec_err"][1]) <= FLD_TOL["float32"],
+          f"tiled RHD group of {n}: node-axis K7 / K8 vs plain relative "
+          f"{out['coeffs_err'][1]:.3e} / {out['matvec_err'][1]:.3e} > {FLD_TOL['float32']:g}")
+    del pc, pm
+    out["coeffs_ms"] = time_launches(torch, lambda: FLD.fld_coeffs(*cargs), 20)
+    out["coeffs_one_ms"] = time_launches(
+        torch, lambda: [FLD.fld_coeffs(E[i], chi[i], dt, *const) for i in range(n)], 10)
+    out["coeffs_plain_ms"] = time_launches(torch, lambda: FLD.fld_coeffs_reference(*cargs), 3)
+    out["coeffs_bound_ms"], out["coeffs_bound_by"] = bound(
+        tensor_bytes(E, chi, *kc), count_flops(torch, lambda: FLD.fld_coeffs_reference(*cargs)))
+    A, dg = kc[0], kc[1]
+    out["matvec_ms"] = time_launches(torch, lambda: FLD.fld_matvec(E, A, dg, sf), 20)
+    out["matvec_one_ms"] = time_launches(
+        torch, lambda: [FLD.fld_matvec(E[i], A[i], dg[i], sf[i]) for i in range(n)], 10)
+    out["matvec_plain_ms"] = time_launches(
+        torch, lambda: FLD.fld_matvec_reference(E, A, dg, sf), 5)
+    out["matvec_bound_ms"], out["matvec_bound_by"] = bound(
+        tensor_bytes(E, A, dg, sf, km),
+        count_flops(torch, lambda: FLD.fld_matvec_reference(E, A, dg, sf)))
+    lib = matvec_library(torch, E, A, dg, sf)
+    out["matvec_library_ms"], out["library_rel_err"] = lib["matvec_library_ms"], lib[
+        "library_rel_err"]
+    fields = [[states[nd.index]["rad"]["Er"] for nd in members],
+              [states[nd.index]["gas"]["u"][:1, 0] for nd in members],
+              [states[nd.index]["gas"]["u"][:1, 5] for nd in members]]
+    out["stack_ms"] = time_launches(torch, lambda: [torch.stack(f) for f in fields], 10)
+    out["stack_bytes"] = 2 * sum(tensor_bytes(*f) for f in fields)
+    del E, chi, sf, kc, km, A, dg, cargs, fields
+    torch.cuda.empty_cache()
+
+    st0 = clone_states(states)
+    dt_t = torch.full((), sim.tm.dt, dtype=sim.dtype, device=DEVICE)
+    runs = {}
+    for seq in (False, True):
+        st = clone_states(st0)
+        reads = sum(nd.radiation.host_reads for nd in smr.nodes)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        new = smr._radiation_pass(st, dt_t, _sequential=seq)
+        torch.cuda.synchronize()
+        runs[seq] = (new, [list(nd.radiation.cg_iters) for nd in smr.nodes],
+                     1e3 * (time.perf_counter() - t0),
+                     sum(nd.radiation.host_reads for nd in smr.nodes) - reads)
+    out["pass_err"] = node_field_err(torch, runs[False][0], runs[True][0])
+    out["same_iters"] = runs[False][1] == runs[True][1]
+    out["pass_ms"], out["pass_seq_ms"] = runs[False][2], runs[True][2]
+    out["pass_reads"], out["pass_seq_reads"] = runs[False][3], runs[True][3]
+    out["pass_cg"] = [sum(its) for its in runs[False][1]]
+    check(out["pass_err"] <= DISK_F32_TOL and out["same_iters"],
+          f"tiled RHD: batched pass vs sequential {out['pass_err']:.3e} (gate "
+          f"{DISK_F32_TOL:g}), CG counts equal {out['same_iters']}")
+    del st0, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def adaptive_tiled_rhd(torch, smi, prod, built):
+    """bench.py's tiled AMR disk RHD at full size (phase 26, part 3):
+    ``built``, the tree and its set-up seconds (timed_build); ``prod``,
+    phase 14's result (its zone-cycles/s)."""
+    from artemis_tpu_torch.ops import fld as FLD
+    from artemis_tpu_torch.ops import stage_curv as SC
+
+    res = {}
+    t_part = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    sim, setup_s = built
+    del built
+    drv, smr = sim.driver, sim.driver.smr
+    shapes = sorted({nd.grid.nx for nd in smr.nodes[1:]})
+    ntiles = len(smr.nodes) - 1
+    check(drv.tiled and ntiles > 0 and drv.stage_kernel == GATHER6_PER_NODE
+          and all(nd.radiation.use_kernels for nd in smr.nodes),
+          f"tiled RHD: {ntiles} tiles {shapes}, stage path {drv.stage_kernel}")
+    print(f"tiled AMR RHD {ADAPT_RHD} root over [-4, 4]^2 f32, tiles {ADAPT_TILE} root "
+          f"cells: {ntiles} tiles of {shapes} after the pre-evolution pass, stage path "
+          f"{drv.stage_kernel}, set-up {setup_s:.1f} s")
+    zones, iters, paths = [], [], []
+
+    def record(state, tm):
+        zones.append(sum(ncells(nd.grid) for nd in smr.nodes))
+        iters.append([list(nd.radiation.cg_iters) for nd in smr.nodes])
+        paths.append(drv.stage_kernel)
+
+    # warm-up: 2 cycles through Simulation.run
+    sim.tm.nlim = 2
+    sim.run()
+    SC.stage_curv_launches = SC.stage_curv_batched_launches = 0
+    FLD.fld_coeffs_launches = FLD.fld_coeffs_tiled_launches = FLD.fld_matvec_launches = 0
+    FLD.fld_coeffs_node_launches = FLD.fld_matvec_node_launches = 0
+    passes, undo = rad_pass_recorder(smr)
+    start_nodes = [len(smr.nodes)]
+
+    def nodes_obs(state, tm):
+        start_nodes.append(len(smr.nodes))
+
+    zone_start = sum(ncells(nd.grid) for nd in smr.nodes)
+    regrids_before = sim.tm.ncycle // drv.retag_interval
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    sim.tm.nlim = sim.tm.ncycle + ADAPT_CYCLES
+    from artemis_tpu_torch.driver import evolve
+
+    torch.cuda.synchronize()
+    start.record()
+    sim.state, sim.tm, _, status = evolve(drv, sim.state, sim.tm,
+                                          observers=[record, nodes_obs])
+    end.record()
+    torch.cuda.synchronize()
+    undo()
+    secs = start.elapsed_time(end) / 1e3
+    check(status == "complete", f"tiled RHD run stopped: {status}")
+    ncyc = ADAPT_CYCLES
+    per_cycle_nodes = start_nodes[:-1]
+    zone_cycles = zone_start + sum(zones[:-1])
+    launches = {"stage_curv": SC.stage_curv_launches,
+                "stage_curv_batched": SC.stage_curv_batched_launches,
+                "fld_coeffs": FLD.fld_coeffs_launches,
+                "fld_coeffs_tiled": FLD.fld_coeffs_tiled_launches,
+                "fld_matvec": FLD.fld_matvec_launches,
+                "fld_coeffs_node": FLD.fld_coeffs_node_launches,
+                "fld_matvec_node": FLD.fld_matvec_node_launches}
+    # one K7 per solve (the root, each group, each lone tile) and 1 + the
+    # group's CG iterations a Newton outer, from each pass's own counts
+    want = [sum(c) for c in zip(*(batched_fld_launches(r["nodes"]) for r in passes))]
+    check(all(pth == GATHER6_PER_NODE for pth in paths) and len(passes) == ncyc
+          and launches["stage_curv"] == 2 * sum(per_cycle_nodes)
+          and launches["stage_curv_batched"] == 0
+          and [launches[k] for k in ("fld_coeffs", "fld_matvec", "fld_coeffs_node",
+                                     "fld_matvec_node")] == want
+          and launches["fld_coeffs_tiled"] == launches["fld_coeffs"]
+          and launches["fld_coeffs_node"] >= ncyc,
+          f"tiled RHD: launches {launches} for {ncyc} cycles ({len(passes)} radiation "
+          f"passes) on {per_cycle_nodes} nodes, (K7, K8, node-axis K7, node-axis K8) "
+          f"{want} expected; stage paths {sorted(set(paths))}")
+    solves = want[0] / ncyc
+    reads = 1 + sum(r["reads"] for r in passes) / ncyc
+    cycle_ms = 1e3 * secs / ncyc
+    zcps = zone_cycles / secs
+    l2 = l2_vs_ic(torch, sim)
+    fin = all(bool(torch.isfinite(t).all()) for st in drv._states
+              for t in (st["gas"]["u"], st["gas"]["w"], st["rad"]["Er"]))
+    check(fin and l2 <= 3e-4, f"tiled RHD: root density L2 vs IC {l2:.3e} or not finite")
+    regrids = sim.tm.ncycle // drv.retag_interval - regrids_before
+    check(regrids >= 1, f"tiled RHD: no regrid in the {ncyc} timed cycles")
+    res = {"tiles": ntiles, "shapes": [list(s) for s in shapes],
+                  "setup_s": setup_s, "launches": launches, "cycle_ms": cycle_ms,
+                  "zcps": zcps, "ratio_to_static": zcps / prod["zcps"], "l2": l2,
+                  "regrids_timed": regrids, "nodes": [min(per_cycle_nodes),
+                                                      max(per_cycle_nodes)],
+                  "cg_iters": sum(it for cyc in iters for its in cyc for it in its),
+                  "solves_per_cycle": solves, "reads_per_cycle": reads,
+                  "matvec_per_cycle": want[1] / ncyc}
+    print(f"tiled AMR RHD: {ncyc} cycles ({regrids} regrids) after 2 warm-up, "
+          f"{per_cycle_nodes[0]}..{per_cycle_nodes[-1]} nodes, {zcps:.6e} zone-cycles/s "
+          f"over every node's zones ({zcps / prod['zcps']:.3f}x the static production "
+          f"tree's {prod['zcps']:.6e}), {cycle_ms:.3f} ms a cycle, root density L2 vs IC "
+          f"{l2:.3e} (gate 3e-4); launches {launches} (K5b 2 per node a cycle; the batched "
+          f"radiation pass: K7 {solves:.2f} a cycle, one per solve, the groups' on the node "
+          f"axis, K8 {want[1] / ncyc:.2f} a cycle, 1 + the CG iterations of a solve's "
+          f"outer, the group's most); {reads:.2f} host reads a cycle (the dt and the loop "
+          f"tests) [{smi}]")
+
+    # the same tree in windows on the sequential pass (every node solved
+    # alone, the pass before the node axis) and on the batched one, in the
+    # order sequential, batched, batched, sequential, before the profiled
+    # cycles and with no regrid between
+    order = (True, False, False, True)
+    wins = [window_ms(torch, sim, ADAPT_SEQ_CYCLES, sequential=seq) for seq in order]
+    res["seq_cycle_ms"] = [w for w, seq in zip(wins, order) if seq]
+    res["batched_cycle_ms"] = [w for w, seq in zip(wins, order) if not seq]
+    ratio = sum(res["seq_cycle_ms"]) / sum(res["batched_cycle_ms"])
+    print(f"tiled AMR RHD windows of {ADAPT_SEQ_CYCLES} cycles, sequential / batched / batched "
+          f"/ sequential radiation pass: " + " / ".join(f"{w:.3f}" for w in wins)
+          + f" ms a cycle ({ratio:.2f}x) [{smi}]")
+
+    # the device's idle share over a few profiled cycles
+    prof = profile_cycles(torch, sim, 2)
+    res["busy_ms"] = prof["busy_ms"] if prof else None
+    res["idle_share"] = 1.0 - prof["busy_ms"] / cycle_ms if prof else None
+    print("tiled AMR RHD device idle: "
+          + (f"{100 * res['idle_share']:.1f}% of the unprofiled cycle"
+             if prof else "not measured"))
+
+    # one sibling-linked tile at the main path's shape, kernels against
+    # their plain versions (these launches come after the counts' read)
+    tv = res["tile_check"] = tile_vs_plain(torch, sim)
+    print(f"tiled AMR RHD tile {tv['node']} {tuple(tv['shape'])} with {tv['links']} "
+          f"sibling links, on its own state: K5b vs plain {tv['stage_err']:.3e} max abs "
+          f"(both RK patterns, tol {DISK_F32_TOL:g}); K7 vs plain {tv['coeffs_err'][0]:.3e}"
+          f" abs / {tv['coeffs_err'][1]:.3e} rel, K8 {tv['matvec_err'][0]:.3e} / "
+          f"{tv['matvec_err'][1]:.3e} (Dirichlet flags {tv['flags']}, tol "
+          f"{FLD_TOL['float32']:g} rel)")
+
+    # the pool's largest group on its own state: node-axis K7/K8 against
+    # their bounds and one-node launches; batched pass vs sequential
+    t_grp = time.perf_counter()
+    gp = res["group"] = pool_group_timings(torch, sim)
+    n = gp["nodes"]
+    print(f"tiled AMR RHD group of {n} tiles {tuple(gp['shape'])} on its own state: "
+          f"node-axis K7 {gp['coeffs_ms']:.4f} ms a launch (bound {gp['coeffs_bound_ms']:.4f}"
+          f" ms, {gp['coeffs_bound_by']}; {n} one-node launches {gp['coeffs_one_ms']:.4f} ms;"
+          f" plain {gp['coeffs_plain_ms']:.4f} ms), node-axis K8 {gp['matvec_ms']:.4f} ms "
+          f"(bound {gp['matvec_bound_ms']:.4f} ms, {gp['matvec_bound_by']}; {n} one-node "
+          f"launches {gp['matvec_one_ms']:.4f} ms; plain {gp['matvec_plain_ms']:.4f} ms; "
+          f"block-diagonal CSR SpMV {gp['matvec_library_ms']:.4f} ms, rel "
+          f"{gp['library_rel_err']:.3e} of K8); vs plain rel {gp['coeffs_err'][1]:.3e} / "
+          f"{gp['matvec_err'][1]:.3e}; stacking Er, rho and eint of the group "
+          f"{gp['stack_ms']:.4f} ms ({gp['stack_bytes'] / 1e6:.1f} MB moved) [{smi}]")
+    print(f"tiled AMR RHD one radiation pass on a clone of the state: batched "
+          f"{gp['pass_ms']:.2f} ms, {gp['pass_reads']} host reads; sequential "
+          f"{gp['pass_seq_ms']:.2f} ms, {gp['pass_seq_reads']} host reads; every node's Er, "
+          f"u, w within {gp['pass_err']:.3e} of each array's max (gate {DISK_F32_TOL:g}), "
+          f"CG counts equal per node (per node {gp['pass_cg']}) "
+          f"({time.perf_counter() - t_grp:.1f} s)")
+    # phase 29's tables on the pool: the node-axis rows against the counters
+    res["tables"] = profile_tables(torch, smi, sim, "tiled AMR RHD", {
+        "fld_coeffs (tiled, node axis)": gp["coeffs_ms"],
+        "fld_matvec (per-cell, node axis)": gp["matvec_ms"]})
+
+    # one regrid, and its parts: tags on the device, the mask copy,
+    # the set-up, one tile's prolongation
+    st0 = drv._states[0]
+    bytes0 = smr.mask_bytes
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nbefore = len(smr.nodes)
+    drv._states = drv._regrid()
+    torch.cuda.synchronize()
+    regrid_ms = 1e3 * (time.perf_counter() - t0)
+    mask_bytes = smr.mask_bytes - bytes0
+    g = smr.root.grid
+    tags_ms = time_launches(torch, lambda: smr.tile_masks(
+        st0["gas"]["w"], g, drv.criterion, None, drv.regrid_nbuf), 10)
+    masks = smr.tile_masks(st0["gas"]["w"], g, drv.criterion, None, drv.regrid_nbuf)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        torch.stack(list(masks)).cpu()
+    copy_ms = 1e2 * (time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    smr._compile(smr.fused, smr.gather6)
+    torch.cuda.synchronize()
+    setup_ms = 1e3 * (time.perf_counter() - t0)
+    tile = smr.nodes[-1]
+    prolong_ms = time_launches(torch, lambda: smr._fresh_patch_state(st0, tile, tile.lo), 5)
+    res.update(regrid_ms=regrid_ms, regrid_changed=len(smr.nodes) != nbefore,
+                      tags_ms=tags_ms, copy_ms=copy_ms, setup_ms=setup_ms,
+                      prolong_ms=prolong_ms, mask_bytes=mask_bytes,
+                      peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    print(f"tiled AMR RHD regrid: {regrid_ms:.3f} ms a pass (topology "
+          f"{'changed' if res['regrid_changed'] else 'kept'}); tags on the device "
+          f"{tags_ms:.4f} ms, the mask copy {copy_ms:.4f} ms ({mask_bytes} bytes cross), "
+          f"the set-up {setup_ms:.3f} ms (stages reused), one tile's prolongation "
+          f"{prolong_ms:.4f} ms; peak device memory {res['peak_gb']:.2f} GiB [{smi}]")
+    res["part_s"] = time.perf_counter() - t_part
+    del sim, drv, smr, st0, masks, tile
+    torch.cuda.empty_cache()
+    return res
+
 def phase_adaptive(torch, smi, prod, built, blast3):
     """Adaptive refinement on the card: blast_amr.in as written on K4 per
     node (and its plain path, a pool restart), and bench.py's tiled AMR
-    disk RHD at full size on K5b, K7 and K8 per node (``built``: that tree
-    and its set-up seconds, timed_build); ``blast3``: adaptive_blast3's
-    result, run beside rad_shock."""
+    disk RHD at full size on K5b per node and the batched radiation pass,
+    K7 and K8 over each group of same-shape tiles' node axis (``built``:
+    that tree and its set-up seconds, timed_build); ``blast3``:
+    adaptive_blast3's result, run beside rad_shock."""
     import numpy as np
 
-    from artemis_tpu_torch.ops import fld as FLD
-    from artemis_tpu_torch.ops import stage_curv as SC
     from artemis_tpu_torch.state import tree_rows
 
     res = {}
@@ -3783,144 +4216,8 @@ def phase_adaptive(torch, smi, prod, built, blast3):
         res["blast3"] = blast3
 
         # (3) bench.py's tiled AMR disk RHD at full size
-        t_part = time.perf_counter()
-        torch.cuda.reset_peak_memory_stats()
-        sim, setup_s = built
+        res["rhd"] = adaptive_tiled_rhd(torch, smi, prod, built)
         del built
-        drv, smr = sim.driver, sim.driver.smr
-        shapes = sorted({nd.grid.nx for nd in smr.nodes[1:]})
-        ntiles = len(smr.nodes) - 1
-        check(drv.tiled and ntiles > 0 and drv.stage_kernel == GATHER6_PER_NODE
-              and all(nd.radiation.use_kernels for nd in smr.nodes),
-              f"tiled RHD: {ntiles} tiles {shapes}, stage path {drv.stage_kernel}")
-        print(f"tiled AMR RHD {ADAPT_RHD} root over [-4, 4]^2 f32, tiles {ADAPT_TILE} root "
-              f"cells: {ntiles} tiles of {shapes} after the pre-evolution pass, stage path "
-              f"{drv.stage_kernel}, set-up {setup_s:.1f} s")
-        zones, iters, paths = [], [], []
-
-        def record(state, tm):
-            zones.append(sum(ncells(nd.grid) for nd in smr.nodes))
-            iters.append([list(nd.radiation.cg_iters) for nd in smr.nodes])
-            paths.append(drv.stage_kernel)
-
-        # warm-up: 2 cycles through Simulation.run
-        sim.tm.nlim = 2
-        sim.run()
-        SC.stage_curv_launches = SC.stage_curv_batched_launches = 0
-        FLD.fld_coeffs_launches = FLD.fld_coeffs_tiled_launches = FLD.fld_matvec_launches = 0
-        start_nodes = [len(smr.nodes)]
-
-        def nodes_obs(state, tm):
-            start_nodes.append(len(smr.nodes))
-
-        zone_start = sum(ncells(nd.grid) for nd in smr.nodes)
-        regrids_before = sim.tm.ncycle // drv.retag_interval
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        sim.tm.nlim = sim.tm.ncycle + ADAPT_CYCLES
-        from artemis_tpu_torch.driver import evolve
-
-        torch.cuda.synchronize()
-        start.record()
-        sim.state, sim.tm, _, status = evolve(drv, sim.state, sim.tm,
-                                              observers=[record, nodes_obs])
-        end.record()
-        torch.cuda.synchronize()
-        secs = start.elapsed_time(end) / 1e3
-        check(status == "complete", f"tiled RHD run stopped: {status}")
-        ncyc = ADAPT_CYCLES
-        per_cycle_nodes = start_nodes[:-1]
-        zone_cycles = zone_start + sum(zones[:-1])
-        matvecs = sum(1 + it for cyc in iters for its in cyc for it in its)
-        launches = {"stage_curv": SC.stage_curv_launches,
-                    "stage_curv_batched": SC.stage_curv_batched_launches,
-                    "fld_coeffs": FLD.fld_coeffs_launches,
-                    "fld_coeffs_tiled": FLD.fld_coeffs_tiled_launches,
-                    "fld_matvec": FLD.fld_matvec_launches}
-        check(all(pth == GATHER6_PER_NODE for pth in paths)
-              and launches["stage_curv"] == 2 * sum(per_cycle_nodes)
-              and launches["stage_curv_batched"] == 0
-              and launches["fld_coeffs"] == sum(per_cycle_nodes)
-              and launches["fld_coeffs_tiled"] == launches["fld_coeffs"]
-              and launches["fld_matvec"] == matvecs,
-              f"tiled RHD: launches {launches} for {ncyc} cycles on {per_cycle_nodes} nodes, "
-              f"{matvecs} matvecs expected; stage paths {sorted(set(paths))}")
-        cycle_ms = 1e3 * secs / ncyc
-        zcps = zone_cycles / secs
-        l2 = l2_vs_ic(torch, sim)
-        fin = all(bool(torch.isfinite(t).all()) for st in drv._states
-                  for t in (st["gas"]["u"], st["gas"]["w"], st["rad"]["Er"]))
-        check(fin and l2 <= 3e-4, f"tiled RHD: root density L2 vs IC {l2:.3e} or not finite")
-        regrids = sim.tm.ncycle // drv.retag_interval - regrids_before
-        check(regrids >= 1, f"tiled RHD: no regrid in the {ncyc} timed cycles")
-        res["rhd"] = {"tiles": ntiles, "shapes": [list(s) for s in shapes],
-                      "setup_s": setup_s, "launches": launches, "cycle_ms": cycle_ms,
-                      "zcps": zcps, "ratio_to_static": zcps / prod["zcps"], "l2": l2,
-                      "regrids_timed": regrids, "nodes": [min(per_cycle_nodes),
-                                                          max(per_cycle_nodes)],
-                      "cg_iters": sum(it for cyc in iters for its in cyc for it in its)}
-        print(f"tiled AMR RHD: {ncyc} cycles ({regrids} regrids) after 2 warm-up, "
-              f"{per_cycle_nodes[0]}..{per_cycle_nodes[-1]} nodes, {zcps:.6e} zone-cycles/s "
-              f"over every node's zones ({zcps / prod['zcps']:.3f}x the static production "
-              f"tree's {prod['zcps']:.6e}), {cycle_ms:.3f} ms a cycle, root density L2 vs IC "
-              f"{l2:.3e} (gate 3e-4); launches {launches} (K5b 2 per node a cycle, K7 1 per "
-              f"node a cycle, K8 1 + CG iterations per outer per node) [{smi}]")
-
-        # the device's idle share over a few profiled cycles
-        prof = profile_cycles(torch, sim, 2)
-        res["rhd"]["busy_ms"] = prof["busy_ms"] if prof else None
-        res["rhd"]["idle_share"] = 1.0 - prof["busy_ms"] / cycle_ms if prof else None
-        print("tiled AMR RHD device idle: "
-              + (f"{100 * res['rhd']['idle_share']:.1f}% of the unprofiled cycle"
-                 if prof else "not measured"))
-
-        # one sibling-linked tile at the main path's shape, kernels against
-        # their plain versions (these launches come after the counts' read)
-        tv = res["rhd"]["tile_check"] = tile_vs_plain(torch, sim)
-        print(f"tiled AMR RHD tile {tv['node']} {tuple(tv['shape'])} with {tv['links']} "
-              f"sibling links, on its own state: K5b vs plain {tv['stage_err']:.3e} max abs "
-              f"(both RK patterns, tol {DISK_F32_TOL:g}); K7 vs plain {tv['coeffs_err'][0]:.3e}"
-              f" abs / {tv['coeffs_err'][1]:.3e} rel, K8 {tv['matvec_err'][0]:.3e} / "
-              f"{tv['matvec_err'][1]:.3e} (Dirichlet flags {tv['flags']}, tol "
-              f"{FLD_TOL['float32']:g} rel)")
-
-        # one regrid, and its parts: tags on the device, the mask copy,
-        # the set-up, one tile's prolongation
-        st0 = drv._states[0]
-        bytes0 = smr.mask_bytes
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        nbefore = len(smr.nodes)
-        drv._states = drv._regrid()
-        torch.cuda.synchronize()
-        regrid_ms = 1e3 * (time.perf_counter() - t0)
-        mask_bytes = smr.mask_bytes - bytes0
-        g = smr.root.grid
-        tags_ms = time_launches(torch, lambda: smr.tile_masks(
-            st0["gas"]["w"], g, drv.criterion, None, drv.regrid_nbuf), 10)
-        masks = smr.tile_masks(st0["gas"]["w"], g, drv.criterion, None, drv.regrid_nbuf)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            torch.stack(list(masks)).cpu()
-        copy_ms = 1e2 * (time.perf_counter() - t0)
-        t0 = time.perf_counter()
-        smr._compile(smr.fused, smr.gather6)
-        torch.cuda.synchronize()
-        setup_ms = 1e3 * (time.perf_counter() - t0)
-        tile = smr.nodes[-1]
-        prolong_ms = time_launches(torch, lambda: smr._fresh_patch_state(st0, tile, tile.lo), 5)
-        res["rhd"].update(regrid_ms=regrid_ms, regrid_changed=len(smr.nodes) != nbefore,
-                          tags_ms=tags_ms, copy_ms=copy_ms, setup_ms=setup_ms,
-                          prolong_ms=prolong_ms, mask_bytes=mask_bytes,
-                          peak_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
-        print(f"tiled AMR RHD regrid: {regrid_ms:.3f} ms a pass (topology "
-              f"{'changed' if res['rhd']['regrid_changed'] else 'kept'}); tags on the device "
-              f"{tags_ms:.4f} ms, the mask copy {copy_ms:.4f} ms ({mask_bytes} bytes cross), "
-              f"the set-up {setup_ms:.3f} ms (stages reused), one tile's prolongation "
-              f"{prolong_ms:.4f} ms; peak device memory {res['rhd']['peak_gb']:.2f} GiB [{smi}]")
-        res["rhd"]["part_s"] = time.perf_counter() - t_part
-        del sim, drv, smr, st0, masks, tile
-        torch.cuda.empty_cache()
 
         # (4) the same composition at 128x128x32, kernel against plain
         t_part = time.perf_counter()
@@ -4417,7 +4714,7 @@ def phase_sharded(torch, smi, flag_ref, flag_zcps, disk_ref, disk_zcps, shock_re
             torch.cuda.empty_cache()
 
         sim = sharded_sim(lambda **kw: Simulation(
-            SHOCK, ["parthenon/time/tlim=0.02", f"parthenon/time/nlim={SHARD_SHOCK_CYCLES}",
+            SHOCK, [f"parthenon/time/tlim={SHOCK_TLIM}", f"parthenon/time/nlim={SHARD_SHOCK_CYCLES}",
                     "parthenon/mesh/shard_axis=x1"], os.path.join(data, "shock"),
             device=DEVICE, **kw))
         check(sim.driver.axis_d == 1 and not sim.driver.radiation.use_kernels,
@@ -4665,19 +4962,27 @@ def start_worker(fn, *args):
     return pool, pool.submit(fn, *args)
 
 
+# the phases that only check kernels against their plain versions (and the
+# linear wave's thresholds), run beside rad_shock
+CHECKS_BESIDE = ("compare", "linwave", "curv_compare", "fld_compare", "gather6_compare",
+                 "batched_compare", "sweep_compare")
+
+
 def beside_rad_shock(smi):
     """What a worker process runs on the card beside rad_shock, whose loop
-    is host-bound and untimed: phase 30's small trees, then the untimed
-    checks of phase 23 (simple_drag, the other decks) and of phase 26
-    (blast_amr at numlevel 3).  Returns ({part: result}, {part: seconds},
-    what they printed), for the main process to print after rad_shock."""
+    is host-bound and untimed: phase 30's small trees, the untimed checks
+    of phase 23 (simple_drag, the other decks) and of phase 26 (blast_amr at
+    numlevel 3), then the kernel-vs-plain phases (CHECKS_BESIDE).  Returns
+    ({part: result}, {part: seconds}, what they printed), for the main
+    process to print after rad_shock."""
     import io
 
     import torch
 
     parts = (("small_trees", card_small_trees), ("simple_drag", lambda: phase_drag(torch, smi)),
              ("other_decks", lambda: phase_other_decks(torch, smi)),
-             ("blast3", lambda: adaptive_blast3(torch)))
+             ("blast3", lambda: adaptive_blast3(torch))) + tuple(
+        (key, functools.partial(globals()[f"phase_{key}"], torch)) for key in CHECKS_BESIDE)
     res, secs, out = {}, {}, io.StringIO()
     with contextlib.redirect_stdout(out):
         for key, fn in parts:
@@ -4870,17 +5175,19 @@ def run_phases(torch, t0, smi, cpu_refs):
         f"{key} {secs:.1f} s" for key, (_, secs) in built.items())
           + f" beside the build; the main thread waited {time.perf_counter() - t1:.1f} s "
           "for them after it")
-    err64, err32 = phase_compare(torch)
-    sym = phase_linwave(torch)
-    res = phase_flagship(torch, smi)
-    cerr64, cerr32, cdisk32 = phase_curv_compare(torch)
-    disk = phase_disk(torch, smi)
-    decks = phase_disk_decks(torch, smi)
-    fld = phase_fld_compare(torch)
-    g6 = phase_gather6_compare(torch)
-    rhd = phase_rhd(torch, smi, built.pop("rhd"), built.pop("rhd_plain"))
-    berr64, berr32 = phase_batched_compare(torch)
-    amr = phase_amr(torch, smi, built.pop("amr"), built.pop("amr_plain"))
+    phase_s = {}
+
+    def run(name, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        phase_s[name] = time.perf_counter() - t1
+        return out
+
+    res = run("flagship", phase_flagship, torch, smi)
+    disk = run("disk_sph", phase_disk, torch, smi)
+    decks = run("disk_decks", phase_disk_decks, torch, smi)
+    rhd = run("rhd", phase_rhd, torch, smi, built.pop("rhd"), built.pop("rhd_plain"))
+    amr = run("amr", phase_amr, torch, smi, built.pop("amr"), built.pop("amr_plain"))
     set_dir.cleanup()
     # the two 512x512x64 disk RHD trees are set up (their disk IC on the
     # host) in the background while rad_shock's host-bound loop runs
@@ -4896,22 +5203,27 @@ def run_phases(torch, t0, smi, cpu_refs):
             os.path.join(pre_dir.name, "restart"), AMR_CELL, 2.0,
             extra=[f"parthenon/time/nlim={RESTART_AMR[0]}"]))
         t1 = time.perf_counter()
-        # and, in a worker process on the card, phase 30's small trees and
-        # the untimed checks of phases 23 and 26
+        # and, in a worker process on the card, phase 30's small trees, the
+        # untimed checks of phases 23 and 26 and the kernel-vs-plain phases
         side_pool, side = start_worker(beside_rad_shock, smi)
         try:
             shock = phase_rad_shock(torch)
             t2 = time.perf_counter()
+            phase_s["rad_shock"] = t2 - t1
             side_res, side_secs, side_out = side.result()
+            phase_s["rad_shock_wait"] = time.perf_counter() - t2
         finally:
             side_pool.shutdown(wait=True, cancel_futures=True)
         print(f"phase rad_shock: {t2 - t1:.1f} s (the 512x512x64 trees of phases 14 and 26 "
               "set up beside it, sharing the interpreter lock, and in a worker process on the "
-              "card phase 30's small trees, simple_drag, the other decks and blast_amr at "
-              f"numlevel 3, which rad_shock then waited {time.perf_counter() - t2:.1f} s for)")
+              "card phase 30's small trees, simple_drag, the other decks, blast_amr at "
+              "numlevel 3 and the kernel-vs-plain phases, which rad_shock then waited "
+              f"{phase_s['rad_shock_wait']:.1f} s for)")
         print(side_out, end="")
         print("the worker beside rad_shock: " + ", ".join(
             f"{key} {secs:.1f} s" for key, secs in side_secs.items()))
+        (err64, err32), sym, (cerr64, cerr32, cdisk32), fld, g6, (berr64, berr32), (
+            serr64, serr32) = (side_res[k] for k in CHECKS_BESIDE)
         cards_small, drag, other = (side_res[k] for k in ("small_trees", "simple_drag",
                                                           "other_decks"))
         # both trees are built before any timed window opens
@@ -4923,37 +5235,40 @@ def run_phases(torch, t0, smi, cpu_refs):
               f"the main thread waited {time.perf_counter() - t1:.1f} s for them after "
               "rad_shock")
         del pre_prod, pre_adaptive, pre_restart
-    prod = phase_amr_prod(torch, smi, built_prod)
+    prod = run("amr_prod", phase_amr_prod, torch, smi, built_prod)
     del built_prod
-    k5a = phase_k5a(torch, smi)
-    serr64, serr32 = phase_sweep_compare(torch)
-    strat = phase_strat(torch, smi)
-    sheet = phase_ssheet(torch, smi)
-    adv = phase_advection(torch, smi)
+    k5a = run("k5a", phase_k5a, torch, smi)
+    strat = run("strat", phase_strat, torch, smi)
+    sheet = run("ssheet", phase_ssheet, torch, smi)
+    adv = run("advection", phase_advection, torch, smi)
     secs = {}
     for key, fn in (("alpha_disk", phase_alpha_disk), ("binary_cyl", phase_binary),
                     ("nbody", phase_nbody),
                     ("restart", lambda torch, smi: phase_restart(torch, smi, built_restart[0]))):
         t1 = time.perf_counter()
         secs[key] = (fn(torch, smi), time.perf_counter() - t1)
+        phase_s[key] = secs[key][1]
         print(f"phase {key}: {secs[key][1]:.1f} s")
     alpha, binary, nbody, restart = (
         secs[k][0] for k in ("alpha_disk", "binary_cyl", "nbody", "restart"))
     del built_restart
     t1 = time.perf_counter()
-    adaptive = phase_adaptive(torch, smi, prod, built_adaptive, side_res["blast3"])
+    adaptive = run("adaptive", phase_adaptive, torch, smi, prod, built_adaptive,
+                   side_res["blast3"])
     del built_adaptive
     pre_dir.cleanup()
     print(f"phase adaptive: {time.perf_counter() - t1:.1f} s")
-    rest = phase_refinement_rest(torch, smi)
+    rest = run("refinement_rest", phase_refinement_rest, torch, smi)
     t1 = time.perf_counter()
-    sharded = phase_sharded(torch, smi, res.pop("shard_ref"), res["kernel_zcps"],
+    sharded = run("sharded", phase_sharded, torch, smi, res.pop("shard_ref"), res["kernel_zcps"],
                             disk.pop("shard_ref"), disk["kernel_zcps"], shock.pop("shard_ref"))
     print(f"phase sharded: {time.perf_counter() - t1:.1f} s")
-    trees = phase_sharded_trees(torch, smi, cpu_refs, cards_small)
+    trees = run("sharded_trees", phase_sharded_trees, torch, smi, cpu_refs, cards_small)
     total = time.perf_counter() - t0
+    print("main-thread phases: " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()))
     print(f"chip_smoke: every phase passed in {total:.0f} s, the build included "
           f"({SMOKE_LIMIT_S - total:.0f} s left of the {SMOKE_LIMIT_S} s limit)")
+    group = adaptive["rhd"]["group"]
     kernels = {"kernels": [{
         "name": "stage_cart",
         "kernel": "stage_cart_tiled_kernel (the tiled body)",
@@ -5240,7 +5555,34 @@ def run_phases(torch, t0, smi, cpu_refs):
         "cg_iters_per_outer": rhd["cg_per_outer"],
         "adaptive_rhd_launches": adaptive["rhd"]["launches"]["fld_matvec"],
         "adaptive_tile_rel_err_f32": adaptive["rhd"]["tile_check"]["matvec_err"][1],
-    }, {
+    }] + [{
+        "name": f"{name} (node axis)",
+        "kernel": body + " over a node axis (blockIdx.y)",
+        "route": "cuda",
+        "source": "artemis_tpu_torch/csrc/fld.cu",
+        "replaces": replaces,
+        "launches": adaptive["rhd"]["launches"][f"{name}_node"],
+        "max_abs_err": max(fld["node_axis"]["float32"][0], group[f"{key}_err"][0]),
+        "max_abs_err_f64": fld["node_axis"]["float64"][0],
+        "max_rel_err": max(fld["node_axis"]["float32"][1], group[f"{key}_err"][1]),
+        "max_rel_err_f64": fld["node_axis"]["float64"][1],
+        "tol_rel_f32": FLD_TOL["float32"],
+        "tol_rel_f64": FLD_TOL["float64"],
+        "ms": group[f"{key}_ms"],
+        "plain_ms": group[f"{key}_plain_ms"],
+        "bound_ms": group[f"{key}_bound_ms"],
+        "bound_by": group[f"{key}_bound_by"],
+        "library_ms": group.get(f"{key}_library_ms"),
+        "one_node_launches_ms": group[f"{key}_one_ms"],
+        "nodes": group["nodes"],
+        "node_shape_x1_x2_x3": group["shape"],
+        "dtype": "float32",
+        "adaptive_rhd_launches_per_cycle": adaptive["rhd"]["launches"][f"{name}_node"]
+        / ADAPT_CYCLES,
+        "adaptive_rhd_host_reads_per_cycle": adaptive["rhd"]["reads_per_cycle"],
+    } for name, key, body, replaces in (
+        ("fld_coeffs", "coeffs", "coeffs_tiled_kernel", "artemis_tpu/ops/pallas_fld.py:88"),
+        ("fld_matvec", "matvec", "fld_kernel", "artemis_tpu/ops/pallas_fld.py:188"))] + [{
         "name": "stage_curv_batched",
         "kernel": "stage_tiled_kernel (the tiled body)",
         "route": "cuda",

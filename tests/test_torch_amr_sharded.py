@@ -8,7 +8,9 @@ spreads over the workers).
 Each twin runs the port's ``Simulation(..., device="cpu", nshards=4)`` (four
 shard trees on ``cpu``, in lockstep) and holds it against the port's own
 unsharded tree at the JAX test's tolerance, or bitwise where the JAX test
-asks ``array_equal``, with the same decks, overrides and sizes:
+asks ``array_equal``, with the same decks, overrides and sizes; the linear
+waves run 10 cycles where the JAX test runs 20 (every stage exchanges the
+patch's slabs from the first cycle on):
 
 * the linear wave on x3 slabs as a wrap patch, a replicated patch, a
   distributed patch (``<artemis> amr_distribute``) and an uneven extent that
@@ -48,9 +50,9 @@ LIN_ARGS = ["parthenon/mesh/nghost=2", "parthenon/mesh/nx1=32", "parthenon/mesh/
             "parthenon/refinement/patch_nx2=4"]
 # case -> (extra overrides, nlim, the node's kind)
 LIN_CASES = {
-    "wrap": (["parthenon/refinement/patch_nx3=16"], 20, "wrap"),
-    "replicated": (["parthenon/refinement/patch_nx3=8"], 20, "replicated"),
-    "distributed": (["parthenon/refinement/patch_nx3=8", "artemis/amr_distribute=true"], 20,
+    "wrap": (["parthenon/refinement/patch_nx3=16"], 10, "wrap"),
+    "replicated": (["parthenon/refinement/patch_nx3=8"], 10, "replicated"),
+    "distributed": (["parthenon/refinement/patch_nx3=8", "artemis/amr_distribute=true"], 10,
                     "distributed"),
     # 6 does not split into even slices over 4 shards
     "uneven": (["parthenon/refinement/patch_nx3=6", "artemis/amr_distribute=true"], 2,

@@ -7,10 +7,10 @@ twins of tests/test_amr_sharded.py's adaptive cases.
 * ``inputs/blast_amr.in`` with a periodic x3 through ``Simulation``, tiled:
   the pool's tile set equal to the serial tree's and the root within 1e-11
   of it.  The JAX test runs to tlim = 0.02 (about 500 cycles); this twin
-  runs 40 cycles at check_interval 5 with 8-cell tiles in x1 and x2 (the
+  runs 20 cycles at check_interval 5 with 8-cell tiles in x1 and x2 (the
   deck's 16-cell tiles spawn only at set-up within 40 cycles; 8-cell tiles
   spawn four at set-up and two more at each of cycles 15 and 20, as
-  replicated nodes).
+  replicated nodes, four regrids in all).
 """
 
 import os
@@ -106,7 +106,7 @@ def test_sharded_adaptive_move_matches_serial():
     assert np.abs(a - b).max() < 1e-13
 
 
-BLAST_ARGS = ["parthenon/time/nlim=40", "parthenon/mesh/nx3=8", "parthenon/mesh/x3min=-0.5",
+BLAST_ARGS = ["parthenon/time/nlim=20", "parthenon/mesh/nx3=8", "parthenon/mesh/x3min=-0.5",
               "parthenon/mesh/x3max=0.5", "parthenon/mesh/ix3_bc=periodic",
               "parthenon/mesh/ox3_bc=periodic", "parthenon/refinement/patch_nx3=8",
               "parthenon/refinement/check_interval=5", "parthenon/refinement/tile_nx1=8",

@@ -3,7 +3,9 @@ twins of tests/test_amr_sharded.py's curvilinear and N-body cases.
 
 Each twin runs the port's ``Simulation(..., device="cpu", nshards=4)`` and
 holds it against the port's own unsharded tree at the JAX test's tolerance,
-with the same decks, overrides and sizes:
+with the same decks, overrides and sizes; the two full-phi rings, the cases
+also run by the JAX package, run 5 cycles where the JAX test runs 10 (every
+stage exchanges the ring's slabs from the first cycle on):
 
 * the spherical viscous disk (``disk_sph``) on phi slabs, its full-phi ring
   a wrap patch (1e-9 of the maximum; each shard's geometry is built on its
@@ -37,6 +39,8 @@ NBODY = os.path.join(INP, "disk_nbody_cyl.in")
 DISK_ARGS = ["parthenon/time/nlim=10", "parthenon/mesh/nx1=64", "parthenon/mesh/nx2=16",
              "parthenon/mesh/nx3=16", "parthenon/mesh/refinement=static",
              "parthenon/refinement/patch_nx1=32", "parthenon/refinement/patch_nx2=8"]
+# the full-phi rings' cycles (the last override wins)
+RING_NLIM = "parthenon/time/nlim=5"
 
 
 def _rel(a, b):
@@ -53,7 +57,7 @@ def test_sharded_amr_disk_phi(case, tmp_path):
     within 1e-9 of the maximum of the port's serial tree and of the JAX
     package's; the distributed ring's root, and either patch, within
     1e-11."""
-    extra = (["parthenon/refinement/patch_nx3=16"] if case == "ring"
+    extra = (["parthenon/refinement/patch_nx3=16", RING_NLIM] if case == "ring"
              else ["parthenon/refinement/patch_nx3=8", "artemis/amr_distribute=true"])
     args = DISK_ARGS + extra
     s0 = Simulation(DISK, args, str(tmp_path / "serial"), device="cpu")
@@ -95,7 +99,7 @@ def test_sharded_amr_nbody(case, tmp_path):
     shard's window).  Gas within 1e-11 of the port's serial tree on the root
     and the patch, particles within 1e-14 (the ring also of the JAX
     package's serial tree)."""
-    args = RING_ARGS if case == "ring" else TRACK_ARGS
+    args = RING_ARGS + [RING_NLIM] if case == "ring" else TRACK_ARGS
     s0 = Simulation(NBODY, args, str(tmp_path / "serial"), device="cpu")
     s1 = Simulation(NBODY, args, str(tmp_path / "shard"), device="cpu", nshards=4)
     if case == "tracking":

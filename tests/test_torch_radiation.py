@@ -25,8 +25,10 @@ RHD slice against the JAX package's runs, and the CUDA kernels
   takes: its blocks run phase by phase with shared memory starting as
   NaN) bitwise equal to the per-cell body (the wrapper's private switch
   ``_percell_body``) on every shape and flag set and on a shape ragged
-  across the footprint and the z chunks, and ``cuda``-marked twins that run
-  on the card:
+  across the footprint and the z chunks, both kernels over a node axis of
+  three nodes (one launch, bitwise equal to three one-node launches, within
+  the tolerance of the plain versions on the stack), and ``cuda``-marked
+  twins that run on the card:
 
       python -m pytest tests/test_torch_radiation.py -m cuda --noconftest -q
 
@@ -365,12 +367,16 @@ using std::sqrt;
 """
 
 HOST_ENTRY = r"""
+// Every node of the launch (blockIdx.y on the card) through node_params.
 template <typename T, bool COEFFS>
 void run(const FldParams& p) {
   const int64_t n = int64_t(p.n.nx) * p.n.ny * p.n.nz;
-  for (int64_t cell = 0; cell < n; ++cell) {
-    if (COEFFS) coeffs_cell<T>(p, cell);
-    else matvec_cell<T>(p, cell);
+  for (int node = 0; node < p.n.nn; ++node) {
+    const FldParams q = node_params<T, COEFFS>(p, node);
+    for (int64_t cell = 0; cell < n; ++cell) {
+      if (COEFFS) coeffs_cell<T>(q, cell);
+      else matvec_cell<T>(q, cell);
+    }
   }
 }
 // The tiled body's block, phase by phase: each phase runs for every thread
@@ -386,10 +392,13 @@ struct HostExec {
 // phase wrote would show in the outputs.
 template <typename T>
 void run_tiled(const FldParams& p) {
-  for (int64_t b = 0; b < fld_tiles<T>(p.n); ++b) {
-    std::vector<T> smem(FldTile<T>::ELEMS, std::numeric_limits<T>::quiet_NaN());
-    HostExec<T> ex;
-    coeffs_block<T>(p, b, smem.data(), ex);
+  for (int node = 0; node < p.n.nn; ++node) {
+    const FldParams q = node_params<T, true>(p, node);
+    for (int64_t b = 0; b < fld_tiles<T>(p.n); ++b) {
+      std::vector<T> smem(FldTile<T>::ELEMS, std::numeric_limits<T>::quiet_NaN());
+      HostExec<T> ex;
+      coeffs_block<T>(q, b, smem.data(), ex);
+    }
   }
 }
 }  // namespace
@@ -517,6 +526,50 @@ def test_host_compiled_tiled_coeffs_matches_percell(on_host, dtype, shape, flags
     check_tiled_coeffs(on_host[0], dtype, "cpu", shape, FLAGS[flags], TOL_REL[dtype])
 
 
+NODES = 3
+# the node axis: shapes ragged within a node and across the tiled body's
+# footprint and z chunks
+NODE_SHAPES = [(5, 7, 9), RAGGED]
+
+
+def check_node_axis(launch_coeffs, launch_matvec, dtype, device, shape, flags, tol):
+    """Both kernels over a node axis of NODES nodes with distinct fields:
+    one launch each, bitwise equal to the NODES one-node launches stacked
+    (fld_coeffs on its tiled and on its per-cell body), and within ``tol``
+    of the plain versions on the stack (each output relative to its max
+    |plain|)."""
+    rad = port_radiation(shape=(NZ, NY, NX))
+    ins = [operator_inputs(dtype, device, shape, seed=s) for s in range(1, NODES + 1)]
+    E, chi, sf = (torch.stack([i[k] for i in ins]) for k in (0, 1, 3))
+    dt = ins[0][2]
+    const = (rad._wuni, RAD_CFG["c_code"], rad._ext, flags)
+    n0 = (FLD.fld_coeffs_launches, FLD.fld_coeffs_node_launches, FLD.fld_matvec_launches,
+          FLD.fld_matvec_node_launches)
+    kc = launch_coeffs(E, chi, dt, *const)
+    km = launch_matvec(E, kc[0], kc[1], sf)
+    assert (FLD.fld_coeffs_launches - n0[0], FLD.fld_coeffs_node_launches - n0[1],
+            FLD.fld_matvec_launches - n0[2], FLD.fld_matvec_node_launches - n0[3]) == (1, 1, 1, 1)
+    assert kc[0].shape == (NODES, 6) + shape
+    with FLD._percell_body():
+        kp = launch_coeffs(E, chi, dt, *const)
+    one = [launch_coeffs(E[n], chi[n], dt, *const) for n in range(NODES)]
+    for k, p, o in zip(kc, kp, zip(*one)):
+        assert torch.equal(k, torch.stack(o)) and torch.equal(k, p)
+    assert torch.equal(km, torch.stack([launch_matvec(E[n], *one[n][:2], sf[n])
+                                        for n in range(NODES)]))
+    pc = FLD.fld_coeffs_reference(E, chi, dt, *const)
+    pm = FLD.fld_matvec_reference(E, pc[0], pc[1], sf)
+    for k, p in zip((*kc, km), (*pc, pm)):
+        assert torch.isfinite(k).all()
+        assert rel(k.double().cpu().numpy(), p.double().cpu().numpy()) <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("shape", NODE_SHAPES, ids=["5x7x9", "17x9x33"])
+def test_host_compiled_node_axis(on_host, dtype, shape):
+    check_node_axis(*on_host, dtype, "cpu", shape, FLAGS["mixed"], TOL_REL[dtype])
+
+
 def test_cpu_tensor_runs_the_plain_version():
     """On the CPU, fld_coeffs and fld_matvec are their plain versions and
     launch nothing."""
@@ -564,6 +617,19 @@ def test_kernel_tiled_coeffs_matches_percell(cuda, dtype):
     for shape in SHAPES + [RAGGED]:
         for flags in FLAGS.values():
             check_tiled_coeffs(FLD.fld_coeffs, dtype, cuda, shape, flags, tol)
+            torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_kernel_node_axis_matches_one_node_launches(cuda, dtype):
+    """On the card: node-axis launches of both kernels bitwise equal to
+    one-node launches, within 1e-12 (f64) / 1e-5 (f32) relative of the
+    plain versions on the stack."""
+    tol = {torch.float64: 1e-12, torch.float32: 1e-5}[dtype]
+    for shape in NODE_SHAPES + [(NZ, NY, NX)]:
+        for flags in FLAGS.values():
+            check_node_axis(FLD.fld_coeffs, FLD.fld_matvec, dtype, cuda, shape, flags, tol)
             torch.cuda.synchronize()
 
 
