@@ -72,6 +72,7 @@ from .ops import riemann as riemann_mod
 from .ops import stage_curv as curv_mod
 from .ops import sweeps
 from .ops.hydro import FluidCfg, Hydro
+from .profiling import host_read, span
 from .sources import RotatingFrame
 from .state import tree_rows, tree_topology_from_rows
 
@@ -329,7 +330,7 @@ def _edge_pad(a, ng):
 def _host_mask(tags):
     """A bool mask (a tensor on any device, or array-like) as numpy."""
     if torch.is_tensor(tags):
-        tags = tags.detach().cpu().numpy()
+        tags = host_read(tags.detach(), "regrid_tags")
     return np.asarray(tags, dtype=bool)
 
 
@@ -1580,13 +1581,15 @@ class MultiLevelSMR:
             nbody.begin_step()
         for stage in range(1, nstages + 1):
             parts = None if nbody is None else nbody.particle_pytree(self.device, self.dtype)
-            states, pforce = self._stage(states, u1s, dt_t, time, stage, parts)
+            with span("stage"):
+                states, pforce = self._stage(states, u1s, dt_t, time, stage, parts)
             if nbody is not None:
-                pf = (pforce.cpu().numpy().astype(np.float64) if pforce is not None
-                      else np.zeros((nbody.npart, 7)))
+                pf = (host_read(pforce, "nbody_force").astype(np.float64)
+                      if pforce is not None else np.zeros((nbody.npart, 7)))
                 nbody.advance(pf, stage, nstages, float(time), coeffs)
         if self.radiation_factory is not None:
-            states = self._radiation_pass(states, dt_t)
+            with span("radiation"):
+                states = self._radiation_pass(states, dt_t)
         return states
 
     def estimate_dt(self, states):
@@ -1643,7 +1646,7 @@ class MultiLevelSMR:
         gas.cpp:304-383)."""
         def tags_fn(node, wc):
             refine, _ = self._criterion_tags(wc, node.parent.grid, criterion)
-            return refine.any(dim=0).cpu().numpy()
+            return host_read(refine.any(dim=0), "regrid_tags")
 
         return self._retag(states, tags_fn)
 
@@ -1872,7 +1875,7 @@ class MultiLevelSMR:
                 shp = tuple(g.nx[::-1])
                 return np.zeros(shp, bool), np.zeros(shp, bool), 0.0
             refine, deref = self.tile_masks(w, g, criterion, tags_fn, nbuf)
-            both = torch.stack([refine, deref]).cpu().numpy()
+            both = host_read(torch.stack([refine, deref]), "regrid_tags")
             self.mask_bytes += both.nbytes
             return both[0], both[1], (1.0 if tags_fn is not None
                                       else criterion.get("deref_thr", 0.0))
@@ -2413,4 +2416,4 @@ class SMRDriver:
 
     def estimate_dt(self, state) -> float:
         self._ensure_states(state)
-        return float(self.smr.estimate_dt(self._states))
+        return host_read(self.smr.estimate_dt(self._states), "dt")

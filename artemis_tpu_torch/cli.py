@@ -68,9 +68,15 @@ def main(argv=None) -> int:
             from .profiling import kernel_table
 
             kernel_table(sim, ncycles=args.profile_kernels)
+        from . import profiling
+
+        n0, reads0, wait0 = sim.tm.ncycle, profiling.host_reads, profiling.host_read_wait_s
         zcps = sim.run(log_every=args.ncycle_out, walltime=args.walltime)
+        ncyc = max(sim.tm.ncycle - n0, 1)
         print(f"walltime-rate: {zcps:.3e} zone-cycles/sec "
-              f"(ncycle={sim.tm.ncycle}, t={sim.tm.time:.6e}, {sim.status})")
+              f"(ncycle={sim.tm.ncycle}, t={sim.tm.time:.6e}, {sim.status}); host reads "
+              f"{(profiling.host_reads - reads0) / ncyc:.2f} a cycle, waiting "
+              f"{1e3 * (profiling.host_read_wait_s - wait0) / ncyc:.3f} ms a cycle")
         if sim.status == "timeout":
             # write a resume checkpoint and signal the self-resubmit pattern
             # (DriverStatus::timeout -> exit code 2, src/main.cpp:108-138)

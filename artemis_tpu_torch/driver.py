@@ -22,8 +22,8 @@ before the next stage reads them.
 
 The JAX driver marches chunks of up to 256 cycles on the device inside a
 ``lax.while_loop``; this one is a host loop that reads dt back once per
-cycle, with the same dt rules (2x growth limit, tlim clamp, the
-``(1 - 1e-12)`` end test) so cycle counts and times match.
+cycle (``profiling.host_read``), with the same dt rules (2x growth limit,
+tlim clamp, the ``(1 - 1e-12)`` end test) so cycle counts and times match.
 """
 
 from __future__ import annotations
@@ -42,6 +42,7 @@ from .ops import stage as stage_mod
 from .ops import stage_curv as curv_mod
 from .ops import sweeps as sweep_mod
 from .ops.hydro import FluidCfg, Hydro
+from .profiling import host_read, span
 from .sources import Gravity, RotatingFrame
 
 BIG = 1.0e308
@@ -405,7 +406,8 @@ class Driver:
             return self._host_step(state, dt, time)
         u1, dt_t = self._cycle_inputs(state, dt)
         for stage in range(1, self.integrator.nstages + 1):
-            state, _ = self._stage_body(state, u1, dt_t, time, stage)
+            with span("stage"):
+                state, _ = self._stage_body(state, u1, dt_t, time, stage)
         return self._radiation_step(state, dt_t)
 
     def _cycle_inputs(self, state, dt: float):
@@ -420,7 +422,8 @@ class Driver:
 
     def _radiation_step(self, state, dt_t):
         if self.radiation is not None:
-            state = self.radiation.sync_gas(self.radiation.step(state, dt_t))
+            with span("radiation"):
+                state = self.radiation.sync_gas(self.radiation.step(state, dt_t))
         return state
 
     def _host_step(self, state, dt: float, time: float):
@@ -434,14 +437,16 @@ class Driver:
         nb.begin_step()
         u1, dt_t = self._cycle_inputs(state, dt)
         for stage in range(1, nstages + 1):
-            state, pforce = self._stage_body(state, u1, dt_t, time, stage, self._particles(nb))
-            pf = (pforce.cpu().numpy().astype(np.float64) if pforce is not None
+            with span("stage"):
+                state, pforce = self._stage_body(state, u1, dt_t, time, stage,
+                                                 self._particles(nb))
+            pf = (host_read(pforce, "nbody_force").astype(np.float64) if pforce is not None
                   else np.zeros((nb.npart, 7)))
             nb.advance(pf, stage, nstages, float(time), coeffs)
         return self._radiation_step(state, dt_t)
 
     def estimate_dt(self, state) -> float:
-        return float(self._estimate_dt(state))
+        return host_read(self._estimate_dt(state), "dt")
 
 
 @dataclass
@@ -461,6 +466,15 @@ class SimTime:
     restored: bool = False
 
 
+def interior_cells(driver) -> int:
+    """The interior cells a cycle steps: every node's of a refinement tree
+    (its topology as it stands), else the grid's."""
+    smr = getattr(driver, "smr", None)
+    if smr is None:
+        return int(np.prod(driver.grid.nx))
+    return sum(int(np.prod(node.grid.nx)) for node in smr.nodes)
+
+
 def evolve(driver: Driver, state, tm: SimTime, observers=None, log_every: int = 0,
            deadline: Optional[float] = None):
     """Outer evolution loop (EvolutionDriver::Execute equivalent).
@@ -470,12 +484,12 @@ def evolve(driver: Driver, state, tm: SimTime, observers=None, log_every: int = 
     same crossing at which the JAX loop ends a chunk).  ``deadline``:
     wall-clock time (perf_counter) after which the loop stops with status
     "timeout" (the reference's -t walltime flag, src/main.cpp:108-138).
-    Returns (state, tm, zone_cycles_per_sec, status).
+    Returns (state, tm, zone_cycles_per_sec, status): every node's
+    interior cells stepped, over the loop's wall time.
     """
     observers = observers or []
-    ncells = int(np.prod(driver.grid.nx))
+    zone_cycles = 0
     t0 = _time.perf_counter()
-    cycles0 = tm.ncycle
 
     def set_global_dt(grow: bool = True):
         """Parthenon SetGlobalTimeStep semantics: at most doubles the previous
@@ -505,13 +519,15 @@ def evolve(driver: Driver, state, tm: SimTime, observers=None, log_every: int = 
     check_dt_guards()
     status = "complete"
     while unfinished():
-        state = driver.step(state, tm.dt, tm.time)
-        tm.time += tm.dt
-        tm.ncycle += 1
-        set_global_dt()
-        check_dt_guards()
-        for obs in observers:
-            obs(state, tm)
+        with span("cycle"):
+            zone_cycles += interior_cells(driver)
+            state = driver.step(state, tm.dt, tm.time)
+            tm.time += tm.dt
+            tm.ncycle += 1
+            set_global_dt()
+            check_dt_guards()
+            for obs in observers:
+                obs(state, tm)
         if log_every and tm.ncycle % log_every == 0:
             print(f"cycle={tm.ncycle} time={tm.time:.6e} dt={tm.dt:.6e}")
         timed_out = deadline is not None and _time.perf_counter() > deadline
@@ -519,5 +535,5 @@ def evolve(driver: Driver, state, tm: SimTime, observers=None, log_every: int = 
             status = "timeout"
             break
     elapsed = _time.perf_counter() - t0
-    zcps = ncells * (tm.ncycle - cycles0) / max(elapsed, 1e-30)
+    zcps = zone_cycles / max(elapsed, 1e-30)
     return state, tm, zcps, status

@@ -75,6 +75,7 @@ from ..amr import MultiLevelSMR, _Node, _refine_grid, _zyx
 from ..driver import nbody_coeffs
 from ..geometry import geometry as geo
 from ..ops.hydro import Hydro
+from ..profiling import host_read
 from ..radiation import initialize_radiation
 from .mesh import Sharded, _axis_slice, _local_grid_at
 
@@ -788,8 +789,8 @@ class ShardedSMR:
             parts = self._particles() if nb is not None else None
             states, pforce = self._stage(states, u1s, dt, time, stage, parts)
             if nb is not None:
-                pf = (pforce.cpu().numpy().astype(np.float64) if pforce is not None
-                      else np.zeros((nb.npart, 7)))
+                pf = (host_read(pforce, "nbody_force").astype(np.float64)
+                      if pforce is not None else np.zeros((nb.npart, 7)))
                 nb.advance(pf, stage, nstages, float(time), coeffs)
         if self.radiation_factory is not None:
             states = self._radiation_pass(states, dt)

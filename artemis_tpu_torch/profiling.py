@@ -26,6 +26,19 @@ clock under ``plain``, so the table never claims a kernel that did not
 run.  The events are read once after the cycles, so recording adds no
 sync per launch: where the JAX package's eager launches each waited on
 the device, the port's stay queued as in a run.
+
+Beside the tables, counters that are always on: every device-to-host
+read a cycle makes (``host_read``: the dt, the radiation loops' tests, the
+N-body force rows, the regrid tags) adds to ``host_reads`` and to
+``host_read_wait_s``, the seconds the host sat blocked in the conversion;
+each Newton outer iteration of a coupled radiation solve adds to
+``newton_outers``.  And ``span(name)`` names a part of the program
+(``artemis.<name>``: a cycle, an RK stage, the radiation step, a Newton
+outer, a CG iteration, a host read, a kernel's dispatch point) for a
+``torch.profiler`` that is running, on the profiler's clock and nested as
+the calls are; without one it is a shared null context.  The port's own
+threads (a sharded tree's shards) run one at a time, so the counters need
+no lock.
 """
 
 from __future__ import annotations
@@ -36,11 +49,59 @@ import time
 from typing import Dict
 
 import torch
+from torch.autograd import profiler as _profiler
+from torch.profiler import record_function
 
 # the kernel recorder of a running ``kernel_table``; None leaves every
 # launch untouched
 _recorder = None
 _NULL = contextlib.nullcontext()
+
+# device-to-host reads since the process started, the seconds the host was
+# blocked in them, and the Newton outer iterations of the coupled
+# radiation solves (a solve over a node axis counts each outer once)
+host_reads = 0
+host_read_wait_s = 0.0
+newton_outers = 0
+
+
+def _rows(t):
+    return [bool(t)] if t.dim() == 0 else t.reshape(-1).tolist()
+
+
+def _host_array(t):
+    return t.cpu().numpy()
+
+
+# what each kind of read returns: the dt as a float, a loop test as one
+# bool per node, force rows and tag masks as numpy arrays
+_CONVERT = {"dt": float, "cg_test": _rows, "newton_test": _rows,
+            "nbody_force": _host_array, "regrid_tags": _host_array}
+_READ_SPANS = {kind: "host_read." + kind for kind in _CONVERT}
+
+
+def span(name: str):
+    """``torch.profiler.record_function("artemis.<name>")`` while a
+    profiler runs, else the shared null context (one flag read)."""
+    if not _profiler._is_profiler_enabled:
+        return _NULL
+    return record_function("artemis." + name)
+
+
+def host_read(value, kind: str):
+    """``value`` (a tensor) read back to the host as ``kind`` reads it: a
+    float for "dt"; a list of bools, one per node, for "cg_test" and
+    "newton_test"; a numpy array for "nbody_force" and "regrid_tags".
+    Counts the read in ``host_reads`` and the seconds the conversion
+    blocked the host in ``host_read_wait_s``."""
+    global host_reads, host_read_wait_s
+    convert = _CONVERT[kind]
+    with span(_READ_SPANS[kind]):
+        t0 = time.perf_counter()
+        out = convert(value)
+        host_read_wait_s += time.perf_counter() - t0
+    host_reads += 1
+    return out
 
 
 def kernel_span(name: str, body: str, device):
@@ -49,11 +110,19 @@ def kernel_span(name: str, body: str, device):
     version runs in its place; ", node axis" after it for one launch over
     a tree level's stacked nodes, the batched radiation solve's FLD
     operator) on ``device``: a timed span while ``kernel_table`` records,
-    else a null context."""
+    the span ``artemis.kernel.<name>`` while a profiler runs (both where
+    both are on), else a null context."""
     rec = _recorder
-    if rec is None:
+    if rec is None and not _profiler._is_profiler_enabled:
         return _NULL
-    return rec.span(f"{name} ({body})", torch.device(device))
+    return _kernel_spans(rec, name, body, device)
+
+
+@contextlib.contextmanager
+def _kernel_spans(rec, name, body, device):
+    timed = _NULL if rec is None else rec.span(f"{name} ({body})", torch.device(device))
+    with span("kernel." + name), timed:
+        yield
 
 
 class _KernelRecorder:

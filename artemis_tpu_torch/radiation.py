@@ -21,7 +21,8 @@ applies it with ``ops.fld.fld_matvec`` (the CUDA kernels); every other grid,
 every CPU run, a run with ``fused=False`` and a sharded run builds it from
 tensor operations.  The two loops are host loops over device tensors: the CG
 loop reads its residual test back once per iteration and the Newton loop its
-convergence test once per outer iteration.
+convergence test once per outer iteration (``profiling.host_read``, which
+counts them; ``profiling.newton_outers`` counts the outers).
 
 A refinement tree's level solves its same-shape patches as one system
 (``step_batched``, the JAX tree's ``vmap`` of ``step``): the fields stacked
@@ -46,9 +47,10 @@ from dataclasses import dataclass
 
 import torch
 
+from . import profiling
 from .ops import fld as fld_mod
 from .ops.fld import edge_masks, grad_norm, shift
-from .profiling import kernel_span
+from .profiling import host_read, kernel_span, span
 
 
 @dataclass(frozen=True)
@@ -151,9 +153,7 @@ class Radiation:
         # tiling rule)
         self.use_kernels = (fused and hyd.device.type == "cuda" and len(self.dims) == 3
                             and self._wuni is not None)
-        # what the host loops cost: device-to-host reads of a loop test since
-        # construction, and the last step's CG iterations per outer iteration
-        self.host_reads = 0
+        # the last step's CG iterations per outer iteration
         self.cg_iters = []
 
     def _cap_extent(self, nshards: int = 1):
@@ -190,11 +190,6 @@ class Radiation:
         """``ops.fld.edge_masks``; along the sharded axis only the first and
         last shard have a physical edge."""
         return a.edge_masks(d) if d == self._axis_d else edge_masks(a, d)
-
-    def _read(self, test) -> bool:
-        """A loop test read back to the host (one device sync)."""
-        self.host_reads += 1
-        return bool(test)
 
     def set_edge_dirichlet(self, d: int, lo=None, hi=None):
         """Pin the radiation field outside the physical edge(s) along dim
@@ -237,10 +232,10 @@ class Radiation:
         ``ghosts`` (their Dirichlet planes, as ``step`` takes them): theirs,
         in that order.  Each member's result is its own ``step``'s to
         round-off (the dot products and maxima are reduced per node over the
-        stack), with its own CG iteration counts in ``cg_iters``; the loop
-        tests read every node at once, counted once, in this Radiation's
-        ``host_reads``.  Returns the members' new states (not yet re-synced:
-        each member runs its own ``sync_gas``).  Every member must share
+        stack), with its own CG iteration counts in ``cg_iters``; each loop
+        test reads every node at once, one host read.  Returns the members'
+        new states (not yet re-synced: each member runs its own
+        ``sync_gas``).  Every member must share
         this one's configuration (``batch_key``): the JAX tree steps its
         group with its first member's Radiation without checking."""
         key = self.batch_key()
@@ -463,13 +458,6 @@ class Radiation:
             def big(x):
                 return torch.amax(x.reshape(nb, -1), 1).reshape(per)
 
-        def test(t):
-            """The loop test ``t`` read back for every node: one host read."""
-            if nb is None:
-                return [self._read(t)]
-            self.host_reads += 1
-            return t.reshape(-1).tolist()
-
         def keep(run, new, old):
             """``new`` where ``run`` (None: every node runs), else ``old``."""
             return new if run is None else torch.where(run, new, old)
@@ -493,28 +481,30 @@ class Radiation:
             its = [0] * n
             it = 0
             while it < cfg.cg_maxiter:
-                run = rs > thresh
-                act = test(run)
-                if not any(act):
-                    break
-                run = None if all(act) else run
-                Ap = matvec(p, sf)
-                pAp = dot(p * Ap)
-                # breakdown guard: near the attainable-residual floor
-                # roundoff can make p.Ap <= 0; then freeze x and r and
-                # force rs to 0 so the loop ends with the best iterate
-                ok = pAp > tiny
-                alpha = torch.where(ok, rz, 0.0) / torch.where(ok, pAp, 1.0)
-                x = keep(run, x + alpha * p, x)
-                r_new = r - alpha * Ap
-                z = r_new / diag
-                rz_new = dot(r_new * z)
-                rs = keep(run, torch.where(ok, dot(r_new * r_new), 0.0), rs)
-                p = keep(run, z + (rz_new / torch.clamp_min(rz, tiny)) * p, p)
-                rz = keep(run, rz_new, rz)
-                r = keep(run, r_new, r)
-                its = [i + a for i, a in zip(its, act)]
-                it += 1
+                with span("cg"):
+                    # the residual test of every node: one host read
+                    run = rs > thresh
+                    act = host_read(run, "cg_test")
+                    if not any(act):
+                        break
+                    run = None if all(act) else run
+                    Ap = matvec(p, sf)
+                    pAp = dot(p * Ap)
+                    # breakdown guard: near the attainable-residual floor
+                    # roundoff can make p.Ap <= 0; then freeze x and r and
+                    # force rs to 0 so the loop ends with the best iterate
+                    ok = pAp > tiny
+                    alpha = torch.where(ok, rz, 0.0) / torch.where(ok, pAp, 1.0)
+                    x = keep(run, x + alpha * p, x)
+                    r_new = r - alpha * Ap
+                    z = r_new / diag
+                    rz_new = dot(r_new * z)
+                    rs = keep(run, torch.where(ok, dot(r_new * r_new), 0.0), rs)
+                    p = keep(run, z + (rz_new / torch.clamp_min(rz, tiny)) * p, p)
+                    rz = keep(run, rz_new, rz)
+                    r = keep(run, r_new, r)
+                    its = [i + a for i, a in zip(its, act)]
+                    it += 1
             return x, r, its
 
         # Coupled implicit exchange + diffusion: Newton-linearize the
@@ -535,29 +525,31 @@ class Radiation:
         while k < cfg.coupled_iters:
             if k >= 1:
                 run = dT > tol_outer * Tscale
-                act = test(run)
+                act = host_read(run, "newton_test")
                 if not any(act):
                     break
                 live = None if all(act) else run
             else:
                 act = [True] * n
-            kap = self.kappa(rho, Tk)
-            sig = dt * cfg.c_code * kap * rho
-            beta = 4.0 * a_r * _pow3(Tk)
-            f = rcv / (rcv + sig * beta)
-            sf_k = sig * f
-            emis = a_r * _pow4(Tk) + beta * (T0 - Tk)
-            b_k = Er0 + sf_k * emis + b_ghost
-            Er_new, r_k, its = cg(b_k, Er_k, sf_k, diag_geo + sf_k, live)
-            Tk2 = T0 - sf_k * (emis - Er_new) / rcv
-            dT = keep(live, big(torch.abs(Tk2 - Tk)), dT)
-            for j in range(n):
-                if act[j]:
-                    iters[j][k] = its[j]
-                    nk[j] += 1
-            Er_k, r, b, sf = (keep(live, Er_new, Er_k), keep(live, r_k, r), keep(live, b_k, b),
-                              keep(live, sf_k, sf))
-            Tk = keep(live, Tk2, Tk)
+            profiling.newton_outers += 1
+            with span("newton"):
+                kap = self.kappa(rho, Tk)
+                sig = dt * cfg.c_code * kap * rho
+                beta = 4.0 * a_r * _pow3(Tk)
+                f = rcv / (rcv + sig * beta)
+                sf_k = sig * f
+                emis = a_r * _pow4(Tk) + beta * (T0 - Tk)
+                b_k = Er0 + sf_k * emis + b_ghost
+                Er_new, r_k, its = cg(b_k, Er_k, sf_k, diag_geo + sf_k, live)
+                Tk2 = T0 - sf_k * (emis - Er_new) / rcv
+                dT = keep(live, big(torch.abs(Tk2 - Tk)), dT)
+                for j in range(n):
+                    if act[j]:
+                        iters[j][k] = its[j]
+                        nk[j] += 1
+                Er_k, r, b, sf = (keep(live, Er_new, Er_k), keep(live, r_k, r),
+                                  keep(live, b_k, b), keep(live, sf_k, sf))
+                Tk = keep(live, Tk2, Tk)
             k += 1
 
         # Charge the gas with the radiation field's actual gain net of

@@ -1731,6 +1731,7 @@ def fld_inputs(torch, rad, state, dt_value, ghosts=None):
 def phase_rhd(torch, smi, built, built_plain):
     """``built``, ``built_plain``: the kernel and plain sims and their set-up
     seconds (``timed_build``, made beside the build)."""
+    from artemis_tpu_torch import profiling
     from artemis_tpu_torch import bc as bc_mod
     from artemis_tpu_torch.ops import fld as FLD
     from artemis_tpu_torch.ops import stage_curv as SC
@@ -1754,7 +1755,7 @@ def phase_rhd(torch, smi, built, built_plain):
         iters.append(list(rad.cg_iters))
 
     # the main path: 2 warm-up + RHD_CYCLES timed cycles, counting launches
-    reads0 = rad.host_reads
+    reads0 = profiling.host_reads
     SC.stage_curv_launches = FLD.fld_coeffs_launches = FLD.fld_matvec_launches = 0
     FLD.fld_coeffs_tiled_launches = 0
     sim.tm.nlim = 2
@@ -1773,7 +1774,7 @@ def phase_rhd(torch, smi, built, built_plain):
     res["cg_iters"] = iters
     outers = [len(its) for its in iters]
     res["cg_per_outer"] = sum(sum(its) for its in iters) / sum(outers)
-    res["reads_per_cycle"] = 1 + (rad.host_reads - reads0) / ncyc
+    res["reads_per_cycle"] = (profiling.host_reads - reads0) / ncyc
     res["l2"] = l2_vs_ic(torch, sim)
     fin = all(bool(torch.isfinite(t).all()) for t in
               (sim.state["gas"]["u"], sim.state["gas"]["w"], sim.state["rad"]["Er"]))
@@ -2035,6 +2036,7 @@ def amr_main_path(torch, sim, ncycles):
     zone-cycles/s over every zone of every level (bench.py:149; evolve's
     own rate counts the root, as the JAX package's evolve does), the root-only
     rate and the host read-backs per cycle."""
+    from artemis_tpu_torch import profiling
     from artemis_tpu_torch.ops import fld as FLD
     from artemis_tpu_torch.ops import stage_curv as SC
 
@@ -2044,7 +2046,7 @@ def amr_main_path(torch, sim, ncycles):
     def record(state, tm):
         iters.append([list(nd.radiation.cg_iters) for nd in smr.nodes])
 
-    reads0 = sum(nd.radiation.host_reads for nd in smr.nodes)
+    reads0 = profiling.host_reads
     SC.stage_curv_launches = SC.stage_curv_batched_launches = 0
     FLD.fld_coeffs_launches = FLD.fld_coeffs_tiled_launches = FLD.fld_matvec_launches = 0
     sim.tm.nlim = 2
@@ -2068,8 +2070,7 @@ def amr_main_path(torch, sim, ncycles):
     zones = sum(ncells(nd.grid) for nd in smr.nodes)
     out.update(ncyc=ncyc, iters=iters, zones=zones, root_zcps=root_zcps,
                zcps=root_zcps * zones / ncells(sim.grid),
-               reads_per_cycle=1 + (sum(nd.radiation.host_reads for nd in smr.nodes)
-                                    - reads0) / ncyc,
+               reads_per_cycle=(profiling.host_reads - reads0) / ncyc,
                l2=l2_vs_ic(torch, sim))
     out["cg_per_outer"] = [
         sum(sum(cyc[k]) for cyc in iters) / max(1, sum(len(cyc[k]) for cyc in iters))
@@ -2309,7 +2310,7 @@ def phase_rad_shock(torch):
     to t = SHOCK_TLIM against tests/test_radiation.py's thresholds."""
     import numpy as np
 
-    from artemis_tpu_torch import Simulation
+    from artemis_tpu_torch import Simulation, profiling
 
     with tempfile.TemporaryDirectory() as data:
         sim = Simulation(SHOCK, [f"parthenon/time/tlim={SHOCK_TLIM}"], data, device=DEVICE)
@@ -2324,9 +2325,9 @@ def phase_rad_shock(torch):
                 # phase 28 holds the sharded rad_shock to this state
                 ref.update(shard_ref(sim, state, tm))
 
-        t0 = time.perf_counter()
+        t0, reads0 = time.perf_counter(), profiling.host_reads
         sim.run(extra_observers=[observe])
-        secs = time.perf_counter() - t0
+        secs, reads = time.perf_counter() - t0, profiling.host_reads - reads0
     w = sim.state["gas"]["w"][0].cpu().numpy()
     Er = sim.state["rad"]["Er"][0].cpu().numpy()
     T = (w[5] / sim.gas_cfg.cv)[0, 0]
@@ -2345,7 +2346,7 @@ def phase_rad_shock(torch):
               f"precursor {ahead.max() if ahead.size else float('nan'):.4f}")
     print(f"rad_shock f64 to t={SHOCK_TLIM}: {sim.tm.ncycle} cycles in {secs:.1f} s, {sum(cg)} CG "
           f"iterations ({1e3 * secs / sum(cg):.4f} ms each, the cycle's other work included), "
-          f"{rad.host_reads} host read-backs of loop tests")
+          f"{reads} host reads (the process's: the set-ups beside it included)")
     print(f"rad_shock thresholds: rho ends "
           f"{rho[0]:.4f} / {rho[-1]:.4f}, T ends {T[0]:.4f} / {T[-1]:.4f}, Trad in "
           f"[{Trad.min():.4f}, {Trad.max():.4f}], max |d2 Trad| {d2:.3e}, precursor "
@@ -3770,15 +3771,17 @@ def rad_pass_recorder(smr):
     """Wraps the tree's ``_radiation_pass`` (on the instance) to record, per
     pass, each node's (level, grid, is the root, CG iterations per outer)
     and the host reads of its loop tests; returns (records, undo)."""
+    from artemis_tpu_torch import profiling
+
     orig = smr._radiation_pass
     recs = []
 
     def recorded(states, dt, **kw):
-        reads = sum(nd.radiation.host_reads for nd in smr.nodes)
+        reads = profiling.host_reads
         out = orig(states, dt, **kw)
         recs.append({"nodes": [(nd.level, tuple(nd.grid.nx), nd.parent is None,
                                 list(nd.radiation.cg_iters)) for nd in smr.nodes],
-                     "reads": sum(nd.radiation.host_reads for nd in smr.nodes) - reads})
+                     "reads": profiling.host_reads - reads})
         return out
 
     smr._radiation_pass = recorded
@@ -3813,6 +3816,7 @@ def pool_group_timings(torch, sim):
     radiation pass batched against the sequential loop on a clone of the
     tree's state (every node's fields within DISK_F32_TOL of each array's
     max, every node's CG counts equal)."""
+    from artemis_tpu_torch import profiling
     from artemis_tpu_torch.ops import fld as FLD
 
     drv, smr = sim.driver, sim.driver.smr
@@ -3873,14 +3877,14 @@ def pool_group_timings(torch, sim):
     runs = {}
     for seq in (False, True):
         st = clone_states(st0)
-        reads = sum(nd.radiation.host_reads for nd in smr.nodes)
+        reads = profiling.host_reads
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         new = smr._radiation_pass(st, dt_t, _sequential=seq)
         torch.cuda.synchronize()
         runs[seq] = (new, [list(nd.radiation.cg_iters) for nd in smr.nodes],
                      1e3 * (time.perf_counter() - t0),
-                     sum(nd.radiation.host_reads for nd in smr.nodes) - reads)
+                     profiling.host_reads - reads)
     out["pass_err"] = node_field_err(torch, runs[False][0], runs[True][0])
     out["same_iters"] = runs[False][1] == runs[True][1]
     out["pass_ms"], out["pass_seq_ms"] = runs[False][2], runs[True][2]

@@ -38,7 +38,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(2)
 
-from artemis_tpu_torch import Simulation  # noqa: E402
+from artemis_tpu_torch import Simulation, profiling  # noqa: E402
 from artemis_tpu_torch.ops import fld as FLD  # noqa: E402
 from artemis_tpu_torch.profiling import kernel_table  # noqa: E402
 from artemis_tpu_torch.radiation import Radiation  # noqa: E402
@@ -200,14 +200,20 @@ def check_passes(smr, jsim, st0, dt, monkeypatch):
     out = {}
     for seq in (True, False):
         calls.clear()
+        outers0 = profiling.newton_outers
         s = smr._radiation_pass(tree_from_numpy(st0, "cpu", DTYPE),
                                 torch.full((), dt, dtype=DTYPE), _sequential=seq)
         out[seq] = (tree_to_numpy(s), [list(n.radiation.cg_iters) for n in smr.nodes],
-                    list(calls))
-    (seq, seq_its, seq_calls), (bat, bat_its, bat_calls) = out[True], out[False]
+                    list(calls), profiling.newton_outers - outers0)
+    (seq, seq_its, seq_calls, seq_outers), (bat, bat_its, bat_calls, bat_outers) = \
+        out[True], out[False]
     assert seq_calls == ["step"] * len(smr.nodes)
     assert bat_calls == ["step", "step_batched"]
     assert bat_its == seq_its
+    # the root's solve, then the pair's on the node axis, which counts each
+    # outer once while either node runs
+    assert seq_outers == sum(len(its) for its in seq_its)
+    assert bat_outers == len(bat_its[0]) + max(len(its) for its in bat_its[1:])
     assert worst(bat, seq) <= TOL
     assert worst(bat, jax_batched_pass(jsim, st0, dt, monkeypatch)) <= TOL
     return bat_its
